@@ -1,0 +1,380 @@
+"""Collective runtime (port of ``repro.core.runtime``): plan resolution and
+the build/exec caches behind the Communicator.
+
+  * :func:`resolve_algo` turns a plan request into ``(algo, kwargs)``:
+    ``algo="auto"`` through the selector (cost-model priors + measured
+    tuning table), ``chunks``/``codec`` normalized so every spelling of one
+    plan is one cache entry, knobs validated before anything runs;
+  * :func:`build` caches the callable bound to ``(grid, topo, collective,
+    algo, knobs)``; :func:`run_resolved` additionally keys the exec cache on
+    the operand's shape and dtype; both caches are LRU-bounded and counted
+    in :class:`CacheStats`;
+  * :func:`compile_persistent` is the persistent-op backend. The reference
+    compiles the plan ahead of time; PyTorch runs eagerly, so here it
+    resolves and binds the plan once (``PersistentOp`` allocates its output
+    buffers at init). Capturing the plan into a CUDA graph is later work.
+
+Operands are stacked: dim 0 is the flat rank of the grid and row ``d`` is
+rank ``d``'s payload; results come back the same way (the reference's
+"row" in, "stack" out allreduce wiring). Operands must already live on the
+grid's device: nothing is moved implicitly.
+"""
+from __future__ import annotations
+
+import dataclasses
+import inspect
+from collections import OrderedDict
+from functools import lru_cache, partial
+from typing import Any, Callable, Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.core import autotune
+from repro_torch.core import compress as _codecs
+from repro_torch.core import mcoll as _mcoll
+from repro_torch.core.topology import Topology
+
+AUTO = "auto"
+
+#: every collective of the reference; only allreduce has algorithms so far
+_COLLECTIVES = ("allgather", "allreduce", "alltoall", "broadcast",
+                "reduce_scatter", "scatter")
+
+
+def collectives() -> Tuple[str, ...]:
+    return _COLLECTIVES
+
+
+def dtype_name(dtype) -> str:
+    """``torch.float32`` -> ``"float32"``: the dtype spelling tuning-table
+    keys share with the reference."""
+    return str(dtype).replace("torch.", "")
+
+
+def nbytes(x) -> int:
+    return int(x.numel()) * int(x.element_size()) if torch.is_tensor(x) \
+        else int(x.nbytes)
+
+
+# ---------------------------------------------------------------------------
+# caches (LRU-bounded)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class CacheStats:
+    build_hits: int = 0
+    build_misses: int = 0
+    build_evictions: int = 0
+    exec_hits: int = 0
+    exec_misses: int = 0
+    exec_evictions: int = 0
+
+    @property
+    def exec_hit_rate(self) -> float:
+        total = self.exec_hits + self.exec_misses
+        return self.exec_hits / total if total else 0.0
+
+    def reset(self) -> None:
+        """Zero every counter in place (handles stay live)."""
+        self.build_hits = self.build_misses = self.build_evictions = 0
+        self.exec_hits = self.exec_misses = self.exec_evictions = 0
+
+
+_DEFAULT_MAX_BUILD = 256
+_DEFAULT_MAX_EXEC = 1024
+
+_BUILD_CACHE: "OrderedDict[tuple, Callable]" = OrderedDict()
+_EXEC_CACHE: "OrderedDict[tuple, Callable]" = OrderedDict()
+_LIMITS = {"build": _DEFAULT_MAX_BUILD, "exec": _DEFAULT_MAX_EXEC}
+_STATS = CacheStats()
+
+
+def cache_stats() -> CacheStats:
+    return _STATS
+
+
+def selection_stats() -> autotune.SelectionStats:
+    """Selection counters of the default selector."""
+    return autotune.default_selector().stats
+
+
+def set_cache_limits(max_build: Optional[int] = None,
+                     max_exec: Optional[int] = None) -> Dict[str, int]:
+    """Set LRU bounds (entries) for the build/exec caches; None leaves a
+    bound unchanged. Shrinking evicts oldest entries immediately."""
+    if max_build is not None:
+        _LIMITS["build"] = int(max_build)
+    if max_exec is not None:
+        _LIMITS["exec"] = int(max_exec)
+    _evict(_BUILD_CACHE, "build")
+    _evict(_EXEC_CACHE, "exec")
+    return dict(_LIMITS)
+
+
+def _evict(cache: "OrderedDict", which: str) -> None:
+    limit = max(1, _LIMITS[which])
+    while len(cache) > limit:
+        cache.popitem(last=False)
+        if which == "build":
+            _STATS.build_evictions += 1
+        else:
+            _STATS.exec_evictions += 1
+
+
+def clear_cache() -> None:
+    _BUILD_CACHE.clear()
+    _EXEC_CACHE.clear()
+    _STATS.reset()
+
+
+def _kw_key(kw: Dict[str, Any]) -> tuple:
+    return tuple(sorted(kw.items()))
+
+
+def _cached(cache: "OrderedDict", which: str, key: tuple,
+            make: Callable[[], Callable]) -> Callable:
+    hit = cache.get(key)
+    if hit is not None:
+        setattr(_STATS, f"{which}_hits", getattr(_STATS, f"{which}_hits") + 1)
+        cache.move_to_end(key)
+        return hit
+    setattr(_STATS, f"{which}_misses",
+            getattr(_STATS, f"{which}_misses") + 1)
+    made = cache[key] = make()
+    _evict(cache, which)
+    return made
+
+
+# ---------------------------------------------------------------------------
+# algorithm resolution (algo="auto")
+# ---------------------------------------------------------------------------
+
+
+def _message_bytes(collective: str, topo: Topology, x) -> int:
+    """Per-rank message size in the cost model's conventions: broadcast's
+    operand is the payload itself; every other operand holds all ranks."""
+    if collective == "broadcast":
+        return max(1, nbytes(x))
+    return max(1, nbytes(x) // topo.world)
+
+
+@lru_cache(maxsize=None)  # one small frozenset per algorithm function
+def _accepted_params(fn: Callable) -> frozenset:
+    return frozenset(inspect.signature(fn).parameters)
+
+
+def _filter_kwargs(fn: Callable, kw: Dict[str, Any]) -> Dict[str, Any]:
+    """Keep only kwargs the algorithm function accepts."""
+    if not kw:
+        return kw
+    params = _accepted_params(fn)
+    return {k: v for k, v in kw.items() if k in params}
+
+
+def _not_admissible(codec: str, collective: str, dtype) -> ValueError:
+    return ValueError(
+        f"codec {codec!r} is not admissible for {collective} on dtype "
+        f"{dtype} (lossy codecs never touch integer payloads; integer-only "
+        f"codecs need integer payloads on non-reducing collectives)")
+
+
+def resolve_algo(topo: Topology, collective: str, algo: str, x,
+                 kw: Optional[Dict[str, Any]] = None,
+                 error_budget: float = 0.0,
+                 selector: Optional[autotune.Selector] = None
+                 ) -> Tuple[str, Dict[str, Any]]:
+    """Resolve ``algo`` ("auto" -> the selector's (algo, chunks, codec)
+    plan) for operand ``x`` (a tensor or anything with ``shape``/``dtype``/
+    ``nbytes``). Returns (resolved_algo, normalized_kwargs).
+
+    ``chunk_bytes=<b>`` becomes ``chunks=ceil(payload/b)``; a chunk-capable
+    algorithm always carries ``chunks`` (default 1) and a codec-capable one
+    ``codec`` (default "none"), so default knobs and omitted knobs share a
+    cache key; ``error_budget`` gates which codecs auto may pick; a pinned
+    lossy codec implies its own bound as the budget.
+    """
+    kw = dict(kw or {})
+    budget = kw.pop("error_budget", None)
+    if budget is None:
+        budget = error_budget
+    nb = _message_bytes(collective, topo, x)
+    integer = _mcoll._is_integer(x.dtype)
+    cb = kw.pop("chunk_bytes", None)
+    if cb:
+        kw.setdefault("chunks", max(1, -(-nb // int(cb))))
+    if algo != AUTO:
+        try:
+            fn = _mcoll.algorithm(collective, algo)
+        except KeyError:
+            raise ValueError(
+                f"unknown algorithm {algo!r} for {collective}; one of "
+                f"{_mcoll.algorithms(collective)}") from None
+        if _mcoll.supports_chunks(collective, algo):
+            kw["chunks"] = int(kw.get("chunks", 1))
+        elif "chunks" in kw:
+            raise ValueError(
+                f"{collective}/{algo} does not support chunking; "
+                f"chunk-capable algorithms: "
+                f"{sorted(_mcoll.CHUNKED.get(collective, ())) or 'none'}")
+        if _mcoll.supports_codec(collective, algo):
+            cdd = str(kw.get("codec", _codecs.NONE))
+            _codecs.codec(cdd)  # validate the name at resolution time
+            if cdd != _codecs.NONE and not _codecs.admissible(
+                    cdd, collective,
+                    max(float(budget), _codecs.meta(cdd).error_bound),
+                    integer):
+                raise _not_admissible(cdd, collective, x.dtype)
+            kw["codec"] = cdd
+        elif kw.get("codec", _codecs.NONE) != _codecs.NONE:
+            raise ValueError(
+                f"{collective}/{algo} does not support compression; "
+                f"codec-capable algorithms: "
+                f"{sorted(_mcoll.COMPRESSED.get(collective, ())) or 'none'}")
+        else:
+            kw.pop("codec", None)
+        bad = set(kw) - _accepted_params(fn)
+        if bad:
+            raise ValueError(
+                f"{collective}/{algo} got unsupported kwargs "
+                f"{sorted(bad)}; accepted: "
+                f"{sorted(_accepted_params(fn) - {'x', 'topo', 'grid'})}")
+        return algo, kw
+    pinned_codec = kw.get("codec")
+    if pinned_codec is not None:
+        pinned_codec = str(pinned_codec)
+        _codecs.codec(pinned_codec)
+        if pinned_codec != _codecs.NONE:
+            if not any(_mcoll.supports_codec(collective, a)
+                       for a in autotune.candidates(collective, topo)):
+                raise ValueError(
+                    f"{collective} has no codec-capable algorithm; "
+                    f"codec={pinned_codec!r} cannot be honored")
+            budget = max(float(budget),
+                         _codecs.meta(pinned_codec).error_bound)
+            if not _codecs.admissible(pinned_codec, collective,
+                                      float(budget), integer):
+                raise _not_admissible(pinned_codec, collective, x.dtype)
+    sel = (selector if selector is not None
+           else autotune.default_selector()).choose(
+        collective, topo, nb, dtype=dtype_name(x.dtype),
+        error_budget=float(budget))
+    algo, chunks = sel.algo, sel.chunks
+    if pinned_codec not in (None, _codecs.NONE) and \
+            not _mcoll.supports_codec(collective, algo):
+        # the selector's winner cannot carry the pinned codec: take the
+        # cheapest codec-capable plan instead of dropping the knob
+        from repro_torch.core import costmodel
+        net = costmodel.net_for(topo)
+        cnet = costmodel.codec_net(net, topo, pinned_codec)
+        best = None
+        for a in autotune.candidates(collective, topo):
+            if not _mcoll.supports_codec(collective, a):
+                continue
+            try:
+                c = (costmodel.optimal_chunks(collective, a, topo, nb, cnet)
+                     if _mcoll.supports_chunks(collective, a) else 1)
+                t = costmodel.plan_cost(collective, a, topo, nb, net,
+                                        chunks=c, codec=pinned_codec).time
+            except ValueError:
+                t, c = float("inf"), 1
+            if best is None or t < best[0]:
+                best = (t, a, c)
+        _, algo, chunks = best
+    kw = _filter_kwargs(_mcoll.algorithm(collective, algo), kw)
+    if _mcoll.supports_chunks(collective, algo):
+        kw["chunks"] = int(kw.get("chunks", chunks or 1))
+    if _mcoll.supports_codec(collective, algo):
+        kw["codec"] = str(kw.get("codec", sel.codec or _codecs.NONE))
+    return algo, kw
+
+
+# ---------------------------------------------------------------------------
+# construction + caches
+# ---------------------------------------------------------------------------
+
+
+def supports_carry(collective: str, algo: str) -> bool:
+    """Whether ``(collective, algo)`` threads an ``err`` state operand (the
+    error-feedback carry of the compressed reductions)."""
+    try:
+        fn = _mcoll.algorithm(collective, algo)
+    except KeyError:
+        return False
+    return "err" in _accepted_params(fn)
+
+
+def _construct(grid, topo: Topology, collective: str, algo: str,
+               carry: bool, **kw) -> Callable:
+    fn = partial(_mcoll.algorithm(collective, algo), topo=topo, grid=grid,
+                 **kw)
+    if not carry:
+        return fn
+    if not supports_carry(collective, algo):
+        raise ValueError(
+            f"{collective}/{algo} does not thread a carry (no err state "
+            f"operand); carry-capable algorithms: "
+            f"{[a for a in _mcoll.algorithms(collective) if supports_carry(collective, a)]}")
+    return lambda x, e: fn(x, err=e)
+
+
+def build(grid, topo: Topology, collective: str, algo: str, *,
+          carry: bool = False, **kw) -> Callable:
+    """The cached callable for one resolved plan: ``f(x) -> y`` or, with
+    ``carry=True``, ``f(x, e) -> (y, new_e)``. The fused-codec switch is
+    part of the key, so A/B variants are separate entries."""
+    if collective not in _COLLECTIVES:
+        raise ValueError(f"unknown collective {collective!r}; "
+                         f"one of {collectives()}")
+    if algo == AUTO:
+        raise ValueError("algo='auto' resolves per input size/dtype; call "
+                         "Communicator methods (or resolve_algo first)")
+    key = (grid, topo, collective, algo, carry, _kw_key(kw),
+           _codecs.fused_enabled())
+    return _cached(_BUILD_CACHE, "build", key, lambda: _construct(
+        grid, topo, collective, algo, carry, **kw))
+
+
+def _check_device(grid, x) -> None:
+    if x.device != grid.device:
+        raise ValueError(f"operand on {x.device}, grid on {grid.device}: "
+                         f"move it explicitly")
+
+
+def run(grid, topo: Topology, name: str, algo: str, x, *,
+        error_budget: float = 0.0, **kw):
+    """Resolve the plan for ``x`` and execute it through the caches."""
+    if name not in _COLLECTIVES:
+        raise ValueError(f"unknown collective {name!r}; "
+                         f"one of {collectives()}")
+    algo, kw = resolve_algo(topo, name, algo, x, kw,
+                            error_budget=error_budget)
+    return run_resolved(grid, topo, name, algo, x, **kw)
+
+
+def run_resolved(grid, topo: Topology, name: str, algo: str, x, **kw):
+    """Execute an already-resolved plan through the exec cache (keyed on
+    the plan plus the operand's shape and dtype)."""
+    _check_device(grid, x)
+    key = (grid, topo, name, algo, _kw_key(kw),
+           (tuple(x.shape), dtype_name(x.dtype)), _codecs.fused_enabled())
+    fn = _cached(_EXEC_CACHE, "exec", key,
+                 lambda: build(grid, topo, name, algo, **kw))
+    return fn(x)
+
+
+def compile_persistent(grid, topo: Topology, name: str, algo: str,
+                       shape: Tuple[int, ...], dtype, *,
+                       carry: bool = False, **kw) -> Callable:
+    """Bind one resolved plan for a fixed operand shape/dtype (the
+    ``PersistentOp`` backend). Entries share the LRU exec cache, so
+    re-initialising an op with an identical spec is a hit."""
+    if algo == AUTO:
+        raise ValueError("compile_persistent needs a resolved plan; call "
+                         "resolve_algo first (Communicator.persistent "
+                         "does this)")
+    key = (grid, topo, name, algo, _kw_key(kw),
+           (tuple(shape), dtype_name(dtype)), ("persistent", carry),
+           _codecs.fused_enabled())
+    return _cached(_EXEC_CACHE, "exec", key, lambda: build(
+        grid, topo, name, algo, carry=carry, **kw))

@@ -1,0 +1,62 @@
+"""Carry state across from the JAX reference, as numpy arrays.
+
+  * :func:`from_reference` turns a reference gradient or parameter tree
+    (nested dicts of numpy arrays, as ``jax.device_get`` returns them)
+    into the port's stacked flat buffer, leaves in the reference's flatten
+    order (dict keys sorted, as ``jax.tree_util`` visits them);
+  * :func:`error_state_from_reference` turns the reference's per-bucket
+    error-feedback tuple (``init_error_state`` / ``OverlappedGradSync.errs``)
+    into the port's layout: views into one flat buffer.
+
+Tuning tables need nothing here: ``TuningTable`` writes the same JSON in
+both packages.
+"""
+from __future__ import annotations
+
+from typing import List, Sequence, Tuple
+
+import numpy as np
+import torch
+
+
+def flatten_reference(tree, prefix: str = "") -> List[Tuple[str, np.ndarray]]:
+    """``(path, array)`` leaves of a nested dict tree in ``jax.tree_util``
+    order (dict keys sorted); paths join the keys with ``/``."""
+    if isinstance(tree, dict):
+        out = []
+        for k in sorted(tree):
+            out += flatten_reference(tree[k], f"{prefix}/{k}" if prefix
+                                     else str(k))
+        return out
+    return [(prefix, np.asarray(tree))]
+
+
+def from_reference(tree, device="cuda", ranked: bool = True) -> torch.Tensor:
+    """The stacked flat float32 buffer ``(world, n)`` for a reference tree.
+
+    ``ranked=True``: every leaf has a leading rank dim ``world`` (a
+    per-rank gradient stack); ``ranked=False``: a single copy (parameters),
+    returned as ``(1, n)``."""
+    leaves = [a if ranked else a[None] for _, a in flatten_reference(tree)]
+    world = {a.shape[0] for a in leaves}
+    if len(world) != 1:
+        raise ValueError(f"leaves disagree on the rank dim: {sorted(world)}")
+    flat = np.concatenate([a.reshape(a.shape[0], -1) for a in leaves],
+                          axis=1).astype(np.float32)
+    return torch.from_numpy(flat).to(device)
+
+
+def error_state_from_reference(errs: Sequence[np.ndarray], device="cuda"
+                               ) -> Tuple[torch.Tensor, ...]:
+    """The reference's per-bucket ``(world, n_i)`` error buffers as views
+    into one ``(world, sum n_i)`` float32 buffer on ``device``."""
+    if not errs:
+        return ()
+    flat = torch.from_numpy(np.concatenate(
+        [np.asarray(e, np.float32) for e in errs], axis=1)).to(device)
+    views, off = [], 0
+    for e in errs:
+        n = np.asarray(e).shape[1]
+        views.append(flat[:, off:off + n])
+        off += n
+    return tuple(views)

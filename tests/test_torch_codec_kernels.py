@@ -1,0 +1,175 @@
+"""The port's int8 codec kernels against the reference's Pallas kernels.
+
+On the CPU the wrappers in ``repro_torch.kernels.codec`` run their plain
+versions (``kernels/ref.py``); those are held against
+``repro.kernels.codec.int8_*(..., interpret=True)`` on the same numpy
+inputs. Wire form, scales and residuals match bitwise (both sides round
+``c - q*scale`` once, as XLA contracts it into a fused multiply-add);
+decode_reduce holds to ``rtol=1e-6, atol=1e-5*W``. The ``cuda``-marked
+tests hold each CUDA kernel against its plain version on the card,
+bitwise, and skip where there is no card.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import codec as tkern
+from repro_torch.kernels import ref
+
+SHAPES = [(1, 256), (3, 1000), (4, 64), (2, 2048), (16, 4096)]
+
+
+def _payload(shape, seed):
+    rng = np.random.default_rng(seed)
+    # per-row magnitudes spread over four decades, so scales differ widely
+    mag = rng.uniform(0.01, 100.0, shape[:-1] + (1,))
+    x = (rng.standard_normal(shape) * mag).astype(np.float32)
+    err = (rng.standard_normal(shape) * 0.01 * mag).astype(np.float32)
+    return x, err
+
+
+@pytest.fixture(scope="module")
+def jkern():
+    """The reference kernels; imported here, not at module level, so the
+    ``cuda`` tests below also run on a machine without JAX."""
+    pytest.importorskip("jax")
+    from repro.kernels import codec
+    return codec
+
+
+def _assert_wire(got, want):
+    np.testing.assert_array_equal(got[0]["q"].numpy(), np.asarray(want[0]["q"]))
+    np.testing.assert_array_equal(got[0]["scale"].numpy(),
+                                  np.asarray(want[0]["scale"]))
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
+
+
+@pytest.mark.parametrize("S,L", SHAPES)
+def test_int8_encode_feedback_matches_pallas(jkern, S, L):
+    x, err = _payload((S, L), seed=S * 31 + L)
+    want = jkern.int8_encode_feedback(x, err, interpret=True)
+    got = tkern.int8_encode_feedback(torch.from_numpy(x),
+                                     torch.from_numpy(err))
+    _assert_wire(got, want)
+
+
+@pytest.mark.parametrize("S,L", SHAPES)
+def test_int8_encode_residual_matches_pallas(jkern, S, L):
+    x, _ = _payload((S, L), seed=S + L)
+    want = jkern.int8_encode_residual(x, interpret=True)
+    got = tkern.int8_encode_residual(torch.from_numpy(x))
+    _assert_wire(got, want)
+
+
+def test_int8_encode_rank_batch_matches_per_rank(jkern):
+    """A leading rank dim is the per-rank encodes stacked."""
+    x, err = _payload((8, 2, 1000), seed=7)
+    comp, res = tkern.int8_encode_feedback(torch.from_numpy(x),
+                                           torch.from_numpy(err))
+    assert comp["q"].shape == (8, 2, 4, 256) and comp["scale"].shape == (8, 2, 4)
+    for r in range(8):
+        want = jkern.int8_encode_feedback(x[r], err[r], interpret=True)
+        np.testing.assert_array_equal(comp["q"][r].numpy(),
+                                      np.asarray(want[0]["q"]))
+        np.testing.assert_array_equal(res[r].numpy(), np.asarray(want[1]))
+
+
+def test_int8_encode_zero_block_and_nan():
+    """An all-zero block gets scale 0, q 0 and residual 0 (no NaN); a NaN
+    makes its block's scale and residual NaN and leaves the others alone."""
+    x = np.zeros((1, 512), np.float32)
+    x[0, 300] = 2.0
+    comp, res = tkern.int8_encode_residual(torch.from_numpy(x))
+    assert float(comp["scale"][0, 0]) == 0.0
+    assert not comp["q"][0, 0].any() and not res[0, :256].any()
+    x[0, 10] = np.nan
+    comp, res = tkern.int8_encode_residual(torch.from_numpy(x))
+    assert np.isnan(float(comp["scale"][0, 0]))
+    assert np.isnan(res[0, :256].numpy()).all()
+    assert float(comp["scale"][0, 1]) == np.float32(2.0) * np.float32(1 / 127)
+
+
+@pytest.mark.parametrize("W", [1, 2, 8])
+def test_int8_decode_reduce_matches_pallas(jkern, W):
+    L = 777
+    x, _ = _payload((W, L), seed=W)
+    comp = jkern.int8_encode_residual(x, interpret=True)[0]
+    want = np.asarray(jkern.int8_decode_reduce(comp, L, interpret=True))
+    tcomp = {k: torch.from_numpy(np.array(v)) for k, v in comp.items()}
+    got = tkern.int8_decode_reduce(tcomp, L)
+    assert got.shape == (L,)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-5 * W)
+
+
+def test_int8_decode_reduce_rank_batch(jkern):
+    """A leading rank dim reduces each rank's W peers on its own."""
+    R, W, L = 8, 2, 1000
+    x, _ = _payload((R, W, L), seed=11)
+    comp, _ = tkern.int8_encode_residual(torch.from_numpy(x))
+    got = tkern.int8_decode_reduce(comp, L)
+    assert got.shape == (R, L)
+    for r in range(R):
+        jc = {k: v[r].numpy() for k, v in comp.items()}
+        want = np.asarray(jkern.int8_decode_reduce(jc, L, interpret=True))
+        np.testing.assert_allclose(got[r].numpy(), want, rtol=1e-6,
+                                   atol=1e-5 * W)
+
+
+def test_cpu_path_counts_no_launches():
+    tkern.reset_launches()
+    x, err = _payload((2, 300), seed=3)
+    comp, _ = tkern.int8_encode_feedback(torch.from_numpy(x),
+                                         torch.from_numpy(err))
+    tkern.int8_decode_reduce(comp, 300)
+    assert tkern.launches == {"int8_block_encode": 0,
+                              "int8_decode_reduce": 0}
+
+
+def test_wrappers_reject_unsupported_operands():
+    x = torch.zeros(2, 256)
+    with pytest.raises(ValueError):
+        tkern.int8_encode_feedback(x, torch.zeros(2, 256, device="meta"))
+    with pytest.raises(ValueError):
+        tkern.int8_encode_residual(torch.zeros(2, 256, device="meta"))
+
+
+# ---------------------------------------------------------------------------
+# on the card: each CUDA kernel against its plain version, bitwise
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels run only there")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,L", [(16, 131072), (3, 1000), (1, 256)])
+@pytest.mark.parametrize("with_err", [False, True])
+def test_cuda_encode_matches_plain(cuda, S, L, with_err):
+    x, err = (torch.from_numpy(a).to(cuda) for a in _payload((S, L), S + L))
+    before = tkern.launches["int8_block_encode"]
+    if with_err:
+        got, want = tkern.int8_encode_feedback(x, err), \
+            ref.int8_encode_feedback(x, err)
+    else:
+        got, want = tkern.int8_encode_residual(x), ref.int8_encode_residual(x)
+    torch.cuda.synchronize()
+    assert tkern.launches["int8_block_encode"] == before + 1
+    assert torch.equal(got[0]["q"], want[0]["q"])
+    assert torch.equal(got[0]["scale"], want[0]["scale"])
+    assert torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W", [1, 2, 8])
+def test_cuda_decode_reduce_matches_plain(cuda, W):
+    x, _ = _payload((8, W, 131072), seed=W)
+    comp, _ = ref.int8_encode_residual(torch.from_numpy(x).to(cuda))
+    before = tkern.launches["int8_decode_reduce"]
+    got = tkern.int8_decode_reduce(comp, 131072 - 5)
+    torch.cuda.synchronize()
+    assert tkern.launches["int8_decode_reduce"] == before + 1
+    assert torch.equal(got, ref.int8_decode_reduce(comp, 131072 - 5))

@@ -1,0 +1,65 @@
+"""The port stands alone: nothing under ``src/repro_torch`` and nothing in
+``chip_smoke.py`` imports JAX or the JAX package, importing the port
+loads neither, and its entry points default to the card."""
+import ast
+import os
+import pathlib
+import subprocess
+import sys
+
+import pytest
+
+from repro_torch.core.grid import RankGrid
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+FORBIDDEN = {"jax", "jaxlib", "repro"}
+PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + \
+    [REPO / "chip_smoke.py"]
+
+
+def _imported_roots(path: pathlib.Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=[str(p.relative_to(REPO)) for p in PORT_FILES])
+def test_no_jax_or_reference_imports(path):
+    bad = FORBIDDEN & set(_imported_roots(path))
+    assert not bad, f"{path.name} imports {sorted(bad)}"
+
+
+def test_importing_the_port_loads_no_jax():
+    modules = [".".join(p.relative_to(REPO / "src").with_suffix("").parts)
+               .replace(".__init__", "") for p in PORT_FILES[:-1]]
+    code = ("import sys\n" + "".join(f"import {m}\n" for m in modules)
+            + "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro')]\nassert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+
+
+def test_rank_grid_defaults_to_the_card():
+    assert RankGrid().device.type == "cuda"
+    assert RankGrid(2, 4).device.type == "cuda"
+    assert RankGrid(2, 4, device="cpu").device.type == "cpu"
+
+
+def test_chip_smoke_refuses_without_a_card(tmp_path):
+    """Alone in a directory, or without CUDA, the smoke test exits non-zero
+    and prints no result line."""
+    lone = tmp_path / "chip_smoke.py"
+    lone.write_text((REPO / "chip_smoke.py").read_text())
+    for cwd, script in ((tmp_path, lone), (REPO, REPO / "chip_smoke.py")):
+        proc = subprocess.run([sys.executable, str(script)], cwd=cwd,
+                              capture_output=True, text=True, timeout=120,
+                              env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+        assert proc.returncode != 0
+        assert '"ok"' not in proc.stdout
