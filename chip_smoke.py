@@ -3,29 +3,48 @@
 
 Usage: ``python3 chip_smoke.py`` from the repository root, on a machine
 with an NVIDIA Hopper card and the CUDA toolkit. It imports nothing of JAX
-or of the JAX package. Three phases; any failure exits non-zero:
+or of the JAX package. Four phases; any failure exits non-zero:
 
-1. **Kernels.** Builds ``kernels/csrc/codec_int8.cu`` with nvcc (sm_90a)
-   and holds each CUDA kernel against its plain PyTorch version on the
-   card, bitwise (tolerance 0): encode at (16, 131072), (3, 1000) and
-   (1, 256) with and without the carried error; decode-reduce over W in
-   {1, 2, 8}. Times each kernel and its plain version at the main path's
+1. **Kernels.** Builds ``kernels/csrc/codec_{int8,int4,fp8}.cu`` with nvcc
+   (sm_90a), one compiler process each, all at once, and holds each of the
+   six CUDA kernels against its plain PyTorch version on the card, bitwise
+   (tolerance 0): encodes at (16, 131072), (3, 1000) and (1, 256) with and
+   without the carried error, plus rows with subnormal e4m3 outputs, signed
+   zeros and a NaN (in the NaN's quantization block, or fp8 slice, only NaN
+   positions are compared; the row's other blocks stay bitwise);
+   decode-reduce over W in {1, 2, 8} and at the compressed reduce_scatter's
+   (8, 2, 524288). Times each kernel and its plain version at the main path's
    shapes (median of 20 runs, CUDA events around device work only, L2
    flushed between runs).
-2. **Slice.** Two steps of the full-width smollm-360m gradient sync:
-   409,007,040 float32 gradients per rank on ``RankGrid(2, 4, "cuda")``,
-   4 MiB buckets (391), one persistent ``pip_mcoll`` + ``int8_block``
-   carry op per bucket with error feedback (``OverlappedGradSync``).
-   Every bucket's sum must lie within ``collective_tolerance("int8_block",
-   "allreduce", 8, A)`` of the float64 sum of the collective's input rows
-   (gradient plus carried error; ``A`` their max-abs). Kernel launch
-   counts are zeroed just before the steps and must equal 2 encodes and 1
-   decode-reduce per bucket per step. Then one lossless ``algo="auto"``
-   bucket sync must match the float64 sum within the float32 summation
-   bound ``8 * 2**-23 * sum|x|`` per element.
-3. **Report.** A slice summary line, the card's name and power limit (as
-   nvidia-smi gives them), the ``{"kernels": [...]}`` line, and last
-   ``{"ok": true, "device": {...}}``.
+2. **Slice.** The full-width smollm-360m gradient sync: 409,007,040
+   float32 gradients per rank on ``RankGrid(2, 4, "cuda")``, 4 MiB buckets
+   (391), one persistent ``pip_mcoll`` carry op per bucket with error
+   feedback (``OverlappedGradSync``): two steps each under ``int8_block``
+   (budget 0.5/127), ``int4_block`` (0.5/7) and ``fp8_sim`` (2^-4), one
+   sync released before the next is built. Every bucket's sum must lie
+   within ``collective_tolerance(codec, "allreduce", 8, A)`` of the
+   float64 sum of the collective's input rows (gradient plus carried error;
+   ``A`` their max-abs). Launch counts are zeroed just before each run and
+   must equal 2 encodes and 1 decode-reduce per bucket per step (fp8: each
+   encode is one ``fp8_amax`` and one ``fp8_encode`` launch). One more step
+   of each runs under ``torch.profiler``. Then one lossless ``algo="auto"``
+   bucket sync, and one full-width pass of ``comm.reduce_scatter(bucket,
+   algo="pip_mcoll", codec=c)`` over all 391 buckets for each codec: within
+   ``collective_tolerance(c, "reduce_scatter", 8, A)`` of the float64 sum,
+   exactly one decode-reduce launch per bucket. Peak memory must stay
+   under 50 GB.
+3. **Collectives.** Every (collective, algorithm) pair through the
+   ``Communicator`` on the 2x4 grid at per-rank sizes 8 B, 64 KiB and
+   4 MiB of float32 and 64 KiB of int32; chunk-capable algorithms also at
+   ``chunks=3``; codec-capable ones also under the three codecs (float32).
+   Oracles by plain indexing on the card: data movement bitwise, reductions
+   within ``8 * 2**-23 * sum|x|``, compressed gathers, exchanges, broadcasts
+   and scatters bitwise equal to ``decode(encode(.))`` of the source rows,
+   compressed reductions within the codec's collective tolerance. One line
+   per pair with its median host-clock time per call at 8 B and 4 MiB.
+4. **Report.** The slice and collectives summaries, the card's name and
+   power limit (as nvidia-smi gives them), the ``{"kernels": [...]}`` line,
+   and last ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -42,13 +61,28 @@ STEPS = 2
 #: published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, fp32 FLOP/s
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
-#: modeled fp32 operations per element: encode (add, abs, max, mul, div,
-#: rint, 2 clips, fma) and one fma per peer in decode-reduce
+#: modeled fp32 operations per element: the block encodes (add, abs, max,
+#: mul, div, rint, 2 clips, fma), the fp8 encode (add, abs, max, mul, max,
+#: div, 2 clips, 2 converts, fma) and one fma per peer in decode-reduce
 ENCODE_OPS_PER_ELEM = 9
+FP8_ENCODE_OPS_PER_ELEM = 11
 DECODE_OPS_PER_ELEM_PEER = 2
 #: clock cycles of the spin kernel queued ahead of each timed run (about
 #: 2 ms at the H100's 1.98 GHz boost clock)
 SPIN_CYCLES = 4_000_000
+#: (codec, error budget) of the slice's sync runs, in order
+SYNC_CODECS = (("int8_block", 0.5 / 127), ("int4_block", 0.5 / 7),
+               ("fp8_sim", 2.0 ** -4))
+#: CUDA kernels each codec's encode and decode-reduce wrappers launch
+CODEC_KERNELS = {
+    "int8_block": (("int8_block_encode",), "int8_decode_reduce"),
+    "int4_block": (("int4_block_encode",), "int4_decode_reduce"),
+    "fp8_sim": (("fp8_amax", "fp8_encode"), "fp8_decode_reduce"),
+}
+PEAK_LIMIT_BYTES = 50e9
+#: per-rank message sizes of the collectives phase (bytes)
+COLL_SIZES = (8, 64 << 10, 4 << 20)
+TIME_ITERS = 10
 
 
 def fail(msg: str) -> int:
@@ -62,8 +96,10 @@ def time_ms(torch, fn, flush, n: int = 20) -> float:
 
     A spin kernel is queued ahead of the flush and the first event, so the
     host has queued all of ``fn``'s launches before the device reaches
-    them: the events then bracket device work, not the host's dispatch.
-    Raises if the host took longer to queue a run than the spin lasts."""
+    them: the events then bracket device work, not the host's dispatch. A
+    run whose queueing took longer than half the spin (a stall of the
+    shared host) is discarded and run again; raises if more than ``n``
+    runs had to be discarded."""
     fn()
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
@@ -72,8 +108,8 @@ def time_ms(torch, fn, flush, n: int = 20) -> float:
     b.record()
     b.synchronize()
     spin_ms = a.elapsed_time(b)
-    times = []
-    for _ in range(n):
+    times, slow = [], []
+    while len(times) < n:
         torch.cuda._sleep(SPIN_CYCLES)
         t0 = time.perf_counter()
         flush.zero_()
@@ -82,10 +118,14 @@ def time_ms(torch, fn, flush, n: int = 20) -> float:
         b.record()
         host_ms = (time.perf_counter() - t0) * 1e3
         b.synchronize()
-        if host_ms > spin_ms / 2:
-            raise RuntimeError(f"timing: the host queued a run in {host_ms} "
-                               f"ms, the spin covers {spin_ms} ms")
-        times.append(a.elapsed_time(b))
+        if host_ms <= spin_ms / 2:
+            times.append(a.elapsed_time(b))
+            continue
+        slow.append(host_ms)
+        if len(slow) > n:
+            raise RuntimeError(f"timing: the host queued {len(slow)} runs "
+                               f"slower than half the {spin_ms} ms spin "
+                               f"(ms: {slow})")
     return statistics.median(times)
 
 
@@ -100,91 +140,189 @@ def max_diff(torch, got, want) -> float:
         if got.numel() else 0.0
 
 
+def same_bits(torch, got, want) -> bool:
+    """Bitwise equality; floats compare as bytes, so signed zeros count."""
+    if got.dtype != want.dtype or got.shape != want.shape:
+        return False
+    if got.is_floating_point():
+        return torch.equal(got.contiguous().view(torch.uint8),
+                           want.contiguous().view(torch.uint8))
+    return torch.equal(got, want)
+
+
+# ---------------------------------------------------------------------------
+# phase 1: kernels
+# ---------------------------------------------------------------------------
+
+
+def _edge_rows(torch, dev, L=1000):
+    """Rows with subnormal e4m3 outputs (one large element, the rest down
+    to 2**-12), signed zeros, rounding ties, an all-zero row and a NaN."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    x = torch.zeros((5, L), device=dev)
+    x[0] = torch.randn(L, generator=gen, device=dev) * torch.exp2(
+        -torch.randint(0, 13, (L,), generator=gen, device=dev).float())
+    x[0, 0] = 448.0
+    x[1] = -0.0
+    x[1, ::3] = torch.randn(len(range(0, L, 3)), generator=gen,
+                            device=dev) * 1e-3
+    x[1, 7] = 1.0
+    x[2] = 1.5 * torch.exp2(torch.randint(-9, 8, (L,), generator=gen,
+                                          device=dev).float())
+    x[2, 1] = 448.0
+    x[4] = torch.randn(L, generator=gen, device=dev)
+    x[4, 17] = float("nan")
+    return x
+
+
+def _check_encode(torch, what, got, want) -> float:
+    """Wire, scale and residual bitwise; returns their max abs difference.
+
+    A quantization block (the whole slice for fp8) whose plain scale is NaN
+    holds a NaN: its wire bytes are unspecified and only the NaN positions
+    of its scale and residual must agree. Every other block of the same row
+    is still compared bitwise."""
+    (gq, gs), gr = (got[0]["q"], got[0]["scale"]), got[1]
+    (wq, ws), wr = (want[0]["q"], want[0]["scale"]), want[1]
+    L = gr.shape[-1]
+    block = 256 if ws.dim() == 2 else L  # fp8 scales the whole slice
+    pos = torch.arange(L, device=gr.device) // block
+    worst = 0.0
+    for r in range(gr.shape[0]):
+        nan_blk = ws[r].reshape(-1).isnan()
+        nan_pos = nan_blk[pos]
+        qmask = nan_blk if ws.dim() == 2 else nan_pos
+        for a, b, name, keep in (
+                (gq[r], wq[r], "q", ~qmask),
+                (gs[r].reshape(-1), ws[r].reshape(-1), "scale", ~nan_blk),
+                (gr[r], wr[r], "res", ~nan_pos)):
+            if not same_bits(torch, a[keep], b[keep]):
+                raise AssertionError(f"{what}: {name} of row {r} differs "
+                                     f"from the plain version: max "
+                                     f"{max_diff(torch, a[keep], b[keep])}")
+            worst = max(worst, max_diff(torch, a[keep], b[keep]))
+        gn, wn = gr[r][nan_pos].isnan(), wr[r][nan_pos].isnan()
+        if not bool(gs[r].reshape(-1)[nan_blk].isnan().all()) or \
+                not torch.equal(gn, wn):
+            raise AssertionError(f"{what}: NaN positions of scale or residual "
+                                 f"differ in row {r}")
+    return worst
+
+
 def kernel_phase(torch, kcodec, ref, dev):
     """Each kernel against its plain version; returns per-kernel records
     (without launches) and raises on any mismatch."""
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    err_enc = err_dec = 0.0
+    codecs = ("int8", "int4", "fp8")
+    err = {c: {"enc": 0.0, "dec": 0.0} for c in codecs}
     for S, L in ((16, 131072), (3, 1000), (1, 256)):
         x = torch.randn((S, L), generator=gen, device=dev) \
             * torch.rand((S, 1), generator=gen, device=dev) * 100
         e = torch.randn((S, L), generator=gen, device=dev) * 0.01
-        for got, want in ((kcodec.int8_encode_residual(x),
-                           ref.int8_encode_residual(x)),
-                          (kcodec.int8_encode_feedback(x, e),
-                           ref.int8_encode_feedback(x, e))):
-            torch.cuda.synchronize()
-            for a, b in ((got[0]["q"], want[0]["q"]),
-                         (got[0]["scale"], want[0]["scale"]),
-                         (got[1], want[1])):
-                if not torch.equal(a, b):
-                    raise AssertionError(f"encode {S}x{L} differs from its "
-                                         f"plain version: max "
-                                         f"{max_diff(torch, a, b)}")
-                err_enc = max(err_enc, max_diff(torch, a, b))
-    for R, W, L in ((8, 1, 131072), (8, 2, 131072), (8, 8, 131072),
-                    (1, 2, 1000)):
-        x = torch.randn((R, W, L), generator=gen, device=dev)
-        comp, _ = ref.int8_encode_residual(x)
-        got = kcodec.int8_decode_reduce(comp, L)
-        want = ref.int8_decode_reduce(comp, L)
+        for c in codecs:
+            for what, k, p, args in (
+                    ("residual", getattr(kcodec, f"{c}_encode_residual"),
+                     getattr(ref, f"{c}_encode_residual"), (x,)),
+                    ("feedback", getattr(kcodec, f"{c}_encode_feedback"),
+                     getattr(ref, f"{c}_encode_feedback"), (x, e))):
+                got, want = k(*args), p(*args)
+                torch.cuda.synchronize()
+                err[c]["enc"] = max(err[c]["enc"], _check_encode(
+                    torch, f"{c} encode {what} {S}x{L}", got, want))
+    edge = _edge_rows(torch, dev)
+    for c in codecs:
+        got = getattr(kcodec, f"{c}_encode_residual")(edge)
+        want = getattr(ref, f"{c}_encode_residual")(edge)
         torch.cuda.synchronize()
-        if not torch.equal(got, want):
-            raise AssertionError(f"decode_reduce R={R} W={W} L={L} differs "
-                                 f"from its plain version: max "
-                                 f"{max_diff(torch, got, want)}")
-        err_dec = max(err_dec, max_diff(torch, got, want))
+        if not bool(want[0]["scale"][4].isnan().any()):
+            raise AssertionError(f"{c} edge rows: the NaN row has no NaN "
+                                 f"scale")
+        err[c]["enc"] = max(err[c]["enc"], _check_encode(
+            torch, f"{c} encode edge rows", got, want))
+        if c == "fp8":
+            q = got[0]["q"][0]
+            if not bool(((q & 0x78) == 0).logical_and((q & 0x07) != 0).any()):
+                raise AssertionError("fp8 edge rows reached no subnormal "
+                                     "e4m3 value")
+    # (8, 2, 524288): the compressed reduce_scatter's wire on the main path
+    for R, W, L in ((8, 1, 131072), (8, 2, 131072), (8, 8, 131072),
+                    (8, 2, 524288), (1, 2, 1000)):
+        x = torch.randn((R, W, L), generator=gen, device=dev)
+        for c in codecs:
+            comp, _ = getattr(ref, f"{c}_encode_residual")(x)
+            got = getattr(kcodec, f"{c}_decode_reduce")(comp, L)
+            want = getattr(ref, f"{c}_decode_reduce")(comp, L)
+            torch.cuda.synchronize()
+            if not same_bits(torch, got, want):
+                raise AssertionError(f"{c} decode_reduce R={R} W={W} L={L} "
+                                     f"differs from its plain version: max "
+                                     f"{max_diff(torch, got, want)}")
+            err[c]["dec"] = max(err[c]["dec"], max_diff(torch, got, want))
 
     # times at the main path's shapes: the first encode of each bucket is
-    # (ranks * W, Ls) = (16, 131072); decode-reduce is (8, 2, 512, 256)
+    # (ranks * W, Ls) = (16, 131072); decode-reduce gets (8, 2, ...) wire
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
-    S, L = 16, 131072
+    S, L, R, W = 16, 131072, 8, 2
+    nb = L // 256
     x = torch.randn((S, L), generator=gen, device=dev)
     e = torch.randn((S, L), generator=gen, device=dev) * 0.01
-    nb = L // 256
-    enc_bytes = 4 * S * L + S * L + 4 * S * nb + 4 * S * L
-    enc_b, enc_by = bound_ms(enc_bytes, ENCODE_OPS_PER_ELEM * S * L)
-    # the HAS_ERR variant (not on the main path) also reads the error
-    fb_b, _ = bound_ms(enc_bytes + 4 * S * L, ENCODE_OPS_PER_ELEM * S * L)
-    R, W = 8, 2
-    comp, _ = ref.int8_encode_residual(
-        torch.randn((R, W, L), generator=gen, device=dev))
-    dec_bytes = R * W * L + 4 * R * W * nb + 4 * R * L
-    dec_b, dec_by = bound_ms(dec_bytes,
-                             DECODE_OPS_PER_ELEM_PEER * R * W * L)
-    return {
-        "int8_block_encode": {
-            "name": "int8_block_encode", "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/codec_int8.cu",
-            "replaces": "src/repro/kernels/codec.py:104",
-            "max_abs_err": err_enc,
-            "ms": time_ms(torch, lambda: kcodec.int8_encode_residual(x),
-                          flush),
-            "plain_ms": time_ms(torch, lambda: ref.int8_encode_residual(x),
-                                flush),
+    xw = torch.randn((R, W, L), generator=gen, device=dev)
+    wire = {"int8": S * L, "int4": S * L // 2, "fp8": S * L}
+    scales = {"int8": 4 * S * nb, "int4": 4 * S * nb, "fp8": 4 * S}
+    encode_name = {"int8": "int8_block_encode", "int4": "int4_block_encode",
+                   "fp8": "fp8_encode"}
+    replaces = {"int8": (136, 146), "int4": (214, 223), "fp8": (303, 311)}
+    ops = {"int8": ENCODE_OPS_PER_ELEM, "int4": ENCODE_OPS_PER_ELEM,
+           "fp8": FP8_ENCODE_OPS_PER_ELEM}
+    records = {}
+    for c in codecs:
+        src = f"src/repro_torch/kernels/csrc/codec_{c}.cu"
+        kenc = getattr(kcodec, f"{c}_encode_residual")
+        penc = getattr(ref, f"{c}_encode_residual")
+        kfb = getattr(kcodec, f"{c}_encode_feedback")
+        pfb = getattr(ref, f"{c}_encode_feedback")
+        # reads x, writes the wire, the scales and the f32 residual; the
+        # HAS_ERR variant (not on the main path) also reads the error
+        enc_bytes = 4 * S * L + wire[c] + scales[c] + 4 * S * L
+        enc_b, enc_by = bound_ms(enc_bytes, ops[c] * S * L)
+        fb_b, _ = bound_ms(enc_bytes + 4 * S * L, ops[c] * S * L)
+        comp, _ = penc(xw)
+        # R * W == S: decode reads the same wire and scale bytes the encode
+        # wrote, and writes the f32 sum per rank
+        dec_bytes = wire[c] + scales[c] + 4 * R * L
+        dec_b, dec_by = bound_ms(dec_bytes, DECODE_OPS_PER_ELEM_PEER * R * W
+                                 * L)
+        kdec = getattr(kcodec, f"{c}_decode_reduce")
+        pdec = getattr(ref, f"{c}_decode_reduce")
+        records[encode_name[c]] = {
+            "name": encode_name[c], "route": "cuda", "source": src,
+            "replaces": f"src/repro/kernels/codec.py:{replaces[c][0]}",
+            "max_abs_err": err[c]["enc"],
+            "ms": time_ms(torch, lambda: kenc(x), flush),
+            "plain_ms": time_ms(torch, lambda: penc(x), flush),
             "bound_ms": enc_b, "bound_by": enc_by, "library_ms": None,
             "bytes": enc_bytes, "shape": [S, L],
-            "feedback_ms": time_ms(
-                torch, lambda: kcodec.int8_encode_feedback(x, e), flush),
-            "feedback_plain_ms": time_ms(
-                torch, lambda: ref.int8_encode_feedback(x, e), flush),
-            "feedback_bound_ms": fb_b},
-        "int8_decode_reduce": {
-            "name": "int8_decode_reduce", "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/codec_int8.cu",
-            "replaces": "src/repro/kernels/codec.py:151",
-            "max_abs_err": err_dec,
-            "ms": time_ms(torch, lambda: kcodec.int8_decode_reduce(comp, L),
-                          flush),
-            "plain_ms": time_ms(torch,
-                                lambda: ref.int8_decode_reduce(comp, L),
-                                flush),
+            "feedback_ms": time_ms(torch, lambda: kfb(x, e), flush),
+            "feedback_plain_ms": time_ms(torch, lambda: pfb(x, e), flush),
+            "feedback_bound_ms": fb_b}
+        records[f"{c}_decode_reduce"] = {
+            "name": f"{c}_decode_reduce", "route": "cuda", "source": src,
+            "replaces": f"src/repro/kernels/codec.py:{replaces[c][1]}",
+            "max_abs_err": err[c]["dec"],
+            "ms": time_ms(torch, lambda: kdec(comp, L), flush),
+            "plain_ms": time_ms(torch, lambda: pdec(comp, L), flush),
             "bound_ms": dec_b, "bound_by": dec_by, "library_ms": None,
-            "bytes": dec_bytes, "shape": [R, W, nb, 256]},
-    }
+            "bytes": dec_bytes,
+            "shape": list(comp["q"].shape)}
+    return records
 
 
-def profile_step(torch, gs, buckets, mvec, step, top: int = 12):
+# ---------------------------------------------------------------------------
+# phase 2: the slice (full-width gradient sync, compressed reduce_scatter)
+# ---------------------------------------------------------------------------
+
+
+def profile_step(torch, gs, buckets, mvec, step, names, top: int = 12):
     """One more sync step under ``torch.profiler``: device time per kernel
     (CUPTI), its sum, the wall time of the same step and the device's idle
     share of it. The sync itself runs outside any ``except``; only the
@@ -220,9 +358,9 @@ def profile_step(torch, gs, buckets, mvec, step, top: int = 12):
         raise AssertionError(f"profiled step: device busy {busy} ms exceeds "
                              f"its wall time {wall_ms} ms")
     per_launch = {}
-    for name in ("int8_block_encode", "int8_decode_reduce"):
-        ms = sum(r[1] for r in rows if name in r[0])
-        n = sum(r[2] for r in rows if name in r[0])
+    for name in names:
+        hits = [r for r in rows if name in r[0]]
+        ms, n = sum(r[1] for r in hits), sum(r[2] for r in hits)
         per_launch[name] = ms / n if n else "not measured"
     rows.sort(key=lambda r: -r[1])
     return {"device_busy_ms": busy, "step_ms": wall_ms,
@@ -232,41 +370,25 @@ def profile_step(torch, gs, buckets, mvec, step, top: int = 12):
                         for k, ms, n in rows[:top]]}
 
 
-def slice_phase(torch, dev, cfg, steps: int = STEPS):
-    """The main path on the card: ``steps`` compressed gradient-sync steps
-    of ``cfg`` at full width, checked bucket by bucket. Returns a summary
-    dict."""
+def sync_run(torch, comm, kcodec, grads, slices, codec, budget, gen,
+             steps: int = STEPS):
+    """``steps`` compressed sync steps of every bucket under ``codec``,
+    each bucket checked against the float64 sum of its input rows, then
+    one profiled step. Launch counts are zeroed just before the first step
+    and read just after the last; the sync's ops and error state are
+    released before returning."""
     from repro_torch.core import compress
-    from repro_torch.core.autotune import encode_plan
-    from repro_torch.core.comm import Communicator
-    from repro_torch.core.grid import RankGrid
-    from repro_torch.kernels import codec as kcodec
-    from repro_torch.models.params import leaf_views, param_shapes
     from repro_torch.train import manual_step as ms
 
-    bucket_bytes = ms.DEFAULT_BUCKET_BYTES
-    shapes = param_shapes(cfg)
-    total = sum(int(torch.Size(s).numel()) for _, s in shapes)
-    if total != cfg.n_params():
-        raise AssertionError(f"layout has {total} params, config "
-                             f"{cfg.n_params()}")
-    grid = RankGrid(2, 4, dev)
-    comm = Communicator(grid)
-    world = grid.world
-    torch.cuda.reset_peak_memory_stats(dev)
-    gen = torch.Generator(device=dev).manual_seed(SEED)
-    grads = torch.empty((world, total), dtype=torch.float32, device=dev)
-    leaves = leaf_views(grads, shapes)  # the tree: views, no copies
-    slices = ms.bucket_slices(total, bucket_bytes // 4)
+    world = comm.grid.world
+    dev = grads.device
     buckets = [grads[:, s:s + n] for s, n in slices]
-    codec = "int8_block"
     gs = ms.OverlappedGradSync(comm, slices, metric_len=4, algo="pip_mcoll",
-                               codec=codec,
-                               error_budget=compress.meta(codec).error_bound)
+                               codec=codec, error_budget=budget)
     mvec = torch.arange(world * 4, dtype=torch.float32,
                         device=dev).reshape(world, 4)
-
     gs.ensure_ops(0)  # init: resolve the plans, allocate buffers and state
+    torch.cuda.synchronize(dev)
     kcodec.reset_launches()
     step_s, worst = [], 0.0
     for step in range(steps):
@@ -289,22 +411,97 @@ def slice_phase(torch, dev, cfg, steps: int = STEPS):
             tol = compress.collective_tolerance(codec, "allreduce", world, a)
             got = float((y.double() - w).abs().max())
             if not torch.isfinite(y).all() or got > tol:
-                raise AssertionError(f"step {step} bucket {i}: max error "
-                                     f"{got} > tolerance {tol}")
+                raise AssertionError(f"{codec} step {step} bucket {i}: max "
+                                     f"error {got} > tolerance {tol}")
             worst = max(worst, got / tol)
         if not torch.equal(msum, mvec.sum(0, keepdim=True).expand_as(mvec)):
             raise AssertionError("metric allreduce is not exact")
+        del synced, want
+    torch.cuda.synchronize(dev)
     launches = dict(kcodec.launches)
-    want_launches = {"int8_block_encode": 2 * steps * len(slices),
-                     "int8_decode_reduce": steps * len(slices)}
+    encodes, decode = CODEC_KERNELS[codec]
+    want_launches = {k: 0 for k in launches}
+    for k in encodes:
+        want_launches[k] = 2 * steps * len(slices)
+    want_launches[decode] = steps * len(slices)
     if launches != want_launches:
-        raise AssertionError(f"kernel launches {launches} on the main "
-                             f"path, expected {want_launches}")
+        raise AssertionError(f"{codec}: kernel launches {launches} on the "
+                             f"main path, expected {want_launches}")
+    profile = profile_step(torch, gs, buckets, mvec, steps,
+                           names=encodes + (decode,))
+    plan = gs.plans()[0]
+    gs.release()
+    return {"codec": codec, "budget": budget, "plan": plan,
+            "steps": steps, "step_s": step_s, "worst_err_over_tol": worst,
+            "launches": {k: v for k, v in launches.items() if v},
+            "profile": profile}
 
-    profile = profile_step(torch, gs, buckets, mvec, steps)
+
+def reduce_scatter_run(torch, comm, kcodec, grads, slices, codec, gen):
+    """One full-width pass of the compressed reduce_scatter over every
+    bucket: each within the codec's reduce_scatter tolerance of the
+    float64 sum, exactly one decode-reduce launch per bucket."""
+    from repro_torch.core import compress
+
+    world = comm.grid.world
+    grads.normal_(0.0, 1e-2, generator=gen)
+    torch.cuda.synchronize()
+    kcodec.reset_launches()
+    worst = 0.0
+    t0 = time.perf_counter()
+    for i, (s, n) in enumerate(slices):
+        b = grads[:, s:s + n]
+        y = comm.reduce_scatter(b, algo="pip_mcoll", codec=codec)
+        if tuple(y.shape) != (n,):
+            raise AssertionError(f"reduce_scatter bucket {i}: shape "
+                                 f"{tuple(y.shape)}, expected ({n},)")
+        tol = compress.collective_tolerance(codec, "reduce_scatter", world,
+                                            float(b.abs().max()))
+        got = float((y.double() - b.double().sum(0)).abs().max())
+        if not torch.isfinite(y).all() or got > tol:
+            raise AssertionError(f"{codec} reduce_scatter bucket {i}: max "
+                                 f"error {got} > tolerance {tol}")
+        worst = max(worst, got / tol)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {k: v for k, v in kcodec.launches.items() if v}
+    want = {CODEC_KERNELS[codec][1]: len(slices)}
+    if launches != want:
+        raise AssertionError(f"{codec} reduce_scatter: kernel launches "
+                             f"{launches}, expected {want}")
+    return {"codec": codec, "buckets": len(slices), "seconds": seconds,
+            "worst_err_over_tol": worst, "launches": launches}
+
+
+def slice_phase(torch, dev, cfg, kcodec):
+    """The main path on the card at full width: the three codecs' sync
+    runs, one lossless auto bucket, the compressed reduce_scatter passes.
+    Returns a summary dict."""
+    from repro_torch.core.autotune import encode_plan
+    from repro_torch.core.comm import Communicator
+    from repro_torch.core.grid import RankGrid
+    from repro_torch.models.params import leaf_views, param_shapes
+    from repro_torch.train import manual_step as ms
+
+    bucket_bytes = ms.DEFAULT_BUCKET_BYTES
+    shapes = param_shapes(cfg)
+    total = sum(int(torch.Size(s).numel()) for _, s in shapes)
+    if total != cfg.n_params():
+        raise AssertionError(f"layout has {total} params, config "
+                             f"{cfg.n_params()}")
+    grid = RankGrid(2, 4, dev)
+    comm = Communicator(grid)
+    world = grid.world
+    torch.cuda.reset_peak_memory_stats(dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    grads = torch.empty((world, total), dtype=torch.float32, device=dev)
+    leaves = leaf_views(grads, shapes)  # the tree: views, no copies
+    slices = ms.bucket_slices(total, bucket_bytes // 4)
+    syncs = [sync_run(torch, comm, kcodec, grads, slices, codec, budget, gen)
+             for codec, budget in SYNC_CODECS]
 
     # one lossless bucket through algo="auto"
-    b = buckets[0]
+    b = grads[:, :slices[0][1]]
     plan = comm.plan("allreduce", b[0].numel() * 4)
     y = comm.allreduce(b, algo="auto")
     exact = b.double().sum(0)
@@ -312,17 +509,123 @@ def slice_phase(torch, dev, cfg, steps: int = STEPS):
     if not bool(((y.double() - exact).abs() <= bound).all()):
         raise AssertionError("lossless auto allreduce outside the float32 "
                              "summation bound")
+    del y, exact, bound
+    rs = [reduce_scatter_run(torch, comm, kcodec, grads, slices, codec, gen)
+          for codec, _ in SYNC_CODECS]
+    peak = torch.cuda.max_memory_allocated(dev)
+    if peak > PEAK_LIMIT_BYTES:
+        raise AssertionError(f"peak device memory {peak} B over "
+                             f"{PEAK_LIMIT_BYTES} B")
     return {
         "model": cfg.name, "grid": [grid.n_nodes, grid.n_local],
         "params_per_rank": total, "leaves": len(leaves),
         "buckets": len(slices), "bucket_bytes": bucket_bytes,
-        "plan": gs.plans()[0], "steps": steps,
-        "step_s": step_s, "worst_err_over_tol": worst,
-        "launches": launches,
+        "syncs": syncs, "reduce_scatter": rs,
         "auto_plan": encode_plan(plan.algo, plan.chunks, plan.codec),
-        "profile": profile,
-        "peak_mem_bytes": torch.cuda.max_memory_allocated(dev),
+        "peak_mem_bytes": peak,
     }
+
+
+# ---------------------------------------------------------------------------
+# phase 3: every (collective, algorithm) pair through the Communicator
+# ---------------------------------------------------------------------------
+
+
+def _operand(torch, coll, nbytes, dtype, world, gen, dev):
+    """The global operand whose per-rank message is ``nbytes`` (the
+    reference's ``example_input`` convention: a collective that splits its
+    message over the ranks carries at least one element per peer)."""
+    elems = max(1, nbytes // 4)
+    s = max(1, elems // world)
+    shape = {"allgather": (world * elems,), "scatter": (world * elems,),
+             "broadcast": (elems,), "allreduce": (world, elems),
+             "reduce_scatter": (world, world * s),
+             "alltoall": (world, world, s)}[coll]
+    if dtype == torch.int32:
+        return torch.randint(-1000, 1000, shape, generator=gen, device=dev,
+                             dtype=torch.int32)
+    return torch.randn(shape, generator=gen, device=dev)
+
+
+def _check_pair(torch, compress, oracles, coll, x, got, world, N, P,
+                codec):
+    """Raise unless ``got`` is what ``coll`` must give on ``x``."""
+    if coll in oracles.MOVEMENT:
+        want = oracles.movement(coll, x, N, P, codec)
+        if not torch.equal(got, want):
+            raise AssertionError(f"not bitwise: max "
+                                 f"{max_diff(torch, got, want)}")
+        return
+    exact = oracles.exact_sum(coll, x)
+    if codec == "none":
+        bound = 8 * 2.0 ** -23 * x.double().abs().sum(0)
+        ok = bool(((got.double() - exact).abs() <= bound).all())
+    else:
+        tol = compress.collective_tolerance(codec, coll, world,
+                                            float(x.abs().max()))
+        ok = float((got.double() - exact).abs().max()) <= tol
+    if not ok:
+        raise AssertionError("outside its bound")
+
+
+def _host_ms(torch, fn, n: int = TIME_ITERS) -> float:
+    """Median host-clock time per call, each call ended by a synchronize."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def collectives_phase(torch, dev):
+    """Every pair, every variant, checked; one timing line per pair."""
+    from repro_torch.core import compress, mcoll, oracles, runtime
+    from repro_torch.core.comm import Communicator
+    from repro_torch.core.grid import RankGrid
+
+    N, P = 2, 4
+    comm = Communicator(RankGrid(N, P, dev))
+    world = N * P
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    lines, checked = [], 0
+    for coll in runtime.collectives():
+        for algo in mcoll.algorithms(coll):
+            variants = [(nb, torch.float32, {}) for nb in COLL_SIZES]
+            variants.append((64 << 10, torch.int32, {}))
+            if mcoll.supports_chunks(coll, algo):
+                variants += [(nb, torch.float32, {"chunks": 3})
+                             for nb in COLL_SIZES]
+            if mcoll.supports_codec(coll, algo):
+                variants += [(nb, torch.float32, {"codec": c})
+                             for c, _ in SYNC_CODECS for nb in COLL_SIZES]
+            times = {}
+            for nbytes, dtype, knobs in variants:
+                x = _operand(torch, coll, nbytes, dtype, world, gen, dev)
+                what = (f"{coll}/{algo} {nbytes} B {dtype} "
+                        f"{json.dumps(knobs)}")
+                got = comm.invoke(coll, x, algo=algo, **knobs)
+                torch.cuda.synchronize()
+                try:
+                    _check_pair(torch, compress, oracles, coll, x, got,
+                                world, N, P, knobs.get("codec", "none"))
+                except AssertionError as e:
+                    raise AssertionError(f"{what}: {e}") from None
+                checked += 1
+                if not knobs and dtype == torch.float32 \
+                        and nbytes in (COLL_SIZES[0], COLL_SIZES[-1]):
+                    times[nbytes] = _host_ms(
+                        torch, lambda: comm.invoke(coll, x, algo=algo))
+            line = {"collective": coll, "algo": algo,
+                    "variants": len(variants),
+                    "ms_8B": times[COLL_SIZES[0]],
+                    "ms_4MiB": times[COLL_SIZES[-1]]}
+            print("collective " + json.dumps(line))
+            lines.append(line)
+    return {"pairs": len(lines), "checked": checked, "rows": lines}
 
 
 def main() -> int:
@@ -342,22 +645,37 @@ def main() -> int:
     torch.cuda.set_device(dev)
 
     t0 = time.perf_counter()
-    lib = _build.build("codec_int8")
-    print(f"built {lib.relative_to(ROOT)} in "
-          f"{time.perf_counter() - t0:.3f} s")
-    for line in lib.with_suffix(".log").read_text().splitlines():
-        if "registers" in line or "spill" in line:
-            print("  " + line.strip())
+    libs = _build.build_all()
+    print(f"built {len(libs)} libraries in {time.perf_counter() - t0:.3f} s")
+    for lib in libs:
+        print(f"  {lib.relative_to(ROOT)}")
+        for line in lib.with_suffix(".log").read_text().splitlines():
+            if "registers" in line or "spill" in line:
+                print("    " + line.strip())
 
     kernels = kernel_phase(torch, kcodec, ref, dev)
-    print("kernel phase: both kernels bitwise equal to their plain "
+    print("kernel phase: all six kernels bitwise equal to their plain "
           "versions")
-    summary = slice_phase(torch, dev, CONFIG)
-    per_launch = summary["profile"].get("per_launch_ms", {})
-    for name, rec in kernels.items():
-        rec["launches"] = summary["launches"][name]
-        rec["path_ms"] = per_launch.get(name, "not measured")
+    summary = slice_phase(torch, dev, CONFIG, kcodec)
+    for run in summary["syncs"]:
+        per_launch = run["profile"].get("per_launch_ms", {})
+        encodes, decode = CODEC_KERNELS[run["codec"]]
+        rec = kernels[encodes[-1]]
+        rec["launches"] = run["launches"][encodes[-1]]
+        rec["launches_by_cuda_kernel"] = {k: run["launches"][k]
+                                          for k in encodes}
+        rec["path_ms"] = {k: per_launch.get(k, "not measured")
+                          for k in encodes} if len(encodes) > 1 \
+            else per_launch.get(encodes[0], "not measured")
+        kernels[decode]["launches"] = run["launches"][decode]
+        kernels[decode]["path_ms"] = per_launch.get(decode, "not measured")
+    for run in summary["reduce_scatter"]:
+        dec = CODEC_KERNELS[run["codec"]][1]
+        kernels[dec]["reduce_scatter_launches"] = run["launches"][dec]
     print(json.dumps({"slice": summary}))
+    coll = collectives_phase(torch, dev)
+    print(json.dumps({"collectives": {k: v for k, v in coll.items()
+                                      if k != "rows"}}))
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

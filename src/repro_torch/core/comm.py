@@ -7,14 +7,16 @@ persistent, nonblocking ops (port of ``repro.core.comm``).
   * :class:`PlanSpec` normalizes the knobs once (``chunks=None`` == 1 ==
     omitted, ``codec=None`` == "none" == omitted), so every spelling of a
     plan shares one cache entry;
-  * ``op = comm.allreduce_init(...)`` returns a :class:`PersistentOp`: the
-    plan is resolved and its output buffers allocated once, at init;
+  * ``op = comm.<collective>_init(...)`` returns a :class:`PersistentOp`:
+    the plan is resolved and its output buffers allocated once, at init;
     ``op.start(x)`` enqueues the work on the current CUDA stream and
     returns a :class:`CollHandle` at once; ``handle.wait()`` waits on a
     CUDA event recorded after that work, not on the whole device.
 
-Only allreduce is ported so far; ``comm.split`` and the other collectives'
-methods are later slices (ROADMAP.md, queue 1).
+Every collective has its blocking method and its ``*_init`` persistent
+constructor; operands and results follow the reference's global
+conventions (``core/runtime.py``). ``comm.split`` is a later slice
+(ROADMAP.md, queue 1).
 """
 from __future__ import annotations
 
@@ -43,6 +45,8 @@ class PlanSpec:
     chunk_bytes: Optional[int] = None
     codec: Optional[str] = None
     error_budget: float = 0.0
+    #: allgather only: False returns the gather once instead of per rank
+    stacked: bool = True
     #: carry-threaded persistent program: start(x, carry=state) ->
     #: wait() -> (result, new_state) (error-feedback allreduce only)
     carry: bool = False
@@ -160,7 +164,8 @@ class PersistentOp:
 
     def __init__(self, comm: "Communicator", collective: str,
                  shape: Tuple[int, ...], dtype: torch.dtype, algo: str,
-                 kw: Dict[str, Any], *, depth: int = 1, carry: bool = False):
+                 kw: Dict[str, Any], *, stacked: bool = True,
+                 depth: int = 1, carry: bool = False):
         if int(depth) < 1:
             raise ValueError(f"depth must be >= 1, got {depth}")
         self.comm = comm
@@ -169,6 +174,7 @@ class PersistentOp:
         self.dtype = dtype
         self.algo = algo
         self.kw = dict(kw)
+        self.stacked = bool(stacked)
         self.depth = int(depth)
         self.carry = bool(carry)
         self.starts = 0
@@ -176,8 +182,10 @@ class PersistentOp:
         self._released = False
         self._fn = runtime.compile_persistent(
             comm.grid, comm.topo, collective, algo, self.shape, dtype,
-            carry=self.carry, **self.kw)
-        self._out = [torch.empty(self.shape, dtype=dtype,
+            stacked=self.stacked, carry=self.carry, **self.kw)
+        out_shape = runtime.wiring(collective).result_shape(
+            self.shape, comm.grid.world, self.stacked)
+        self._out = [torch.empty(out_shape, dtype=dtype,
                                  device=comm.grid.device)
                      for _ in range(self.depth)]
         global _LIVE_OPS
@@ -326,20 +334,60 @@ class Communicator:
 
     # -- blocking methods ---------------------------------------------------
 
-    def allreduce(self, x, *, algo: str = "auto",
-                  chunks: Optional[int] = None,
-                  chunk_bytes: Optional[int] = None,
-                  codec: Optional[str] = None, error_budget: float = 0.0,
-                  **kw):
+    def _call(self, name: str, x, *, algo: str = "auto",
+              chunks: Optional[int] = None,
+              chunk_bytes: Optional[int] = None,
+              codec: Optional[str] = None, error_budget: float = 0.0,
+              stacked: bool = True, **kw):
+        spec = PlanSpec(name, algo, chunks, chunk_bytes, codec,
+                        error_budget, stacked)
+        algo_r, kw_r = self._resolve(spec, x, kw)
+        return runtime.run_resolved(self.grid, self.topo, name, algo_r, x,
+                                    stacked=stacked, **kw_r)
+
+    def allreduce(self, x, **knobs):
         """Sum-allreduce: in ``(world, m, ...)`` (row d = rank d's payload),
         out the reduced payload per rank, same shape. Knobs: ``algo``
         (default "auto"), ``chunks``/``chunk_bytes``, ``codec``,
         ``error_budget``, plus algorithm kwargs (``inter``, ...)."""
-        spec = PlanSpec("allreduce", algo, chunks, chunk_bytes, codec,
-                        error_budget)
-        algo_r, kw_r = self._resolve(spec, x, kw)
-        return runtime.run_resolved(self.grid, self.topo, "allreduce",
-                                    algo_r, x, **kw_r)
+        return self._call("allreduce", x, **knobs)
+
+    def reduce_scatter(self, x, **knobs):
+        """Reduce-scatter: in ``(world, world*s, ...)``, out each rank's
+        reduced shard concatenated, ``(world*s, ...)``."""
+        return self._call("reduce_scatter", x, **knobs)
+
+    def allgather(self, x, *, stacked: bool = True, **knobs):
+        """Allgather: in ``(world*m, ...)``, rank d's shard at rows
+        ``[d*m, (d+1)*m)``; out stacked ``(world, world*m, ...)`` (row d =
+        rank d's full copy) or the gather once with ``stacked=False``."""
+        return self._call("allgather", x, stacked=stacked, **knobs)
+
+    def alltoall(self, x, **knobs):
+        """All-to-all: in ``(world, world, s...)`` (row d, column g = what
+        rank d sends rank g), out the exchange: row d, column g = what rank
+        d received from rank g."""
+        return self._call("alltoall", x, **knobs)
+
+    def broadcast(self, x, **knobs):
+        """Broadcast from ``root`` (default 0): in ``(m, ...)`` replicated,
+        out stacked ``(world, m, ...)``."""
+        return self._call("broadcast", x, **knobs)
+
+    def scatter(self, x, **knobs):
+        """Scatter from ``root`` (default 0): in ``(world*m, ...)``
+        replicated, out each rank's shard concatenated, ``(world*m, ...)``."""
+        return self._call("scatter", x, **knobs)
+
+    def invoke(self, name: str, x, **knobs):
+        """Name-indexed dispatch to the blocking methods (parametrized
+        sweeps); new call sites should prefer the per-collective
+        methods."""
+        method = getattr(self, name, None)
+        if name not in runtime.collectives() or method is None:
+            raise ValueError(f"unknown collective {name!r}; "
+                             f"one of {runtime.collectives()}")
+        return method(x, **knobs)
 
     # -- persistent nonblocking ops -----------------------------------------
 
@@ -347,7 +395,7 @@ class Communicator:
                    algo: str = "auto", chunks: Optional[int] = None,
                    chunk_bytes: Optional[int] = None,
                    codec: Optional[str] = None, error_budget: float = 0.0,
-                   depth: int = 1, carry: bool = False,
+                   stacked: bool = True, depth: int = 1, carry: bool = False,
                    **kw) -> PersistentOp:
         """Init a :class:`PersistentOp` for ``name`` on a fixed operand
         spec — an example tensor ``x`` or ``shape=``/``dtype=``."""
@@ -357,14 +405,29 @@ class Communicator:
             raise ValueError("persistent op needs an example operand x or "
                              "explicit shape= and dtype=")
         spec = PlanSpec(name, algo, chunks, chunk_bytes, codec,
-                        error_budget, carry)
+                        error_budget, stacked, carry)
         proto = _Proto(shape, dtype)
         algo_r, kw_r = self._resolve(spec, proto, kw)
         return PersistentOp(self, name, proto.shape, dtype, algo_r, kw_r,
-                            depth=depth, carry=carry)
+                            stacked=stacked, depth=depth, carry=carry)
 
     def allreduce_init(self, x=None, **knobs) -> PersistentOp:
         return self.persistent("allreduce", x, **knobs)
+
+    def reduce_scatter_init(self, x=None, **knobs) -> PersistentOp:
+        return self.persistent("reduce_scatter", x, **knobs)
+
+    def allgather_init(self, x=None, **knobs) -> PersistentOp:
+        return self.persistent("allgather", x, **knobs)
+
+    def alltoall_init(self, x=None, **knobs) -> PersistentOp:
+        return self.persistent("alltoall", x, **knobs)
+
+    def broadcast_init(self, x=None, **knobs) -> PersistentOp:
+        return self.persistent("broadcast", x, **knobs)
+
+    def scatter_init(self, x=None, **knobs) -> PersistentOp:
+        return self.persistent("scatter", x, **knobs)
 
     # -- observability passthroughs -----------------------------------------
 

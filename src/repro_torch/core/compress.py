@@ -33,13 +33,13 @@ places where eager PyTorch would differ are fixed on purpose:
     product is exact in float64, so float64 arithmetic rounded to float32
     gives that single rounding.
 
-Codecs whose meta sets ``fused=True`` route the hot-path methods through a
-registered lowering in ``repro_torch.kernels.codec`` (the hand-written CUDA
-kernels, or their plain versions for CPU tensors) while
-:func:`fused_enabled`; :func:`reference_paths` switches that off for A/B
-checks. ``int4_block`` and ``fp8_sim`` keep ``fused=True`` — the selector
-prices them as the reference does — but have no lowering yet, so they run
-the plain codec path.
+Codecs whose meta sets ``fused=True`` (``int8_block``, ``int4_block``,
+``fp8_sim``) route the hot-path methods through their registered lowering
+in ``repro_torch.kernels.codec`` (the hand-written CUDA kernels, or their
+plain versions for CPU tensors) while :func:`fused_enabled`; the
+lowerings decode-reduce as the reference's kernels do, accumulating peer
+by peer from 0 with single-rounding multiply-adds. :func:`reference_paths`
+switches them off for A/B checks: the plain path decodes, then sums.
 """
 from __future__ import annotations
 

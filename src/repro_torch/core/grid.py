@@ -28,6 +28,24 @@ import torch
 
 Axes = Union[str, Sequence[str]]
 
+#: unsigned types PyTorch's CPU kernels cover only in part (no index_put,
+#: no where); the grid moves and sums them as the signed type of the same
+#: width: the same bits, and two's-complement addition wraps alike
+_SIGNED_VIEW = {torch.uint16: torch.int16, torch.uint32: torch.int32,
+                torch.uint64: torch.int64}
+
+
+def _signed(fn):
+    """Run a primitive on the signed view of an unsigned operand and view
+    the result back."""
+    def call(self, x, *args, **kw):
+        dt = _SIGNED_VIEW.get(x.dtype)
+        if dt is None:
+            return fn(self, x, *args, **kw)
+        return fn(self, x.view(dt), *args, **kw).view(x.dtype)
+    call.__name__, call.__doc__ = fn.__name__, fn.__doc__
+    return call
+
 
 class RankGrid:
     """``n_nodes x n_local`` ranks, each a row of every operand.
@@ -116,12 +134,14 @@ class RankGrid:
             return r // self.n_local
         return r
 
+    @_signed
     def psum(self, x: torch.Tensor, axes: Axes) -> torch.Tensor:
         """Every rank gets the sum of its group's rows."""
         g = self._groups(x, axes)
         s = self._sum_members(g)
         return self._ungroup(s.unsqueeze(1).expand_as(g), axes)
 
+    @_signed
     def psum_scatter(self, x: torch.Tensor, axes: Axes,
                      tiled: bool = True) -> torch.Tensor:
         """Reduce-scatter over dim 0 of each rank's payload: member m gets
@@ -151,18 +171,35 @@ class RankGrid:
         return self._ungroup(out, axes)
 
     def all_to_all(self, x: torch.Tensor, axes: Axes, split_axis: int,
-                   concat_axis: int) -> torch.Tensor:
-        """Untiled ``lax.all_to_all``: each rank's ``split_axis`` (size G)
+                   concat_axis: int, tiled: bool = False) -> torch.Tensor:
+        """``lax.all_to_all``. Untiled: each rank's ``split_axis`` (size G)
         is split into G slices, slice j goes to member j, and the received
-        slices stack along a new ``concat_axis`` in source order."""
+        slices stack along a new ``concat_axis`` in source order. Tiled
+        (``split_axis == concat_axis`` only): the axis is cut into G equal
+        chunks, chunk j goes to member j, and the received chunks are
+        concatenated along the same axis in source order."""
         g = self._groups(x, axes)
         G = g.shape[1]
-        if x.shape[1 + split_axis] != G:
-            raise ValueError(f"all_to_all split dim {x.shape[1 + split_axis]}"
-                             f" != group size {G}")
+        n = x.shape[1 + split_axis]
+        if tiled:
+            if split_axis != concat_axis:
+                raise ValueError("tiled all_to_all needs split_axis == "
+                                 "concat_axis")
+            if n % G:
+                raise ValueError(f"tiled all_to_all split dim {n} not "
+                                 f"divisible by group size {G}")
+            shape = tuple(x.shape)
+            d = 1 + split_axis
+            y = self.all_to_all(
+                x.reshape(shape[:d] + (G, n // G) + shape[d + 1:]), axes,
+                split_axis, split_axis)
+            return y.reshape(shape)
+        if n != G:
+            raise ValueError(f"all_to_all split dim {n} != group size {G}")
         y = g.movedim(2 + split_axis, 2).transpose(1, 2)  # (Go, dst, src, ..)
         return self._ungroup(y.movedim(2, 2 + concat_axis), axes)
 
+    @_signed
     def ppermute(self, x: torch.Tensor, axes: Axes,
                  pairs: Iterable[Tuple[int, int]]) -> torch.Tensor:
         """Static permutation within each group: member ``dst`` receives
@@ -181,3 +218,56 @@ class RankGrid:
         src = [src_of[d] for d in dst]
         out[:, dst] = g[:, src]
         return self._ungroup(out, axes)
+
+    # -- per-rank row helpers -----------------------------------------------
+    #
+    # The reference computes rank-dependent offsets from ``lax.axis_index``
+    # inside each device's body; here that index is a ``(world,)`` tensor
+    # (``axis_index``) and each helper is one index gather over the rows of
+    # every rank at once. "Row" is dim 0 of a rank's payload (tensor dim 1).
+
+    def _rows(self, x: torch.Tensor) -> torch.Tensor:
+        if x.shape[0] != self.world:
+            raise ValueError(f"operand dim0 {x.shape[0]} != grid world "
+                             f"{self.world}")
+        return torch.arange(self.world, device=x.device)
+
+    @_signed
+    def take(self, x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+        """``jnp.take(x_r, idx_r, axis=0)`` for every rank ``r``: ``idx``
+        ``(world,)`` takes one row per rank (the row dim is consumed);
+        ``(world, J)`` takes J rows per rank."""
+        rows = self._rows(x)
+        idx = idx.to(device=x.device, dtype=torch.long)
+        return x[rows, idx] if idx.dim() == 1 else x[rows[:, None], idx]
+
+    def roll(self, x: torch.Tensor, shift: torch.Tensor) -> torch.Tensor:
+        """``jnp.roll(x_r, shift_r, axis=0)`` for every rank: row ``k`` of
+        the result is row ``(k - shift_r) % K`` of the input."""
+        K = x.shape[1]
+        k = torch.arange(K, device=x.device)
+        return self.take(x, (k[None, :] - shift.to(x.device)[:, None]) % K)
+
+    def dynamic_slice(self, x: torch.Tensor, start: torch.Tensor,
+                      size: int) -> torch.Tensor:
+        """``lax.dynamic_slice_in_dim(x_r, start_r, size, axis=0)`` for
+        every rank, the start clamped into ``[0, K - size]`` as lax does."""
+        K = x.shape[1]
+        if not 0 <= size <= K:
+            raise ValueError(f"slice size {size} outside [0, {K}]")
+        s = start.to(x.device).clamp(0, K - size)
+        return self.take(x, s[:, None]
+                         + torch.arange(size, device=x.device)[None, :])
+
+    def where(self, cond: torch.Tensor, a: torch.Tensor,
+              b: torch.Tensor) -> torch.Tensor:
+        """``jnp.where(cond_r, a_r, b_r)`` with one boolean per rank: rank
+        ``r`` gets ``a``'s row where ``cond[r]``, else ``b``'s. A select, so
+        every bit (a signed zero too) comes through unchanged."""
+        self._rows(a)
+        if a.dtype in _SIGNED_VIEW and b.dtype == a.dtype:
+            dt = _SIGNED_VIEW[a.dtype]
+            return self.where(cond, a.view(dt), b.view(dt)).view(a.dtype)
+        c = cond.to(a.device).reshape((self.world,)
+                                      + (1,) * (max(a.dim(), b.dim()) - 1))
+        return torch.where(c, a, b)

@@ -9,16 +9,28 @@ written once against the :class:`~repro_torch.core.grid.RankGrid`
 primitives and takes the *stacked* operand: dim 0 is the flat rank in
 row-major ``(node, local)`` order and row ``d`` is rank ``d``'s payload.
 Every ``lax.axis_index`` step of the reference becomes per-rank index
-arithmetic on those rows.
+arithmetic on those rows (``grid.take``/``roll``/``dynamic_slice``/
+``where``), and a masked ``psum`` stays a rank-ordered ``grid.psum``, so
+signed zeros come out as the reference's do.
 
-Ported in this slice: the allreduce family and the compressed allreduce
-with error feedback. Codec work runs as one launch over all ranks: the
-encode on ``(ranks * W, Ls)``, the decode-reduce on ``(ranks, W, nb, 256)``.
-The other five collectives raise ``NotImplementedError`` (ROADMAP.md,
-queue 1).
+Algorithms (selectable, ``algo=`` everywhere):
+  allgather : pip_mcoll | bruck | recursive_doubling | ring | ring_pipeline
+              | single_leader | xla
+  scatter   : pip_mcoll | binomial | linear
+  broadcast : pip_mcoll | binomial | xla (psum mask)
+  allreduce : pip_mcoll (two-level multi-lane) | pip_pipeline (chunked
+              two-phase) | recursive_doubling | xla (the grid's psum)
+  reduce_scatter : pip_mcoll (nodes, then lanes) | xla (flat rank order)
+  alltoall  : pip_mcoll (two-level multi-lane) | pip_pipeline (segmented)
+              | xla (tiled)
 
-Algorithms: allreduce = pip_mcoll (two-level multi-lane) | pip_pipeline
-(chunked two-phase) | recursive_doubling | xla (the grid's psum).
+:data:`CHUNKED` lists the algorithms taking the ``chunks`` pipelining knob
+and :data:`COMPRESSED` those taking a ``codec``. Compressed execution
+encodes before the slow wire axis and decodes after; codec work runs as one
+launch over all ranks (the allreduce encode on ``(ranks * W, Ls)``, every
+decode-reduce on ``(ranks, W, ...)``). Compressed broadcast and scatter
+are root-encodes-once: the trees forward the wire form leafwise and every
+receiver decodes.
 """
 from __future__ import annotations
 
@@ -28,10 +40,6 @@ import torch
 
 from repro_torch.core import compress as _codecs
 from repro_torch.core.topology import Topology
-
-#: the collectives of the reference that this package has not ported yet
-_NOT_PORTED = ("allgather", "scatter", "broadcast", "reduce_scatter",
-               "alltoall")
 
 # ---------------------------------------------------------------------------
 # helpers (per-rank dims follow the leading rank dim)
@@ -229,6 +237,516 @@ def _compressed_allreduce(x, topo: Topology, grid, codec: str, err=None):
     return out, res[:, :orig].reshape(err.shape)
 
 
+def _compressed_reduce_scatter(x, topo: Topology, grid, codec: str):
+    """Wire-axis compressed reduce-scatter, then lossless intra scatter.
+
+    Nodes first, as the lossless two-level order: every rank encodes its W
+    wire sub-slices, the wire all-to-all delivers sub-slice w to wire peer
+    w, one decode_reduce launch sums each rank's W received slices, and a
+    lossless intra psum_scatter finishes the reduction over the fast axis.
+    """
+    cd = _codecs.codec(codec)
+    _check_codec_payload(x, codec, "reduce_scatter")
+    dtype = x.dtype
+    wire, W = _wire_axis(topo)
+    if wire is None:
+        return x
+    fast = topo.local_axis if (topo.n_nodes > 1 and topo.n_local > 1) \
+        else None
+    R, rows = x.shape[0], x.shape[1]
+    if rows % topo.world:
+        raise ValueError(f"reduce_scatter payload dim0 {rows} must be "
+                         f"divisible by world size {topo.world}")
+    flat = x.float().reshape(R, -1)
+    Ls = flat.shape[1] // W
+    comp = cd.encode(flat.reshape(R * W, Ls))
+    mine = cd.decode_reduce(_wire_all_to_all(grid, _split0(comp, (R, W)),
+                                             wire), Ls)
+    if fast:
+        mine = grid.psum_scatter(mine, fast, tiled=True)
+    return mine.to(dtype).reshape((R, rows // topo.world)
+                                  + tuple(x.shape[2:]))
+
+
+def _compressed_allgather(x, topo: Topology, grid, codec: str):
+    """Lossless intra gather into the node block, encoded allgather over
+    the wire axis, decode. Node-major order needs no final shift. The
+    payload reaches ``encode`` in its own dtype (every codec casts
+    internally), so integer-only codecs keep integers off the f32 path."""
+    cd = _codecs.codec(codec)
+    _check_codec_payload(x, codec, "allgather")
+    dtype = x.dtype
+    wire, W = _wire_axis(topo)
+    if wire is None:
+        return x
+    fast = topo.local_axis if (topo.n_nodes > 1 and topo.n_local > 1) \
+        else None
+    nodeblk = grid.all_gather(x, fast, tiled=True) if fast else x
+    R = x.shape[0]
+    flat = nodeblk.reshape(R, -1)
+    L = flat.shape[1]
+    gathered = _wire_all_gather(grid, _split0(cd.encode(flat), (R, 1)), wire)
+    out = cd.decode(_merge01(gathered), L)
+    return out.reshape((R, W * nodeblk.shape[1])
+                       + tuple(nodeblk.shape[2:])).to(dtype)
+
+
+def _compressed_alltoall(x, topo: Topology, grid, codec: str):
+    """Hierarchical all-to-all with the wire exchange compressed: the intra
+    regroup (when both axes exist) stays lossless, the per-node payloads
+    encode before the node-axis exchange and decode after."""
+    cd = _codecs.codec(codec)
+    _check_codec_payload(x, codec, "alltoall")
+    dtype = x.dtype
+    N, Pl = topo.n_nodes, topo.n_local
+    R, s = x.shape[0], tuple(x.shape[2:])
+    if N * Pl == 1:
+        return x
+    if N > 1:
+        v = x.reshape((R, N, Pl) + s)
+        if Pl > 1:
+            v = grid.all_to_all(v, topo.local_axis, 1, 1)
+        flat = v.reshape(R * N, -1)
+        comp = _wire_all_to_all(grid, _split0(cd.encode(flat), (R, N)),
+                                topo.node_axis)
+        out = cd.decode(_merge01(comp), flat.shape[1])
+        return out.reshape((R, N * Pl) + s).to(dtype)
+    flat = x.reshape(R * Pl, -1)
+    comp = _wire_all_to_all(grid, _split0(cd.encode(flat), (R, Pl)),
+                            topo.local_axis)
+    out = cd.decode(_merge01(comp), flat.shape[1])
+    return out.reshape((R, Pl) + s).to(dtype)
+
+
+def _compressed_broadcast(x, topo: Topology, grid, codec: str,
+                          radix: Optional[int], root: int):
+    """Root-encodes-once compressed broadcast: encode, run the broadcast
+    tree leafwise over the wire form (non-root copies are zero-masked as in
+    the lossless tree, so only the root's encoding propagates), decode at
+    every receiver — every rank's output is bitwise ``decode(encode(x))``
+    of the root's payload."""
+    cd = _codecs.codec(codec)
+    _check_codec_payload(x, codec, "broadcast")
+    flat = x.reshape(x.shape[0], -1)
+    comp = {k: _broadcast_tree(v, topo, grid, radix, root)
+            for k, v in cd.encode(flat).items()}
+    return cd.decode(comp, flat.shape[1]).reshape(x.shape).to(x.dtype)
+
+
+def _compressed_scatter(xfull, topo: Topology, grid, codec: str,
+                        radix: Optional[int], root: int):
+    """Root-encodes-once compressed scatter: the root encodes its ``M``
+    per-destination slices into one wire form, the scatter tree forwards it
+    leafwise, and every rank decodes just its own slice — rank d's output
+    is bitwise row d of ``decode(encode(full))``."""
+    cd = _codecs.codec(codec)
+    _check_codec_payload(xfull, codec, "scatter")
+    R, M = xfull.shape[0], topo.world
+    m = xfull.shape[1] // M
+    flat = xfull.reshape(R * M, -1)
+    comp = _split0(cd.encode(flat), (R, M))
+    mine = {k: _scatter_tree(v, topo, grid, radix, root)
+            for k, v in comp.items()}
+    out = cd.decode(_merge01(mine), flat.shape[1])
+    return out.reshape((R, m) + tuple(xfull.shape[2:])).to(xfull.dtype)
+
+
+# ---------------------------------------------------------------------------
+# ALLGATHER
+# ---------------------------------------------------------------------------
+
+
+def pip_mcoll_allgather(x, topo: Topology, grid, radix: Optional[int] = None,
+                        shift_fn=None, codec: str = "none"):
+    """The paper's multi-object allgather (Section 2).
+
+    Per-rank input ``(m, ...)``; output ``(N*P*m, ...)``, the full gather in
+    node-major rank order on every rank. Phases: (1) intra all_gather (the
+    PiP gather into the node's shared buffer; every lane keeps a copy, it
+    sends in phase 2); (2) radix-B rounds, each ONE ppermute over the flat
+    ``(node, local)`` ranks moving S node-blocks per lane, plus one intra
+    all_gather; (3) paper step 6, the shift into rank order: ``grid.roll``
+    by the node index, or ``shift_fn(V, n)`` with ``V`` the stacked
+    ``(world, N, P*m, ...)`` blocks and ``n`` the ``(world,)`` node index.
+
+    ``codec != "none"`` switches to the compressed execution."""
+    if codec != "none":
+        return _compressed_allgather(x, topo, grid, codec)
+    N, Pl = topo.n_nodes, topo.n_local
+    B = int(radix) if radix else Pl + 1
+    if not 2 <= B <= Pl + 1:
+        raise ValueError(f"radix {B} must be in [2, P+1={Pl + 1}]")
+    R, rest = x.shape[0], tuple(x.shape[2:])
+    nodeblk = grid.all_gather(x, topo.local_axis, tiled=True)  # (P*m, ...)
+    if N == 1:
+        return nodeblk
+    n = grid.axis_index(topo.node_axis)
+    # V[j] = node-block of node (n + j) % N; identical on all lanes of a node
+    V = nodeblk[:, None]
+    S = 1
+    while S < N:
+        K = min((B - 1) * S, N - S)  # fresh node-blocks this round
+        n_lanes = min(B - 1, -(-K // S))
+        send_cnt = min(S, K)
+        recv = grid.ppermute(V[:, :send_cnt], _axes(topo),
+                             _mo_perm(topo, S, n_lanes=n_lanes))
+        # lane l received offsets (l+1)*S + [0, send_cnt)
+        shared = grid.all_gather(recv, topo.local_axis)
+        shared = shared.reshape((R, Pl * send_cnt) + tuple(V.shape[2:]))
+        V = torch.cat([V, shared[:, :K]], dim=1)
+        S += K
+    W = shift_fn(V, n) if shift_fn is not None else grid.roll(V, n)
+    return W.reshape((R, N * Pl * x.shape[1]) + rest)
+
+
+def bruck_allgather(x, topo: Topology, grid, radix: int = 2):
+    """Flat Bruck over all M = N*P ranks (the paper's "PiP-MPICH" baseline
+    at radix 2: log2(M) rounds, every rank a single object)."""
+    M = topo.world
+    r = grid.axis_index(_axes(topo))
+    V = x[:, None]
+    S = 1
+    while S < M:
+        for j in range(1, radix):
+            if j * S >= M:
+                break
+            cnt = min(S, M - j * S)
+            # we receive from r + j*S, whose V[:cnt] holds our offsets
+            # j*S + [0, cnt)
+            recv = grid.ppermute(V[:, :cnt], _axes(topo),
+                                 _flat_shift_perm(topo, j * S))
+            V = torch.cat([V, recv], dim=1)
+        S *= radix
+    W = grid.roll(V[:, :M], r)
+    return W.reshape((x.shape[0], M * x.shape[1]) + tuple(x.shape[2:]))
+
+
+def recursive_doubling_allgather(x, topo: Topology, grid):
+    """Flat recursive doubling (power-of-two M only)."""
+    M = topo.world
+    if M & (M - 1):
+        raise ValueError("recursive doubling needs power-of-two world size")
+    r = grid.axis_index(_axes(topo))
+    V = x[:, None]
+    S = 1
+    while S < M:
+        recv = grid.ppermute(V, _axes(topo), [(i, i ^ S) for i in range(M)])
+        # bit 0: this rank's half is the lower one, its blocks come first
+        bit = ((r // S) % 2).bool()
+        V = grid.where(bit, torch.cat([recv, V], dim=1),
+                       torch.cat([V, recv], dim=1))
+        S *= 2
+    return V.reshape((x.shape[0], M * x.shape[1]) + tuple(x.shape[2:]))
+
+
+def _ring_order(grid, topo: Topology, rows):
+    """Stack ring round outputs (rows[i] = block of rank (r - i) % M) and
+    reorder them into rank order per rank."""
+    M = topo.world
+    r = grid.axis_index(_axes(topo))
+    idx = (r[:, None] - torch.arange(M, device=r.device)[None, :]) % M
+    return grid.take(torch.stack(rows, dim=1), idx)
+
+
+def ring_allgather(x, topo: Topology, grid):
+    """Flat ring: M-1 rounds, bandwidth-optimal, latency-worst."""
+    M = topo.world
+    perm = _flat_shift_perm(topo, -1)  # r sends to r+1, receives from r-1
+    rows, cur = [x], x
+    for _ in range(M - 1):
+        cur = grid.ppermute(cur, _axes(topo), perm)
+        rows.append(cur)
+    W = _ring_order(grid, topo, rows)
+    return W.reshape((x.shape[0], M * x.shape[1]) + tuple(x.shape[2:]))
+
+
+def ring_pipeline_allgather(x, topo: Topology, grid, chunks: int = 1):
+    """Segmented ring allgather: the block splits into ``chunks`` segments
+    with an independent ring chain each (each lane sends segment k while
+    receiving segment k+1). ``chunks=1`` is the plain ring."""
+    M = topo.world
+    m = x.shape[1]
+    c = _norm_chunks(chunks, m)
+    perm = _flat_shift_perm(topo, -1)
+    segs, _ = _segments(x, c)
+    rows, cur = [torch.cat(segs, dim=1)], segs
+    for _ in range(M - 1):
+        cur = [grid.ppermute(s, _axes(topo), perm) for s in cur]
+        rows.append(torch.cat(cur, dim=1))
+    W = _ring_order(grid, topo, rows)[:, :, :m]
+    return W.reshape((x.shape[0], M * m) + tuple(x.shape[2:]))
+
+
+def single_leader_allgather(x, topo: Topology, grid):
+    """Single-object hierarchical baseline: intra gather to a leader,
+    leader-only radix-2 Bruck over nodes, intra broadcast (every lane runs
+    the node-axis Bruck; the cost model charges only the leader lane)."""
+    N, Pl = topo.n_nodes, topo.n_local
+    nodeblk = grid.all_gather(x, topo.local_axis, tiled=True)
+    if N == 1:
+        return nodeblk
+    n = grid.axis_index(topo.node_axis)
+    V = nodeblk[:, None]
+    S = 1
+    while S < N:
+        cnt = min(S, N - S)
+        recv = grid.ppermute(V[:, :cnt], topo.node_axis,
+                             [(i, (i - S) % N) for i in range(N)])
+        V = torch.cat([V, recv], dim=1)
+        S += cnt
+    W = grid.roll(V, n)
+    return W.reshape((x.shape[0], N * Pl * x.shape[1]) + tuple(x.shape[2:]))
+
+
+def xla_allgather(x, topo: Topology, grid):
+    """The vendor baseline: the grid's tiled all_gather over every rank."""
+    return grid.all_gather(x, _axes(topo), tiled=True)
+
+
+ALLGATHER = {
+    "pip_mcoll": pip_mcoll_allgather,
+    "bruck": bruck_allgather,
+    "recursive_doubling": recursive_doubling_allgather,
+    "ring": ring_allgather,
+    "ring_pipeline": ring_pipeline_allgather,
+    "single_leader": single_leader_allgather,
+    "xla": xla_allgather,
+}
+
+
+# ---------------------------------------------------------------------------
+# SCATTER (paper Figure 1 collective)
+# ---------------------------------------------------------------------------
+
+
+def _tree_steps(n: int, B: int):
+    """(step sizes S, largest first; tree capacity B**rounds) of a radix-B
+    tree over ``n`` nodes, by exact integer arithmetic."""
+    n_rounds, cap = 1, B
+    while cap < n:
+        cap *= B
+        n_rounds += 1
+    return [B ** i for i in range(n_rounds - 1, -1, -1)], cap
+
+
+def _tree_pairs(topo: Topology, S: int, B: int, root_node: int) -> list:
+    """Static flat perm of one multi-object tree round: lane ``l`` of an
+    active node ``va`` feeds node ``va + (l+1)*S`` (relative to the root)."""
+    N, Pl = topo.n_nodes, topo.n_local
+    pairs = []
+    for va in range(0, N, S * B):
+        for lane in range(Pl):
+            tgt = va + (lane + 1) * S
+            if tgt < min(va + S * B, N):
+                pairs.append((topo.flat((va + root_node) % N, lane),
+                              topo.flat((tgt + root_node) % N, lane)))
+    return pairs
+
+
+def _share_round(grid, topo: Topology, recv, keep, is_dst):
+    """The PiP shared-buffer write of one tree round: exactly one lane of a
+    receiving node is a destination, and its ``recv`` reaches every lane by
+    a masked rank-ordered psum over the local axis (as the reference's
+    ``psum(where(is_dst, recv, 0))``); nodes that received nothing keep
+    ``keep``."""
+    seg = grid.psum(grid.where(is_dst, recv, torch.zeros_like(recv)),
+                    topo.local_axis)
+    got = grid.psum(is_dst.to(torch.int32), topo.local_axis) > 0
+    return grid.where(got, seg, keep)
+
+
+def pip_mcoll_scatter(xfull, topo: Topology, grid,
+                      radix: Optional[int] = None, root: int = 0,
+                      chunks: int = 1, codec: str = "none"):
+    """Multi-object scatter: a radix-(P+1) tree over nodes in which an
+    active node's P lanes feed P distinct child nodes in the same round,
+    then a free intra-node slice (the PiP shared-memory analogue).
+
+    Per-rank input: the full payload ``(N*P*m, ...)`` (only the root's copy
+    is read); output this rank's ``(m, ...)`` shard. ``chunks > 1`` runs
+    one tree per segment of every rank's block; ``codec != "none"`` is the
+    root-encodes-once compressed execution."""
+    M = topo.world
+    if xfull.shape[1] % M:
+        raise ValueError(f"scatter payload dim0 {xfull.shape[1]} must be "
+                         f"divisible by world size {M}")
+    m = xfull.shape[1] // M
+    c = _norm_chunks(chunks, m)
+    if codec != "none":
+        def body(seg):
+            return _compressed_scatter(seg, topo, grid, codec, radix, root)
+    else:
+        def body(seg):
+            return _scatter_tree(seg, topo, grid, radix, root)
+    if c > 1:
+        R, rest = xfull.shape[0], tuple(xfull.shape[2:])
+        segs, per = _segments(xfull.reshape((R, M, m) + rest), c, axis=1)
+        outs = [body(s.reshape((R, M * per) + rest)) for s in segs]
+        return torch.cat(outs, dim=1)[:, :m]
+    return body(xfull)
+
+
+def _scatter_tree(xfull, topo: Topology, grid, radix: Optional[int],
+                  root: int):
+    """One unsegmented multi-object scatter tree (the chunks=1 body)."""
+    N, Pl = topo.n_nodes, topo.n_local
+    B = int(radix) if radix else Pl + 1
+    R, rest = xfull.shape[0], tuple(xfull.shape[2:])
+    m = xfull.shape[1] // topo.world
+    root_node = root // Pl
+    n = grid.axis_index(topo.node_axis)
+    l = grid.axis_index(topo.local_axis)
+    v = (n - root_node) % N  # relative node id; the root's is 0
+    # Rn[j] = node-block of relative node j; valid only on the root so far
+    Rn = torch.roll(xfull.reshape((R, N, Pl * m) + rest), -root_node, dims=1)
+    Rn = grid.where(v == 0, Rn, torch.zeros_like(Rn))
+    if N > 1:
+        steps, cap = _tree_steps(N, B)
+        # pad to the tree capacity so every send window [(l+1)S, (l+2)S)
+        # lies in bounds
+        if cap > N:
+            Rn = torch.cat([Rn, Rn.new_zeros((R, cap - N) + Rn.shape[2:])],
+                           dim=1)
+        for S in steps:
+            pairs = _tree_pairs(topo, S, B, root_node)
+            if not pairs:
+                continue
+            send = grid.dynamic_slice(Rn, (l + 1) * S, S)
+            recv = grid.ppermute(send, _axes(topo), pairs)
+            is_dst = (v % S == 0) & ((v // S) % B == l + 1)
+            Rn = torch.cat([_share_round(grid, topo, recv, Rn[:, :S], is_dst),
+                            Rn[:, S:]], dim=1)
+    # intra scatter: lane l takes slice l of the node block (a local copy)
+    return grid.dynamic_slice(Rn[:, 0], l * m, m)
+
+
+def binomial_scatter(xfull, topo: Topology, grid, root: int = 0):
+    """Classic radix-2 binomial scatter over the flat rank space (log2(M)
+    rounds, one object per node)."""
+    M = topo.world
+    R, rest = xfull.shape[0], tuple(xfull.shape[2:])
+    m = xfull.shape[1] // M
+    v = (grid.axis_index(_axes(topo)) - root) % M
+    Rb = torch.roll(xfull.reshape((R, M, m) + rest), -root, dims=1)
+    Rb = grid.where(v == 0, Rb, torch.zeros_like(Rb))
+    S = 1
+    while S < M:
+        S *= 2
+    if S > M:  # pad to the power-of-two capacity: windows stay in bounds
+        Rb = torch.cat([Rb, Rb.new_zeros((R, S - M) + Rb.shape[2:])], dim=1)
+    S //= 2
+    while S >= 1:
+        pairs = [((va + root) % M, (va + S + root) % M)
+                 for va in range(0, M, S * 2) if va + S < M]
+        if pairs:
+            recv = grid.ppermute(Rb[:, S:2 * S], _axes(topo), pairs)
+            is_dst = (v % S == 0) & ((v // S) % 2 == 1)
+            Rb = torch.cat([grid.where(is_dst, recv, Rb[:, :S]), Rb[:, S:]],
+                           dim=1)
+        S //= 2
+    return Rb[:, 0]
+
+
+def linear_scatter(xfull, topo: Topology, grid, root: int = 0):
+    """The root sends to every rank directly (M-1 serial messages) — the
+    naive baseline, one per-rank row take from the replicated input."""
+    M = topo.world
+    R = xfull.shape[0]
+    blocks = xfull.reshape((R, M, xfull.shape[1] // M)
+                           + tuple(xfull.shape[2:]))
+    return grid.take(blocks, grid.axis_index(_axes(topo)))
+
+
+SCATTER = {
+    "pip_mcoll": pip_mcoll_scatter,
+    "binomial": binomial_scatter,
+    "linear": linear_scatter,
+}
+
+
+# ---------------------------------------------------------------------------
+# BROADCAST
+# ---------------------------------------------------------------------------
+
+
+def pip_mcoll_broadcast(x, topo: Topology, grid, radix: Optional[int] = None,
+                        root: int = 0, chunks: int = 1, codec: str = "none"):
+    """Multi-object broadcast: a radix-(P+1) tree over nodes (an active
+    node's P lanes feed P children per round) plus the free intra share.
+    ``chunks > 1`` runs one tree per segment of the payload; ``codec !=
+    "none"`` is the root-encodes-once compressed execution."""
+    c = _norm_chunks(chunks, x.shape[1] if x.dim() > 1 else 1)
+    if codec != "none":
+        def body(seg):
+            return _compressed_broadcast(seg, topo, grid, codec, radix, root)
+    else:
+        def body(seg):
+            return _broadcast_tree(seg, topo, grid, radix, root)
+    if c > 1:
+        segs, _ = _segments(x, c)
+        return torch.cat([body(s) for s in segs], dim=1)[:, :x.shape[1]]
+    return body(x)
+
+
+def _broadcast_tree(x, topo: Topology, grid, radix: Optional[int],
+                    root: int):
+    """One unsegmented multi-object broadcast tree (the chunks=1 body)."""
+    N, Pl = topo.n_nodes, topo.n_local
+    B = int(radix) if radix else Pl + 1
+    root_node = root // Pl
+    n = grid.axis_index(topo.node_axis)
+    l = grid.axis_index(topo.local_axis)
+    v = (n - root_node) % N
+    Rx = grid.where(v == 0, x, torch.zeros_like(x))
+    if N > 1:
+        steps, _ = _tree_steps(N, B)
+        for S in steps:
+            pairs = _tree_pairs(topo, S, B, root_node)
+            if not pairs:
+                continue
+            recv = grid.ppermute(Rx, _axes(topo), pairs)
+            is_dst = (v % S == 0) & ((v // S) % B == l + 1)
+            Rx = _share_round(grid, topo, recv, Rx, is_dst)
+    return Rx
+
+
+def binomial_broadcast(x, topo: Topology, grid, root: int = 0):
+    """Radix-2 binomial broadcast over the flat rank space."""
+    M = topo.world
+    v = (grid.axis_index(_axes(topo)) - root) % M
+    Rx = grid.where(v == 0, x, torch.zeros_like(x))
+    S = 1
+    while S < M:
+        S *= 2
+    S //= 2
+    while S >= 1:
+        pairs = [((va + root) % M, (va + S + root) % M)
+                 for va in range(0, M, S * 2) if va + S < M]
+        if pairs:
+            recv = grid.ppermute(Rx, _axes(topo), pairs)
+            is_dst = (v % S == 0) & ((v // S) % 2 == 1)
+            Rx = grid.where(is_dst, recv, Rx)
+        S //= 2
+    return Rx
+
+
+def xla_broadcast(x, topo: Topology, grid, root: int = 0):
+    """The vendor broadcast as a psum mask: every copy but the root's is
+    zeroed, then one rank-ordered group sum propagates the root's value
+    (real data flow from the root; a root value of -0.0 comes out +0.0,
+    as the reference's psum gives it)."""
+    r = grid.axis_index(_axes(topo))
+    return grid.psum(grid.where(r == root, x, torch.zeros_like(x)),
+                     _axes(topo))
+
+
+BROADCAST = {
+    "pip_mcoll": pip_mcoll_broadcast,
+    "binomial": binomial_broadcast,
+    "xla": xla_broadcast,
+}
+
+
 # ---------------------------------------------------------------------------
 # ALLREDUCE
 # ---------------------------------------------------------------------------
@@ -330,17 +848,128 @@ ALLREDUCE = {
     "xla": xla_allreduce,
 }
 
+
+# ---------------------------------------------------------------------------
+# REDUCE_SCATTER
+# ---------------------------------------------------------------------------
+
+
+def pip_mcoll_reduce_scatter(x, topo: Topology, grid, codec: str = "none"):
+    """Two-level reduce-scatter: over nodes first (big contiguous chunks on
+    the inter links, all lanes active), then over lanes. Per-rank input
+    ``(M*s, ...)``, output this rank's reduced ``(s, ...)`` chunk. The
+    float sums differ in order from ``xla``'s flat one, so the two give
+    different bits, each its reference's.
+
+    ``codec != "none"`` encodes the per-node slices before the node-axis
+    exchange (see :func:`_compressed_reduce_scatter`)."""
+    if codec != "none":
+        return _compressed_reduce_scatter(x, topo, grid, codec)
+    y = x
+    if topo.n_nodes > 1:
+        y = grid.psum_scatter(y, topo.node_axis, tiled=True)
+    if topo.n_local > 1:
+        y = grid.psum_scatter(y, topo.local_axis, tiled=True)
+    return y
+
+
+def xla_reduce_scatter(x, topo: Topology, grid):
+    """The vendor baseline: one psum_scatter over every rank, summed in
+    flat rank order."""
+    return grid.psum_scatter(x, _axes(topo), tiled=True)
+
+
+REDUCE_SCATTER = {
+    "pip_mcoll": pip_mcoll_reduce_scatter,
+    "xla": xla_reduce_scatter,
+}
+
+
+# ---------------------------------------------------------------------------
+# ALLTOALL (MoE expert-parallel dispatch path)
+# ---------------------------------------------------------------------------
+
+
+def pip_mcoll_alltoall(x, topo: Topology, grid, codec: str = "none"):
+    """Hierarchical multi-object all-to-all: intra regroup so each lane
+    carries 1/P of every node-pair payload, inter all-to-all per lane (all
+    P lanes drive inter links at once), already in flat order after.
+
+    Per-rank input ``(M, s, ...)``: row g is the payload for rank g; output
+    ``(M, s, ...)``: row g is the payload received from rank g."""
+    if codec != "none":
+        return _compressed_alltoall(x, topo, grid, codec)
+    N, Pl = topo.n_nodes, topo.n_local
+    R, s = x.shape[0], tuple(x.shape[2:])
+    v = x.reshape((R, N, Pl) + s)  # (dst_node, dst_lane, s...)
+    if Pl > 1:  # -> (dst_node, src_lane, s...)
+        v = grid.all_to_all(v, topo.local_axis, 1, 1)
+    if N > 1:   # -> (src_node, src_lane, s...)
+        v = grid.all_to_all(v, topo.node_axis, 0, 0)
+    return v.reshape((R, N * Pl) + s)
+
+
+def pip_pipeline_alltoall(x, topo: Topology, grid, chunks: int = 1,
+                          codec: str = "none"):
+    """Segmented hierarchical all-to-all: the per-peer payload (per-rank
+    axis 1) splits into ``chunks`` segments, each an independent
+    :func:`pip_mcoll_alltoall` chain; compressed segments encode on their
+    own. Payloads with no per-peer axis run unsegmented."""
+    if x.dim() < 3:
+        return pip_mcoll_alltoall(x, topo, grid, codec=codec)
+    s0 = x.shape[2]
+    c = _norm_chunks(chunks, s0)
+    if c == 1:
+        return pip_mcoll_alltoall(x, topo, grid, codec=codec)
+    segs, _ = _segments(x, c, axis=1)
+    outs = [pip_mcoll_alltoall(s, topo, grid, codec=codec) for s in segs]
+    return torch.cat(outs, dim=2)[:, :, :s0]
+
+
+def xla_alltoall(x, topo: Topology, grid):
+    """The vendor baseline: one tiled all_to_all over every rank."""
+    return grid.all_to_all(x, _axes(topo), 0, 0, tiled=True)
+
+
+ALLTOALL = {
+    "pip_mcoll": pip_mcoll_alltoall,
+    "pip_pipeline": pip_pipeline_alltoall,
+    "xla": xla_alltoall,
+}
+
+
 # ---------------------------------------------------------------------------
 # registry
 # ---------------------------------------------------------------------------
 
-_REGISTRY = {"allreduce": ALLREDUCE}
+_REGISTRY = {
+    "allgather": ALLGATHER,
+    "scatter": SCATTER,
+    "broadcast": BROADCAST,
+    "allreduce": ALLREDUCE,
+    "reduce_scatter": REDUCE_SCATTER,
+    "alltoall": ALLTOALL,
+}
 
 #: collective -> algorithms accepting the ``chunks`` pipelining knob
-CHUNKED = {"allreduce": frozenset({"pip_pipeline"})}
+CHUNKED = {
+    "allgather": frozenset({"ring_pipeline"}),
+    "scatter": frozenset({"pip_mcoll"}),
+    "broadcast": frozenset({"pip_mcoll"}),
+    "allreduce": frozenset({"pip_pipeline"}),
+    "reduce_scatter": frozenset(),
+    "alltoall": frozenset({"pip_pipeline"}),
+}
 
 #: collective -> algorithms accepting the ``codec`` compression knob
-COMPRESSED = {"allreduce": frozenset({"pip_mcoll", "pip_pipeline"})}
+COMPRESSED = {
+    "allgather": frozenset({"pip_mcoll"}),
+    "scatter": frozenset({"pip_mcoll"}),
+    "broadcast": frozenset({"pip_mcoll"}),
+    "allreduce": frozenset({"pip_mcoll", "pip_pipeline"}),
+    "reduce_scatter": frozenset({"pip_mcoll"}),
+    "alltoall": frozenset({"pip_mcoll", "pip_pipeline"}),
+}
 
 
 def supports_chunks(collective: str, algo: str) -> bool:
@@ -353,18 +982,10 @@ def supports_codec(collective: str, algo: str) -> bool:
     return algo in COMPRESSED.get(collective, ())
 
 
-def _registry(collective: str):
-    if collective in _NOT_PORTED:
-        raise NotImplementedError(
-            f"{collective} is not ported to repro_torch yet (ROADMAP.md, "
-            f"queue 1: the other five collectives' algorithms)")
-    return _REGISTRY[collective]
-
-
 def algorithms(collective: str):
-    return sorted(_registry(collective).keys())
+    return sorted(_REGISTRY[collective].keys())
 
 
 def algorithm(collective: str, algo: str):
     """The raw algorithm function, taking ``(x, topo, grid, **knobs)``."""
-    return _registry(collective)[algo]
+    return _REGISTRY[collective][algo]

@@ -14,10 +14,27 @@ the build/exec caches behind the Communicator.
     resolves and binds the plan once (``PersistentOp`` allocates its output
     buffers at init). Capturing the plan into a CUDA graph is later work.
 
-Operands are stacked: dim 0 is the flat rank of the grid and row ``d`` is
-rank ``d``'s payload; results come back the same way (the reference's
-"row" in, "stack" out allreduce wiring). Operands must already live on the
-grid's device: nothing is moved implicitly.
+Operands and results follow the reference's global conventions per
+collective (:data:`_WIRING`, the reference's ``runtime.build`` table); the
+algorithms themselves take and give *stacked* rows, dim 0 the flat rank:
+
+  ==============  ======================  ===============================
+  collective      operand                 result
+  ==============  ======================  ===============================
+  allgather       ``(D*m, ...)``          ``(D, G*m, ...)`` stacked, or
+                                          ``(G*m, ...)`` (``stacked=False``)
+  scatter         ``(G*m, ...)``          ``(D*m, ...)``
+                  replicated
+  broadcast       ``(m, ...)`` replicated ``(D, m, ...)`` stacked
+  allreduce       ``(D, m, ...)``         ``(D, m, ...)`` stacked
+  reduce_scatter  ``(D, G*s, ...)``       ``(D*s, ...)``
+  alltoall        ``(D, G, s...)``        ``(D, G, s...)``
+  ==============  ======================  ===============================
+
+(D ranks of the grid, G of the topology: equal until sub-communicators
+land.) A replicated operand becomes rows by ``expand``, a view, not a
+copy. Operands must already live on the grid's device: nothing is moved
+implicitly.
 """
 from __future__ import annotations
 
@@ -36,13 +53,84 @@ from repro_torch.core.topology import Topology
 
 AUTO = "auto"
 
-#: every collective of the reference; only allreduce has algorithms so far
-_COLLECTIVES = ("allgather", "allreduce", "alltoall", "broadcast",
-                "reduce_scatter", "scatter")
+
+# ---------------------------------------------------------------------------
+# declarative wiring table: collective -> operand/result conventions
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class Wiring:
+    """How one collective maps its global operand onto stacked rows and
+    the rows back onto its global result (the reference's ``Wiring``).
+
+    in_mode:  "shard"     dim 0 split over the ranks, ``(D*m, ...)`` ->
+                          ``(D, m, ...)``;
+              "replicate" every rank holds the operand: ``expand`` to
+                          ``(D, ...)``;
+              "row"       already stacked, row d = rank d's payload.
+    out_mode: "stack"     rows as they are, row d = rank d's result;
+              "shard"     rows concatenated along dim 0.
+    stackable: honors ``stacked=False`` by returning rank 0's row (every
+               row is the same gather).
+    """
+
+    in_mode: str
+    out_mode: str
+    stackable: bool = False
+
+    def to_rows(self, x, world: int):
+        if self.in_mode == "row":
+            return x
+        if self.in_mode == "replicate":
+            return x.expand((world,) + tuple(x.shape))
+        if x.shape[0] % world:
+            raise ValueError(f"operand dim0 {x.shape[0]} is not divisible "
+                             f"by the {world} ranks")
+        return x.reshape((world, x.shape[0] // world) + tuple(x.shape[1:]))
+
+    def from_rows(self, y, stacked: bool = True):
+        if self.stackable and not stacked:
+            return y[0]
+        if self.out_mode == "shard":
+            return y.reshape((-1,) + tuple(y.shape[2:]))
+        return y
+
+    def result_shape(self, shape, world: int,
+                     stacked: bool = True) -> Tuple[int, ...]:
+        """The global result's shape for an operand of ``shape`` (G == D):
+        a stacked result of a per-rank operand gains the rank dim, a
+        sharded result of stacked rows loses it."""
+        shape = tuple(int(s) for s in shape)
+        if self.stackable and not stacked:
+            return shape
+        if self.in_mode != "row" and self.out_mode == "stack":
+            return (int(world),) + shape
+        if self.in_mode == "row" and self.out_mode == "shard":
+            return shape[1:]
+        return shape
+
+
+_WIRING: Dict[str, Wiring] = {
+    "allgather": Wiring("shard", "stack", stackable=True),
+    "scatter": Wiring("replicate", "shard"),
+    "broadcast": Wiring("replicate", "stack"),
+    "allreduce": Wiring("row", "stack"),
+    "reduce_scatter": Wiring("row", "shard"),
+    "alltoall": Wiring("row", "stack"),
+}
 
 
 def collectives() -> Tuple[str, ...]:
-    return _COLLECTIVES
+    return tuple(sorted(_WIRING))
+
+
+def wiring(collective: str) -> Wiring:
+    """The operand and result conventions of ``collective``."""
+    if collective not in _WIRING:
+        raise ValueError(f"unknown collective {collective!r}; "
+                         f"one of {collectives()}")
+    return _WIRING[collective]
 
 
 def dtype_name(dtype) -> str:
@@ -305,11 +393,17 @@ def supports_carry(collective: str, algo: str) -> bool:
 
 
 def _construct(grid, topo: Topology, collective: str, algo: str,
-               carry: bool, **kw) -> Callable:
+               stacked: bool, carry: bool, **kw) -> Callable:
+    wire = _WIRING[collective]
     fn = partial(_mcoll.algorithm(collective, algo), topo=topo, grid=grid,
                  **kw)
+    world = grid.world
     if not carry:
-        return fn
+        return lambda x: wire.from_rows(fn(wire.to_rows(x, world)), stacked)
+    if (wire.in_mode, wire.out_mode) != ("row", "stack"):
+        raise ValueError(
+            f"carry operand needs row-in/stack-out wiring; {collective} is "
+            f"{wire.in_mode}/{wire.out_mode}")
     if not supports_carry(collective, algo):
         raise ValueError(
             f"{collective}/{algo} does not thread a carry (no err state "
@@ -319,20 +413,20 @@ def _construct(grid, topo: Topology, collective: str, algo: str,
 
 
 def build(grid, topo: Topology, collective: str, algo: str, *,
-          carry: bool = False, **kw) -> Callable:
-    """The cached callable for one resolved plan: ``f(x) -> y`` or, with
-    ``carry=True``, ``f(x, e) -> (y, new_e)``. The fused-codec switch is
+          stacked: bool = True, carry: bool = False, **kw) -> Callable:
+    """The cached callable for one resolved plan: ``f(x) -> y`` on the
+    collective's global operand (see the table above) or, with
+    ``carry=True``, ``f(x, e) -> (y, new_e)``. ``stacked=False`` returns
+    allgather's gather once instead of per rank. The fused-codec switch is
     part of the key, so A/B variants are separate entries."""
-    if collective not in _COLLECTIVES:
-        raise ValueError(f"unknown collective {collective!r}; "
-                         f"one of {collectives()}")
+    wiring(collective)  # raises on an unknown collective
     if algo == AUTO:
         raise ValueError("algo='auto' resolves per input size/dtype; call "
                          "Communicator methods (or resolve_algo first)")
-    key = (grid, topo, collective, algo, carry, _kw_key(kw),
+    key = (grid, topo, collective, algo, stacked, carry, _kw_key(kw),
            _codecs.fused_enabled())
     return _cached(_BUILD_CACHE, "build", key, lambda: _construct(
-        grid, topo, collective, algo, carry, **kw))
+        grid, topo, collective, algo, stacked, carry, **kw))
 
 
 def _check_device(grid, x) -> None:
@@ -342,30 +436,30 @@ def _check_device(grid, x) -> None:
 
 
 def run(grid, topo: Topology, name: str, algo: str, x, *,
-        error_budget: float = 0.0, **kw):
+        stacked: bool = True, error_budget: float = 0.0, **kw):
     """Resolve the plan for ``x`` and execute it through the caches."""
-    if name not in _COLLECTIVES:
-        raise ValueError(f"unknown collective {name!r}; "
-                         f"one of {collectives()}")
+    wiring(name)  # raises on an unknown collective
     algo, kw = resolve_algo(topo, name, algo, x, kw,
                             error_budget=error_budget)
-    return run_resolved(grid, topo, name, algo, x, **kw)
+    return run_resolved(grid, topo, name, algo, x, stacked=stacked, **kw)
 
 
-def run_resolved(grid, topo: Topology, name: str, algo: str, x, **kw):
+def run_resolved(grid, topo: Topology, name: str, algo: str, x, *,
+                 stacked: bool = True, **kw):
     """Execute an already-resolved plan through the exec cache (keyed on
     the plan plus the operand's shape and dtype)."""
     _check_device(grid, x)
-    key = (grid, topo, name, algo, _kw_key(kw),
+    key = (grid, topo, name, algo, stacked, _kw_key(kw),
            (tuple(x.shape), dtype_name(x.dtype)), _codecs.fused_enabled())
-    fn = _cached(_EXEC_CACHE, "exec", key,
-                 lambda: build(grid, topo, name, algo, **kw))
+    fn = _cached(_EXEC_CACHE, "exec", key, lambda: build(
+        grid, topo, name, algo, stacked=stacked, **kw))
     return fn(x)
 
 
 def compile_persistent(grid, topo: Topology, name: str, algo: str,
                        shape: Tuple[int, ...], dtype, *,
-                       carry: bool = False, **kw) -> Callable:
+                       stacked: bool = True, carry: bool = False,
+                       **kw) -> Callable:
     """Bind one resolved plan for a fixed operand shape/dtype (the
     ``PersistentOp`` backend). Entries share the LRU exec cache, so
     re-initialising an op with an identical spec is a hit."""
@@ -373,8 +467,8 @@ def compile_persistent(grid, topo: Topology, name: str, algo: str,
         raise ValueError("compile_persistent needs a resolved plan; call "
                          "resolve_algo first (Communicator.persistent "
                          "does this)")
-    key = (grid, topo, name, algo, _kw_key(kw),
+    key = (grid, topo, name, algo, stacked, _kw_key(kw),
            (tuple(shape), dtype_name(dtype)), ("persistent", carry),
            _codecs.fused_enabled())
     return _cached(_EXEC_CACHE, "exec", key, lambda: build(
-        grid, topo, name, algo, carry=carry, **kw))
+        grid, topo, name, algo, stacked=stacked, carry=carry, **kw))

@@ -20,7 +20,8 @@ import pathlib
 import shutil
 import subprocess
 import tempfile
-from typing import Dict
+from concurrent.futures import ThreadPoolExecutor
+from typing import Dict, List, Sequence
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD = pathlib.Path(__file__).resolve().parents[3] / "build"
@@ -30,13 +31,20 @@ FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 #: ctypes signatures per library: function -> (restype, argtypes)
 _P, _I64, _INT = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+_BLOCK_CODEC = {
+    "encode": (_INT, [_P, _P, _P, _P, _P, _I64, _I64, _I64, _P]),
+    "decode_reduce": (_INT, [_P, _P, _P, _I64, _I64, _I64, _I64, _P]),
+    "error_string": (ctypes.c_char_p, [_INT]),
+}
 SIGNATURES = {
-    "codec_int8": {
-        "codec_int8_encode": (_INT, [_P, _P, _P, _P, _P, _I64, _I64, _I64,
-                                     _P]),
-        "codec_int8_decode_reduce": (_INT, [_P, _P, _P, _I64, _I64, _I64,
-                                            _I64, _P]),
-        "codec_int8_error_string": (ctypes.c_char_p, [_INT]),
+    "codec_int8": {f"codec_int8_{k}": v for k, v in _BLOCK_CODEC.items()},
+    "codec_int4": {f"codec_int4_{k}": v for k, v in _BLOCK_CODEC.items()},
+    "codec_fp8": {
+        "codec_fp8_encode": (_INT, [_P, _P, _P, _P, _P, _P, _I64, _I64,
+                                    _P]),
+        "codec_fp8_decode_reduce": (_INT, [_P, _P, _P, _I64, _I64, _I64,
+                                           _I64, _P]),
+        "codec_fp8_error_string": (ctypes.c_char_p, [_INT]),
     },
 }
 
@@ -84,6 +92,13 @@ def build(name: str) -> pathlib.Path:
         if os.path.exists(tmp):
             os.unlink(tmp)
     return out
+
+
+def build_all(names: Sequence[str] = tuple(SIGNATURES)) -> List[pathlib.Path]:
+    """Build several sources at once: one nvcc process each, all started
+    together; raises with the first failure's output."""
+    with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
+        return list(pool.map(build, names))
 
 
 def load(name: str) -> ctypes.CDLL:

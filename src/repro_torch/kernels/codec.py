@@ -2,22 +2,24 @@
 ``repro.kernels.codec``).
 
 Each wrapper dispatches on its operand's device: a CUDA tensor launches
-the hand-written kernel in ``csrc/codec_int8.cu`` (built on first use by
-``kernels/_build.py``); a CPU tensor runs the plain version in
-``kernels/ref.py``. Any other device, a wrong dtype, a non-contiguous
+the hand-written kernel in ``csrc/codec_{int8,int4,fp8}.cu`` (built on
+first use by ``kernels/_build.py``); a CPU tensor runs the plain version
+in ``kernels/ref.py``. Any other device, a wrong dtype, a non-contiguous
 operand, a failed build or a refused launch raises — nothing falls back.
 
   encode + error feedback   read x (and the carried residual) once; write
-                            the int8 wire blocks, the scales and the new
-                            residual from registers.
+                            the wire form, the scales and the new residual
+                            from registers (fp8: one amax pass, then one
+                            element pass, since its scale spans a slice).
   decode + reduce           accumulate the W incoming wire slices in
                             registers and write the f32 sum once.
 
 ``launches`` counts kernel launches per CUDA kernel (the CPU path counts
-nothing), so a run can show that its path went through the kernels.
+nothing), so a run can show that its path went through the kernels; one
+fp8 encode counts one ``fp8_amax`` and one ``fp8_encode`` launch.
 
-The :class:`CodecLowering` registry holds ``int8_block``; ``int4_block``
-and ``fp8_sim`` have no lowering yet and run their plain codec paths.
+The :class:`CodecLowering` registry holds ``int8_block``, ``int4_block``
+and ``fp8_sim``.
 """
 from __future__ import annotations
 
@@ -29,8 +31,13 @@ import torch
 from repro_torch.core.compress import BLOCK
 from repro_torch.kernels import _build, ref
 
-#: launches per CUDA kernel; both encode wrappers launch int8_block_encode
-launches: Dict[str, int] = {"int8_block_encode": 0, "int8_decode_reduce": 0}
+#: launches per CUDA kernel; both encode wrappers of a codec launch the
+#: same kernel(s)
+launches: Dict[str, int] = {
+    "int8_block_encode": 0, "int8_decode_reduce": 0,
+    "int4_block_encode": 0, "int4_decode_reduce": 0,
+    "fp8_amax": 0, "fp8_encode": 0, "fp8_decode_reduce": 0,
+}
 
 
 def reset_launches() -> None:
@@ -59,14 +66,19 @@ def _check(t: torch.Tensor, dtype: torch.dtype, what: str) -> None:
         raise ValueError(f"{what}: the kernel takes contiguous tensors")
 
 
-def _raise_on(rc: int, kernel: str) -> None:
+def _raise_on(rc: int, lib: str, kernel: str) -> None:
     if rc:
-        msg = _build.load("codec_int8").codec_int8_error_string(rc)
+        msg = getattr(_build.load(lib), f"{lib}_error_string")(rc)
         raise RuntimeError(f"{kernel} launch failed: CUDA error {rc} "
                            f"({msg.decode() if msg else '?'})")
 
 
-def _encode_launch(x: torch.Tensor, err: Optional[torch.Tensor]):
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _check_encode(x: torch.Tensor, err: Optional[torch.Tensor]):
+    """Checks both encode operands; returns (lead dims, S, L)."""
     _check(x, torch.float32, "x")
     if err is not None:
         _check(err, torch.float32, "err")
@@ -76,51 +88,45 @@ def _encode_launch(x: torch.Tensor, err: Optional[torch.Tensor]):
     S = 1
     for d in lead:
         S *= int(d)
+    return lead, S, L
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _block_encode_launch(lib: str, kernel: str, wire_dtype, wire_cols: int,
+                         x: torch.Tensor, err: Optional[torch.Tensor]):
+    """One launch of a block codec's encode: wire ``(*B, nb, wire_cols)``,
+    scales ``(*B, nb)``, residual like ``x``."""
+    lead, S, L = _check_encode(x, err)
     nb = -(-L // BLOCK)
-    q = torch.empty(lead + (nb, BLOCK), dtype=torch.int8, device=x.device)
+    q = torch.empty(lead + (nb, wire_cols), dtype=wire_dtype,
+                    device=x.device)
     scale = torch.empty(lead + (nb,), dtype=torch.float32, device=x.device)
     res = torch.empty_like(x)
     if S * nb:
-        lib = _build.load("codec_int8")
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.codec_int8_encode(
-            x.data_ptr(), None if err is None else err.data_ptr(),
-            q.data_ptr(), scale.data_ptr(), res.data_ptr(), S, L, nb, stream)
-        _raise_on(rc, "int8_block_encode")
-        launches["int8_block_encode"] += 1
+        rc = getattr(_build.load(lib), f"{lib}_encode")(
+            x.data_ptr(), _ptr(err), q.data_ptr(), scale.data_ptr(),
+            res.data_ptr(), S, L, nb, _stream(x))
+        _raise_on(rc, lib, kernel)
+        launches[kernel] += 1
     return {"q": q, "scale": scale}, res
 
 
-def int8_encode_feedback(x: torch.Tensor, err: torch.Tensor):
-    """Encode ``x + err``: ``(*B, L)`` f32 -> ({"q" (*B, nb, 256) int8,
-    "scale" (*B, nb) f32}, residual (*B, L) f32)."""
-    if not _on_card(x, err):
-        return ref.int8_encode_feedback(x, err)
-    return _encode_launch(x, err)
-
-
-def int8_encode_residual(x: torch.Tensor):
-    """Encode ``x`` -> (wire form, round-trip residual); as above without
-    the carried error."""
-    if not _on_card(x):
-        return ref.int8_encode_residual(x)
-    return _encode_launch(x, None)
-
-
-def int8_decode_reduce(comp, length: int) -> torch.Tensor:
-    """Sum the ``(*B, W, nb, 256)`` int8 wire slices times their
-    ``(*B, W, nb)`` scales over W -> ``(*B, length)`` f32 (at most one
-    leading batch dim)."""
+def _block_decode_launch(lib: str, kernel: str, wire_dtype, wire_cols: int,
+                         comp, length: int) -> torch.Tensor:
+    """One launch of a block codec's decode-reduce over ``(*B, W, nb,
+    wire_cols)`` wire slices and ``(*B, W, nb)`` scales -> ``(*B,
+    length)`` f32 (at most one leading batch dim)."""
     q, scale = comp["q"], comp["scale"]
-    if not _on_card(q, scale):
-        return ref.int8_decode_reduce(comp, length)
-    _check(q, torch.int8, "q")
+    _check(q, wire_dtype, "q")
     _check(scale, torch.float32, "scale")
     if q.dim() not in (3, 4) or tuple(q.shape[:-1]) != tuple(scale.shape) \
-            or q.shape[-1] != BLOCK:
+            or q.shape[-1] != wire_cols:
         raise ValueError(f"wire form q {tuple(q.shape)} / scale "
-                         f"{tuple(scale.shape)} is not (*B, W, nb, 256) / "
-                         f"(*B, W, nb)")
+                         f"{tuple(scale.shape)} is not (*B, W, nb, "
+                         f"{wire_cols}) / (*B, W, nb)")
     W, nb = int(scale.shape[-2]), int(scale.shape[-1])
     if not 0 <= int(length) <= nb * BLOCK:
         raise ValueError(f"length {length} outside [0, {nb * BLOCK}]")
@@ -129,13 +135,151 @@ def int8_decode_reduce(comp, length: int) -> torch.Tensor:
     out = torch.empty(lead + (int(length),), dtype=torch.float32,
                       device=q.device)
     if R * int(length):
-        lib = _build.load("codec_int8")
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.codec_int8_decode_reduce(q.data_ptr(), scale.data_ptr(),
-                                          out.data_ptr(), R, W, nb,
-                                          int(length), stream)
-        _raise_on(rc, "int8_decode_reduce")
-        launches["int8_decode_reduce"] += 1
+        rc = getattr(_build.load(lib), f"{lib}_decode_reduce")(
+            q.data_ptr(), scale.data_ptr(), out.data_ptr(), R, W, nb,
+            int(length), _stream(q))
+        _raise_on(rc, lib, kernel)
+        launches[kernel] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# int8_block
+# ---------------------------------------------------------------------------
+
+
+def _int8_encode_launch(x, err):
+    return _block_encode_launch("codec_int8", "int8_block_encode",
+                                torch.int8, BLOCK, x, err)
+
+
+def int8_encode_feedback(x: torch.Tensor, err: torch.Tensor):
+    """Encode ``x + err``: ``(*B, L)`` f32 -> ({"q" (*B, nb, 256) int8,
+    "scale" (*B, nb) f32}, residual (*B, L) f32)."""
+    if not _on_card(x, err):
+        return ref.int8_encode_feedback(x, err)
+    return _int8_encode_launch(x, err)
+
+
+def int8_encode_residual(x: torch.Tensor):
+    """Encode ``x`` -> (wire form, round-trip residual); as above without
+    the carried error."""
+    if not _on_card(x):
+        return ref.int8_encode_residual(x)
+    return _int8_encode_launch(x, None)
+
+
+def int8_decode_reduce(comp, length: int) -> torch.Tensor:
+    """Sum the ``(*B, W, nb, 256)`` int8 wire slices times their
+    ``(*B, W, nb)`` scales over W -> ``(*B, length)`` f32 (at most one
+    leading batch dim)."""
+    if not _on_card(comp["q"], comp["scale"]):
+        return ref.int8_decode_reduce(comp, length)
+    return _block_decode_launch("codec_int8", "int8_decode_reduce",
+                                torch.int8, BLOCK, comp, length)
+
+
+# ---------------------------------------------------------------------------
+# int4_block
+# ---------------------------------------------------------------------------
+
+
+def _int4_encode_launch(x, err):
+    return _block_encode_launch("codec_int4", "int4_block_encode",
+                                torch.uint8, BLOCK // 2, x, err)
+
+
+def int4_encode_feedback(x: torch.Tensor, err: torch.Tensor):
+    """Encode ``x + err``: ``(*B, L)`` f32 -> ({"q" (*B, nb, 128) uint8
+    nibble pairs, "scale" (*B, nb) f32}, residual (*B, L) f32)."""
+    if not _on_card(x, err):
+        return ref.int4_encode_feedback(x, err)
+    return _int4_encode_launch(x, err)
+
+
+def int4_encode_residual(x: torch.Tensor):
+    """Encode ``x`` -> (wire form, round-trip residual); as above without
+    the carried error."""
+    if not _on_card(x):
+        return ref.int4_encode_residual(x)
+    return _int4_encode_launch(x, None)
+
+
+def int4_decode_reduce(comp, length: int) -> torch.Tensor:
+    """Sum the ``(*B, W, nb, 128)`` packed wire slices times their
+    ``(*B, W, nb)`` scales over W -> ``(*B, length)`` f32 (at most one
+    leading batch dim)."""
+    if not _on_card(comp["q"], comp["scale"]):
+        return ref.int4_decode_reduce(comp, length)
+    return _block_decode_launch("codec_int4", "int4_decode_reduce",
+                                torch.uint8, BLOCK // 2, comp, length)
+
+
+# ---------------------------------------------------------------------------
+# fp8_sim
+# ---------------------------------------------------------------------------
+
+
+def _fp8_encode_launch(x: torch.Tensor, err: Optional[torch.Tensor]):
+    lead, S, L = _check_encode(x, err)
+    q = torch.empty(x.shape, dtype=torch.uint8, device=x.device)
+    scale = torch.empty(lead, dtype=torch.float32, device=x.device)
+    res = torch.empty_like(x)
+    if S and not L:
+        raise ValueError("fp8 encode of empty slices: no amax to scale by")
+    if S:
+        amax = torch.empty((S,), dtype=torch.int32, device=x.device)
+        rc = _build.load("codec_fp8").codec_fp8_encode(
+            x.data_ptr(), _ptr(err), amax.data_ptr(), q.data_ptr(),
+            scale.data_ptr(), res.data_ptr(), S, L, _stream(x))
+        _raise_on(rc, "codec_fp8", "fp8_encode")
+        launches["fp8_amax"] += 1
+        launches["fp8_encode"] += 1
+    return {"q": q, "scale": scale}, res
+
+
+def fp8_encode_feedback(x: torch.Tensor, err: torch.Tensor):
+    """Encode ``x + err``: ``(*B, L)`` f32 -> ({"q" (*B, L) uint8 e4m3
+    bits, "scale" (*B,) f32}, residual (*B, L) f32)."""
+    if not _on_card(x, err):
+        return ref.fp8_encode_feedback(x, err)
+    return _fp8_encode_launch(x, err)
+
+
+def fp8_encode_residual(x: torch.Tensor):
+    """Encode ``x`` -> (wire form, round-trip residual); as above without
+    the carried error."""
+    if not _on_card(x):
+        return ref.fp8_encode_residual(x)
+    return _fp8_encode_launch(x, None)
+
+
+def fp8_decode_reduce(comp, length: int) -> torch.Tensor:
+    """Sum the ``(*B, W, Lq)`` e4m3 wire slices times their ``(*B, W)``
+    scales over W -> ``(*B, length)`` f32 (at most one leading batch
+    dim)."""
+    q, scale = comp["q"], comp["scale"]
+    if not _on_card(q, scale):
+        return ref.fp8_decode_reduce(comp, length)
+    _check(q, torch.uint8, "q")
+    _check(scale, torch.float32, "scale")
+    if q.dim() not in (2, 3) or tuple(q.shape[:-1]) != tuple(scale.shape):
+        raise ValueError(f"wire form q {tuple(q.shape)} / scale "
+                         f"{tuple(scale.shape)} is not (*B, W, Lq) / "
+                         f"(*B, W)")
+    W, Lq = int(q.shape[-2]), int(q.shape[-1])
+    if not 0 <= int(length) <= Lq:
+        raise ValueError(f"length {length} outside [0, {Lq}]")
+    lead = tuple(q.shape[:-2])
+    R = int(lead[0]) if lead else 1
+    out = torch.empty(lead + (int(length),), dtype=torch.float32,
+                      device=q.device)
+    if R * int(length):
+        rc = _build.load("codec_fp8").codec_fp8_decode_reduce(
+            q.data_ptr(), scale.data_ptr(), out.data_ptr(), R, W, Lq,
+            int(length), _stream(q))
+        _raise_on(rc, "codec_fp8", "fp8_decode_reduce")
+        launches["fp8_decode_reduce"] += 1
     return out
 
 
@@ -167,12 +311,23 @@ def _register(lw: CodecLowering) -> CodecLowering:
     return lw
 
 
-_register(CodecLowering(
-    "int8_block",
-    lambda x, err: int8_encode_feedback(x.contiguous(), err.contiguous()),
-    lambda x: int8_encode_residual(x.contiguous()),
-    lambda comp, length: int8_decode_reduce(
-        {k: v.contiguous() for k, v in comp.items()}, length)))
+def _lowering(name, encode_feedback, encode_residual, decode_reduce):
+    """Register one codec's wrappers, taking any operand layout (the
+    collectives hand over views; the kernels read contiguous rows)."""
+    return _register(CodecLowering(
+        name,
+        lambda x, err: encode_feedback(x.contiguous(), err.contiguous()),
+        lambda x: encode_residual(x.contiguous()),
+        lambda comp, length: decode_reduce(
+            {k: v.contiguous() for k, v in comp.items()}, length)))
+
+
+_lowering("int8_block", int8_encode_feedback, int8_encode_residual,
+          int8_decode_reduce)
+_lowering("int4_block", int4_encode_feedback, int4_encode_residual,
+          int4_decode_reduce)
+_lowering("fp8_sim", fp8_encode_feedback, fp8_encode_residual,
+          fp8_decode_reduce)
 
 
 def lowering(name: str) -> Optional[CodecLowering]:

@@ -1,7 +1,8 @@
 """Plain PyTorch versions of the codec kernels.
 
 Each function computes exactly what its CUDA kernel in
-``kernels/csrc/codec_int8.cu`` computes, with ordinary tensor ops. The
+``kernels/csrc/codec_{int8,int4,fp8}.cu`` computes, with ordinary tensor
+ops. The
 wrappers in ``kernels/codec.py`` use these only for tensors on the CPU; the
 tests hold them against the reference's Pallas kernels (interpret mode),
 and ``chip_smoke.py`` holds each kernel against them on the card.
@@ -10,31 +11,44 @@ Every function takes an optional leading rank dim: ``x`` is ``(S, L)`` or
 ``(R, S, L)``; wire leaves and outputs carry the same leading dims.
 
 Rounding contract shared with the kernels (see ``core/compress.py``):
-scale ``amax * f32(1/127)``, round half to even, residual ``c - q*scale``
-and the decode accumulation ``acc + q*scale`` each rounded once (fused
-multiply-add), accumulated over peers ``w = 0..W-1`` in order from 0.
+the block codecs' scale is ``amax * f32(1/127)`` (int8) or ``amax *
+f32(1/7)`` (int4) per 256-element block, fp8's ``max(amax * f32(1/448),
+1e-30)`` per slice; quantization rounds half to even; the residual ``c -
+q*scale`` and the decode accumulation ``acc + q*scale`` are each rounded
+once (a fused multiply-add), accumulated over peers ``w = 0..W-1`` in order
+from 0. Float64 holds each ``acc + q*scale`` exactly for payloads whose
+peer terms lie within 2**29 of each other, so one cast back gives the fused
+multiply-add's single rounding.
 
-NaN: a NaN in a block makes its amax and scale NaN, so the block's
-residual and every decoded sum that includes the block are NaN. The int8
-value written for that block is not specified (the kernel writes -127).
+NaN: a NaN in a block (fp8: in a slice) makes its amax and scale NaN, so
+the residual there and every decoded sum that includes it are NaN. The wire
+value written there is not specified (the int8 kernel writes -127, the
+int4 kernel nibble 1, the fp8 kernel a NaN byte): compare NaN positions.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.core.compress import (BLOCK, _RECIP127, _blocks,
+from repro_torch.core.compress import (_FP8_MAX, _FP8_TINY, _RECIP127,
+                                       _RECIP448, _RECIP7, BLOCK, _blocks,
                                        _fma_residual, _quantize)
 
 
-def _encode(c):
+def _block_encode(c, recip: float, qmax: int):
+    """Per-block quantization of ``c`` ``(*B, L)`` -> (q ``(*B, nb, 256)``
+    float, scale ``(*B, nb)``, residual ``(*B, L)``)."""
     lead, L = tuple(c.shape[:-1]), c.shape[-1]
     blocks = _blocks(c.reshape(-1, L))
-    q, scale = _quantize(blocks, _RECIP127, 127)
+    q, scale = _quantize(blocks, recip, qmax)
     res = _fma_residual(blocks, q, scale[..., None])
     nb = blocks.shape[1]
-    return ({"q": q.to(torch.int8).reshape(lead + (nb, BLOCK)),
-             "scale": scale.reshape(lead + (nb,))},
+    return (q.reshape(lead + (nb, BLOCK)), scale.reshape(lead + (nb,)),
             res.reshape(-1, nb * BLOCK)[:, :L].reshape(lead + (L,)))
+
+
+def _encode(c):
+    q, scale, res = _block_encode(c, _RECIP127, 127)
+    return {"q": q.to(torch.int8), "scale": scale}, res
 
 
 def int8_encode_feedback(x, err):
@@ -47,18 +61,98 @@ def int8_encode_residual(x):
     return _encode(x.float())
 
 
+def _int4_encode(c):
+    q, scale, res = _block_encode(c, _RECIP7, 7)
+    pairs = (q.to(torch.int32) + 8).reshape(
+        tuple(q.shape[:-1]) + (BLOCK // 2, 2))
+    packed = (pairs[..., 0] | (pairs[..., 1] << 4)).to(torch.uint8)
+    return {"q": packed, "scale": scale}, res
+
+
+def int4_encode_feedback(x, err):
+    """Encode ``x + err`` to int4 nibble pairs -> ({"q" ``(*B, nb, 128)``
+    uint8, "scale" ``(*B, nb)``}, residual): ``q`` in [-7, 7] against
+    ``blockmax * f32(1/7)``, stored +8, the even element in the low
+    nibble."""
+    return _int4_encode(x.float() + err.float())
+
+
+def int4_encode_residual(x):
+    """Encode ``x`` -> (wire form, residual); as above without the carried
+    error."""
+    return _int4_encode(x.float())
+
+
+def _fp8_encode(c):
+    scale = torch.clamp_min(c.abs().amax(dim=-1) * _RECIP448, _FP8_TINY)
+    f8 = torch.clamp(c / scale[..., None], -_FP8_MAX, _FP8_MAX) \
+        .to(torch.float8_e4m3fn)
+    return ({"q": f8.view(torch.uint8), "scale": scale},
+            _fma_residual(c, f8.float(), scale[..., None]))
+
+
+def fp8_encode_feedback(x, err):
+    """Encode ``x + err`` as e4m3 against a per-slice scale -> ({"q"
+    ``(*B, L)`` uint8 (the e4m3 bits), "scale" ``(*B,)``}, residual). The
+    cast rounds half to even and saturates at +-448."""
+    return _fp8_encode(x.float() + err.float())
+
+
+def fp8_encode_residual(x):
+    """Encode ``x`` -> (wire form, residual); as above without the carried
+    error."""
+    return _fp8_encode(x.float())
+
+
+def _accumulate(terms, length: int):
+    """``acc = acc + t_w`` over the float64 peer terms in order, from a
+    float32 0.0 (so a -0.0 term sums to +0.0), each step rounded once (see
+    the module note) -> ``(*B, length)``."""
+    acc = None
+    for t in terms:
+        if acc is None:
+            acc = torch.zeros(t.shape, dtype=torch.float32, device=t.device)
+        acc = (acc.double() + t).float()
+    return acc[..., :length]
+
+
 def int8_decode_reduce(comp, length: int):
     """Sum over the peer axis W of ``q * scale``: ``q`` is
     ``(*B, W, nb, 256)`` int8, ``scale`` ``(*B, W, nb)`` -> ``(*B, length)``
-    float32. Float64 holds each ``acc + q*scale`` exactly for payloads whose
-    peer scales lie within 2**29 of each other, so the cast back is the
-    fused multiply-add's single rounding."""
+    float32."""
     q, scale = comp["q"], comp["scale"]
     W, nb = scale.shape[-2:]
-    acc = torch.zeros(tuple(q.shape[:-3]) + (nb * BLOCK,),
-                      dtype=torch.float32, device=q.device)
-    for w in range(W):
-        term = (q[..., w, :, :].double().flatten(-2)
-                * scale[..., w, :].double().repeat_interleave(BLOCK, dim=-1))
-        acc = (acc.double() + term).float()
-    return acc[..., :length]
+    return _accumulate(
+        ((q[..., w, :, :].double().flatten(-2)
+          * scale[..., w, :].double().repeat_interleave(BLOCK, dim=-1))
+         for w in range(W)), length)
+
+
+def _int4_unpack(packed):
+    """``(..., 128)`` uint8 nibble pairs -> ``(..., 256)`` int32 in
+    [-8, 7], even element from the low nibble."""
+    b = packed.to(torch.int32)
+    return torch.stack([(b & 0xF) - 8, (b >> 4) - 8], dim=-1).flatten(-2)
+
+
+def int4_decode_reduce(comp, length: int):
+    """Sum over the peer axis W of the unpacked ``q * scale``: ``q`` is
+    ``(*B, W, nb, 128)`` uint8, ``scale`` ``(*B, W, nb)`` ->
+    ``(*B, length)`` float32."""
+    q, scale = comp["q"], comp["scale"]
+    W, nb = scale.shape[-2:]
+    return _accumulate(
+        ((_int4_unpack(q[..., w, :, :]).double().flatten(-2)
+          * scale[..., w, :].double().repeat_interleave(BLOCK, dim=-1))
+         for w in range(W)), length)
+
+
+def fp8_decode_reduce(comp, length: int):
+    """Sum over the peer axis W of the e4m3 values times their slice's
+    scale: ``q`` is ``(*B, W, L)`` uint8, ``scale`` ``(*B, W)`` ->
+    ``(*B, length)`` float32."""
+    q, scale = comp["q"], comp["scale"]
+    W = scale.shape[-1]
+    return _accumulate(
+        ((q[..., w, :].view(torch.float8_e4m3fn).double()
+          * scale[..., w, None].double()) for w in range(W)), length)

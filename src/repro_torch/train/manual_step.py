@@ -228,6 +228,16 @@ class OverlappedGradSync:
             self.rebuilds += 1
         self._plans = plans
 
+    def release(self) -> None:
+        """Release every persistent op and drop the error state, so their
+        buffers can be freed before another sync is built; the next
+        ``ensure_ops`` builds everything anew."""
+        for op in self._ops + [self._metric_op]:
+            if op is not None:
+                op.release()
+        self._ops, self.errs, self._metric_op = [], [], None
+        self._plans = self._last_budget = None
+
     def start(self, i: int, payload):
         """Start bucket ``i``'s persistent allreduce (threading its EF
         carry when the plan compresses); returns the handle."""

@@ -2,7 +2,8 @@
 
 For allreduce on ``host_cpu`` and ``host_ipc`` links, across topologies,
 size buckets and error budgets, the prior's choice (algorithm, chunk
-count, codec) and its modeled seconds equal the reference's. A
+count, codec) and its modeled seconds equal the reference's; so they do
+for the other five collectives on the 2x4 grid, with their plan lists. A
 ``TuningTable`` written by either package loads in the other and resolves
 to the same measured plan.
 """
@@ -40,6 +41,26 @@ def test_prior_choice_matches_reference(shape, links):
                 (budget, size)
             assert got.seconds == want.seconds
     assert ta.topo_key(tt) == ja.topo_key(jt)
+
+
+@pytest.mark.parametrize("coll", ["allgather", "scatter", "broadcast",
+                                  "reduce_scatter", "alltoall"])
+def test_other_collectives_choose_as_reference(coll):
+    tt = TTopo(2, 4, node_link="host_ipc", local_link="host_cpu")
+    jt = JTopo(2, 4, node_link="host_ipc", local_link="host_cpu")
+    ts, js = ta.Selector(), ja.Selector()
+    assert ta.candidates(coll, tt) == ja.candidates(coll, jt)
+    for size in SIZES[::2]:
+        assert ta.plans(coll, tt, size) == ja.plans(coll, jt, size)
+        for budget in BUDGETS:
+            for dtype in ("float32", "int32"):
+                got = ts.choose(coll, tt, size, dtype=dtype,
+                                error_budget=budget)
+                want = js.choose(coll, jt, size, dtype=dtype,
+                                 error_budget=budget)
+                assert (got.algo, got.chunks, got.codec, got.seconds) == \
+                    (want.algo, want.chunks, want.codec, want.seconds), \
+                    (size, budget, dtype)
 
 
 def test_cost_model_and_plans_match_reference():

@@ -4,8 +4,9 @@ On the CPU the wrappers in ``repro_torch.kernels.codec`` run their plain
 versions (``kernels/ref.py``); those are held against
 ``repro.kernels.codec.int8_*(..., interpret=True)`` on the same numpy
 inputs. Wire form, scales and residuals match bitwise (both sides round
-``c - q*scale`` once, as XLA contracts it into a fused multiply-add);
-decode_reduce holds to ``rtol=1e-6, atol=1e-5*W``. The ``cuda``-marked
+``c - q*scale`` once, as XLA contracts it into a fused multiply-add), and
+so does decode_reduce (each ``acc + q*scale`` rounded once, peers in order
+from 0). The ``cuda``-marked
 tests hold each CUDA kernel against its plain version on the card,
 bitwise, and skip where there is no card.
 """
@@ -98,7 +99,7 @@ def test_int8_decode_reduce_matches_pallas(jkern, W):
     tcomp = {k: torch.from_numpy(np.array(v)) for k, v in comp.items()}
     got = tkern.int8_decode_reduce(tcomp, L)
     assert got.shape == (L,)
-    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-5 * W)
+    np.testing.assert_array_equal(got.numpy(), want)
 
 
 def test_int8_decode_reduce_rank_batch(jkern):
@@ -111,8 +112,7 @@ def test_int8_decode_reduce_rank_batch(jkern):
     for r in range(R):
         jc = {k: v[r].numpy() for k, v in comp.items()}
         want = np.asarray(jkern.int8_decode_reduce(jc, L, interpret=True))
-        np.testing.assert_allclose(got[r].numpy(), want, rtol=1e-6,
-                                   atol=1e-5 * W)
+        np.testing.assert_array_equal(got[r].numpy(), want)
 
 
 def test_cpu_path_counts_no_launches():
@@ -121,8 +121,14 @@ def test_cpu_path_counts_no_launches():
     comp, _ = tkern.int8_encode_feedback(torch.from_numpy(x),
                                          torch.from_numpy(err))
     tkern.int8_decode_reduce(comp, 300)
-    assert tkern.launches == {"int8_block_encode": 0,
-                              "int8_decode_reduce": 0}
+    for enc, dec in ((tkern.int4_encode_feedback, tkern.int4_decode_reduce),
+                     (tkern.fp8_encode_feedback, tkern.fp8_decode_reduce)):
+        comp, _ = enc(torch.from_numpy(x), torch.from_numpy(err))
+        dec({k: v[None] for k, v in comp.items()}, 300)
+    assert set(tkern.launches) == {
+        "int8_block_encode", "int8_decode_reduce", "int4_block_encode",
+        "int4_decode_reduce", "fp8_amax", "fp8_encode", "fp8_decode_reduce"}
+    assert not any(tkern.launches.values())
 
 
 def test_wrappers_reject_unsupported_operands():

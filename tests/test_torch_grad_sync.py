@@ -5,11 +5,12 @@ The reference side (``OverlappedGradSync`` over 8 forced host devices)
 runs once per module in a subprocess — this file's ``__main__`` block —
 and writes an ``.npz``. Both sides draw the same numpy gradients from the
 reference's parameter tree; the port receives them through
-``interop.from_reference``. Three steps of int8 sync with error feedback
-agree bitwise in output and in error state (both packages add ranks in
-the same order, and the port's int8 codec copies XLA's rounding); the
-tests also state the codec's own bound, ``collective_tolerance(
-"int8_block", "allreduce", 8, A)`` with ``A`` the step's input max-abs.
+``interop.from_reference``. Three steps of int8 sync with error feedback,
+and two of int4, agree bitwise in output and in error state (both packages
+add ranks in the same order, and the port's codecs copy XLA's rounding and
+the reference kernels' decode-reduce); the tests also state the codec's
+own bound, ``collective_tolerance(codec, "allreduce", 8, A)`` with ``A``
+the step's input max-abs.
 """
 import os
 import pathlib
@@ -34,6 +35,8 @@ BUCKET_BYTES = 64 << 10  # 16384 elements: 27 buckets, a ragged last one
 METRIC_LEN = 3
 CODEC = "int8_block"
 EPS = 0.5 / 127
+#: the second codec synced against the reference, with its own bound
+INT4, INT4_EPS, INT4_STEPS = "int4_block", 0.5 / 7, 2
 
 
 def _reduced():
@@ -76,20 +79,24 @@ def _reference(out_path: str) -> None:
     shapes = _shape_tree()
     total = sum(int(np.prod(l.shape)) for l in jax.tree.leaves(shapes))
     slices = bucket_slices(total, BUCKET_BYTES // 4)
-    gs = OverlappedGradSync(comm, slices, METRIC_LEN, algo="pip_mcoll",
-                            codec=CODEC, error_budget=EPS)
     res = {}
-    for step in range(STEPS):
-        gs.ensure_ops(step)
-        tree = _grad_tree(shapes, step)
-        flat = np.concatenate([l.reshape(WORLD, -1)
-                               for l in jax.tree.leaves(tree)], axis=1)
-        synced, mv = gs.sync([flat[:, s:s + n] for s, n in slices], _mvec())
-        res[f"out{step}"] = np.concatenate([np.asarray(y) for y in synced], 1)
-        res[f"err{step}"] = np.concatenate([np.asarray(e) for e in gs.errs],
-                                           1)
-        res[f"metric{step}"] = np.asarray(mv)
-        res["plans"] = np.array(gs.plans())
+    for codec, eps, steps, tag in ((CODEC, EPS, STEPS, ""),
+                                   (INT4, INT4_EPS, INT4_STEPS, "int4_")):
+        gs = OverlappedGradSync(comm, slices, METRIC_LEN, algo="pip_mcoll",
+                                codec=codec, error_budget=eps)
+        for step in range(steps):
+            gs.ensure_ops(step)
+            tree = _grad_tree(shapes, step)
+            flat = np.concatenate([l.reshape(WORLD, -1)
+                                   for l in jax.tree.leaves(tree)], axis=1)
+            synced, mv = gs.sync([flat[:, s:s + n] for s, n in slices],
+                                 _mvec())
+            res[f"{tag}out{step}"] = np.concatenate(
+                [np.asarray(y) for y in synced], 1)
+            res[f"{tag}err{step}"] = np.concatenate(
+                [np.asarray(e) for e in gs.errs], 1)
+            res[f"{tag}metric{step}"] = np.asarray(mv)
+        res[f"{tag}plans"] = np.array(gs.plans())
     np.savez(out_path, **res)
 
 
@@ -145,11 +152,11 @@ def test_interop_flat_buffer_and_leaf_views():
     np.testing.assert_array_equal(one.numpy(), [[0] * 4 + [1] * 6])
 
 
-def _port_run(comm, steps, errs_from=None):
+def _port_run(comm, steps, errs_from=None, codec=CODEC, eps=EPS):
     shapes = _shape_tree()
     gs = ms.OverlappedGradSync(comm, _slices(), METRIC_LEN,
-                               algo="pip_mcoll", codec=CODEC,
-                               error_budget=EPS)
+                               algo="pip_mcoll", codec=codec,
+                               error_budget=eps)
     outs = []
     for step in steps:
         gs.ensure_ops(step)
@@ -163,7 +170,8 @@ def _port_run(comm, steps, errs_from=None):
                              torch.from_numpy(_mvec()))
         amax = float((flat + before).abs().max())
         outs.append((torch.cat(synced, 1).numpy(),
-                     torch.cat(gs.errs, 1).numpy(), mv.numpy(), amax))
+                     torch.cat(gs.errs, 1).numpy(), mv.numpy(), amax,
+                     (flat.double() + before).sum(0).numpy()))
     return gs, outs
 
 
@@ -172,7 +180,7 @@ def test_compressed_sync_with_error_feedback_matches_reference(reference,
     gs, outs = _port_run(comm, list(range(STEPS)))
     assert gs.plans() == list(reference["plans"])
     assert all(p == "pip_mcoll@int8_block" for p in gs.plans())
-    for step, (out, err, mv, amax) in enumerate(outs):
+    for step, (out, err, mv, amax, _) in enumerate(outs):
         tol = compress.collective_tolerance(CODEC, "allreduce", WORLD, amax)
         assert np.abs(out - reference[f"out{step}"]).max() <= tol
         assert np.abs(err - reference[f"err{step}"]).max() <= tol
@@ -182,11 +190,28 @@ def test_compressed_sync_with_error_feedback_matches_reference(reference,
         assert err.any()
 
 
+def test_int4_sync_with_error_feedback_matches_reference(reference, comm):
+    """The same sync under int4_block: its lowering decode-reduces as the
+    reference's Pallas kernel does, so output and error state are
+    bitwise."""
+    gs, outs = _port_run(comm, list(range(INT4_STEPS)), codec=INT4,
+                         eps=INT4_EPS)
+    assert gs.plans() == list(reference["int4_plans"])
+    assert all(p == "pip_mcoll@int4_block" for p in gs.plans())
+    for step, (out, err, mv, amax, exact) in enumerate(outs):
+        tol = compress.collective_tolerance(INT4, "allreduce", WORLD, amax)
+        np.testing.assert_array_equal(out, reference[f"int4_out{step}"])
+        np.testing.assert_array_equal(err, reference[f"int4_err{step}"])
+        np.testing.assert_array_equal(mv, reference[f"int4_metric{step}"])
+        assert np.abs(out - exact).max() <= tol
+        assert err.any()
+
+
 def test_error_state_from_reference_resumes_the_reference(reference, comm):
     """The reference's step-0 error state, carried across, reproduces the
     reference's step 1."""
     _, outs = _port_run(comm, [1], errs_from=reference["err0"])
-    out, err, _, amax = outs[0]
+    out, err, _, amax, _ = outs[0]
     tol = compress.collective_tolerance(CODEC, "allreduce", WORLD, amax)
     assert np.abs(out - reference["out1"]).max() <= tol
     assert np.abs(err - reference["err1"]).max() <= tol
@@ -252,8 +277,25 @@ def test_communicator_misuse_raises(comm):
     with pytest.raises(ValueError, match="not admissible"):
         comm.allreduce(torch.ones(WORLD, 4, dtype=torch.int32),
                        algo="pip_mcoll", codec=CODEC)
-    with pytest.raises(NotImplementedError):
-        comm.plan("alltoall", 1024)
+    with pytest.raises(KeyError):  # as the reference's selector raises
+        comm.plan("barrier", 1024)
+
+
+def test_release_frees_ops_and_error_state(comm):
+    from repro_torch.core.comm import live_persistent_ops
+    base = live_persistent_ops()
+    gs = ms.OverlappedGradSync(comm, _slices(), METRIC_LEN,
+                               algo="pip_mcoll", codec=INT4,
+                               error_budget=INT4_EPS)
+    gs.ensure_ops(0)
+    assert live_persistent_ops() == base + len(_slices()) + 1
+    assert all(e is not None for e in gs.errs)
+    gs.release()
+    assert live_persistent_ops() == base and gs.errs == []
+    gs.ensure_ops(1)  # builds anew after a release
+    assert live_persistent_ops() == base + len(_slices()) + 1
+    assert gs.plans()[0] == "pip_mcoll@int4_block"
+    gs.release()
 
 
 def test_plan_spec_normalization_shares_cache_entries(comm):

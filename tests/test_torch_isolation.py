@@ -1,6 +1,7 @@
 """The port stands alone: nothing under ``src/repro_torch`` and nothing in
 ``chip_smoke.py`` imports JAX or the JAX package, importing the port
-loads neither, and its entry points default to the card."""
+loads neither, its CUDA sources include only the toolkit's headers, and
+its entry points default to the card."""
 import ast
 import os
 import pathlib
@@ -15,6 +16,9 @@ REPO = pathlib.Path(__file__).resolve().parent.parent
 FORBIDDEN = {"jax", "jaxlib", "repro"}
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + \
     [REPO / "chip_smoke.py"]
+CUDA_SOURCES = sorted((REPO / "src" / "repro_torch").rglob("*.cu"))
+#: the headers a kernel source may include: the CUDA toolkit's and libc's
+CUDA_HEADERS = {"cuda_runtime.h", "cuda_fp16.h", "cuda_fp8.h", "stdint.h"}
 
 
 def _imported_roots(path: pathlib.Path):
@@ -32,6 +36,23 @@ def _imported_roots(path: pathlib.Path):
 def test_no_jax_or_reference_imports(path):
     bad = FORBIDDEN & set(_imported_roots(path))
     assert not bad, f"{path.name} imports {sorted(bad)}"
+
+
+@pytest.mark.parametrize("path", CUDA_SOURCES,
+                         ids=[p.name for p in CUDA_SOURCES])
+def test_cuda_sources_stand_alone(path):
+    """A kernel source includes only the toolkit's headers (no PyTorch, no
+    Python, nothing of the reference), names no JAX module, and has its
+    ctypes signatures in ``_build.SIGNATURES``."""
+    from repro_torch.kernels import _build
+    text = path.read_text()
+    includes = {line.split()[1].strip('<>"') for line in text.splitlines()
+                if line.startswith("#include")}
+    assert includes <= CUDA_HEADERS, includes - CUDA_HEADERS
+    assert "jax" not in text.lower() and "import repro" not in text
+    exported = set(_build.SIGNATURES[path.stem])
+    for fn in exported:
+        assert f" {fn}(" in text, fn
 
 
 def test_importing_the_port_loads_no_jax():
