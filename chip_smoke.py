@@ -3,19 +3,26 @@
 
 Usage: ``python3 chip_smoke.py`` from the repository root, on a machine
 with an NVIDIA Hopper card and the CUDA toolkit. It imports nothing of JAX
-or of the JAX package. Four phases; any failure exits non-zero:
+or of the JAX package. Five phases; any failure exits non-zero:
 
-1. **Kernels.** Builds ``kernels/csrc/codec_{int8,int4,fp8}.cu`` with nvcc
-   (sm_90a), one compiler process each, all at once, and holds each of the
-   six CUDA kernels against its plain PyTorch version on the card, bitwise
-   (tolerance 0): encodes at (16, 131072), (3, 1000) and (1, 256) with and
-   without the carried error, plus rows with subnormal e4m3 outputs, signed
-   zeros and a NaN (in the NaN's quantization block, or fp8 slice, only NaN
-   positions are compared; the row's other blocks stay bitwise);
-   decode-reduce over W in {1, 2, 8} and at the compressed reduce_scatter's
-   (8, 2, 524288). Times each kernel and its plain version at the main path's
-   shapes (median of 20 runs, CUDA events around device work only, L2
-   flushed between runs).
+1. **Kernels.** Builds ``kernels/csrc/codec_{int8,int4,fp8}.cu`` and
+   ``flash_decode.cu`` with nvcc (sm_90a), one compiler process each, all
+   at once, and holds each of the six codec kernels against its plain
+   PyTorch version on the card, bitwise (tolerance 0): encodes at (16,
+   131072), (3, 1000) and (1, 256) with and without the carried error,
+   plus rows with subnormal e4m3 outputs, signed zeros and a NaN (in the
+   NaN's quantization block, or fp8 slice, only NaN positions are
+   compared; the row's other blocks stay bitwise); decode-reduce over W in
+   {1, 2, 8} and at the compressed reduce_scatter's (8, 2, 524288). The
+   flash-decode kernel is held against its plain version within
+   ``FLASH_TOL * (1 + |plain|)`` (both fp32 from the same inputs) at the
+   serving shapes: B 8, H 15, KV 5, hd 64 (full width) and H 4, KV 2, hd
+   32 (the reduced config), S 2048 and 1000, bf16 and fp32, for (B,)
+   lengths (all S, all 1, mixed) and scalar lengths 1, S // 3, S and 0.
+   Times each kernel and its plain version at the main path's shapes
+   (median of 20 runs, CUDA events around device work only, L2 flushed
+   between runs), and for flash decode also one
+   ``scaled_dot_product_attention`` call as the library yardstick.
 2. **Slice.** The full-width smollm-360m gradient sync: 409,007,040
    float32 gradients per rank on ``RankGrid(2, 4, "cuda")``, 4 MiB buckets
    (391), one persistent ``pip_mcoll`` carry op per bucket with error
@@ -42,9 +49,28 @@ or of the JAX package. Four phases; any failure exits non-zero:
    and scatters bitwise equal to ``decode(encode(.))`` of the source rows,
    compressed reductions within the codec's collective tolerance. One line
    per pair with its median host-clock time per call at 8 B and 4 MiB.
-4. **Report.** The slice and collectives summaries, the card's name and
-   power limit (as nvidia-smi gives them), the ``{"kernels": [...]}`` line,
-   and last ``{"ok": true, "device": {...}}``.
+4. **Serving.** Full-width smollm-360m (bf16, random weights from a seeded
+   ``torch.Generator``) served by ``Engine(max_batch=8, max_len=2048,
+   flags=RunFlags(use_flash_decode=True), mesh=RankGrid(2, 4))`` with
+   the default devices, as the README's serving example builds them:
+   16 requests with prompt lengths drawn from a numpy seed in [64, 1024],
+   32 new tokens each. Every request must return 32 tokens within the
+   vocab; the flash-decode launches (zeroed just before the run, read just
+   after) must equal ticks x 32 layers; the persistent sync op must start
+   once per tick with no rebind, and the tokens must equal a sync-free
+   engine's on the same weights, bitwise. Three teacher-forced ticks on the
+   same caches hold every layer's flash-decode output within
+   ``FLASH_TOL * (1 + |plain|)`` of the plain version on that layer's own
+   operands (the live cache and (B,) lengths), and the kernel path's logits
+   within ``TEACHER_TOL`` times the largest logit of the plain-version
+   path's (a guard against gross path faults only: the kernel's precision
+   is held by the per-layer check). Records prefill and tick
+   times (host clock), tokens per second, one profiled decode tick (device
+   busy, idle share, top device kernels, flash-decode time per launch) and
+   peak device memory.
+5. **Report.** The slice, collectives and serving summaries, the card's
+   name and power limit (as nvidia-smi gives them), the ``{"kernels":
+   [...]}`` line, and last ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -83,6 +109,17 @@ PEAK_LIMIT_BYTES = 50e9
 #: per-rank message sizes of the collectives phase (bytes)
 COLL_SIZES = (8, 64 << 10, 4 << 20)
 TIME_ITERS = 10
+#: serving: full-width smollm-360m, max_batch slots of max_len positions,
+#: 16 requests with prompts drawn in [64, 1024] and 32 new tokens each
+SERVE_BATCH, SERVE_LEN = 8, 2048
+SERVE_REQUESTS, SERVE_NEW, SERVE_PROMPT = 16, 32, (64, 1024)
+#: the flash-decode kernel against its plain version: both fp32 from the
+#: same inputs, apart only in the order of their fp32 sums
+FLASH_TOL = 2e-5
+#: teacher-forced bf16 logits, kernel path against the plain-version path:
+#: relative to the largest |logit| (the attention outputs differ in the
+#: order of fp32 sums; each layer rounds them to bf16)
+TEACHER_TICKS, TEACHER_TOL = 3, 2.0 ** -5
 
 
 def fail(msg: str) -> int:
@@ -322,11 +359,12 @@ def kernel_phase(torch, kcodec, ref, dev):
 # ---------------------------------------------------------------------------
 
 
-def profile_step(torch, gs, buckets, mvec, step, names, top: int = 12):
-    """One more sync step under ``torch.profiler``: device time per kernel
-    (CUPTI), its sum, the wall time of the same step and the device's idle
-    share of it. The sync itself runs outside any ``except``; only the
-    profiler's own calls may end in "not measured"."""
+def profile_call(torch, fn, names, top: int = 12):
+    """``fn()`` once under ``torch.profiler``: device time per kernel
+    (CUPTI), its sum, the wall time of the same call and the device's idle
+    share of it, and the mean device time per launch of each kernel whose
+    name contains one of ``names``. ``fn`` itself runs outside any
+    ``except``; only the profiler's own calls may end in "not measured"."""
     from torch.profiler import ProfilerActivity, profile
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
     torch.cuda.synchronize()
@@ -335,8 +373,7 @@ def profile_step(torch, gs, buckets, mvec, step, names, top: int = 12):
     except RuntimeError as e:
         prof, reason = None, repr(e)
     t0 = time.perf_counter()
-    gs.ensure_ops(step)
-    gs.sync(buckets, mvec)
+    fn()
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
     if prof is None:
@@ -355,7 +392,7 @@ def profile_step(torch, gs, buckets, mvec, step, names, top: int = 12):
         return {"device_busy_ms": "not measured", "step_ms": wall_ms,
                 "reason": "profiler recorded no device time"}
     if busy > wall_ms:
-        raise AssertionError(f"profiled step: device busy {busy} ms exceeds "
+        raise AssertionError(f"profiled call: device busy {busy} ms exceeds "
                              f"its wall time {wall_ms} ms")
     per_launch = {}
     for name in names:
@@ -368,6 +405,15 @@ def profile_step(torch, gs, buckets, mvec, step, names, top: int = 12):
             "per_launch_ms": per_launch,
             "kernels": [{"name": k[:90], "ms": ms, "count": n}
                         for k, ms, n in rows[:top]]}
+
+
+def profile_step(torch, gs, buckets, mvec, step, names):
+    """One more sync step under ``torch.profiler`` (see
+    :func:`profile_call`)."""
+    def run():
+        gs.ensure_ops(step)
+        gs.sync(buckets, mvec)
+    return profile_call(torch, run, names)
 
 
 def sync_run(torch, comm, kcodec, grads, slices, codec, budget, gen,
@@ -628,6 +674,313 @@ def collectives_phase(torch, dev):
     return {"pairs": len(lines), "checked": checked, "rows": lines}
 
 
+# ---------------------------------------------------------------------------
+# phase 4: serving (the flash-decode kernel, then the Engine at full width)
+# ---------------------------------------------------------------------------
+
+
+def _flash_inputs(torch, B, S, H, KV, hd, dtype, gen, dev):
+    return tuple(torch.randn(shape, generator=gen, device=dev).to(dtype)
+                 for shape in ((B, 1, H, hd), (B, S, KV, hd), (B, S, KV, hd)))
+
+
+def _flash_bytes_ops(B, H, KV, hd, esize, valid):
+    """What one flash-decode call must move and compute, for ``valid``
+    positions read summed over the B rows: q, the valid K/V prefix of each
+    row and the fp32 output; 4 flops per (query head, valid position, dim)
+    (q.k and p.v)."""
+    return (B * H * hd * esize + 2 * valid * KV * hd * esize + B * H * hd * 4,
+            4 * H * hd * valid)
+
+
+def flash_phase(torch, kattn, ref, dev):
+    """The flash-decode kernel against its plain version at the serving
+    shapes (full width and the reduced config's G 2, hd 32), at S = 2048
+    and at S = 1000 (no multiple of 512), bf16 and fp32, for (B,) lengths
+    (full, 1, mixed), scalar lengths (1, S // 3, S) and the all-masked
+    length 0; then its time, the plain version's and one library call's
+    at the full-width shape with every row at S. Returns its record
+    (without launches)."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    worst, checked = 0.0, 0
+    for B, S, H, KV, hd in ((SERVE_BATCH, SERVE_LEN, 15, 5, 64),
+                            (SERVE_BATCH, 1000, 15, 5, 64),
+                            (SERVE_BATCH, SERVE_LEN, 4, 2, 32),
+                            (SERVE_BATCH, 1000, 4, 2, 32)):
+        mixed = torch.randint(1, S + 1, (B,), generator=gen, device=dev,
+                              dtype=torch.int32)
+        mixed[0], mixed[1] = S, 1
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v = _flash_inputs(torch, B, S, H, KV, hd, dtype, gen, dev)
+            for lengths in (torch.full((B,), S, dtype=torch.int32,
+                                       device=dev),
+                            torch.ones((B,), dtype=torch.int32, device=dev),
+                            mixed, 1, S // 3, S, 0):
+                got = kattn.flash_decode(q, k, v, lengths)
+                want = ref.flash_decode(q, k, v, lengths)
+                torch.cuda.synchronize()
+                err = max_diff(torch, got, want)
+                if not bool(torch.isfinite(got).all()) or not bool(
+                        ((got - want).abs()
+                         <= FLASH_TOL * (1 + want.abs())).all()):
+                    raise AssertionError(
+                        f"flash_decode B={B} S={S} H={H} KV={KV} hd={hd} "
+                        f"{dtype} lengths={lengths}: max error {err} "
+                        f"outside {FLASH_TOL} * (1 + |plain|)")
+                worst = max(worst, err)
+                checked += 1
+
+    B, S, H, KV, hd = SERVE_BATCH, SERVE_LEN, 15, 5, 64
+    q, k, v = _flash_inputs(torch, B, S, H, KV, hd, torch.bfloat16, gen, dev)
+    lengths = torch.full((B,), S, dtype=torch.int32, device=dev)
+    nbytes, ops = _flash_bytes_ops(B, H, KV, hd, q.element_size(), B * S)
+    bound, bound_by = bound_ms(nbytes, ops)
+    # the library yardstick: one SDPA call with a per-row length mask
+    qh, kh, vh = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    mask = (torch.arange(S, device=dev)[None, :]
+            < lengths[:, None])[:, None, None, :]
+
+    def library():
+        return torch.nn.functional.scaled_dot_product_attention(
+            qh, kh, vh, attn_mask=mask, enable_gqa=True)
+
+    lib_err = max_diff(torch, library().float().transpose(1, 2).reshape(
+        B, 1, H * hd), ref.flash_decode(q, k, v, lengths))
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    return {
+        "name": "flash_decode", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_decode.cu",
+        "replaces": "src/repro/kernels/flash_decode.py:60",
+        "max_abs_err": worst, "tolerance": f"{FLASH_TOL} * (1 + |plain|)",
+        "cases_checked": checked,
+        "ms": time_ms(torch, lambda: kattn.flash_decode(q, k, v, lengths),
+                      flush),
+        "plain_ms": time_ms(torch, lambda: ref.flash_decode(q, k, v,
+                                                            lengths), flush),
+        "bound_ms": bound, "bound_by": bound_by,
+        "library_ms": time_ms(torch, library, flush),
+        "library_call": "scaled_dot_product_attention(attn_mask=<per-row "
+                        "length mask>, enable_gqa=True), bf16 out",
+        "library_max_abs_err": lib_err,
+        "bytes": nbytes, "shape": [B, S, H, KV, hd], "dtype": "bfloat16"}
+
+
+def _serve_requests(np, vocab):
+    rng = np.random.default_rng(SEED)
+    lens = rng.integers(SERVE_PROMPT[0], SERVE_PROMPT[1] + 1,
+                        size=SERVE_REQUESTS)
+    return [rng.integers(0, vocab, size=(int(n),), dtype=np.int32)
+            for n in lens]
+
+
+def _timed(fn, into):
+    """``fn`` with its host-clock seconds appended to ``into`` per call
+    (each call ends in a device-to-host read, so the clock covers its
+    device work)."""
+    def call(*args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        into.append(time.perf_counter() - t0)
+        return out
+    return call
+
+
+def teacher_forced(torch, eng, model, kattn, ref, ticks):
+    """``ticks`` decode steps of the engine's admitted slots, each run three
+    times on the same caches (restored in between): through the kernel
+    (``use_flash_decode=True``), through the kernel's plain version in its
+    place (the plain-version path), and through the model's plain attention
+    (``use_flash_decode=False``, which rounds the probabilities to bf16 as
+    the reference does); the plain-version path's greedy tokens feed the
+    next step. In the kernel run every layer's launch is also held against
+    the plain version on its own operands (the live cache and the (B,)
+    lengths) within ``FLASH_TOL * (1 + |plain|)``. Returns the worst
+    |logit| difference of the kernel path from each of the other two, the
+    largest |logit| seen, and the worst per-layer kernel error with the
+    number of layer calls checked."""
+    from repro_torch.models.decoder import RunFlags
+
+    kernel, plain_attn = RunFlags(use_flash_decode=True), RunFlags()
+    worst_plain, worst_attn, top = 0.0, 0.0, 0.0
+    layer_errs = []
+    launch = kattn.flash_decode
+
+    def held_to_plain(q, k, v, lengths):
+        got = launch(q, k, v, lengths)
+        want = ref.flash_decode(q, k, v, lengths)
+        err = max_diff(torch, got, want)
+        if not bool(torch.isfinite(got).all()) or not bool(
+                ((got - want).abs() <= FLASH_TOL * (1 + want.abs())).all()):
+            raise AssertionError(
+                f"flash_decode on the serving path (layer call "
+                f"{len(layer_errs)}, lengths {lengths.tolist()}): max error "
+                f"{err} outside {FLASH_TOL} * (1 + |plain|)")
+        layer_errs.append(err)
+        return got
+    toks = torch.tensor([[r.out_tokens[-1]] for r in eng.active],
+                        device=eng.device)
+    lengths = torch.tensor(eng.lengths, device=eng.device)
+
+    def step(flags, restore):
+        out, _, _ = model(toks, eng.caches, lengths, flags=flags)
+        for c, s in zip(eng.caches, restore):
+            c["k"].copy_(s["k"])
+            c["v"].copy_(s["v"])
+        return out
+
+    for _ in range(ticks):
+        saved = [{n: c[n].clone() for n in ("k", "v")} for c in eng.caches]
+        kattn.flash_decode = held_to_plain
+        try:
+            got = step(kernel, saved)
+        finally:
+            kattn.flash_decode = launch
+        attn = step(plain_attn, saved)
+        kattn.flash_decode = ref.flash_decode
+        try:
+            want, _, _ = model(toks, eng.caches, lengths, flags=kernel)
+        finally:
+            kattn.flash_decode = launch
+        for what, t in (("kernel", got), ("plain-version", want),
+                        ("plain attention", attn)):
+            if t.shape != (len(eng.active), 1, model.lm_head.shape[1]) \
+                    or not bool(torch.isfinite(t).all()):
+                raise AssertionError(f"teacher-forced {what} logits: shape "
+                                     f"{tuple(t.shape)} or not finite")
+        worst_plain = max(worst_plain, max_diff(torch, got, want))
+        worst_attn = max(worst_attn, max_diff(torch, got, attn))
+        top = max(top, float(want.float().abs().max()))
+        toks = want[:, 0].argmax(-1, keepdim=True)
+        lengths += 1
+        del saved
+    if len(layer_errs) != ticks * len(model.blocks):
+        raise AssertionError(f"{len(layer_errs)} flash_decode calls held to "
+                             f"the plain version over {ticks} ticks of "
+                             f"{len(model.blocks)} layers")
+    return worst_plain, worst_attn, top, max(layer_errs), len(layer_errs)
+
+
+def serve_phase(torch, dev, cfg, kattn, ref):
+    """Full-width smollm-360m served by the Engine with the 2x4-grid token
+    sync and the flash-decode kernel on every decode tick. Returns a
+    summary dict."""
+    import numpy as np
+    from repro_torch.core.grid import RankGrid
+    from repro_torch.models.decoder import DecoderLM, RunFlags
+    from repro_torch.serve.engine import Engine, Request
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    # the README's serving example: the default device and grid (the card)
+    model = DecoderLM(cfg, torch.Generator("cuda").manual_seed(SEED))
+    if model.device != dev:
+        raise AssertionError(f"model on {model.device}, expected {dev}")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    if n_params != cfg.n_params():
+        raise AssertionError(f"model has {n_params} params, config "
+                             f"{cfg.n_params()}")
+    flags = RunFlags(use_flash_decode=True)
+    prompts = _serve_requests(np, cfg.vocab)
+
+    def requests():
+        return [Request(prompt=p.copy(), max_new_tokens=SERVE_NEW)
+                for p in prompts]
+
+    def engine(mesh):
+        return Engine(model, cfg, max_batch=SERVE_BATCH, max_len=SERVE_LEN,
+                      flags=flags, mesh=mesh)
+
+    # the main path: launch counts zeroed just before, read just after
+    eng = engine(RankGrid(2, 4))
+    prefill_s, decode_s = [], []
+    eng._admit = _timed(eng._admit, prefill_s)
+    eng._decode_tick = _timed(eng._decode_tick, decode_s)
+    torch.cuda.synchronize()
+    kattn.reset_launches()
+    t0 = time.perf_counter()
+    done = eng.run(requests())
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = kattn.launches["flash_decode"]
+    m = eng.metrics()
+    if len(done) != SERVE_REQUESTS:
+        raise AssertionError(f"served {len(done)} of {SERVE_REQUESTS}")
+    for r in done:
+        if len(r.out_tokens) != SERVE_NEW or not all(
+                0 <= t < cfg.vocab for t in r.out_tokens):
+            raise AssertionError(f"request of {len(r.prompt)} tokens: "
+                                 f"{len(r.out_tokens)} tokens, expected "
+                                 f"{SERVE_NEW} within the vocab")
+    if launches != m["ticks"] * cfg.n_layers:
+        raise AssertionError(f"flash_decode launched {launches} times over "
+                             f"{m['ticks']} ticks of {cfg.n_layers} layers")
+    if m["sync_starts"] != m["ticks"] or m["plan_rebinds"]:
+        raise AssertionError(f"tick sync: {m['sync_starts']} starts over "
+                             f"{m['ticks']} ticks, {m['plan_rebinds']} "
+                             f"rebinds")
+    plan = eng._sync_op.plan
+    tokens = {tuple(r.prompt.tolist()): r.out_tokens for r in done}
+    del eng, done
+
+    # the same requests without the sync: the same tokens, bitwise
+    ref_done = engine(None).run(requests())
+    if {tuple(r.prompt.tolist()): r.out_tokens for r in ref_done} != tokens:
+        raise AssertionError("tokens of the synced engine differ from the "
+                             "sync-free engine's")
+    del ref_done
+
+    # teacher-forced ticks: the kernel path against the plain-version path
+    # on the same caches; then one profiled tick (with its sync)
+    eng = engine(RankGrid(2, 4))
+    with torch.inference_mode():
+        for slot, req in enumerate(requests()[:SERVE_BATCH]):
+            eng._admit(req, slot)
+        worst, worst_attn, top, layer_err, layer_calls = teacher_forced(
+            torch, eng, model, kattn, ref, TEACHER_TICKS)
+        if worst > TEACHER_TOL * top:
+            raise AssertionError(f"teacher-forced logits: kernel path "
+                                 f"{worst} from the plain-version path, "
+                                 f"over {TEACHER_TOL} * {top}")
+        # the profiled tick reads lengths + 1 positions per row
+        valid = int(np.minimum(eng.lengths.astype(np.int64) + 1,
+                               SERVE_LEN).sum())
+        profile = profile_call(torch, eng._decode_tick, ("flash_decode",))
+    tick_bytes, tick_ops = _flash_bytes_ops(
+        SERVE_BATCH, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, 2, valid)
+    path_bound, _ = bound_ms(tick_bytes, tick_ops)
+    peak = torch.cuda.max_memory_allocated(dev)
+    generated = SERVE_REQUESTS * SERVE_NEW
+    return {
+        "model": cfg.name, "params": n_params, "dtype": "bfloat16",
+        "init_s": init_s, "max_batch": SERVE_BATCH, "max_len": SERVE_LEN,
+        "requests": SERVE_REQUESTS, "new_tokens": SERVE_NEW,
+        "prompt_lens": [len(p) for p in prompts], "grid": [2, 4],
+        "sync_plan": plan, "metrics": m, "wall_s": wall_s,
+        "tokens_per_s": generated / wall_s,
+        "prefill_s": {"p50": statistics.median(prefill_s),
+                      "max": max(prefill_s), "n": len(prefill_s),
+                      "total": sum(prefill_s)},
+        "decode_tick_s": {"p50": statistics.median(decode_s),
+                          "p99": sorted(decode_s)[
+                              int(0.99 * (len(decode_s) - 1))],
+                          "n": len(decode_s)},
+        "flash_launches": launches,
+        "teacher_forced": {"ticks": TEACHER_TICKS, "max_abs_err": worst,
+                           "max_abs_logit": top,
+                           "tolerance": f"{TEACHER_TOL} * max|logit|",
+                           "max_abs_err_vs_plain_attention": worst_attn,
+                           "kernel_calls_held_to_plain": layer_calls,
+                           "kernel_max_abs_err": layer_err,
+                           "kernel_tolerance":
+                               f"{FLASH_TOL} * (1 + |plain|)"},
+        "profile": profile, "flash_path_bound_ms": path_bound,
+        "flash_path_bytes": tick_bytes, "peak_mem_bytes": peak,
+    }
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -637,6 +990,7 @@ def main() -> int:
     try:
         from repro_torch.configs.smollm_360m import CONFIG
         from repro_torch.kernels import _build, ref
+        from repro_torch.kernels import attention as kattn
         from repro_torch.kernels import codec as kcodec
     except ImportError as e:
         return fail(f"the port's sources are missing ({e}); run from the "
@@ -654,8 +1008,13 @@ def main() -> int:
                 print("    " + line.strip())
 
     kernels = kernel_phase(torch, kcodec, ref, dev)
-    print("kernel phase: all six kernels bitwise equal to their plain "
+    print("kernel phase: all six codec kernels bitwise equal to their plain "
           "versions")
+    kernels["flash_decode"] = flash_phase(torch, kattn, ref, dev)
+    print(f"kernel phase: flash_decode within {FLASH_TOL} * (1 + |plain|) "
+          f"of its plain version in "
+          f"{kernels['flash_decode']['cases_checked']} cases "
+          f"({time.perf_counter() - t0:.3f} s so far)")
     summary = slice_phase(torch, dev, CONFIG, kcodec)
     for run in summary["syncs"]:
         per_launch = run["profile"].get("per_launch_ms", {})
@@ -673,9 +1032,19 @@ def main() -> int:
         dec = CODEC_KERNELS[run["codec"]][1]
         kernels[dec]["reduce_scatter_launches"] = run["launches"][dec]
     print(json.dumps({"slice": summary}))
+    print(f"slice phase done ({time.perf_counter() - t0:.3f} s so far)")
     coll = collectives_phase(torch, dev)
     print(json.dumps({"collectives": {k: v for k, v in coll.items()
                                       if k != "rows"}}))
+    print(f"collectives phase done ({time.perf_counter() - t0:.3f} s so "
+          f"far)")
+    serve = serve_phase(torch, dev, CONFIG, kattn, ref)
+    kernels["flash_decode"]["launches"] = serve["flash_launches"]
+    kernels["flash_decode"]["path_ms"] = serve["profile"].get(
+        "per_launch_ms", {}).get("flash_decode", "not measured")
+    kernels["flash_decode"]["path_bound_ms"] = serve["flash_path_bound_ms"]
+    print(json.dumps({"serve": serve}))
+    print(f"serving phase done ({time.perf_counter() - t0:.3f} s in all)")
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

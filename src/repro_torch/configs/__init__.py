@@ -1,7 +1,41 @@
-"""Architecture configs ported from the JAX package (this slice needs only
-smollm-360m)."""
+"""Architecture configs ported from the JAX package: only those whose
+model the port runs are registered (smollm-360m)."""
+import dataclasses
+import importlib
+
 from repro_torch.configs.base import ModelConfig, MoEConfig, ShapeConfig, \
     SHAPES, shape_applicable
 
 __all__ = ["ModelConfig", "MoEConfig", "ShapeConfig", "SHAPES",
-           "shape_applicable"]
+           "shape_applicable", "ARCH_IDS", "get_config", "reduced_config"]
+
+_MODULES = {
+    "smollm-360m": "smollm_360m",
+}
+
+ARCH_IDS = tuple(_MODULES)
+
+
+def get_config(arch: str) -> ModelConfig:
+    if arch not in _MODULES:
+        raise KeyError(f"unknown arch {arch!r}; known: {ARCH_IDS}")
+    return importlib.import_module(
+        f"repro_torch.configs.{_MODULES[arch]}").CONFIG
+
+
+def reduced_config(arch: str) -> ModelConfig:
+    """Tiny same-family config for CPU tests (the reference's cut: 2
+    layers, d_model 128, 4 heads, head_dim 32, d_ff 256, vocab 512)."""
+    cfg = get_config(arch)
+    pat = cfg.block_pattern
+    moe = cfg.moe
+    if moe is not None:
+        moe = dataclasses.replace(moe, n_experts=8,
+                                  top_k=min(moe.top_k, 2), d_ff_expert=64)
+    return dataclasses.replace(
+        cfg,
+        n_layers=len(pat) * (2 if len(pat) == 1 else 1),
+        enc_layers=min(cfg.enc_layers, 2),
+        d_model=128, n_heads=4,
+        n_kv_heads=2 if cfg.n_kv_heads < cfg.n_heads else 4,
+        head_dim=32, d_ff=256, vocab=512, moe=moe, rwkv_head_dim=32)

@@ -47,12 +47,23 @@ def _signed(fn):
     return call
 
 
+def resolve_device(device) -> torch.device:
+    """``device`` as a tensor made on it reports it: where there is a card,
+    ``"cuda"`` names the current one with its index, so two spellings of
+    one card compare equal."""
+    d = torch.device(device)
+    if d.type == "cuda" and d.index is None and torch.cuda.is_available():
+        d = torch.device("cuda", torch.cuda.current_device())
+    return d
+
+
 class RankGrid:
     """``n_nodes x n_local`` ranks, each a row of every operand.
 
     ``device`` defaults to ``"cuda"``: a grid places its ranks on the card
-    unless the caller asks for the CPU. Constructing a grid allocates
-    nothing; operands and results live on ``device``.
+    unless the caller asks for the CPU, and holds it resolved (``cuda`` is
+    the current card, ``cuda:0``), as its operands report it. Constructing
+    a grid allocates nothing; operands and results live on ``device``.
     """
 
     axis_names: Tuple[str, str] = ("node", "local")
@@ -63,7 +74,7 @@ class RankGrid:
             raise ValueError(f"invalid rank grid {n_nodes}x{n_local}")
         self.n_nodes = int(n_nodes)
         self.n_local = int(n_local)
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
 
     def __repr__(self) -> str:
         return f"RankGrid({self.n_nodes}, {self.n_local}, {self.device})"

@@ -6,14 +6,17 @@
     order (dict keys sorted, as ``jax.tree_util`` visits them);
   * :func:`error_state_from_reference` turns the reference's per-bucket
     error-feedback tuple (``init_error_state`` / ``OverlappedGradSync.errs``)
-    into the port's layout: views into one flat buffer.
+    into the port's layout: views into one flat buffer;
+  * :func:`params_from_reference` turns the reference decoder's parameter
+    tree (``jax.device_get`` of ``decoder.init``) into the port's
+    ``DecoderLM``, unstacking the pattern cycles into layers.
 
 Tuning tables need nothing here: ``TuningTable`` writes the same JSON in
 both packages.
 """
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -60,3 +63,44 @@ def error_state_from_reference(errs: Sequence[np.ndarray], device="cuda"
         views.append(flat[:, off:off + n])
         off += n
     return tuple(views)
+
+
+def _tensor_from_numpy(a: np.ndarray, device="cuda") -> torch.Tensor:
+    """A numpy array as a tensor on ``device``, dtype kept; bfloat16 arrays
+    (``ml_dtypes``, as ``jax.device_get`` returns them) move as their bits."""
+    a = np.ascontiguousarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16) \
+            .to(device)
+    return torch.from_numpy(a).to(device)
+
+
+def params_from_reference(tree, cfg, device="cuda"):
+    """The port's ``DecoderLM`` holding the reference decoder's parameters.
+
+    ``tree`` is the reference's nested dict (``embed``, ``final_norm``,
+    ``lm_head`` and ``groups/blk<j>/...`` stacked over pattern cycles) of
+    numpy arrays. Cycle ``c``, block ``j`` becomes layer
+    ``c * len(cfg.block_pattern) + j``; dtypes are kept (a tree cast to
+    float32 gives a float32 model)."""
+    from repro_torch.models.decoder import DecoderLM, n_cycles
+
+    model = DecoderLM(cfg, device="meta")
+    nc, n_pat = n_cycles(cfg), len(cfg.block_pattern)
+    state: Dict[str, torch.Tensor] = {}
+    for path, a in flatten_reference(tree):
+        top, *rest = path.split("/")
+        if top != "groups":
+            state[".".join([top] + rest)] = _tensor_from_numpy(a, device)
+            continue
+        blk, *leaf = rest
+        j = int(blk[len("blk"):])
+        if a.shape[0] != nc:
+            raise ValueError(f"{path}: {a.shape[0]} cycles, config has {nc}")
+        for c in range(nc):
+            state[".".join(["blocks", str(c * n_pat + j)] + leaf)] = \
+                _tensor_from_numpy(a[c], device)
+    model.load_state_dict(state, strict=True, assign=True)
+    for p in model.parameters():
+        p.requires_grad_(False)
+    return model

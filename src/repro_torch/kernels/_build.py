@@ -46,6 +46,11 @@ SIGNATURES = {
                                            _I64, _P]),
         "codec_fp8_error_string": (ctypes.c_char_p, [_INT]),
     },
+    "flash_decode": {
+        "flash_decode": (_INT, [_P, _P, _P, _P, _P, _INT, _INT, _INT, _INT,
+                                _INT, _INT, ctypes.c_float, _P]),
+        "flash_decode_error_string": (ctypes.c_char_p, [_INT]),
+    },
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

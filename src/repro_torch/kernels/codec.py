@@ -30,6 +30,10 @@ import torch
 
 from repro_torch.core.compress import BLOCK
 from repro_torch.kernels import _build, ref
+from repro_torch.kernels._dispatch import (check as _check,
+                                           on_card as _on_card,
+                                           raise_on as _raise_on,
+                                           stream as _stream)
 
 #: launches per CUDA kernel; both encode wrappers of a codec launch the
 #: same kernel(s)
@@ -43,38 +47,6 @@ launches: Dict[str, int] = {
 def reset_launches() -> None:
     for k in launches:
         launches[k] = 0
-
-
-def _on_card(*tensors: torch.Tensor) -> bool:
-    """True for CUDA operands, False for CPU ones; raises on anything else
-    or on operands split across devices."""
-    devs = {t.device for t in tensors}
-    if len(devs) != 1:
-        raise ValueError(f"codec operands on several devices: {devs}")
-    (dev,) = devs
-    if dev.type == "cuda":
-        return True
-    if dev.type == "cpu":
-        return False
-    raise ValueError(f"no codec kernel for device {dev}")
-
-
-def _check(t: torch.Tensor, dtype: torch.dtype, what: str) -> None:
-    if t.dtype != dtype:
-        raise TypeError(f"{what}: expected {dtype}, got {t.dtype}")
-    if not t.is_contiguous():
-        raise ValueError(f"{what}: the kernel takes contiguous tensors")
-
-
-def _raise_on(rc: int, lib: str, kernel: str) -> None:
-    if rc:
-        msg = getattr(_build.load(lib), f"{lib}_error_string")(rc)
-        raise RuntimeError(f"{kernel} launch failed: CUDA error {rc} "
-                           f"({msg.decode() if msg else '?'})")
-
-
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
 
 
 def _check_encode(x: torch.Tensor, err: Optional[torch.Tensor]):

@@ -1,14 +1,16 @@
-"""Plain PyTorch versions of the codec kernels.
+"""Plain PyTorch versions of the hand-written kernels.
 
-Each function computes exactly what its CUDA kernel in
-``kernels/csrc/codec_{int8,int4,fp8}.cu`` computes, with ordinary tensor
-ops. The
-wrappers in ``kernels/codec.py`` use these only for tensors on the CPU; the
-tests hold them against the reference's Pallas kernels (interpret mode),
-and ``chip_smoke.py`` holds each kernel against them on the card.
+Each function computes what its CUDA kernel in ``kernels/csrc/`` computes,
+with ordinary tensor ops: the codec kernels (``codec_{int8,int4,fp8}.cu``)
+bitwise, :func:`flash_decode` (``flash_decode.cu``) up to the order of its
+fp32 sums. The wrappers in ``kernels/codec.py`` and ``kernels/attention.py``
+use these only for tensors on the CPU; the tests hold them against the
+reference's Pallas kernels (interpret mode), and ``chip_smoke.py`` holds
+each kernel against them on the card.
 
-Every function takes an optional leading rank dim: ``x`` is ``(S, L)`` or
-``(R, S, L)``; wire leaves and outputs carry the same leading dims.
+Every codec function takes an optional leading rank dim: ``x`` is
+``(S, L)`` or ``(R, S, L)``; wire leaves and outputs carry the same
+leading dims.
 
 Rounding contract shared with the kernels (see ``core/compress.py``):
 the block codecs' scale is ``amax * f32(1/127)`` (int8) or ``amax *
@@ -156,3 +158,37 @@ def fp8_decode_reduce(comp, length: int):
     return _accumulate(
         ((q[..., w, :].view(torch.float8_e4m3fn).double()
           * scale[..., w, None].double()) for w in range(W)), length)
+
+
+#: the mask value of the Pallas flash-decode body
+#: (``repro/kernels/flash_decode.py``)
+NEG_INF = -1e30
+
+
+def flash_decode(q, k, v, lengths):
+    """One-token GQA attention, as the Pallas flash-decode body computes it:
+    scores in fp32 from upcast ``q`` and ``k`` times ``1/sqrt(hd)``,
+    positions at or beyond the row's length set to ``NEG_INF``, fp32
+    softmax, fp32 ``p @ v`` (the probabilities are not cast to ``v``'s
+    type), divided by ``max(l, 1e-30)``.
+
+    q: ``(B, 1, H, hd)``; k, v: ``(B, S, KV, hd)`` with ``H = KV * G``
+    (head ``h`` reads kv head ``h // G``); ``lengths``: a scalar or a
+    ``(B,)`` count of valid positions per row. Returns ``(B, 1, H*hd)``
+    float32. A row of length 0 or less masks every position, so, as in
+    the Pallas body, it averages ``v`` over all ``S`` positions."""
+    B, _, H, hd = q.shape
+    S, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    scale = 1.0 / hd ** 0.5
+    qg = q.reshape(B, KV, G, hd).float()
+    s = torch.einsum("bkgd,bskd->bkgs", qg, k.float()) * scale
+    lengths = torch.as_tensor(lengths, device=q.device)
+    if lengths.dim() == 0:
+        lengths = lengths.expand(B)
+    valid = torch.arange(S, device=q.device)[None, :] < lengths[:, None]
+    s = torch.where(valid[:, None, None, :], s, NEG_INF)
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    o = torch.einsum("bkgs,bskd->bkgd", p, v.float()) \
+        / p.sum(-1, keepdim=True).clamp_min(1e-30)
+    return o.reshape(B, 1, H * hd)

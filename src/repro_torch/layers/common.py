@@ -1,0 +1,78 @@
+"""Shared building blocks: initializers, norms, rotary embeddings and the
+vocab padding (port of ``repro.layers.common``; M-RoPE comes with the VLM
+family)."""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from repro_torch.core.grid import resolve_device
+
+Compute = torch.bfloat16
+Accum = torch.float32
+
+
+def weights_device(generator: Optional[torch.Generator], device
+                   ) -> torch.device:
+    """The device a module's weights are made on: ``device``, the card
+    unless the caller asks for another. A generator that draws them must
+    sit on that device; one on another device raises."""
+    dev = torch.device(device)
+    if generator is not None:
+        gen = generator.device
+        if gen.type != dev.type or resolve_device(gen) != resolve_device(dev):
+            raise ValueError(f"generator on {gen}, weights requested on "
+                             f"{dev}")
+    return resolve_device(dev)
+
+
+def dense_init(generator: torch.Generator, d_in: int, d_out: int,
+               scale: Optional[float] = None, dtype=Compute) -> torch.Tensor:
+    """A ``(d_in, d_out)`` weight drawn from N(0, scale^2) in float32 on the
+    generator's device, then cast; ``scale`` defaults to ``1/sqrt(d_in)``."""
+    scale = scale if scale is not None else 1.0 / math.sqrt(d_in)
+    w = torch.randn((d_in, d_out), generator=generator,
+                    device=generator.device, dtype=torch.float32)
+    return (w * scale).to(dtype)
+
+
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5
+            ) -> torch.Tensor:
+    """fp32 variance, normalised in fp32, cast back, then times scale."""
+    h = x.to(Accum)
+    var = (h * h).mean(-1, keepdim=True)
+    return (h * torch.rsqrt(var + eps)).to(x.dtype) * scale
+
+
+def init_rmsnorm(d: int, dtype=Compute, device="cuda") -> torch.Tensor:
+    """The norm's scale vector (ones)."""
+    return torch.ones((d,), dtype=dtype, device=device)
+
+
+def pad_vocab(vocab: int, multiple: int) -> int:
+    """Pad the vocab so the embedding/logits dims shard over TP cleanly."""
+    return -(-vocab // multiple) * multiple
+
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=Accum,
+                                         device=device) / head_dim))
+
+
+def rope_cos_sin(positions: torch.Tensor, head_dim: int, theta: float):
+    """positions: (..., T) int -> cos/sin (..., T, head_dim//2) fp32."""
+    ang = positions[..., None].to(Accum) * rope_freqs(
+        head_dim, theta, positions.device)
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
+               ) -> torch.Tensor:
+    """x: (B, T, H, hd); cos/sin: (B, T, hd//2) (broadcast over heads).
+    Rotates in fp32 and casts back."""
+    x1, x2 = x.to(Accum).chunk(2, dim=-1)
+    c = cos[:, :, None, :]
+    s = sin[:, :, None, :]
+    return torch.cat([x1 * c - x2 * s, x1 * s + x2 * c], dim=-1).to(x.dtype)

@@ -1,1 +1,2 @@
-"""Model layouts the port needs (the model stack itself is a later slice)."""
+"""The dense decoder (``decoder``) and the parameter layout of its
+gradient buckets (``params``)."""

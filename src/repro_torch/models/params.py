@@ -4,8 +4,9 @@ The reference initialises its decoder as a nested dict (``repro/models/
 decoder.py`` ``init``) with the blocks of one pattern cycle stacked over
 ``n_cycles`` under ``groups``, and flattens it with ``jax.tree_util``,
 which visits dict keys in sorted order. Gradient buckets are windows of
-that flattened order, so :func:`param_shapes` reproduces it exactly. The
-model itself is not ported yet.
+that flattened order, so :func:`param_shapes` reproduces it exactly
+(``models/decoder.py`` holds the model; ``interop.params_from_reference``
+carries the reference's tree into it).
 """
 from __future__ import annotations
 

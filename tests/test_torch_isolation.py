@@ -9,6 +9,7 @@ import subprocess
 import sys
 
 import pytest
+import torch
 
 from repro_torch.core.grid import RankGrid
 
@@ -18,7 +19,8 @@ PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + \
     [REPO / "chip_smoke.py"]
 CUDA_SOURCES = sorted((REPO / "src" / "repro_torch").rglob("*.cu"))
 #: the headers a kernel source may include: the CUDA toolkit's and libc's
-CUDA_HEADERS = {"cuda_runtime.h", "cuda_fp16.h", "cuda_fp8.h", "stdint.h"}
+CUDA_HEADERS = {"cuda_runtime.h", "cuda_fp16.h", "cuda_fp8.h", "cuda_bf16.h",
+                "stdint.h"}
 
 
 def _imported_roots(path: pathlib.Path):
@@ -71,6 +73,52 @@ def test_rank_grid_defaults_to_the_card():
     assert RankGrid().device.type == "cuda"
     assert RankGrid(2, 4).device.type == "cuda"
     assert RankGrid(2, 4, device="cpu").device.type == "cpu"
+
+
+def _model_entry_points():
+    from repro_torch import interop
+    from repro_torch.layers import attention, common, mlp
+    from repro_torch.models import decoder
+    return [decoder.DecoderLM, decoder.AttnBlock, decoder.RMSNorm,
+            attention.Attention, attention.init_cache, mlp.MLP,
+            common.init_rmsnorm, interop.params_from_reference]
+
+
+@pytest.mark.parametrize("entry", _model_entry_points(),
+                         ids=lambda f: f.__qualname__)
+def test_model_entry_points_default_to_the_card(entry):
+    import inspect
+    assert inspect.signature(entry).parameters["device"].default == "cuda"
+
+
+def test_a_generator_off_the_requested_device_raises():
+    """Weights go where ``device`` says; a CPU generator does not move a
+    model that was not asked for the CPU."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.models.decoder import DecoderLM
+    cfg = reduced_config("smollm-360m")
+    with pytest.raises(ValueError, match="generator on cpu, weights "
+                                         "requested on cuda"):
+        DecoderLM(cfg, torch.Generator().manual_seed(0))
+    with pytest.raises(ValueError, match="requested on meta"):
+        DecoderLM(cfg, torch.Generator(), device="meta")
+    model = DecoderLM(cfg, torch.Generator().manual_seed(0), device="cpu")
+    assert {p.device for p in model.parameters()} == {torch.device("cpu")}
+
+
+def test_a_default_grid_names_the_card_as_its_operands_do(monkeypatch):
+    """On a machine with a card, ``RankGrid(2, 4)`` holds ``cuda:0``, the
+    device a tensor made with ``device="cuda"`` reports, so its operands
+    pass the grid's device checks. (The card is stood in for here; nothing
+    is allocated.)"""
+    from repro_torch.core.grid import resolve_device
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    assert resolve_device("cuda") == torch.device("cuda", 0)
+    assert resolve_device("cuda:1") == torch.device("cuda", 1)
+    assert RankGrid(2, 4).device == torch.device("cuda:0")
+    assert RankGrid(2, 4) == RankGrid(2, 4, "cuda:0") != RankGrid(2, 4,
+                                                                  "cuda:1")
 
 
 def test_chip_smoke_refuses_without_a_card(tmp_path):
