@@ -3,26 +3,32 @@
 
 Usage: ``python3 chip_smoke.py`` from the repository root, on a machine
 with an NVIDIA Hopper card and the CUDA toolkit. It imports nothing of JAX
-or of the JAX package. Five phases; any failure exits non-zero:
+or of the JAX package. Six phases; any failure exits non-zero:
 
-1. **Kernels.** Builds ``kernels/csrc/codec_{int8,int4,fp8}.cu`` and
-   ``flash_decode.cu`` with nvcc (sm_90a), one compiler process each, all
-   at once, and holds each of the six codec kernels against its plain
-   PyTorch version on the card, bitwise (tolerance 0): encodes at (16,
-   131072), (3, 1000) and (1, 256) with and without the carried error,
-   plus rows with subnormal e4m3 outputs, signed zeros and a NaN (in the
-   NaN's quantization block, or fp8 slice, only NaN positions are
-   compared; the row's other blocks stay bitwise); decode-reduce over W in
-   {1, 2, 8} and at the compressed reduce_scatter's (8, 2, 524288). The
-   flash-decode kernel is held against its plain version within
-   ``FLASH_TOL * (1 + |plain|)`` (both fp32 from the same inputs) at the
-   serving shapes: B 8, H 15, KV 5, hd 64 (full width) and H 4, KV 2, hd
-   32 (the reduced config), S 2048 and 1000, bf16 and fp32, for (B,)
-   lengths (all S, all 1, mixed) and scalar lengths 1, S // 3, S and 0.
-   Times each kernel and its plain version at the main path's shapes
-   (median of 20 runs, CUDA events around device work only, L2 flushed
-   between runs), and for flash decode also one
-   ``scaled_dot_product_attention`` call as the library yardstick.
+1. **Kernels.** Builds ``kernels/csrc/codec_{int8,int4,fp8}.cu``,
+   ``flash_decode.cu`` and ``rwkv6_wkv.cu`` with nvcc (sm_90a), one
+   compiler process each, all at once, and holds each of the six codec
+   kernels against its plain PyTorch version on the card, bitwise
+   (tolerance 0): encodes at (16, 131072), (3, 1000) and (1, 256) with and
+   without the carried error, plus rows with subnormal e4m3 outputs, signed
+   zeros and a NaN (in the NaN's quantization block, or fp8 slice, only NaN
+   positions are compared; the row's other blocks stay bitwise);
+   decode-reduce over W in {1, 2, 8} and at the compressed reduce_scatter's
+   (8, 2, 524288). The flash-decode kernel is held against its plain
+   version within ``FLASH_TOL * (1 + |plain|)`` (both fp32 from the same
+   inputs) at the serving shapes: B 8, H 15, KV 5, hd 64 (full width) and H
+   4, KV 2, hd 32 (the reduced config), S 2048 and 1000, bf16 and fp32, for
+   (B,) lengths (all S, all 1, mixed) and scalar lengths 1, S // 3, S and 0.
+   The WKV6 kernel is held against its plain version within ``RWKV_TOL * (1
+   + |plain|)`` on y and the final state at the rwkv6-1.6b decode tick (B
+   8, T 1, H 32, hd 64), at prefills (B 1, T 1024 and 1000) and at the
+   reduced config (H 4, hd 32, T 7 and 130), bf16 and fp32, s0 zero and
+   random, and with the final state written over s0. Times each kernel and
+   its plain version at the main path's shapes (median of 20 runs, CUDA
+   events around device work only, L2 flushed between runs; the WKV6 kernel
+   at the decode tick and at a 1024-step prefill), and for flash decode
+   also one ``scaled_dot_product_attention`` call as the library yardstick
+   (no single PyTorch call computes the WKV6 recurrence).
 2. **Slice.** The full-width smollm-360m gradient sync: 409,007,040
    float32 gradients per rank on ``RankGrid(2, 4, "cuda")``, 4 MiB buckets
    (391), one persistent ``pip_mcoll`` carry op per bucket with error
@@ -49,26 +55,38 @@ or of the JAX package. Five phases; any failure exits non-zero:
    and scatters bitwise equal to ``decode(encode(.))`` of the source rows,
    compressed reductions within the codec's collective tolerance. One line
    per pair with its median host-clock time per call at 8 B and 4 MiB.
-4. **Serving.** Full-width smollm-360m (bf16, random weights from a seeded
+4. **Serving smollm-360m.** Full width (bf16, random weights from a seeded
    ``torch.Generator``) served by ``Engine(max_batch=8, max_len=2048,
    flags=RunFlags(use_flash_decode=True), mesh=RankGrid(2, 4))`` with
    the default devices, as the README's serving example builds them:
    16 requests with prompt lengths drawn from a numpy seed in [64, 1024],
    32 new tokens each. Every request must return 32 tokens within the
-   vocab; the flash-decode launches (zeroed just before the run, read just
-   after) must equal ticks x 32 layers; the persistent sync op must start
-   once per tick with no rebind, and the tokens must equal a sync-free
-   engine's on the same weights, bitwise. Three teacher-forced ticks on the
-   same caches hold every layer's flash-decode output within
-   ``FLASH_TOL * (1 + |plain|)`` of the plain version on that layer's own
-   operands (the live cache and (B,) lengths), and the kernel path's logits
-   within ``TEACHER_TOL`` times the largest logit of the plain-version
-   path's (a guard against gross path faults only: the kernel's precision
-   is held by the per-layer check). Records prefill and tick
-   times (host clock), tokens per second, one profiled decode tick (device
-   busy, idle share, top device kernels, flash-decode time per launch) and
-   peak device memory.
-5. **Report.** The slice, collectives and serving summaries, the card's
+   vocab; every kernel count is zeroed just before the run and read just
+   after: flash-decode launches must equal ticks x 32 layers, every other
+   kernel's 0; the persistent sync op must start once per tick with no
+   rebind, and the tokens must equal a sync-free engine's on the same
+   weights, bitwise. Three teacher-forced ticks on the same caches hold
+   every layer's flash-decode output within ``FLASH_TOL * (1 + |plain|)``
+   of the plain version on that layer's own operands (the live cache and
+   (B,) lengths), and the kernel path's logits within ``TEACHER_TOL``
+   times the largest logit of the plain-version path's (a guard against
+   gross path faults only: the kernel's precision is held by the per-layer
+   check). Records prefill and tick times (host clock), tokens per second,
+   one profiled decode tick (device busy, idle share, top device kernels,
+   flash-decode time per launch) and peak device memory.
+5. **Serving rwkv6-1.6b.** The same run for the attention-free family:
+   full-width rwkv6-1.6b (24 layers, d 2048, 32 heads of 64; bf16, seeded
+   random weights) served by ``Engine(max_batch=8, max_len=2048,
+   flags=RunFlags(use_rwkv_kernel=True), mesh=RankGrid(2, 4))``, the same
+   16 requests. The WKV6 launches must equal 24 x (ticks + 16 prefills),
+   every other kernel's 0; the tick sync and the sync-free tokens as in
+   phase 4. The prefill of the longest prompt and three teacher-forced
+   ticks hold every layer's WKV6 call within ``RWKV_TOL * (1 + |plain|)``
+   of the plain version on its own operands (the live state and that
+   layer's r, k, v, w), and the kernel path's logits within ``TEACHER_TOL``
+   times the largest logit of the plain recurrence's. Records as phase 4,
+   plus one profiled prefill of the longest prompt.
+6. **Report.** The slice, collectives and serving summaries, the card's
    name and power limit (as nvidia-smi gives them), the ``{"kernels":
    [...]}`` line, and last ``{"ok": true, "device": {...}}``.
 """
@@ -109,16 +127,21 @@ PEAK_LIMIT_BYTES = 50e9
 #: per-rank message sizes of the collectives phase (bytes)
 COLL_SIZES = (8, 64 << 10, 4 << 20)
 TIME_ITERS = 10
-#: serving: full-width smollm-360m, max_batch slots of max_len positions,
-#: 16 requests with prompts drawn in [64, 1024] and 32 new tokens each
+#: serving (full-width smollm-360m, then rwkv6-1.6b): max_batch slots of
+#: max_len positions, 16 requests with prompts drawn in [64, 1024] and 32
+#: new tokens each
 SERVE_BATCH, SERVE_LEN = 8, 2048
 SERVE_REQUESTS, SERVE_NEW, SERVE_PROMPT = 16, 32, (64, 1024)
 #: the flash-decode kernel against its plain version: both fp32 from the
 #: same inputs, apart only in the order of their fp32 sums
 FLASH_TOL = 2e-5
+#: the WKV6 kernel against its plain version: fp32 from the same inputs,
+#: apart in the order of the sum over the state's rows and in fused
+#: multiply-adds (the reference's own kernel-vs-ref tolerance for fp32)
+RWKV_TOL = 1e-4
 #: teacher-forced bf16 logits, kernel path against the plain-version path:
-#: relative to the largest |logit| (the attention outputs differ in the
-#: order of fp32 sums; each layer rounds them to bf16)
+#: relative to the largest |logit| (the attention or WKV outputs differ in
+#: the order of fp32 sums; each layer rounds them to bf16)
 TEACHER_TICKS, TEACHER_TOL = 3, 2.0 ** -5
 
 
@@ -127,7 +150,7 @@ def fail(msg: str) -> int:
     return 1
 
 
-def time_ms(torch, fn, flush, n: int = 20) -> float:
+def time_ms(torch, fn, flush, n: int = 20, spin: bool = True) -> float:
     """Median device time of ``fn`` over ``n`` runs, between two CUDA
     events, with the L2 cache flushed before each run.
 
@@ -136,10 +159,23 @@ def time_ms(torch, fn, flush, n: int = 20) -> float:
     them: the events then bracket device work, not the host's dispatch. A
     run whose queueing took longer than half the spin (a stall of the
     shared host) is discarded and run again; raises if more than ``n``
-    runs had to be discarded."""
+    runs had to be discarded. ``spin=False`` drops the spin for a ``fn``
+    that queues more launches than the device's queue holds behind one (a
+    plain version looping over time steps): its events then also bracket
+    the gaps in which the device waits for the host."""
     fn()
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
+    if not spin:
+        times = []
+        for _ in range(n):
+            flush.zero_()
+            a.record()
+            fn()
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b))
+        return statistics.median(times)
     a.record()
     torch.cuda._sleep(SPIN_CYCLES)
     b.record()
@@ -765,6 +801,109 @@ def flash_phase(torch, kattn, ref, dev):
         "bytes": nbytes, "shape": [B, S, H, KV, hd], "dtype": "bfloat16"}
 
 
+def _rwkv_inputs(torch, B, T, H, hd, dtype, zero_state, gen, dev):
+    """r, k, v in ``dtype``; the decay w in (0, 0.98), u and s0 float32."""
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+    r, k, v = (randn(B, T, H, hd).to(dtype) for _ in range(3))
+    w = torch.sigmoid(randn(B, T, H, hd)) * 0.98
+    u = randn(H, hd) * 0.1
+    s0 = torch.zeros((B, H, hd, hd), device=dev) if zero_state \
+        else randn(B, H, hd, hd) * 0.1
+    return r, k, v, w, u, s0
+
+
+def _rwkv_bytes_ops(B, T, H, hd, esize):
+    """What one WKV6 call must move and compute: r, k, v in their type, w
+    and y in fp32, s0 read and sT written once, u once; 5 fp32 flops per
+    (step, head, state element), 2 for y's sum over the state and 3 for the
+    update, and 3 per (step, head, lane) for the bonus term's dot product
+    sum_i r_i u_i k_i (it multiplies v_j, not each state element)."""
+    return (B * T * H * hd * (3 * esize + 4 + 4) + 2 * B * H * hd * hd * 4
+            + H * hd * 4, 5 * B * T * H * hd * hd + 3 * B * T * H * hd)
+
+
+def _check_rwkv(torch, what, got, want):
+    """``got`` (y, sT) within ``RWKV_TOL * (1 + |plain|)`` of ``want``;
+    returns the worst absolute difference."""
+    worst = 0.0
+    for name, a, b in (("y", got[0], want[0]), ("sT", got[1], want[1])):
+        if a.shape != b.shape or not bool(torch.isfinite(a).all()) or not \
+                bool(((a - b).abs() <= RWKV_TOL * (1 + b.abs())).all()):
+            raise AssertionError(f"rwkv6_wkv {what}: {name} max error "
+                                 f"{max_diff(torch, a, b)} outside "
+                                 f"{RWKV_TOL} * (1 + |plain|)")
+        worst = max(worst, max_diff(torch, a, b))
+    return worst
+
+
+def rwkv_phase(torch, krwkv, ref, dev):
+    """The WKV6 kernel against its plain version at the serving shapes: the
+    decode tick (B 8, T 1) and prefills (B 1, T 1024 and 1000) of
+    full-width rwkv6-1.6b (H 32, hd 64), and the reduced config (H 4, hd
+    32, T 7 and 130); bf16 and fp32 r/k/v, s0 zero and random, and the
+    final state written over s0 (it must equal the separate output). Then
+    the kernel's and the plain version's times at the decode and the
+    1024-step prefill shapes, with their bounds. Returns its record
+    (without launches)."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    worst, checked = 0.0, 0
+    for B, T, H, hd in ((SERVE_BATCH, 1, 32, 64), (1, 1024, 32, 64),
+                        (1, 1000, 32, 64), (SERVE_BATCH, 7, 4, 32),
+                        (2, 130, 4, 32)):
+        for dtype in (torch.bfloat16, torch.float32):
+            for zero_state in (True, False):
+                ops = _rwkv_inputs(torch, B, T, H, hd, dtype, zero_state,
+                                   gen, dev)
+                what = f"B={B} T={T} H={H} hd={hd} {dtype} " \
+                       f"s0={'zero' if zero_state else 'random'}"
+                want = ref.rwkv6_wkv(*ops)
+                got = krwkv.rwkv6_wkv(*ops)
+                torch.cuda.synchronize()
+                worst = max(worst, _check_rwkv(torch, what, got, want))
+                s0 = ops[-1]
+                y2, s2 = krwkv.rwkv6_wkv(*ops[:-1], s0, state_out=s0)
+                torch.cuda.synchronize()
+                if s2 is not s0 or not torch.equal(y2, got[0]) or \
+                        not torch.equal(s0, got[1]):
+                    raise AssertionError(f"rwkv6_wkv {what}: the state "
+                                         f"written over s0 differs from "
+                                         f"the separate output")
+                checked += 1
+
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    timed = {}
+    for tag, (B, T) in (("decode", (SERVE_BATCH, 1)), ("prefill", (1, 1024))):
+        H, hd = 32, 64
+        ops = _rwkv_inputs(torch, B, T, H, hd, torch.bfloat16, False, gen,
+                           dev)
+        nbytes, nops = _rwkv_bytes_ops(B, T, H, hd, 2)
+        bound, bound_by = bound_ms(nbytes, nops)
+        timed[tag] = {
+            "shape": [B, T, H, hd], "dtype": "bfloat16", "bytes": nbytes,
+            "flops": nops,
+            "ms": time_ms(torch, lambda: krwkv.rwkv6_wkv(*ops), flush),
+            # the plain version queues some 7 launches per step: at T 1024
+            # more than the device's queue holds behind the spin
+            "plain_ms": time_ms(torch, lambda: ref.rwkv6_wkv(*ops), flush,
+                                spin=T == 1),
+            "plain_timing": "device time" if T == 1 else
+                            "events around the call, host dispatch "
+                            "included",
+            "bound_ms": bound, "bound_by": bound_by}
+    dec = timed["decode"]
+    return {
+        "name": "rwkv6_wkv", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/rwkv6_wkv.cu",
+        "replaces": "src/repro/kernels/rwkv6_wkv.py:51",
+        "max_abs_err": worst, "tolerance": f"{RWKV_TOL} * (1 + |plain|)",
+        "cases_checked": checked,
+        "ms": dec["ms"], "plain_ms": dec["plain_ms"],
+        "bound_ms": dec["bound_ms"], "bound_by": dec["bound_by"],
+        "library_ms": None, "bytes": dec["bytes"], "shape": dec["shape"],
+        "dtype": "bfloat16", "prefill": timed["prefill"]}
+
+
 def _serve_requests(np, vocab):
     rng = np.random.default_rng(SEED)
     lens = rng.integers(SERVE_PROMPT[0], SERVE_PROMPT[1] + 1,
@@ -785,27 +924,14 @@ def _timed(fn, into):
     return call
 
 
-def teacher_forced(torch, eng, model, kattn, ref, ticks):
-    """``ticks`` decode steps of the engine's admitted slots, each run three
-    times on the same caches (restored in between): through the kernel
-    (``use_flash_decode=True``), through the kernel's plain version in its
-    place (the plain-version path), and through the model's plain attention
-    (``use_flash_decode=False``, which rounds the probabilities to bf16 as
-    the reference does); the plain-version path's greedy tokens feed the
-    next step. In the kernel run every layer's launch is also held against
-    the plain version on its own operands (the live cache and the (B,)
-    lengths) within ``FLASH_TOL * (1 + |plain|)``. Returns the worst
-    |logit| difference of the kernel path from each of the other two, the
-    largest |logit| seen, and the worst per-layer kernel error with the
-    number of layer calls checked."""
-    from repro_torch.models.decoder import RunFlags
-
-    kernel, plain_attn = RunFlags(use_flash_decode=True), RunFlags()
-    worst_plain, worst_attn, top = 0.0, 0.0, 0.0
-    layer_errs = []
+def _flash_held(torch, kattn, ref, errs):
+    """A stand-in for ``kattn.flash_decode`` that launches the kernel and
+    holds its output within ``FLASH_TOL * (1 + |plain|)`` of the plain
+    version on the call's own operands (the live cache and the (B,)
+    lengths)."""
     launch = kattn.flash_decode
 
-    def held_to_plain(q, k, v, lengths):
+    def held(q, k, v, lengths):
         got = launch(q, k, v, lengths)
         want = ref.flash_decode(q, k, v, lengths)
         err = max_diff(torch, got, want)
@@ -813,60 +939,74 @@ def teacher_forced(torch, eng, model, kattn, ref, ticks):
                 ((got - want).abs() <= FLASH_TOL * (1 + want.abs())).all()):
             raise AssertionError(
                 f"flash_decode on the serving path (layer call "
-                f"{len(layer_errs)}, lengths {lengths.tolist()}): max error "
+                f"{len(errs)}, lengths {lengths.tolist()}): max error "
                 f"{err} outside {FLASH_TOL} * (1 + |plain|)")
-        layer_errs.append(err)
+        errs.append(err)
         return got
+    return held
+
+
+def teacher_forced(torch, eng, model, kmod, name, runs, errs, ticks):
+    """``ticks`` decode steps of the engine's admitted slots, each run once
+    per entry of ``runs``, ``(label, flags, stand-in for kmod.<name> or
+    None)``, every run from the caches as the tick found them (all their
+    tensors restored in between). The first run is the kernel path, its
+    stand-in a held launch that appends each layer call's error to
+    ``errs``; the last is the plain-version path, whose greedy tokens and
+    caches feed the next step. Returns the worst |logit| difference of the
+    kernel path from each other run (by label) and the largest |logit| of
+    the plain-version path."""
+    launch = getattr(kmod, name)
+    worst = {label: 0.0 for label, _, _ in runs[1:]}
+    top = 0.0
     toks = torch.tensor([[r.out_tokens[-1]] for r in eng.active],
                         device=eng.device)
     lengths = torch.tensor(eng.lengths, device=eng.device)
-
-    def step(flags, restore):
-        out, _, _ = model(toks, eng.caches, lengths, flags=flags)
-        for c, s in zip(eng.caches, restore):
-            c["k"].copy_(s["k"])
-            c["v"].copy_(s["v"])
-        return out
-
     for _ in range(ticks):
-        saved = [{n: c[n].clone() for n in ("k", "v")} for c in eng.caches]
-        kattn.flash_decode = held_to_plain
-        try:
-            got = step(kernel, saved)
-        finally:
-            kattn.flash_decode = launch
-        attn = step(plain_attn, saved)
-        kattn.flash_decode = ref.flash_decode
-        try:
-            want, _, _ = model(toks, eng.caches, lengths, flags=kernel)
-        finally:
-            kattn.flash_decode = launch
-        for what, t in (("kernel", got), ("plain-version", want),
-                        ("plain attention", attn)):
-            if t.shape != (len(eng.active), 1, model.lm_head.shape[1]) \
-                    or not bool(torch.isfinite(t).all()):
-                raise AssertionError(f"teacher-forced {what} logits: shape "
-                                     f"{tuple(t.shape)} or not finite")
-        worst_plain = max(worst_plain, max_diff(torch, got, want))
-        worst_attn = max(worst_attn, max_diff(torch, got, attn))
-        top = max(top, float(want.float().abs().max()))
-        toks = want[:, 0].argmax(-1, keepdim=True)
+        saved = [{n: t.clone() for n, t in c.items()} for c in eng.caches]
+        outs = []
+        for i, (label, flags, stand_in) in enumerate(runs):
+            if i:
+                for c, sv in zip(eng.caches, saved):
+                    for n in c:
+                        c[n].copy_(sv[n])
+            setattr(kmod, name, stand_in or launch)
+            try:
+                out, _, _ = model(toks, eng.caches, lengths, flags=flags)
+            finally:
+                setattr(kmod, name, launch)
+            if out.shape != (len(eng.active), 1, model.lm_head.shape[1]) \
+                    or not bool(torch.isfinite(out).all()):
+                raise AssertionError(f"teacher-forced {label} logits: shape "
+                                     f"{tuple(out.shape)} or not finite")
+            outs.append(out)
+        for (label, _, _), out in zip(runs[1:], outs[1:]):
+            worst[label] = max(worst[label], max_diff(torch, outs[0], out))
+        top = max(top, float(outs[-1].float().abs().max()))
+        toks = outs[-1][:, 0].argmax(-1, keepdim=True)
         lengths += 1
         del saved
-    if len(layer_errs) != ticks * len(model.blocks):
-        raise AssertionError(f"{len(layer_errs)} flash_decode calls held to "
-                             f"the plain version over {ticks} ticks of "
+    if len(errs) != ticks * len(model.blocks):
+        raise AssertionError(f"{len(errs)} {name} calls held to the plain "
+                             f"version over {ticks} ticks of "
                              f"{len(model.blocks)} layers")
-    return worst_plain, worst_attn, top, max(layer_errs), len(layer_errs)
+    return worst, top
 
 
-def serve_phase(torch, dev, cfg, kattn, ref):
-    """Full-width smollm-360m served by the Engine with the 2x4-grid token
-    sync and the flash-decode kernel on every decode tick. Returns a
-    summary dict."""
+def serve_main(torch, dev, cfg, flags, kmods):
+    """The serving main path at full width: ``cfg`` in bf16 with random
+    weights from a seeded generator, built with the default devices (the
+    card) as the README's serving example builds it, served by
+    ``Engine(max_batch=SERVE_BATCH, max_len=SERVE_LEN, flags=flags,
+    mesh=RankGrid(2, 4))``: SERVE_REQUESTS requests of SERVE_NEW tokens.
+    Every kernel count of ``kmods`` is zeroed just before the run and read
+    just after. Checks the tokens, the tick sync, and the tokens of a
+    sync-free engine on the same weights (bitwise). Returns the model, an
+    engine factory, the request factory and the run's record."""
     import numpy as np
     from repro_torch.core.grid import RankGrid
-    from repro_torch.models.decoder import DecoderLM, RunFlags
+    from repro_torch.models import params as tparams
+    from repro_torch.models.decoder import DecoderLM
     from repro_torch.serve.engine import Engine, Request
 
     torch.cuda.empty_cache()
@@ -879,10 +1019,9 @@ def serve_phase(torch, dev, cfg, kattn, ref):
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     n_params = sum(p.numel() for p in model.parameters())
-    if n_params != cfg.n_params():
-        raise AssertionError(f"model has {n_params} params, config "
-                             f"{cfg.n_params()}")
-    flags = RunFlags(use_flash_decode=True)
+    if n_params != tparams.n_params(cfg):
+        raise AssertionError(f"model has {n_params} params, the "
+                             f"reference's tree {tparams.n_params(cfg)}")
     prompts = _serve_requests(np, cfg.vocab)
 
     def requests():
@@ -899,12 +1038,13 @@ def serve_phase(torch, dev, cfg, kattn, ref):
     eng._admit = _timed(eng._admit, prefill_s)
     eng._decode_tick = _timed(eng._decode_tick, decode_s)
     torch.cuda.synchronize()
-    kattn.reset_launches()
+    for km in kmods:
+        km.reset_launches()
     t0 = time.perf_counter()
     done = eng.run(requests())
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
-    launches = kattn.launches["flash_decode"]
+    launches = {k: n for km in kmods for k, n in km.launches.items()}
     m = eng.metrics()
     if len(done) != SERVE_REQUESTS:
         raise AssertionError(f"served {len(done)} of {SERVE_REQUESTS}")
@@ -914,9 +1054,6 @@ def serve_phase(torch, dev, cfg, kattn, ref):
             raise AssertionError(f"request of {len(r.prompt)} tokens: "
                                  f"{len(r.out_tokens)} tokens, expected "
                                  f"{SERVE_NEW} within the vocab")
-    if launches != m["ticks"] * cfg.n_layers:
-        raise AssertionError(f"flash_decode launched {launches} times over "
-                             f"{m['ticks']} ticks of {cfg.n_layers} layers")
     if m["sync_starts"] != m["ticks"] or m["plan_rebinds"]:
         raise AssertionError(f"tick sync: {m['sync_starts']} starts over "
                              f"{m['ticks']} ticks, {m['plan_rebinds']} "
@@ -931,29 +1068,8 @@ def serve_phase(torch, dev, cfg, kattn, ref):
         raise AssertionError("tokens of the synced engine differ from the "
                              "sync-free engine's")
     del ref_done
-
-    # teacher-forced ticks: the kernel path against the plain-version path
-    # on the same caches; then one profiled tick (with its sync)
-    eng = engine(RankGrid(2, 4))
-    with torch.inference_mode():
-        for slot, req in enumerate(requests()[:SERVE_BATCH]):
-            eng._admit(req, slot)
-        worst, worst_attn, top, layer_err, layer_calls = teacher_forced(
-            torch, eng, model, kattn, ref, TEACHER_TICKS)
-        if worst > TEACHER_TOL * top:
-            raise AssertionError(f"teacher-forced logits: kernel path "
-                                 f"{worst} from the plain-version path, "
-                                 f"over {TEACHER_TOL} * {top}")
-        # the profiled tick reads lengths + 1 positions per row
-        valid = int(np.minimum(eng.lengths.astype(np.int64) + 1,
-                               SERVE_LEN).sum())
-        profile = profile_call(torch, eng._decode_tick, ("flash_decode",))
-    tick_bytes, tick_ops = _flash_bytes_ops(
-        SERVE_BATCH, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, 2, valid)
-    path_bound, _ = bound_ms(tick_bytes, tick_ops)
-    peak = torch.cuda.max_memory_allocated(dev)
     generated = SERVE_REQUESTS * SERVE_NEW
-    return {
+    record = {
         "model": cfg.name, "params": n_params, "dtype": "bfloat16",
         "init_s": init_s, "max_batch": SERVE_BATCH, "max_len": SERVE_LEN,
         "requests": SERVE_REQUESTS, "new_tokens": SERVE_NEW,
@@ -967,18 +1083,159 @@ def serve_phase(torch, dev, cfg, kattn, ref):
                           "p99": sorted(decode_s)[
                               int(0.99 * (len(decode_s) - 1))],
                           "n": len(decode_s)},
-        "flash_launches": launches,
+        "launches": launches}
+    return model, engine, requests, record
+
+
+def _check_launches(what, launches, want):
+    """Every counted kernel launched as ``want`` says, the others never."""
+    expected = {k: want.get(k, 0) for k in launches}
+    if launches != expected:
+        raise AssertionError(f"{what}: kernel launches {launches}, expected "
+                             f"{expected}")
+
+
+def serve_phase(torch, dev, cfg, kattn, ref, kmods):
+    """Full-width smollm-360m served by the Engine with the 2x4-grid token
+    sync and the flash-decode kernel on every decode tick. Returns a
+    summary dict."""
+    import numpy as np
+    from repro_torch.core.grid import RankGrid
+    from repro_torch.models.decoder import RunFlags
+
+    model, engine, requests, record = serve_main(
+        torch, dev, cfg, RunFlags(use_flash_decode=True), kmods)
+    m, launches = record["metrics"], record["launches"]
+    _check_launches("smollm serving", launches,
+                    {"flash_decode": m["ticks"] * cfg.n_layers})
+
+    # teacher-forced ticks: the kernel path against the plain-version path
+    # on the same caches; then one profiled tick (with its sync)
+    eng = engine(RankGrid(2, 4))
+    with torch.inference_mode():
+        for slot, req in enumerate(requests()[:SERVE_BATCH]):
+            eng._admit(req, slot)
+        # the kernel, the model's plain attention (it rounds the
+        # probabilities to bf16 as the reference does), and the kernel's
+        # plain version in its place
+        errs = []
+        worst, top = teacher_forced(
+            torch, eng, model, kattn, "flash_decode",
+            [("kernel", RunFlags(use_flash_decode=True),
+              _flash_held(torch, kattn, ref, errs)),
+             ("plain attention", RunFlags(), None),
+             ("plain-version", RunFlags(use_flash_decode=True),
+              ref.flash_decode)], errs, TEACHER_TICKS)
+        worst, worst_attn = worst["plain-version"], worst["plain attention"]
+        if worst > TEACHER_TOL * top:
+            raise AssertionError(f"teacher-forced logits: kernel path "
+                                 f"{worst} from the plain-version path, "
+                                 f"over {TEACHER_TOL} * {top}")
+        # the profiled tick reads lengths + 1 positions per row
+        valid = int(np.minimum(eng.lengths.astype(np.int64) + 1,
+                               SERVE_LEN).sum())
+        profile = profile_call(torch, eng._decode_tick, ("flash_decode",))
+    tick_bytes, tick_ops = _flash_bytes_ops(
+        SERVE_BATCH, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, 2, valid)
+    path_bound, _ = bound_ms(tick_bytes, tick_ops)
+    record.update({
+        "flash_launches": launches["flash_decode"],
         "teacher_forced": {"ticks": TEACHER_TICKS, "max_abs_err": worst,
                            "max_abs_logit": top,
                            "tolerance": f"{TEACHER_TOL} * max|logit|",
                            "max_abs_err_vs_plain_attention": worst_attn,
-                           "kernel_calls_held_to_plain": layer_calls,
-                           "kernel_max_abs_err": layer_err,
+                           "kernel_calls_held_to_plain": len(errs),
+                           "kernel_max_abs_err": max(errs),
                            "kernel_tolerance":
                                f"{FLASH_TOL} * (1 + |plain|)"},
         "profile": profile, "flash_path_bound_ms": path_bound,
-        "flash_path_bytes": tick_bytes, "peak_mem_bytes": peak,
-    }
+        "flash_path_bytes": tick_bytes,
+        "peak_mem_bytes": torch.cuda.max_memory_allocated(dev)})
+    return record
+
+
+def _rwkv_held(torch, krwkv, ref, errs):
+    """A stand-in for ``krwkv.rwkv6_wkv`` that launches the kernel and
+    holds its output and final state within ``RWKV_TOL * (1 + |plain|)``
+    of the plain version on the call's own operands (the live state is
+    copied first: the kernel writes the final state over it)."""
+    launch = krwkv.rwkv6_wkv
+
+    def held(r, k, v, w, u, s0, state_out=None):
+        want = ref.rwkv6_wkv(r, k, v, w, u, s0.clone())
+        got = launch(r, k, v, w, u, s0, state_out=state_out)
+        errs.append(_check_rwkv(torch, f"on the serving path (layer call "
+                                f"{len(errs)}, T={r.shape[1]})", got, want))
+        return got
+    return held
+
+
+def rwkv_serve_phase(torch, dev, cfg, krwkv, ref, kmods):
+    """Full-width rwkv6-1.6b served by the Engine with the 2x4-grid token
+    sync and the WKV6 kernel in every layer, on every prefill and decode
+    tick. Returns a summary dict."""
+    from repro_torch.core.grid import RankGrid
+    from repro_torch.models.decoder import RunFlags
+
+    model, engine, requests, record = serve_main(
+        torch, dev, cfg, RunFlags(use_rwkv_kernel=True), kmods)
+    m, launches = record["metrics"], record["launches"]
+    _check_launches("rwkv serving", launches, {
+        "rwkv6_wkv": cfg.n_layers * (m["ticks"] + SERVE_REQUESTS)})
+
+    eng = engine(RankGrid(2, 4))
+    longest = max(requests(), key=lambda r: len(r.prompt))
+    with torch.inference_mode():
+        # the longest prompt's prefill, every layer's call held to plain
+        errs = []
+        launch = krwkv.rwkv6_wkv
+        krwkv.rwkv6_wkv = _rwkv_held(torch, krwkv, ref, errs)
+        try:
+            eng._admit(longest, 0)
+        finally:
+            krwkv.rwkv6_wkv = launch
+        if len(errs) != cfg.n_layers:
+            raise AssertionError(f"{len(errs)} rwkv6_wkv calls held to the "
+                                 f"plain version in a prefill of "
+                                 f"{cfg.n_layers} layers")
+        prefill_err = max(errs)
+        # one profiled prefill of the same prompt into the same slot
+        prefill_profile = profile_call(
+            torch, lambda: eng._admit(longest, 0), ("rwkv6_wkv",))
+        for slot, req in enumerate(requests()[:SERVE_BATCH - 1]):
+            eng._admit(req, slot + 1)
+        # the kernel, then the plain recurrence (the plain-version path)
+        errs = []
+        worst, top = teacher_forced(
+            torch, eng, model, krwkv, "rwkv6_wkv",
+            [("kernel", RunFlags(use_rwkv_kernel=True),
+              _rwkv_held(torch, krwkv, ref, errs)),
+             ("plain-version", RunFlags(), None)], errs, TEACHER_TICKS)
+        worst = worst["plain-version"]
+        if worst > TEACHER_TOL * top:
+            raise AssertionError(f"teacher-forced logits: kernel path "
+                                 f"{worst} from the plain-version path, "
+                                 f"over {TEACHER_TOL} * {top}")
+        profile = profile_call(torch, eng._decode_tick, ("rwkv6_wkv",))
+    H, hd = cfg.d_model // cfg.rwkv_head_dim, cfg.rwkv_head_dim
+    record.update({
+        "rwkv_launches": launches["rwkv6_wkv"],
+        "held_to_plain": {
+            "prefill_prompt_len": len(longest.prompt),
+            "prefill_calls": cfg.n_layers,
+            "prefill_max_abs_err": prefill_err,
+            "tick_calls": len(errs), "tick_max_abs_err": max(errs),
+            "tolerance": f"{RWKV_TOL} * (1 + |plain|)"},
+        "teacher_forced": {"ticks": TEACHER_TICKS, "max_abs_err": worst,
+                           "max_abs_logit": top,
+                           "tolerance": f"{TEACHER_TOL} * max|logit|"},
+        "profile": profile, "prefill_profile": prefill_profile,
+        "rwkv_path_bound_ms": bound_ms(*_rwkv_bytes_ops(
+            SERVE_BATCH, 1, H, hd, 2))[0],
+        "rwkv_prefill_path_bound_ms": bound_ms(*_rwkv_bytes_ops(
+            1, len(longest.prompt), H, hd, 2))[0],
+        "peak_mem_bytes": torch.cuda.max_memory_allocated(dev)})
+    return record
 
 
 def main() -> int:
@@ -988,15 +1245,18 @@ def main() -> int:
                     "runs on an NVIDIA GPU")
     sys.path.insert(0, str(ROOT / "src"))
     try:
-        from repro_torch.configs.smollm_360m import CONFIG
+        from repro_torch.configs import get_config
         from repro_torch.kernels import _build, ref
         from repro_torch.kernels import attention as kattn
         from repro_torch.kernels import codec as kcodec
+        from repro_torch.kernels import rwkv as krwkv
     except ImportError as e:
         return fail(f"the port's sources are missing ({e}); run from the "
                     f"repository root")
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
+    smollm, rwkv6 = get_config("smollm-360m"), get_config("rwkv6-1.6b")
+    kmods = (kcodec, kattn, krwkv)
 
     t0 = time.perf_counter()
     libs = _build.build_all()
@@ -1015,7 +1275,11 @@ def main() -> int:
           f"of its plain version in "
           f"{kernels['flash_decode']['cases_checked']} cases "
           f"({time.perf_counter() - t0:.3f} s so far)")
-    summary = slice_phase(torch, dev, CONFIG, kcodec)
+    kernels["rwkv6_wkv"] = rwkv_phase(torch, krwkv, ref, dev)
+    print(f"kernel phase: rwkv6_wkv within {RWKV_TOL} * (1 + |plain|) of "
+          f"its plain version in {kernels['rwkv6_wkv']['cases_checked']} "
+          f"cases ({time.perf_counter() - t0:.3f} s so far)")
+    summary = slice_phase(torch, dev, smollm, kcodec)
     for run in summary["syncs"]:
         per_launch = run["profile"].get("per_launch_ms", {})
         encodes, decode = CODEC_KERNELS[run["codec"]]
@@ -1038,13 +1302,25 @@ def main() -> int:
                                       if k != "rows"}}))
     print(f"collectives phase done ({time.perf_counter() - t0:.3f} s so "
           f"far)")
-    serve = serve_phase(torch, dev, CONFIG, kattn, ref)
+    serve = serve_phase(torch, dev, smollm, kattn, ref, kmods)
     kernels["flash_decode"]["launches"] = serve["flash_launches"]
     kernels["flash_decode"]["path_ms"] = serve["profile"].get(
         "per_launch_ms", {}).get("flash_decode", "not measured")
     kernels["flash_decode"]["path_bound_ms"] = serve["flash_path_bound_ms"]
     print(json.dumps({"serve": serve}))
-    print(f"serving phase done ({time.perf_counter() - t0:.3f} s in all)")
+    print(f"serving phase done ({time.perf_counter() - t0:.3f} s so far)")
+    serve = rwkv_serve_phase(torch, dev, rwkv6, krwkv, ref, kmods)
+    rec = kernels["rwkv6_wkv"]
+    rec["launches"] = serve["rwkv_launches"]
+    rec["path_ms"] = serve["profile"].get("per_launch_ms", {}).get(
+        "rwkv6_wkv", "not measured")
+    rec["path_bound_ms"] = serve["rwkv_path_bound_ms"]
+    rec["prefill"]["path_ms"] = serve["prefill_profile"].get(
+        "per_launch_ms", {}).get("rwkv6_wkv", "not measured")
+    rec["prefill"]["path_bound_ms"] = serve["rwkv_prefill_path_bound_ms"]
+    print(json.dumps({"serve_rwkv": serve}))
+    print(f"rwkv serving phase done ({time.perf_counter() - t0:.3f} s in "
+          f"all)")
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -1,5 +1,5 @@
 """Architecture configs ported from the JAX package: only those whose
-model the port runs are registered (smollm-360m)."""
+model the port runs are registered (smollm-360m, rwkv6-1.6b)."""
 import dataclasses
 import importlib
 
@@ -11,6 +11,7 @@ __all__ = ["ModelConfig", "MoEConfig", "ShapeConfig", "SHAPES",
 
 _MODULES = {
     "smollm-360m": "smollm_360m",
+    "rwkv6-1.6b": "rwkv6_1_6b",
 }
 
 ARCH_IDS = tuple(_MODULES)

@@ -51,6 +51,11 @@ SIGNATURES = {
                                 _INT, _INT, ctypes.c_float, _P]),
         "flash_decode_error_string": (ctypes.c_char_p, [_INT]),
     },
+    "rwkv6_wkv": {
+        "rwkv6_wkv": (_INT, [_P, _P, _P, _P, _P, _P, _P, _P, _INT, _INT,
+                             _INT, _INT, _INT, _P]),
+        "rwkv6_wkv_error_string": (ctypes.c_char_p, [_INT]),
+    },
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

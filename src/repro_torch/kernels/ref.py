@@ -2,9 +2,10 @@
 
 Each function computes what its CUDA kernel in ``kernels/csrc/`` computes,
 with ordinary tensor ops: the codec kernels (``codec_{int8,int4,fp8}.cu``)
-bitwise, :func:`flash_decode` (``flash_decode.cu``) up to the order of its
-fp32 sums. The wrappers in ``kernels/codec.py`` and ``kernels/attention.py``
-use these only for tensors on the CPU; the tests hold them against the
+bitwise, :func:`flash_decode` (``flash_decode.cu``) and :func:`rwkv6_wkv`
+(``rwkv6_wkv.cu``) up to the order of their fp32 sums. The wrappers in
+``kernels/codec.py``, ``kernels/attention.py`` and ``kernels/rwkv.py`` use
+these only for tensors on the CPU; the tests hold them against the
 reference's Pallas kernels (interpret mode), and ``chip_smoke.py`` holds
 each kernel against them on the card.
 
@@ -192,3 +193,28 @@ def flash_decode(q, k, v, lengths):
     o = torch.einsum("bkgs,bskd->bkgd", p, v.float()) \
         / p.sum(-1, keepdim=True).clamp_min(1e-30)
     return o.reshape(B, 1, H * hd)
+
+
+def rwkv6_wkv(r, k, v, w, u, s0):
+    """The WKV6 recurrence, as the Pallas body (``repro/kernels/
+    rwkv6_wkv.py`` ``_kernel``) computes it, step by step in fp32: with
+    ``S`` starting at ``s0``, for each ``t``
+
+        kv = k_t[:, None] * v_t[None, :]
+        y_t = ((S + u[:, None] * kv) * r_t[:, None]).sum over the rows
+        S = w_t[:, None] * S + kv
+
+    per batch row and head. r, k, v, w: ``(B, T, H, hd)`` (w is the decay,
+    in (0, 1)); u: ``(H, hd)``; s0: ``(B, H, hd, hd)``. Any ``T``, 0
+    included. Returns ``y (B, T, H, hd)`` and the final state ``(B, H, hd,
+    hd)``, both float32 (the state a new tensor, never ``s0``)."""
+    r, k, v, w = (t.float() for t in (r, k, v, w))
+    u = u.float()[..., None]
+    S = s0.to(torch.float32, copy=True)
+    ys = []
+    for t in range(r.shape[1]):
+        kv = k[:, t, :, :, None] * v[:, t, :, None, :]
+        ys.append(((S + u * kv) * r[:, t, :, :, None]).sum(-2))
+        S = w[:, t, :, :, None] * S + kv
+    y = torch.stack(ys, 1) if ys else r.new_empty(r.shape)
+    return y, S

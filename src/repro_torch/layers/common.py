@@ -7,6 +7,7 @@ import math
 from typing import Optional
 
 import torch
+from torch import nn
 
 from repro_torch.core.grid import resolve_device
 
@@ -26,6 +27,15 @@ def weights_device(generator: Optional[torch.Generator], device
             raise ValueError(f"generator on {gen}, weights requested on "
                              f"{dev}")
     return resolve_device(dev)
+
+
+def param(generator: Optional[torch.Generator], shape, device, init,
+          dtype=Compute) -> nn.Parameter:
+    """A frozen weight drawn by ``init()`` with a generator, else left
+    uninitialised (``dtype`` on ``device``) for loading."""
+    t = (init() if generator is not None
+         else torch.empty(shape, dtype=dtype, device=device))
+    return nn.Parameter(t, requires_grad=False)
 
 
 def dense_init(generator: torch.Generator, d_in: int, d_out: int,
@@ -49,6 +59,18 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5
 def init_rmsnorm(d: int, dtype=Compute, device="cuda") -> torch.Tensor:
     """The norm's scale vector (ones)."""
     return torch.ones((d,), dtype=dtype, device=device)
+
+
+class RMSNorm(nn.Module):
+    """The reference's ``{"scale": (d,)}`` norm subtree as a module."""
+
+    def __init__(self, d: int, device="cuda"):
+        super().__init__()
+        self.scale = nn.Parameter(init_rmsnorm(d, device=device),
+                                  requires_grad=False)
+
+    def forward(self, x: torch.Tensor, eps: float) -> torch.Tensor:
+        return rmsnorm(x, self.scale, eps)
 
 
 def pad_vocab(vocab: int, multiple: int) -> int:

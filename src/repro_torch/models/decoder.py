@@ -1,5 +1,6 @@
-"""The dense decoder LM (port of ``repro.models.decoder`` for the attention
-block pattern).
+"""The decoder LM (port of ``repro.models.decoder``) for the attention
+and the rwkv block kinds: the dense decoder (smollm) and the attention-free
+rwkv family (rwkv6).
 
 The reference scans its layers over stacked pattern cycles; here one block
 module per layer sits in a ``ModuleList`` and runs in a Python loop (layer
@@ -7,8 +8,10 @@ module per layer sits in a ``ModuleList`` and runs in a Python loop (layer
 Parameters are not trainable yet (serving only; the training slice turns
 ``requires_grad`` on).
 
-Caches are a list with one ``{"k", "v"}`` dict per layer, written in place
-by :meth:`DecoderLM.forward` (see ``layers/attention.py``).
+Caches are a list with one dict per layer, written in place by
+:meth:`DecoderLM.forward`: ``{"k", "v"}`` for an attention layer (see
+``layers/attention.py``), ``{"tm_shift", "wkv", "cm_shift"}`` for an rwkv
+layer (see ``layers/rwkv.py``).
 """
 from __future__ import annotations
 
@@ -18,8 +21,10 @@ from typing import Dict, List, Optional
 import torch
 from torch import nn
 
-from repro_torch.layers import attention, common
+from repro_torch.layers import attention, common, rwkv
+from repro_torch.layers.common import RMSNorm
 from repro_torch.layers.mlp import MLP
+from repro_torch.models.params import FAMILIES
 
 Caches = List[Dict[str, torch.Tensor]]
 
@@ -38,8 +43,6 @@ class RunFlags:
 _NOT_PORTED = {
     "mamba": "the hybrid family (ROADMAP.md, queue 1 item 7; kernel: queue 2 "
              "item 11)",
-    "rwkv": "the hybrid family (ROADMAP.md, queue 1 item 7; kernel: queue 2 "
-            "item 12)",
     "moe": "MoE (ROADMAP.md, queue 1 item 7)",
 }
 
@@ -53,22 +56,6 @@ def n_cycles(cfg) -> int:
     if cfg.n_layers % len(pat):
         raise ValueError(f"{cfg.n_layers} layers do not cycle {pat}")
     return cfg.n_layers // len(pat)
-
-
-def _param(generator, shape, device, init) -> nn.Parameter:
-    t = (init() if generator is not None
-         else torch.empty(shape, dtype=common.Compute, device=device))
-    return nn.Parameter(t, requires_grad=False)
-
-
-class RMSNorm(nn.Module):
-    def __init__(self, d: int, device="cuda"):
-        super().__init__()
-        self.scale = nn.Parameter(common.init_rmsnorm(d, device=device),
-                                  requires_grad=False)
-
-    def forward(self, x: torch.Tensor, eps: float) -> torch.Tensor:
-        return common.rmsnorm(x, self.scale, eps)
 
 
 class AttnBlock(nn.Module):
@@ -95,8 +82,35 @@ class AttnBlock(nn.Module):
         return h, new_cache
 
 
+class RwkvBlock(nn.Module):
+    """Pre-norm rwkv block: time mixing, then channel mixing (the rwkv
+    kind's FFN), each with a residual."""
+
+    def __init__(self, cfg, generator=None, device="cuda"):
+        super().__init__()
+        self.eps = cfg.norm_eps
+        dev = common.weights_device(generator, device)
+        self.ln1 = RMSNorm(cfg.d_model, dev)
+        self.tm_cm = nn.ModuleDict({"tm": rwkv.TimeMix(cfg, generator, dev),
+                                    "cm": rwkv.ChannelMix(cfg, generator,
+                                                          dev)})
+        self.ln2 = RMSNorm(cfg.d_model, dev)
+
+    def forward(self, h, cache, cache_index, flags: RunFlags):
+        """``cache`` (the layer's state, or None) is advanced in place;
+        ``cache_index`` is not read: the state holds the whole context."""
+        h = h + self.tm_cm["tm"](self.ln1(h, self.eps), cache,
+                                 use_kernel=flags.use_rwkv_kernel)
+        h = h + self.tm_cm["cm"](self.ln2(h, self.eps), cache)
+        return h, cache
+
+
+_BLOCKS = {"attn": AttnBlock, "rwkv": RwkvBlock}
+
+
 class DecoderLM(nn.Module):
-    """Embedding, ``cfg.n_layers`` attention blocks, final norm, LM head.
+    """Embedding, ``cfg.n_layers`` blocks of ``cfg.block_pattern``'s kinds
+    (attention or rwkv), final norm, LM head.
 
     The weights are bf16 on ``device``, the card unless the caller asks
     for another. ``generator`` (on that device; another raises) draws them
@@ -107,28 +121,29 @@ class DecoderLM(nn.Module):
     def __init__(self, cfg, generator: Optional[torch.Generator] = None,
                  device="cuda"):
         super().__init__()
-        if cfg.family != "decoder":
+        if cfg.family not in FAMILIES:
             raise NotImplementedError(f"{cfg.name}: the {cfg.family} family "
                                       f"is not ported yet (ROADMAP.md, "
                                       f"queue 1 item 7)")
         if cfg.moe is not None:
             raise NotImplementedError(f"{cfg.name}: {_NOT_PORTED['moe']}")
         for kind in cfg.block_pattern:
-            if kind != "attn":
+            if kind not in _BLOCKS:
                 raise NotImplementedError(
                     f"{cfg.name}: {kind} blocks come with "
                     f"{_NOT_PORTED.get(kind, 'a later slice')}")
         self.cfg = cfg
         Vp, D = _vocab_padded(cfg), cfg.d_model
         dev = common.weights_device(generator, device)
-        self.embed = _param(generator, (Vp, D), dev,
+        self.embed = common.param(generator, (Vp, D), dev,
                             lambda: common.dense_init(generator, Vp, D,
                                                       scale=1.0))
+        pat = cfg.block_pattern
         self.blocks = nn.ModuleList(
-            AttnBlock(cfg, generator, dev)
-            for _ in range(n_cycles(cfg) * len(cfg.block_pattern)))
+            _BLOCKS[pat[i % len(pat)]](cfg, generator, dev)
+            for i in range(n_cycles(cfg) * len(pat)))
         self.final_norm = RMSNorm(D, dev)
-        self.lm_head = _param(generator, (D, Vp), dev,
+        self.lm_head = common.param(generator, (D, Vp), dev,
                               lambda: common.dense_init(generator, D, Vp))
 
     @property
@@ -137,11 +152,24 @@ class DecoderLM(nn.Module):
 
     def init_cache(self, batch: int, max_len: int, dtype=common.Compute
                    ) -> Caches:
-        """One zeroed ``{"k", "v"}`` cache per layer on the model's
-        device."""
+        """One zeroed cache per layer on the model's device: ``{"k", "v"}``
+        of ``max_len`` positions for an attention layer, the recurrent
+        state ``{"tm_shift", "wkv", "cm_shift"}`` for an rwkv layer (the
+        WKV state float32 whatever ``dtype``)."""
         return [attention.init_cache(self.cfg, batch, max_len, dtype,
                                      self.device)
-                for _ in self.blocks]
+                if isinstance(blk, AttnBlock)
+                else rwkv.init_state(self.cfg, batch, dtype, self.device)
+                for blk in self.blocks]
+
+    def reset_state(self, caches: Caches) -> None:
+        """Zero the recurrent state of ``caches`` (every rwkv layer's), in
+        place, as a fresh ``init_cache`` holds it. Attention caches are
+        left as they are: a row beyond a sequence's length is masked."""
+        for blk, cache in zip(self.blocks, caches):
+            if isinstance(blk, RwkvBlock):
+                for t in cache.values():
+                    t.zero_()
 
     def embed_apply(self, tokens: torch.Tensor) -> torch.Tensor:
         """Token lookup: (B, T) int -> (B, T, D)."""

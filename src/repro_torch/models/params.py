@@ -1,4 +1,5 @@
-"""Parameter layout of the dense decoder, in the reference's flatten order.
+"""Parameter layout of the decoder (attention and rwkv blocks), in the
+reference's flatten order.
 
 The reference initialises its decoder as a nested dict (``repro/models/
 decoder.py`` ``init``) with the blocks of one pattern cycle stacked over
@@ -13,6 +14,8 @@ from __future__ import annotations
 from typing import List, Tuple
 
 import torch
+
+from repro_torch.layers.rwkv import DECAY_LORA
 
 Leaf = Tuple[str, Tuple[int, ...]]
 
@@ -33,6 +36,22 @@ def _attn_block(cfg) -> dict:
                     "w_down": (cfg.d_ff, D)}}
 
 
+def _rwkv_block(cfg) -> dict:
+    D, F, hd = cfg.d_model, cfg.d_ff, cfg.rwkv_head_dim
+    tm = {"mu": (5, D), "wr": (D, D), "wk": (D, D), "wv": (D, D),
+          "wg": (D, D), "wo": (D, D), "w0": (D,), "w1": (D, DECAY_LORA),
+          "w2": (DECAY_LORA, D), "u": (D // hd, hd), "ln_x": {"scale": (D,)}}
+    cm = {"mu": (2, D), "wk": (D, F), "wv": (F, D), "wr": (D, D)}
+    return {"ln1": {"scale": (D,)}, "tm_cm": {"tm": tm, "cm": cm},
+            "ln2": {"scale": (D,)}}
+
+
+_BLOCKS = {"attn": _attn_block, "rwkv": _rwkv_block}
+
+#: the model families the port builds (``models/decoder.py`` reads it too)
+FAMILIES = ("decoder", "rwkv")
+
+
 def _flatten(tree, prefix: str = "") -> List[Leaf]:
     """Leaves of a nested dict of shapes, keys visited in sorted order."""
     if isinstance(tree, dict):
@@ -44,20 +63,20 @@ def _flatten(tree, prefix: str = "") -> List[Leaf]:
 
 
 def param_shapes(cfg) -> List[Leaf]:
-    """``(path, shape)`` of every parameter leaf of the dense decoder, in
-    the reference's flatten order; paths join dict keys with ``/``."""
-    if cfg.family != "decoder" or cfg.moe is not None or \
-            any(k != "attn" for k in cfg.block_pattern):
+    """``(path, shape)`` of every parameter leaf of the decoder, in the
+    reference's flatten order; paths join dict keys with ``/``."""
+    if cfg.family not in FAMILIES or cfg.moe is not None or \
+            any(k not in _BLOCKS for k in cfg.block_pattern):
         raise NotImplementedError(
-            f"{cfg.name}: only the dense attention decoder is laid out so "
-            f"far (ROADMAP.md, queue 1: the model stack)")
+            f"{cfg.name}: only the attention and rwkv blocks are laid out "
+            f"so far (ROADMAP.md, queue 1: the model stack)")
     if cfg.n_layers % len(cfg.block_pattern):
         raise ValueError(f"{cfg.n_layers} layers do not cycle "
                          f"{cfg.block_pattern}")
     nc = cfg.n_layers // len(cfg.block_pattern)
     D, Vp = cfg.d_model, _pad_vocab(cfg.vocab)
-    cycle = {f"blk{j}": _attn_block(cfg)
-             for j in range(len(cfg.block_pattern))}
+    cycle = {f"blk{j}": _BLOCKS[kind](cfg)
+             for j, kind in enumerate(cfg.block_pattern)}
     stacked = [(p, (nc,) + s) for p, s in _flatten(cycle, "groups")]
     tree_top = _flatten({"embed": (Vp, D), "final_norm": {"scale": (D,)},
                          "lm_head": (D, Vp)})

@@ -3,8 +3,12 @@
 
   - requests arrive with a prompt (token array) and ``max_new_tokens``;
   - the engine packs up to ``max_batch`` active sequences into one fixed
-    KV cache (one ``(max_batch, max_len, KV, hd)`` buffer per layer);
-  - one prefill pass per admitted request fills its slot's cache rows;
+    cache per layer: a ``(max_batch, max_len, KV, hd)`` KV buffer for an
+    attention layer, the recurrent state of ``max_batch`` slots for an rwkv
+    layer;
+  - one prefill pass per admitted request fills its slot's cache rows,
+    after zeroing the slot's recurrent state (a finished request's state
+    is not carried into the next one; the reference's engine carries it);
   - one fused decode tick advances every slot, each at its own length (a
     ``(B,)`` vector of cache indices); finished sequences (EOS or budget)
     free their slot for the next queued request (continuous batching).
@@ -119,10 +123,11 @@ class Engine:
 
     def _prefill(self, tokens: torch.Tensor, slot: int) -> torch.Tensor:
         """Prefill one prompt into ``slot``'s cache rows (views of the
-        engine's caches, written in place); returns the last position's
-        logits."""
-        rows = [{"k": c["k"][slot:slot + 1], "v": c["v"][slot:slot + 1]}
+        engine's caches, written in place) from a zeroed recurrent state;
+        returns the last position's logits."""
+        rows = [{name: t[slot:slot + 1] for name, t in c.items()}
                 for c in self.caches]
+        self.model.reset_state(rows)
         logits, _, _ = self.model(tokens, rows, flags=self.flags)
         return logits[0, -1]
 

@@ -26,7 +26,7 @@ import pytest
 import torch
 
 from repro_torch import interop
-from repro_torch.configs import get_config, reduced_config
+from repro_torch.configs import MoEConfig, get_config, reduced_config
 from repro_torch.layers import attention
 from repro_torch.models import params as tparams
 from repro_torch.models.decoder import DecoderLM, RunFlags
@@ -240,13 +240,26 @@ def test_configs_register_only_ported_architectures():
 
 @pytest.mark.parametrize("change,item", [
     (dict(block_pattern=("attn", "mamba")), "queue 2 item 11"),
-    (dict(block_pattern=("rwkv",)), "queue 2 item 12"),
+    (dict(moe=MoEConfig(n_experts=8, top_k=2, d_ff_expert=64)),
+     "queue 1 item 7"),
     (dict(family="encdec"), "queue 1 item 7"),
 ])
 def test_unported_blocks_raise(change, item):
     cfg = dataclasses.replace(reduced_config("smollm-360m"), **change)
     with pytest.raises(NotImplementedError, match=item):
         DecoderLM(cfg, device="meta")
+
+
+def test_rwkv_family_builds():
+    """The rwkv family is ported: reduced rwkv6 builds with one rwkv block
+    and one recurrent state per layer."""
+    cfg = reduced_config("rwkv6-1.6b")
+    assert (cfg.n_layers, cfg.d_model, cfg.rwkv_head_dim) == (2, 128, 32)
+    model = DecoderLM(cfg, device="meta")
+    assert [type(b).__name__ for b in model.blocks] == ["RwkvBlock"] * 2
+    caches = model.init_cache(3, 16)
+    assert [tuple(c["wkv"].shape) for c in caches] == [(3, 4, 32, 32)] * 2
+    assert get_config("rwkv6-1.6b").n_params() == 1_577_109_504
 
 
 if __name__ == "__main__":
