@@ -3,11 +3,12 @@
 
 Usage: ``python3 chip_smoke.py`` from the repository root, on a machine
 with an NVIDIA Hopper card and the CUDA toolkit. It imports nothing of JAX
-or of the JAX package. Six phases; any failure exits non-zero:
+or of the JAX package. Seven phases; any failure exits non-zero:
 
 1. **Kernels.** Builds ``kernels/csrc/codec_{int8,int4,fp8}.cu``,
-   ``flash_decode.cu`` and ``rwkv6_wkv.cu`` with nvcc (sm_90a), one
-   compiler process each, all at once, and holds each of the six codec
+   ``flash_decode.cu``, ``rwkv6_wkv.cu`` and ``mamba_scan.cu`` with nvcc
+   (sm_90a), one compiler process each, all at once, and holds each of
+   the six codec
    kernels against its plain PyTorch version on the card, bitwise
    (tolerance 0): encodes at (16, 131072), (3, 1000) and (1, 256) with and
    without the carried error, plus rows with subnormal e4m3 outputs, signed
@@ -16,19 +17,26 @@ or of the JAX package. Six phases; any failure exits non-zero:
    decode-reduce over W in {1, 2, 8} and at the compressed reduce_scatter's
    (8, 2, 524288). The flash-decode kernel is held against its plain
    version within ``FLASH_TOL * (1 + |plain|)`` (both fp32 from the same
-   inputs) at the serving shapes: B 8, H 15, KV 5, hd 64 (full width) and H
-   4, KV 2, hd 32 (the reduced config), S 2048 and 1000, bf16 and fp32, for
-   (B,) lengths (all S, all 1, mixed) and scalar lengths 1, S // 3, S and 0.
+   inputs) at the serving shapes: B 8, H 15, KV 5, hd 64 (smollm), H 64,
+   KV 8, hd 128 (jamba) and H 4, KV 2, hd 32 (the reduced config), S 2048
+   and 1000, bf16 and fp32, for (B,) lengths (all S, all 1, mixed) and
+   scalar lengths 1, S // 3, S and 0.
    The WKV6 kernel is held against its plain version within ``RWKV_TOL * (1
    + |plain|)`` on y and the final state at the rwkv6-1.6b decode tick (B
    8, T 1, H 32, hd 64), at prefills (B 1, T 1024 and 1000) and at the
    reduced config (H 4, hd 32, T 7 and 130), bf16 and fp32, s0 zero and
-   random, and with the final state written over s0. Times each kernel and
-   its plain version at the main path's shapes (median of 20 runs, CUDA
-   events around device work only, L2 flushed between runs; the WKV6 kernel
-   at the decode tick and at a 1024-step prefill), and for flash decode
+   random, and with the final state written over s0. The scan kernel is
+   held against its plain version within ``MAMBA_TOL * (1 + |plain|)`` on
+   y and the final state at the jamba decode tick (B 8, T 1, Di 16384, N
+   16), at prefills (B 1, T 1024 and 1000) and at the reduced config (Di
+   256), bf16 and fp32 x, h0 none and random, and with the final state
+   written over h0. Times each kernel and its plain version at the main
+   paths' shapes (median of 20 runs, CUDA events around device work only,
+   L2 flushed between runs; the WKV6 and scan kernels at the decode tick
+   and at a 1024-step prefill, the scan's bound with its SFU term at the
+   card's SM clock), and for flash decode (smollm's and jamba's shapes)
    also one ``scaled_dot_product_attention`` call as the library yardstick
-   (no single PyTorch call computes the WKV6 recurrence).
+   (no single PyTorch call computes the WKV6 recurrence or the scan).
 2. **Slice.** The full-width smollm-360m gradient sync: 409,007,040
    float32 gradients per rank on ``RankGrid(2, 4, "cuda")``, 4 MiB buckets
    (391), one persistent ``pip_mcoll`` carry op per bucket with error
@@ -86,12 +94,30 @@ or of the JAX package. Six phases; any failure exits non-zero:
    layer's r, k, v, w), and the kernel path's logits within ``TEACHER_TOL``
    times the largest logit of the plain recurrence's. Records as phase 4,
    plus one profiled prefill of the longest prompt.
-6. **Report.** The slice, collectives and serving summaries, the card's
+6. **Serving jamba.** Full-width jamba-1.5-large cut to its first five
+   layers (mamba+FFN, mamba+MoE, mamba+FFN, mamba+MoE, attention+FFN; d
+   8192, 64 heads of 128, 8 KV heads, 16 experts top-2 of d_ff 24576, Di
+   16384; bf16, seeded random weights, some 48 GB) served by
+   ``Engine(max_batch=8, max_len=2048, flags=RunFlags(use_flash_decode=
+   True, use_mamba_kernel=True), mesh=RankGrid(2, 4))``, the earlier
+   phases' memory freed first, the same 16 requests. The scan launches
+   must equal 4 x (ticks + 16 prefills), the flash-decode launches the
+   ticks, every other kernel's 0; the tick sync and the sync-free tokens
+   as in phase 4. The prefill of the longest prompt and three
+   teacher-forced ticks hold every mamba layer's scan within ``MAMBA_TOL *
+   (1 + |plain|)`` of the plain version on its own operands, and the
+   kernel path's logits within ``TEACHER_TOL`` times the largest logit of
+   the plain-version path's (the plain scan and flash decode's plain
+   version). Records as phase 5, each profile with the device-time shares
+   of the MoE's expert products, the other matrix products, the scan and
+   flash decode.
+7. **Report.** The slice, collectives and serving summaries, the card's
    name and power limit (as nvidia-smi gives them), the ``{"kernels":
    [...]}`` line, and last ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import gc
 import json
 import pathlib
 import statistics
@@ -127,9 +153,9 @@ PEAK_LIMIT_BYTES = 50e9
 #: per-rank message sizes of the collectives phase (bytes)
 COLL_SIZES = (8, 64 << 10, 4 << 20)
 TIME_ITERS = 10
-#: serving (full-width smollm-360m, then rwkv6-1.6b): max_batch slots of
-#: max_len positions, 16 requests with prompts drawn in [64, 1024] and 32
-#: new tokens each
+#: serving (full-width smollm-360m, rwkv6-1.6b, then jamba's first five
+#: layers): max_batch slots of max_len positions, 16 requests with prompts
+#: drawn in [64, 1024] and 32 new tokens each
 SERVE_BATCH, SERVE_LEN = 8, 2048
 SERVE_REQUESTS, SERVE_NEW, SERVE_PROMPT = 16, 32, (64, 1024)
 #: the flash-decode kernel against its plain version: both fp32 from the
@@ -139,10 +165,37 @@ FLASH_TOL = 2e-5
 #: apart in the order of the sum over the state's rows and in fused
 #: multiply-adds (the reference's own kernel-vs-ref tolerance for fp32)
 RWKV_TOL = 1e-4
+#: the mamba scan kernel against its plain version: fp32 from the same
+#: inputs, apart in the order of the sum over the N states and in fused
+#: multiply-adds (the rwkv6_wkv tolerance, for the same reason)
+MAMBA_TOL = 1e-4
 #: teacher-forced bf16 logits, kernel path against the plain-version path:
-#: relative to the largest |logit| (the attention or WKV outputs differ in
-#: the order of fp32 sums; each layer rounds them to bf16)
+#: relative to the largest |logit| (the attention, WKV or scan outputs
+#: differ in the order of fp32 sums; each layer rounds them to bf16)
 TEACHER_TICKS, TEACHER_TOL = 3, 2.0 ** -5
+#: H100 SXM special-function units: exponentials per SM per clock, SMs
+#: (the SM clock is the card's own, read with nvidia-smi)
+SFU_EXP_PER_SM_CLOCK, N_SMS = 16, 132
+#: modeled fp32 operations of the scan per (step, channel, state): dt*A,
+#: dA*h, (dt*x)*B, their add, h*C and its sum; the exponential counts
+#: apart, against the SFU rate
+SCAN_OPS_PER_ELEM = 6
+#: the jamba serving cut: its first five layers at full width
+JAMBA_ARCH, JAMBA_LAYERS = "jamba-1.5-large-398b", 5
+#: kernel-name fragments of cuBLAS's matrix products in a profile
+GEMM_NAMES = ("gemm", "gemv", "nvjet", "xmma", "cutlass", "splitk")
+#: the profiler range put around the MoE's expert products
+EXPERT_RANGE = "moe_experts"
+
+
+def _smi(query: str, *fmt: str) -> str:
+    """The first card's ``query`` as ``nvidia-smi --query-gpu`` gives it
+    (csv, no header, plus ``fmt`` options such as ``nounits``)."""
+    return subprocess.run(
+        ["nvidia-smi", f"--query-gpu={query}",
+         "--format=" + ",".join(("csv", "noheader") + fmt)],
+        capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
 
 
 def fail(msg: str) -> int:
@@ -206,6 +259,19 @@ def bound_ms(nbytes: float, ops: float):
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_FLOP_PER_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
+
+
+def scan_bound(nbytes: float, ops: float, exps: float, sm_mhz: float):
+    """The scan's bound: the larger of its bytes over the memory rate, its
+    fp32 operations over the fp32 rate and its exponentials over the SFU
+    rate at the card's SM clock. Returns (ms, "bytes" or "operations",
+    each term in ms)."""
+    terms = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+             "fp32_operations": ops / FP32_FLOP_PER_S * 1e3,
+             "exponentials": exps / (SFU_EXP_PER_SM_CLOCK * N_SMS
+                                     * sm_mhz * 1e6) * 1e3}
+    top = max(terms, key=terms.get)
+    return terms[top], ("bytes" if top == "bytes" else "operations"), terms
 
 
 def max_diff(torch, got, want) -> float:
@@ -395,12 +461,33 @@ def kernel_phase(torch, kcodec, ref, dev):
 # ---------------------------------------------------------------------------
 
 
-def profile_call(torch, fn, names, top: int = 12):
+def _range_kernels(torch, events, label):
+    """``(name, us)`` of every kernel launched inside the profiler ranges
+    named ``label``: the kernels of each CPU op whose time lies within one
+    of them (each kernel hangs off the one op that launched it)."""
+    cpu = torch.autograd.DeviceType.CPU
+    spans = [e.time_range for e in events
+             if e.name == label and e.device_type == cpu]
+    return [(k.name, k.duration) for e in events
+            if e.name != label and e.device_type == cpu
+            and any(sp.start <= e.time_range.start
+                    and e.time_range.end <= sp.end for sp in spans)
+            for k in e.kernels]
+
+
+def _is_gemm(name: str) -> bool:
+    return any(g in name.lower() for g in GEMM_NAMES)
+
+
+def profile_call(torch, fn, names, top: int = 12, ranges=()):
     """``fn()`` once under ``torch.profiler``: device time per kernel
     (CUPTI), its sum, the wall time of the same call and the device's idle
-    share of it, and the mean device time per launch of each kernel whose
-    name contains one of ``names``. ``fn`` itself runs outside any
-    ``except``; only the profiler's own calls may end in "not measured"."""
+    share of it, the total and the mean device time per launch of each
+    kernel whose name contains one of ``names``, the time of the matrix
+    products (``GEMM_NAMES``), and for each profiler range in ``ranges``
+    the time of the kernels launched inside it and of its matrix products.
+    ``fn`` itself runs outside any ``except``; only the profiler's own
+    calls may end in "not measured"."""
     from torch.profiler import ProfilerActivity, profile
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
     torch.cuda.synchronize()
@@ -417,9 +504,12 @@ def profile_call(torch, fn, names, top: int = 12):
                 "reason": reason}
     try:
         prof.stop()
+        # a range also shows as a device-side span of its kernels: not
+        # device work of its own
         rows = [(e.key, e.self_device_time_total / 1e3, e.count)
                 for e in prof.key_averages()
-                if e.device_type == torch.autograd.DeviceType.CUDA]
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and e.key not in ranges]
     except (RuntimeError, AttributeError) as e:
         return {"device_busy_ms": "not measured", "step_ms": wall_ms,
                 "reason": repr(e)}
@@ -430,15 +520,28 @@ def profile_call(torch, fn, names, top: int = 12):
     if busy > wall_ms:
         raise AssertionError(f"profiled call: device busy {busy} ms exceeds "
                              f"its wall time {wall_ms} ms")
-    per_launch = {}
+    per_launch, name_ms = {}, {}
     for name in names:
         hits = [r for r in rows if name in r[0]]
         ms, n = sum(r[1] for r in hits), sum(r[2] for r in hits)
         per_launch[name] = ms / n if n else "not measured"
+        name_ms[name] = ms
+    in_ranges = {}
+    for label in ranges:
+        try:
+            hits = _range_kernels(torch, prof.events(), label)
+            in_ranges[label] = {
+                "ms": sum(us for _, us in hits) / 1e3,
+                "gemm_ms": sum(us for k, us in hits if _is_gemm(k)) / 1e3,
+                "kernels": len(hits)}
+        except (RuntimeError, AttributeError) as e:
+            in_ranges[label] = {"ms": "not measured", "reason": repr(e)}
     rows.sort(key=lambda r: -r[1])
     return {"device_busy_ms": busy, "step_ms": wall_ms,
             "idle_share": 1.0 - busy / wall_ms,
-            "per_launch_ms": per_launch,
+            "per_launch_ms": per_launch, "name_ms": name_ms,
+            "gemm_ms": sum(ms for k, ms, _ in rows if _is_gemm(k)),
+            "ranges": in_ranges,
             "kernels": [{"name": k[:90], "ms": ms, "count": n}
                         for k, ms, n in rows[:top]]}
 
@@ -729,18 +832,51 @@ def _flash_bytes_ops(B, H, KV, hd, esize, valid):
             4 * H * hd * valid)
 
 
+def _flash_timed(torch, kattn, ref, dev, gen, flush, H, KV, hd):
+    """The kernel's time, the plain version's and one library call's at
+    (SERVE_BATCH, SERVE_LEN, H, KV, hd), bf16, every row at SERVE_LEN,
+    with the bound."""
+    B, S = SERVE_BATCH, SERVE_LEN
+    q, k, v = _flash_inputs(torch, B, S, H, KV, hd, torch.bfloat16, gen, dev)
+    lengths = torch.full((B,), S, dtype=torch.int32, device=dev)
+    nbytes, ops = _flash_bytes_ops(B, H, KV, hd, q.element_size(), B * S)
+    bound, bound_by = bound_ms(nbytes, ops)
+    # the library yardstick: one SDPA call with a per-row length mask
+    qh, kh, vh = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    mask = (torch.arange(S, device=dev)[None, :]
+            < lengths[:, None])[:, None, None, :]
+
+    def library():
+        return torch.nn.functional.scaled_dot_product_attention(
+            qh, kh, vh, attn_mask=mask, enable_gqa=True)
+
+    lib_err = max_diff(torch, library().float().transpose(1, 2).reshape(
+        B, 1, H * hd), ref.flash_decode(q, k, v, lengths))
+    return {
+        "ms": time_ms(torch, lambda: kattn.flash_decode(q, k, v, lengths),
+                      flush),
+        "plain_ms": time_ms(torch, lambda: ref.flash_decode(q, k, v,
+                                                            lengths), flush),
+        "bound_ms": bound, "bound_by": bound_by,
+        "library_ms": time_ms(torch, library, flush),
+        "library_max_abs_err": lib_err,
+        "bytes": nbytes, "shape": [B, S, H, KV, hd], "dtype": "bfloat16"}
+
+
 def flash_phase(torch, kattn, ref, dev):
     """The flash-decode kernel against its plain version at the serving
-    shapes (full width and the reduced config's G 2, hd 32), at S = 2048
-    and at S = 1000 (no multiple of 512), bf16 and fp32, for (B,) lengths
-    (full, 1, mixed), scalar lengths (1, S // 3, S) and the all-masked
-    length 0; then its time, the plain version's and one library call's
-    at the full-width shape with every row at S. Returns its record
-    (without launches)."""
+    shapes (smollm's full width, jamba's G 8, hd 128, and the reduced
+    config's G 2, hd 32), at S = 2048 and at S = 1000 (no multiple of
+    512), bf16 and fp32, for (B,) lengths (full, 1, mixed), scalar lengths
+    (1, S // 3, S) and the all-masked length 0; then its time, the plain
+    version's and one library call's at smollm's and jamba's full-width
+    shapes with every row at S. Returns its record (without launches)."""
     gen = torch.Generator(device=dev).manual_seed(SEED + 3)
     worst, checked = 0.0, 0
     for B, S, H, KV, hd in ((SERVE_BATCH, SERVE_LEN, 15, 5, 64),
                             (SERVE_BATCH, 1000, 15, 5, 64),
+                            (SERVE_BATCH, SERVE_LEN, 64, 8, 128),
+                            (SERVE_BATCH, 1000, 64, 8, 128),
                             (SERVE_BATCH, SERVE_LEN, 4, 2, 32),
                             (SERVE_BATCH, 1000, 4, 2, 32)):
         mixed = torch.randint(1, S + 1, (B,), generator=gen, device=dev,
@@ -766,39 +902,18 @@ def flash_phase(torch, kattn, ref, dev):
                 worst = max(worst, err)
                 checked += 1
 
-    B, S, H, KV, hd = SERVE_BATCH, SERVE_LEN, 15, 5, 64
-    q, k, v = _flash_inputs(torch, B, S, H, KV, hd, torch.bfloat16, gen, dev)
-    lengths = torch.full((B,), S, dtype=torch.int32, device=dev)
-    nbytes, ops = _flash_bytes_ops(B, H, KV, hd, q.element_size(), B * S)
-    bound, bound_by = bound_ms(nbytes, ops)
-    # the library yardstick: one SDPA call with a per-row length mask
-    qh, kh, vh = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-    mask = (torch.arange(S, device=dev)[None, :]
-            < lengths[:, None])[:, None, None, :]
-
-    def library():
-        return torch.nn.functional.scaled_dot_product_attention(
-            qh, kh, vh, attn_mask=mask, enable_gqa=True)
-
-    lib_err = max_diff(torch, library().float().transpose(1, 2).reshape(
-        B, 1, H * hd), ref.flash_decode(q, k, v, lengths))
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    smollm = _flash_timed(torch, kattn, ref, dev, gen, flush, 15, 5, 64)
     return {
         "name": "flash_decode", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_decode.cu",
         "replaces": "src/repro/kernels/flash_decode.py:60",
         "max_abs_err": worst, "tolerance": f"{FLASH_TOL} * (1 + |plain|)",
-        "cases_checked": checked,
-        "ms": time_ms(torch, lambda: kattn.flash_decode(q, k, v, lengths),
-                      flush),
-        "plain_ms": time_ms(torch, lambda: ref.flash_decode(q, k, v,
-                                                            lengths), flush),
-        "bound_ms": bound, "bound_by": bound_by,
-        "library_ms": time_ms(torch, library, flush),
+        "cases_checked": checked, **smollm,
         "library_call": "scaled_dot_product_attention(attn_mask=<per-row "
                         "length mask>, enable_gqa=True), bf16 out",
-        "library_max_abs_err": lib_err,
-        "bytes": nbytes, "shape": [B, S, H, KV, hd], "dtype": "bfloat16"}
+        "jamba_shape": _flash_timed(torch, kattn, ref, dev, gen, flush, 64,
+                                    8, 128)}
 
 
 def _rwkv_inputs(torch, B, T, H, hd, dtype, zero_state, gen, dev):
@@ -904,6 +1019,112 @@ def rwkv_phase(torch, krwkv, ref, dev):
         "dtype": "bfloat16", "prefill": timed["prefill"]}
 
 
+def _mamba_inputs(torch, B, T, Di, N, dtype, zero_state, gen, dev):
+    """dt (softplus of a normal), A (negative), Bm, Cm float32, x in
+    ``dtype``, h0 float32 (None for a zero state)."""
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+    dt = torch.nn.functional.softplus(randn(B, T, Di))
+    A = -torch.exp(randn(Di, N) * 0.5)
+    Bm, Cm = randn(B, T, N), randn(B, T, N)
+    x = randn(B, T, Di).to(dtype)
+    return dt, A, Bm, Cm, x, None if zero_state else randn(B, Di, N) * 0.1
+
+
+def _mamba_work(B, T, Di, N, esize):
+    """What one scan call from a carried state must move and compute: dt
+    and y in fp32 and x in its type over (B, T, Di), Bm and Cm in fp32,
+    A once, h0 read and hT written once; SCAN_OPS_PER_ELEM fp32 operations
+    per (step, channel, state) plus dt*x per (step, channel); and B*T*Di*N
+    exponentials. Returns (bytes, operations, exponentials)."""
+    return (B * T * Di * (4 + esize + 4) + 2 * B * T * N * 4 + Di * N * 4
+            + 2 * B * Di * N * 4,
+            SCAN_OPS_PER_ELEM * B * T * Di * N + B * T * Di, B * T * Di * N)
+
+
+def _check_mamba(torch, what, got, want):
+    """``got`` (y, hT) within ``MAMBA_TOL * (1 + |plain|)`` of ``want``;
+    returns the worst absolute difference."""
+    worst = 0.0
+    for name, a, b in (("y", got[0], want[0]), ("hT", got[1], want[1])):
+        if a.shape != b.shape or not bool(torch.isfinite(a).all()) or not \
+                bool(((a - b).abs() <= MAMBA_TOL * (1 + b.abs())).all()):
+            raise AssertionError(f"mamba_scan {what}: {name} max error "
+                                 f"{max_diff(torch, a, b)} outside "
+                                 f"{MAMBA_TOL} * (1 + |plain|)")
+        worst = max(worst, max_diff(torch, a, b))
+    return worst
+
+
+def mamba_phase(torch, kmamba, ref, dev, sm_mhz):
+    """The scan kernel against its plain version at the serving shapes:
+    the decode tick (B 8, T 1) and prefills (B 1, T 1024 and 1000) of
+    full-width jamba (Di 16384, N 16), and the reduced config (Di 256, T 1
+    and 130); bf16 and fp32 x, h0 zero (none) and random, and the final
+    state written over h0 (it must equal the separate output). Then the
+    kernel's and the plain version's times at the tick and the 1024-step
+    prefill, with their bounds (``scan_bound``, at ``sm_mhz``). Returns its
+    record (without launches)."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    worst, checked = 0.0, 0
+    for B, T, Di, N in ((SERVE_BATCH, 1, 16384, 16), (1, 1024, 16384, 16),
+                        (1, 1000, 16384, 16), (SERVE_BATCH, 1, 256, 16),
+                        (2, 130, 256, 16)):
+        for dtype in (torch.bfloat16, torch.float32):
+            for zero_state in (True, False):
+                ops = _mamba_inputs(torch, B, T, Di, N, dtype, zero_state,
+                                    gen, dev)
+                what = f"B={B} T={T} Di={Di} N={N} {dtype} " \
+                       f"h0={'none' if zero_state else 'random'}"
+                want = ref.mamba_scan(*ops)
+                got = kmamba.mamba_scan(*ops)
+                torch.cuda.synchronize()
+                worst = max(worst, _check_mamba(torch, what, got, want))
+                h0 = torch.zeros_like(got[1]) if zero_state else ops[-1]
+                y2, h2 = kmamba.mamba_scan(*ops[:-1], h0, state_out=h0)
+                torch.cuda.synchronize()
+                if h2 is not h0 or not torch.equal(y2, got[0]) or \
+                        not torch.equal(h0, got[1]):
+                    raise AssertionError(f"mamba_scan {what}: the state "
+                                         f"written over h0 differs from "
+                                         f"the separate output")
+                checked += 1
+
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    timed = {}
+    for tag, (B, T) in (("decode", (SERVE_BATCH, 1)), ("prefill", (1, 1024))):
+        Di, N = 16384, 16
+        ops = _mamba_inputs(torch, B, T, Di, N, torch.bfloat16, False, gen,
+                            dev)
+        nbytes, nops, exps = _mamba_work(B, T, Di, N, 2)
+        bound, bound_by, terms = scan_bound(nbytes, nops, exps, sm_mhz)
+        timed[tag] = {
+            "shape": [B, T, Di, N], "dtype": "bfloat16", "bytes": nbytes,
+            "flops": nops, "exponentials": exps,
+            "ms": time_ms(torch, lambda: kmamba.mamba_scan(*ops), flush),
+            # the plain version queues some 8 launches per step: at T 1024
+            # more than the device's queue holds behind the spin
+            "plain_ms": time_ms(torch, lambda: ref.mamba_scan(*ops), flush,
+                                spin=T == 1),
+            "plain_timing": "device time" if T == 1 else
+                            "events around the call, host dispatch "
+                            "included",
+            "bound_ms": bound, "bound_by": bound_by,
+            "bound_terms_ms": terms}
+    dec = timed["decode"]
+    return {
+        "name": "mamba_scan", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/mamba_scan.cu",
+        "replaces": "src/repro/kernels/mamba_scan.py:51",
+        "max_abs_err": worst, "tolerance": f"{MAMBA_TOL} * (1 + |plain|)",
+        "cases_checked": checked,
+        "ms": dec["ms"], "plain_ms": dec["plain_ms"],
+        "bound_ms": dec["bound_ms"], "bound_by": dec["bound_by"],
+        "bound_terms_ms": dec["bound_terms_ms"], "sm_clock_max_mhz": sm_mhz,
+        "library_ms": None, "bytes": dec["bytes"], "shape": dec["shape"],
+        "dtype": "bfloat16", "prefill": timed["prefill"]}
+
+
 def _serve_requests(np, vocab):
     rng = np.random.default_rng(SEED)
     lens = rng.integers(SERVE_PROMPT[0], SERVE_PROMPT[1] + 1,
@@ -946,17 +1167,17 @@ def _flash_held(torch, kattn, ref, errs):
     return held
 
 
-def teacher_forced(torch, eng, model, kmod, name, runs, errs, ticks):
+def teacher_forced(torch, eng, model, runs, ticks):
     """``ticks`` decode steps of the engine's admitted slots, each run once
-    per entry of ``runs``, ``(label, flags, stand-in for kmod.<name> or
-    None)``, every run from the caches as the tick found them (all their
-    tensors restored in between). The first run is the kernel path, its
-    stand-in a held launch that appends each layer call's error to
-    ``errs``; the last is the plain-version path, whose greedy tokens and
-    caches feed the next step. Returns the worst |logit| difference of the
-    kernel path from each other run (by label) and the largest |logit| of
-    the plain-version path."""
-    launch = getattr(kmod, name)
+    per entry of ``runs``, ``(label, flags, swaps)``, every run from the
+    caches as the tick found them (all their tensors restored in between);
+    ``swaps`` maps ``(module, attribute)`` to a stand-in set for that run
+    only (a kernel wrapper held to its plain version, or the plain version
+    itself). The first run is the kernel path; the last is the
+    plain-version path, whose greedy tokens and caches feed the next step.
+    Returns the worst |logit| difference of the kernel path from each
+    other run (by label) and the largest |logit| of the plain-version
+    path."""
     worst = {label: 0.0 for label, _, _ in runs[1:]}
     top = 0.0
     toks = torch.tensor([[r.out_tokens[-1]] for r in eng.active],
@@ -965,16 +1186,19 @@ def teacher_forced(torch, eng, model, kmod, name, runs, errs, ticks):
     for _ in range(ticks):
         saved = [{n: t.clone() for n, t in c.items()} for c in eng.caches]
         outs = []
-        for i, (label, flags, stand_in) in enumerate(runs):
+        for i, (label, flags, swaps) in enumerate(runs):
             if i:
                 for c, sv in zip(eng.caches, saved):
                     for n in c:
                         c[n].copy_(sv[n])
-            setattr(kmod, name, stand_in or launch)
+            kept = {key: getattr(*key) for key in swaps}
+            for (mod, attr), fn in swaps.items():
+                setattr(mod, attr, fn)
             try:
                 out, _, _ = model(toks, eng.caches, lengths, flags=flags)
             finally:
-                setattr(kmod, name, launch)
+                for (mod, attr), fn in kept.items():
+                    setattr(mod, attr, fn)
             if out.shape != (len(eng.active), 1, model.lm_head.shape[1]) \
                     or not bool(torch.isfinite(out).all()):
                 raise AssertionError(f"teacher-forced {label} logits: shape "
@@ -986,11 +1210,13 @@ def teacher_forced(torch, eng, model, kmod, name, runs, errs, ticks):
         toks = outs[-1][:, 0].argmax(-1, keepdim=True)
         lengths += 1
         del saved
-    if len(errs) != ticks * len(model.blocks):
-        raise AssertionError(f"{len(errs)} {name} calls held to the plain "
-                             f"version over {ticks} ticks of "
-                             f"{len(model.blocks)} layers")
     return worst, top
+
+
+def _check_held(name, errs, want):
+    if len(errs) != want:
+        raise AssertionError(f"{len(errs)} {name} calls held to the plain "
+                             f"version, expected {want}")
 
 
 def serve_main(torch, dev, cfg, flags, kmods):
@@ -1009,6 +1235,7 @@ def serve_main(torch, dev, cfg, flags, kmods):
     from repro_torch.models.decoder import DecoderLM
     from repro_torch.serve.engine import Engine, Request
 
+    gc.collect()  # the earlier phases' models and buffers
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
@@ -1120,12 +1347,14 @@ def serve_phase(torch, dev, cfg, kattn, ref, kmods):
         # plain version in its place
         errs = []
         worst, top = teacher_forced(
-            torch, eng, model, kattn, "flash_decode",
+            torch, eng, model,
             [("kernel", RunFlags(use_flash_decode=True),
-              _flash_held(torch, kattn, ref, errs)),
-             ("plain attention", RunFlags(), None),
+              {(kattn, "flash_decode"): _flash_held(torch, kattn, ref,
+                                                    errs)}),
+             ("plain attention", RunFlags(), {}),
              ("plain-version", RunFlags(use_flash_decode=True),
-              ref.flash_decode)], errs, TEACHER_TICKS)
+              {(kattn, "flash_decode"): ref.flash_decode})], TEACHER_TICKS)
+        _check_held("flash_decode", errs, TEACHER_TICKS * cfg.n_layers)
         worst, worst_attn = worst["plain-version"], worst["plain attention"]
         if worst > TEACHER_TOL * top:
             raise AssertionError(f"teacher-forced logits: kernel path "
@@ -1194,10 +1423,7 @@ def rwkv_serve_phase(torch, dev, cfg, krwkv, ref, kmods):
             eng._admit(longest, 0)
         finally:
             krwkv.rwkv6_wkv = launch
-        if len(errs) != cfg.n_layers:
-            raise AssertionError(f"{len(errs)} rwkv6_wkv calls held to the "
-                                 f"plain version in a prefill of "
-                                 f"{cfg.n_layers} layers")
+        _check_held("rwkv6_wkv", errs, cfg.n_layers)
         prefill_err = max(errs)
         # one profiled prefill of the same prompt into the same slot
         prefill_profile = profile_call(
@@ -1207,10 +1433,11 @@ def rwkv_serve_phase(torch, dev, cfg, krwkv, ref, kmods):
         # the kernel, then the plain recurrence (the plain-version path)
         errs = []
         worst, top = teacher_forced(
-            torch, eng, model, krwkv, "rwkv6_wkv",
+            torch, eng, model,
             [("kernel", RunFlags(use_rwkv_kernel=True),
-              _rwkv_held(torch, krwkv, ref, errs)),
-             ("plain-version", RunFlags(), None)], errs, TEACHER_TICKS)
+              {(krwkv, "rwkv6_wkv"): _rwkv_held(torch, krwkv, ref, errs)}),
+             ("plain-version", RunFlags(), {})], TEACHER_TICKS)
+        _check_held("rwkv6_wkv", errs, TEACHER_TICKS * cfg.n_layers)
         worst = worst["plain-version"]
         if worst > TEACHER_TOL * top:
             raise AssertionError(f"teacher-forced logits: kernel path "
@@ -1238,6 +1465,131 @@ def rwkv_serve_phase(torch, dev, cfg, krwkv, ref, kmods):
     return record
 
 
+def _mamba_held(torch, kmamba, ref, errs):
+    """A stand-in for ``kmamba.mamba_scan`` that launches the kernel and
+    holds its output and final state within ``MAMBA_TOL * (1 + |plain|)``
+    of the plain version on the call's own operands (the plain version
+    copies the live state before the kernel writes over it)."""
+    launch = kmamba.mamba_scan
+
+    def held(dt, A, Bm, Cm, x, h0=None, state_out=None):
+        want = ref.mamba_scan(dt, A, Bm, Cm, x, h0)
+        got = launch(dt, A, Bm, Cm, x, h0, state_out=state_out)
+        errs.append(_check_mamba(torch, f"on the serving path (layer call "
+                                 f"{len(errs)}, T={dt.shape[1]})", got,
+                                 want))
+        return got
+    return held
+
+
+def _profile_jamba(torch, fn):
+    """:func:`profile_call` of ``fn`` with the MoE's expert products inside
+    an ``EXPERT_RANGE`` profiler range, and the device-time shares of the
+    expert products, the other matrix products, ``mamba_scan`` and
+    ``flash_decode``."""
+    from repro_torch.layers import moe as tmoe
+
+    experts = tmoe.MoE._experts
+
+    def ranged(self, *args):
+        with torch.profiler.record_function(EXPERT_RANGE):
+            return experts(self, *args)
+
+    tmoe.MoE._experts = ranged
+    try:
+        prof = profile_call(torch, fn, ("mamba_scan", "flash_decode"),
+                            ranges=(EXPERT_RANGE,))
+    finally:
+        tmoe.MoE._experts = experts
+    busy = prof["device_busy_ms"]
+    expert_gemm = prof["ranges"][EXPERT_RANGE]["gemm_ms"] \
+        if isinstance(busy, float) else "not measured"
+    if isinstance(expert_gemm, float):
+        prof["shares"] = {
+            "expert_gemms": expert_gemm / busy,
+            "other_gemms": (prof["gemm_ms"] - expert_gemm) / busy,
+            "mamba_scan": prof["name_ms"]["mamba_scan"] / busy,
+            "flash_decode": prof["name_ms"]["flash_decode"] / busy}
+    return prof
+
+
+def jamba_serve_phase(torch, dev, cfg, kattn, kmamba, ref, kmods):
+    """Full-width jamba cut to its first five layers (four mamba, one
+    attention, MoE on two) served by the Engine with the 2x4-grid token
+    sync, the scan kernel in every mamba layer on every prefill and decode
+    tick, and the flash-decode kernel in the attention layer on every
+    tick. Returns a summary dict."""
+    from repro_torch.core.grid import RankGrid
+    from repro_torch.models.decoder import RunFlags
+
+    flags = RunFlags(use_flash_decode=True, use_mamba_kernel=True)
+    model, engine, requests, record = serve_main(torch, dev, cfg, flags,
+                                                 kmods)
+    m, launches = record["metrics"], record["launches"]
+    pat = cfg.block_pattern
+    kinds = [pat[i % len(pat)] for i in range(cfg.n_layers)]
+    n_mamba, n_attn = kinds.count("mamba"), kinds.count("attn")
+    _check_launches("jamba serving", launches, {
+        "mamba_scan": n_mamba * (m["ticks"] + SERVE_REQUESTS),
+        "flash_decode": n_attn * m["ticks"]})
+
+    eng = engine(RankGrid(2, 4))
+    longest = max(requests(), key=lambda r: len(r.prompt))
+    with torch.inference_mode():
+        # the longest prompt's prefill, every mamba layer's call held
+        errs = []
+        launch = kmamba.mamba_scan
+        kmamba.mamba_scan = _mamba_held(torch, kmamba, ref, errs)
+        try:
+            eng._admit(longest, 0)
+        finally:
+            kmamba.mamba_scan = launch
+        _check_held("mamba_scan", errs, n_mamba)
+        prefill_err = max(errs)
+        # one profiled prefill of the same prompt into the same slot
+        prefill_profile = _profile_jamba(torch,
+                                         lambda: eng._admit(longest, 0))
+        for slot, req in enumerate(requests()[:SERVE_BATCH - 1]):
+            eng._admit(req, slot + 1)
+        # the kernels, then their plain versions (the plain scan and the
+        # flash kernel's plain version)
+        errs = []
+        worst, top = teacher_forced(
+            torch, eng, model,
+            [("kernel", flags,
+              {(kmamba, "mamba_scan"): _mamba_held(torch, kmamba, ref,
+                                                   errs)}),
+             ("plain-version", RunFlags(use_flash_decode=True),
+              {(kattn, "flash_decode"): ref.flash_decode})], TEACHER_TICKS)
+        _check_held("mamba_scan", errs, TEACHER_TICKS * n_mamba)
+        worst = worst["plain-version"]
+        if worst > TEACHER_TOL * top:
+            raise AssertionError(f"teacher-forced logits: kernel path "
+                                 f"{worst} from the plain-version path, "
+                                 f"over {TEACHER_TOL} * {top}")
+        profile = _profile_jamba(torch, eng._decode_tick)
+    Di, N = 2 * cfg.d_model, cfg.mamba_d_state
+    record.update({
+        "layers": kinds, "moe_layers": sum(hasattr(b, "moe")
+                                           for b in model.blocks),
+        "mamba_launches": launches["mamba_scan"],
+        "flash_launches": launches["flash_decode"],
+        "held_to_plain": {
+            "prefill_prompt_len": len(longest.prompt),
+            "prefill_calls": n_mamba, "prefill_max_abs_err": prefill_err,
+            "tick_calls": len(errs), "tick_max_abs_err": max(errs),
+            "tolerance": f"{MAMBA_TOL} * (1 + |plain|)"},
+        "teacher_forced": {"ticks": TEACHER_TICKS, "max_abs_err": worst,
+                           "max_abs_logit": top,
+                           "tolerance": f"{TEACHER_TOL} * max|logit|"},
+        "profile": profile, "prefill_profile": prefill_profile,
+        "mamba_path_work": _mamba_work(SERVE_BATCH, 1, Di, N, 2),
+        "mamba_prefill_path_work": _mamba_work(1, len(longest.prompt), Di,
+                                               N, 2),
+        "peak_mem_bytes": torch.cuda.max_memory_allocated(dev)})
+    return record
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1245,10 +1597,11 @@ def main() -> int:
                     "runs on an NVIDIA GPU")
     sys.path.insert(0, str(ROOT / "src"))
     try:
-        from repro_torch.configs import get_config
+        from repro_torch.configs import first_layers, get_config
         from repro_torch.kernels import _build, ref
         from repro_torch.kernels import attention as kattn
         from repro_torch.kernels import codec as kcodec
+        from repro_torch.kernels import mamba as kmamba
         from repro_torch.kernels import rwkv as krwkv
     except ImportError as e:
         return fail(f"the port's sources are missing ({e}); run from the "
@@ -1256,7 +1609,9 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     smollm, rwkv6 = get_config("smollm-360m"), get_config("rwkv6-1.6b")
-    kmods = (kcodec, kattn, krwkv)
+    jamba = first_layers(get_config(JAMBA_ARCH), JAMBA_LAYERS)
+    kmods = (kcodec, kattn, krwkv, kmamba)
+    sm_mhz = float(_smi("clocks.max.sm", "nounits"))
 
     t0 = time.perf_counter()
     libs = _build.build_all()
@@ -1279,6 +1634,12 @@ def main() -> int:
     print(f"kernel phase: rwkv6_wkv within {RWKV_TOL} * (1 + |plain|) of "
           f"its plain version in {kernels['rwkv6_wkv']['cases_checked']} "
           f"cases ({time.perf_counter() - t0:.3f} s so far)")
+    kernels["mamba_scan"] = mamba_phase(torch, kmamba, ref, dev, sm_mhz)
+    print(f"kernel phase: mamba_scan within {MAMBA_TOL} * (1 + |plain|) of "
+          f"its plain version in {kernels['mamba_scan']['cases_checked']} "
+          f"cases ({time.perf_counter() - t0:.3f} s so far)")
+    for name in ("flash_decode", "rwkv6_wkv", "mamba_scan"):
+        print("kernel " + json.dumps(kernels[name]))
     summary = slice_phase(torch, dev, smollm, kcodec)
     for run in summary["syncs"]:
         per_launch = run["profile"].get("per_launch_ms", {})
@@ -1319,14 +1680,29 @@ def main() -> int:
         "per_launch_ms", {}).get("rwkv6_wkv", "not measured")
     rec["prefill"]["path_bound_ms"] = serve["rwkv_prefill_path_bound_ms"]
     print(json.dumps({"serve_rwkv": serve}))
-    print(f"rwkv serving phase done ({time.perf_counter() - t0:.3f} s in "
+    print(f"rwkv serving phase done ({time.perf_counter() - t0:.3f} s so "
+          f"far)")
+    del serve
+    serve = jamba_serve_phase(torch, dev, jamba, kattn, kmamba, ref, kmods)
+    rec = kernels["mamba_scan"]
+    rec["launches"] = serve["mamba_launches"]
+    rec["path_ms"] = serve["profile"].get("per_launch_ms", {}).get(
+        "mamba_scan", "not measured")
+    rec["path_bound_ms"] = scan_bound(*serve["mamba_path_work"], sm_mhz)[0]
+    rec["prefill"]["path_ms"] = serve["prefill_profile"].get(
+        "per_launch_ms", {}).get("mamba_scan", "not measured")
+    rec["prefill"]["path_bound_ms"] = scan_bound(
+        *serve["mamba_prefill_path_work"], sm_mhz)[0]
+    flash = kernels["flash_decode"]
+    flash["launches_by_path"] = {"serve_smollm": flash["launches"],
+                                 "serve_jamba": serve["flash_launches"]}
+    flash["jamba_shape"]["path_ms"] = serve["profile"].get(
+        "per_launch_ms", {}).get("flash_decode", "not measured")
+    print(json.dumps({"serve_jamba": serve}))
+    print(f"jamba serving phase done ({time.perf_counter() - t0:.3f} s in "
           f"all)")
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
-    print(smi)
+    print(_smi("name,power.limit"))
     print(json.dumps({"kernels": list(kernels.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,6 @@
 """Architecture configs ported from the JAX package: only those whose
-model the port runs are registered (smollm-360m, rwkv6-1.6b)."""
+model the port runs are registered (smollm-360m, rwkv6-1.6b,
+jamba-1.5-large-398b)."""
 import dataclasses
 import importlib
 
@@ -7,11 +8,13 @@ from repro_torch.configs.base import ModelConfig, MoEConfig, ShapeConfig, \
     SHAPES, shape_applicable
 
 __all__ = ["ModelConfig", "MoEConfig", "ShapeConfig", "SHAPES",
-           "shape_applicable", "ARCH_IDS", "get_config", "reduced_config"]
+           "shape_applicable", "ARCH_IDS", "get_config", "reduced_config",
+           "first_layers"]
 
 _MODULES = {
     "smollm-360m": "smollm_360m",
     "rwkv6-1.6b": "rwkv6_1_6b",
+    "jamba-1.5-large-398b": "jamba_1_5_large_398b",
 }
 
 ARCH_IDS = tuple(_MODULES)
@@ -40,3 +43,15 @@ def reduced_config(arch: str) -> ModelConfig:
         d_model=128, n_heads=4,
         n_kv_heads=2 if cfg.n_kv_heads < cfg.n_heads else 4,
         head_dim=32, d_ff=256, vocab=512, moe=moe, rwkv_head_dim=32)
+
+
+def first_layers(cfg: ModelConfig, n: int) -> ModelConfig:
+    """``cfg`` cut in depth to its first ``n`` layers (at most one pattern
+    cycle), as one cycle of those ``n`` kinds; every width stays the
+    published one (full jamba's first five: mamba+FFN, mamba+MoE twice,
+    then attention+FFN)."""
+    if not 1 <= n <= len(cfg.block_pattern):
+        raise ValueError(f"{cfg.name}: cut to {n} layers, not within one "
+                         f"cycle of {len(cfg.block_pattern)}")
+    return dataclasses.replace(cfg, n_layers=n,
+                               block_pattern=cfg.block_pattern[:n])

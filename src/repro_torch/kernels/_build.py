@@ -56,6 +56,11 @@ SIGNATURES = {
                              _INT, _INT, _INT, _P]),
         "rwkv6_wkv_error_string": (ctypes.c_char_p, [_INT]),
     },
+    "mamba_scan": {
+        "mamba_scan": (_INT, [_P, _P, _P, _P, _P, _P, _P, _P, _INT, _INT,
+                              _INT, _INT, _INT, _P]),
+        "mamba_scan_error_string": (ctypes.c_char_p, [_INT]),
+    },
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

@@ -3,6 +3,8 @@ the hand-written kernel, a CPU operand runs the plain version, anything
 else raises. Nothing here falls back."""
 from __future__ import annotations
 
+from typing import Tuple
+
 import torch
 
 from repro_torch.kernels import _build
@@ -40,3 +42,23 @@ def raise_on(rc: int, lib: str, kernel: str) -> None:
 def stream(t: torch.Tensor) -> int:
     """The current CUDA stream of ``t``'s device, as an int for ctypes."""
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _span(t: torch.Tensor) -> Tuple[int, int]:
+    """The bytes ``[lo, hi)`` that ``t``'s elements lie in."""
+    last = sum((n - 1) * st for n, st in zip(t.shape, t.stride()))
+    return t.data_ptr(), t.data_ptr() + (last + 1) * t.element_size()
+
+
+def overlaps_partly(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """``a`` shares bytes with ``b`` without being the same view of them
+    (a kernel that writes its final state over its initial state takes
+    only the state itself or separate memory)."""
+    if a.device != b.device or a.device.type == "meta" or \
+            a.numel() == 0 or b.numel() == 0:
+        return False
+    if (a.data_ptr(), a.shape, a.stride()) == (b.data_ptr(), b.shape,
+                                               b.stride()):
+        return False
+    (lo_a, hi_a), (lo_b, hi_b) = _span(a), _span(b)
+    return lo_a < hi_b and lo_b < hi_a

@@ -2,9 +2,10 @@
 
 Each function computes what its CUDA kernel in ``kernels/csrc/`` computes,
 with ordinary tensor ops: the codec kernels (``codec_{int8,int4,fp8}.cu``)
-bitwise, :func:`flash_decode` (``flash_decode.cu``) and :func:`rwkv6_wkv`
-(``rwkv6_wkv.cu``) up to the order of their fp32 sums. The wrappers in
-``kernels/codec.py``, ``kernels/attention.py`` and ``kernels/rwkv.py`` use
+bitwise, :func:`flash_decode` (``flash_decode.cu``), :func:`rwkv6_wkv`
+(``rwkv6_wkv.cu``) and :func:`mamba_scan` (``mamba_scan.cu``) up to the
+order of their fp32 sums. The wrappers in ``kernels/codec.py``,
+``kernels/attention.py``, ``kernels/rwkv.py`` and ``kernels/mamba.py`` use
 these only for tensors on the CPU; the tests hold them against the
 reference's Pallas kernels (interpret mode), and ``chip_smoke.py`` holds
 each kernel against them on the card.
@@ -218,3 +219,31 @@ def rwkv6_wkv(r, k, v, w, u, s0):
         S = w[:, t, :, :, None] * S + kv
     y = torch.stack(ys, 1) if ys else r.new_empty(r.shape)
     return y, S
+
+
+def mamba_scan(dt, A, Bm, Cm, x, h0=None):
+    """The selective SSM scan, as the reference's ``_scan_ref``
+    (``repro/layers/mamba.py``) computes it, step by step in fp32: with
+    ``h`` starting at ``h0`` (zeros without one), for each ``t``
+
+        h = exp(dt_t[:, None] * A) * h + (dt_t * x_t)[:, None] * B_t[None, :]
+        y_t = sum over n of h * C_t[None, :]
+
+    per batch row. The discretisation ``exp(dt * A)`` is taken per step, so
+    nothing of size ``(B, T, Di, N)`` is ever held. dt, x: ``(B, T, Di)``
+    (x in any float type, upcast); Bm, Cm: ``(B, T, N)``; A: ``(Di, N)``;
+    h0: ``(B, Di, N)``. Any ``T``, 0 included. Returns ``y (B, T, Di)`` and
+    the final state ``(B, Di, N)``, both float32 (the state a new tensor,
+    never ``h0``)."""
+    B, T, Di = dt.shape
+    dt, Bm, Cm, x = (t.float() for t in (dt, Bm, Cm, x))
+    A = A.float()
+    h = (torch.zeros((B, Di, A.shape[1]), dtype=torch.float32,
+                     device=dt.device) if h0 is None
+         else h0.to(torch.float32, copy=True))
+    y = dt.new_empty((B, T, Di))
+    for t in range(T):
+        dA = torch.exp(dt[:, t, :, None] * A)
+        h = dA * h + (dt[:, t] * x[:, t])[..., None] * Bm[:, t, None, :]
+        y[:, t] = (h * Cm[:, t, None, :]).sum(-1)
+    return y, h

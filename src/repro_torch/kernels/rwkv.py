@@ -21,7 +21,8 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.kernels import _build, ref
-from repro_torch.kernels._dispatch import check, on_card, raise_on, stream
+from repro_torch.kernels._dispatch import (check, on_card, overlaps_partly,
+                                          raise_on, stream)
 
 #: launches of the CUDA kernel
 launches: Dict[str, int] = {"rwkv6_wkv": 0}
@@ -34,24 +35,6 @@ MAX_HEAD_DIM = 128
 def reset_launches() -> None:
     for key in launches:
         launches[key] = 0
-
-
-def _span(t: torch.Tensor) -> Tuple[int, int]:
-    """The bytes ``[lo, hi)`` that ``t``'s elements lie in."""
-    last = sum((n - 1) * st for n, st in zip(t.shape, t.stride()))
-    return t.data_ptr(), t.data_ptr() + (last + 1) * t.element_size()
-
-
-def _overlaps_partly(a: torch.Tensor, b: torch.Tensor) -> bool:
-    """``a`` shares bytes with ``b`` without being the same view of them."""
-    if a.device != b.device or a.device.type == "meta" or \
-            a.numel() == 0 or b.numel() == 0:
-        return False
-    if (a.data_ptr(), a.shape, a.stride()) == (b.data_ptr(), b.shape,
-                                               b.stride()):
-        return False
-    (lo_a, hi_a), (lo_b, hi_b) = _span(a), _span(b)
-    return lo_a < hi_b and lo_b < hi_a
 
 
 def _check_operands(r, k, v, w, u, s0, state_out) -> None:
@@ -68,7 +51,7 @@ def _check_operands(r, k, v, w, u, s0, state_out) -> None:
     if state_out is not None and state_out.shape != s0.shape:
         raise ValueError(f"state_out: expected {tuple(s0.shape)}, got "
                          f"{tuple(state_out.shape)}")
-    if state_out is not None and _overlaps_partly(state_out, s0):
+    if state_out is not None and overlaps_partly(state_out, s0):
         # each CTA writes its (b, h) state back while others may still be
         # reading theirs: only s0 itself or separate memory is safe
         raise ValueError("state_out overlaps s0 without being s0 itself")

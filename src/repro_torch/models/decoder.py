@@ -1,6 +1,7 @@
-"""The decoder LM (port of ``repro.models.decoder``) for the attention
-and the rwkv block kinds: the dense decoder (smollm) and the attention-free
-rwkv family (rwkv6).
+"""The decoder LM (port of ``repro.models.decoder``) for the attention,
+mamba and rwkv block kinds: the dense decoder (smollm), the hybrid family
+(jamba: mamba and attention blocks, MoE on every other block) and the
+attention-free rwkv family (rwkv6).
 
 The reference scans its layers over stacked pattern cycles; here one block
 module per layer sits in a ``ModuleList`` and runs in a Python loop (layer
@@ -10,23 +11,28 @@ Parameters are not trainable yet (serving only; the training slice turns
 
 Caches are a list with one dict per layer, written in place by
 :meth:`DecoderLM.forward`: ``{"k", "v"}`` for an attention layer (see
-``layers/attention.py``), ``{"tm_shift", "wkv", "cm_shift"}`` for an rwkv
+``layers/attention.py``), ``{"conv", "ssm"}`` for a mamba layer (see
+``layers/mamba.py``), ``{"tm_shift", "wkv", "cm_shift"}`` for an rwkv
 layer (see ``layers/rwkv.py``).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
 
-from repro_torch.layers import attention, common, rwkv
+from repro_torch.layers import attention, common, mamba, rwkv
 from repro_torch.layers.common import RMSNorm
 from repro_torch.layers.mlp import MLP
-from repro_torch.models.params import FAMILIES
+from repro_torch.layers.moe import MoE
+from repro_torch.models.params import FAMILIES, block_is_moe
 
 Caches = List[Dict[str, torch.Tensor]]
+#: a block's output: the hidden state and its MoE's load-balance loss (None
+#: for a block without one)
+BlockOut = Tuple[torch.Tensor, Optional[torch.Tensor]]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,13 +46,6 @@ class RunFlags:
     kv_chunk: int = 1024
 
 
-_NOT_PORTED = {
-    "mamba": "the hybrid family (ROADMAP.md, queue 1 item 7; kernel: queue 2 "
-             "item 11)",
-    "moe": "MoE (ROADMAP.md, queue 1 item 7)",
-}
-
-
 def _vocab_padded(cfg) -> int:
     return common.pad_vocab(cfg.vocab, 128)
 
@@ -58,35 +57,67 @@ def n_cycles(cfg) -> int:
     return cfg.n_layers // len(pat)
 
 
-class AttnBlock(nn.Module):
-    """Pre-norm attention block with a SwiGLU MLP."""
+class _MixerBlock(nn.Module):
+    """Pre-norm block: a mixer (attention or mamba, set by the subclass),
+    then a SwiGLU MLP, or an MoE on the pattern's MoE blocks (block ``j``
+    of the pattern), each with a residual."""
 
-    def __init__(self, cfg, generator=None, device="cuda"):
+    def __init__(self, cfg, j: int, generator=None, device="cuda"):
         super().__init__()
         self.eps = cfg.norm_eps
         dev = common.weights_device(generator, device)
         self.ln1 = RMSNorm(cfg.d_model, dev)
-        self.attn = attention.Attention(cfg, generator, dev)
         self.ln2 = RMSNorm(cfg.d_model, dev)
-        self.ffn = MLP(cfg, generator, dev)
+        if block_is_moe(cfg, j):
+            self.moe = MoE(cfg, generator, dev)
+        else:
+            self.ffn = MLP(cfg, generator, dev)
 
-    def forward(self, h, cache, cache_index, flags: RunFlags):
+    def _ffn(self, h: torch.Tensor) -> BlockOut:
+        x = self.ln2(h, self.eps)
+        if hasattr(self, "moe"):
+            f, aux = self.moe(x)
+            return h + f, aux
+        return h + self.ffn(x), None
+
+
+class AttnBlock(_MixerBlock):
+    """Attention, then the FFN or MoE."""
+
+    def __init__(self, cfg, j: int = 0, generator=None, device="cuda"):
+        super().__init__(cfg, j, generator, device)
+        self.attn = attention.Attention(cfg, generator, device)
+
+    def forward(self, h, cache, cache_index, flags: RunFlags) -> BlockOut:
         mode = "decode" if cache is not None and cache_index is not None \
             else "causal"
-        a, new_cache = self.attn(
+        a, _ = self.attn(
             self.ln1(h, self.eps), mode=mode, cache=cache,
             cache_index=cache_index, use_flash_decode=flags.use_flash_decode,
             q_chunk=flags.q_chunk, kv_chunk=flags.kv_chunk)
-        h = h + a
-        h = h + self.ffn(self.ln2(h, self.eps))
-        return h, new_cache
+        return self._ffn(h + a)
+
+
+class MambaBlock(_MixerBlock):
+    """The selective SSM, then the FFN or MoE."""
+
+    def __init__(self, cfg, j: int = 0, generator=None, device="cuda"):
+        super().__init__(cfg, j, generator, device)
+        self.mamba = mamba.Mamba(cfg, generator, device)
+
+    def forward(self, h, cache, cache_index, flags: RunFlags) -> BlockOut:
+        """``cache`` (the layer's state, or None) is advanced in place;
+        ``cache_index`` is not read: the state holds the whole context."""
+        h = h + self.mamba(self.ln1(h, self.eps), cache,
+                           use_kernel=flags.use_mamba_kernel)
+        return self._ffn(h)
 
 
 class RwkvBlock(nn.Module):
     """Pre-norm rwkv block: time mixing, then channel mixing (the rwkv
     kind's FFN), each with a residual."""
 
-    def __init__(self, cfg, generator=None, device="cuda"):
+    def __init__(self, cfg, j: int = 0, generator=None, device="cuda"):
         super().__init__()
         self.eps = cfg.norm_eps
         dev = common.weights_device(generator, device)
@@ -96,21 +127,21 @@ class RwkvBlock(nn.Module):
                                                           dev)})
         self.ln2 = RMSNorm(cfg.d_model, dev)
 
-    def forward(self, h, cache, cache_index, flags: RunFlags):
+    def forward(self, h, cache, cache_index, flags: RunFlags) -> BlockOut:
         """``cache`` (the layer's state, or None) is advanced in place;
         ``cache_index`` is not read: the state holds the whole context."""
         h = h + self.tm_cm["tm"](self.ln1(h, self.eps), cache,
                                  use_kernel=flags.use_rwkv_kernel)
         h = h + self.tm_cm["cm"](self.ln2(h, self.eps), cache)
-        return h, cache
+        return h, None
 
 
-_BLOCKS = {"attn": AttnBlock, "rwkv": RwkvBlock}
+_BLOCKS = {"attn": AttnBlock, "mamba": MambaBlock, "rwkv": RwkvBlock}
 
 
 class DecoderLM(nn.Module):
     """Embedding, ``cfg.n_layers`` blocks of ``cfg.block_pattern``'s kinds
-    (attention or rwkv), final norm, LM head.
+    (attention, mamba or rwkv), final norm, LM head.
 
     The weights are bf16 on ``device``, the card unless the caller asks
     for another. ``generator`` (on that device; another raises) draws them
@@ -125,13 +156,13 @@ class DecoderLM(nn.Module):
             raise NotImplementedError(f"{cfg.name}: the {cfg.family} family "
                                       f"is not ported yet (ROADMAP.md, "
                                       f"queue 1 item 7)")
-        if cfg.moe is not None:
-            raise NotImplementedError(f"{cfg.name}: {_NOT_PORTED['moe']}")
+        if cfg.moe is not None and cfg.moe.dense_residual:
+            raise NotImplementedError(f"{cfg.name}: MoE with a dense "
+                                      f"residual (arctic) comes later "
+                                      f"(ROADMAP.md, queue 1 item 7)")
         for kind in cfg.block_pattern:
             if kind not in _BLOCKS:
-                raise NotImplementedError(
-                    f"{cfg.name}: {kind} blocks come with "
-                    f"{_NOT_PORTED.get(kind, 'a later slice')}")
+                raise ValueError(f"{cfg.name}: unknown block kind {kind!r}")
         self.cfg = cfg
         Vp, D = _vocab_padded(cfg), cfg.d_model
         dev = common.weights_device(generator, device)
@@ -140,7 +171,7 @@ class DecoderLM(nn.Module):
                                                       scale=1.0))
         pat = cfg.block_pattern
         self.blocks = nn.ModuleList(
-            _BLOCKS[pat[i % len(pat)]](cfg, generator, dev)
+            _BLOCKS[pat[i % len(pat)]](cfg, i % len(pat), generator, dev)
             for i in range(n_cycles(cfg) * len(pat)))
         self.final_norm = RMSNorm(D, dev)
         self.lm_head = common.param(generator, (D, Vp), dev,
@@ -154,20 +185,24 @@ class DecoderLM(nn.Module):
                    ) -> Caches:
         """One zeroed cache per layer on the model's device: ``{"k", "v"}``
         of ``max_len`` positions for an attention layer, the recurrent
-        state ``{"tm_shift", "wkv", "cm_shift"}`` for an rwkv layer (the
-        WKV state float32 whatever ``dtype``)."""
-        return [attention.init_cache(self.cfg, batch, max_len, dtype,
-                                     self.device)
-                if isinstance(blk, AttnBlock)
-                else rwkv.init_state(self.cfg, batch, dtype, self.device)
-                for blk in self.blocks]
+        state ``{"conv", "ssm"}`` for a mamba layer and ``{"tm_shift",
+        "wkv", "cm_shift"}`` for an rwkv layer (the scan and WKV states
+        float32 whatever ``dtype``)."""
+        def one(blk):
+            if isinstance(blk, AttnBlock):
+                return attention.init_cache(self.cfg, batch, max_len, dtype,
+                                            self.device)
+            kind = mamba if isinstance(blk, MambaBlock) else rwkv
+            return kind.init_state(self.cfg, batch, dtype, self.device)
+        return [one(blk) for blk in self.blocks]
 
     def reset_state(self, caches: Caches) -> None:
-        """Zero the recurrent state of ``caches`` (every rwkv layer's), in
-        place, as a fresh ``init_cache`` holds it. Attention caches are
-        left as they are: a row beyond a sequence's length is masked."""
+        """Zero the recurrent state of ``caches`` (every mamba and rwkv
+        layer's), in place, as a fresh ``init_cache`` holds it. Attention
+        caches are left as they are: a row beyond a sequence's length is
+        masked."""
         for blk, cache in zip(self.blocks, caches):
-            if isinstance(blk, RwkvBlock):
+            if not isinstance(blk, AttnBlock):
                 for t in cache.values():
                     t.zero_()
 
@@ -189,11 +224,14 @@ class DecoderLM(nn.Module):
         ``(B,)`` vector of per-row offsets).
 
         Returns ``(logits (B, T, vocab_padded), aux, new_caches)``: ``aux``
-        is the float32 0 of a model without MoE, ``new_caches`` the given
-        list, updated in place (None without caches)."""
+        is the float32 sum of the MoE blocks' load-balance losses (0 without
+        MoE), ``new_caches`` the given list, updated in place (None without
+        caches)."""
         h = self.embed_apply(tokens)
-        for i, blk in enumerate(self.blocks):
-            h, _ = blk(h, None if caches is None else caches[i], cache_index,
-                       flags)
         aux = torch.zeros((), dtype=common.Accum, device=h.device)
+        for i, blk in enumerate(self.blocks):
+            h, blk_aux = blk(h, None if caches is None else caches[i],
+                             cache_index, flags)
+            if blk_aux is not None:
+                aux = aux + blk_aux
         return self.head_apply(h, flags), aux, caches

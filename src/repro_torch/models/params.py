@@ -1,5 +1,6 @@
-"""Parameter layout of the decoder (attention and rwkv blocks), in the
-reference's flatten order.
+"""Parameter layout of the decoder (attention, mamba and rwkv blocks, each
+attention or mamba block with an FFN or an MoE), in the reference's
+flatten order.
 
 The reference initialises its decoder as a nested dict (``repro/models/
 decoder.py`` ``init``) with the blocks of one pattern cycle stacked over
@@ -15,6 +16,7 @@ from typing import List, Tuple
 
 import torch
 
+from repro_torch.layers import mamba
 from repro_torch.layers.rwkv import DECAY_LORA
 
 Leaf = Tuple[str, Tuple[int, ...]]
@@ -24,16 +26,45 @@ def _pad_vocab(vocab: int, multiple: int = 128) -> int:
     return -(-vocab // multiple) * multiple
 
 
-def _attn_block(cfg) -> dict:
+def block_is_moe(cfg, j: int) -> bool:
+    """Block ``j`` of the pattern carries an MoE in place of its FFN (the
+    reference's ``_block_is_moe``: every ``moe.every``-th block)."""
+    m = cfg.moe
+    return m is not None and j % m.every == m.every - 1
+
+
+def _attn(cfg) -> dict:
     D, KV, hd = cfg.d_model, cfg.n_kv_heads, cfg.head_dim
     Hp = cfg.padded_heads
     p = {"wq": (D, Hp * hd), "wk": (D, KV * hd), "wv": (D, KV * hd),
          "wo": (Hp * hd, D)}
     if cfg.qkv_bias:
         p.update({"bq": (Hp * hd,), "bk": (KV * hd,), "bv": (KV * hd,)})
-    return {"ln1": {"scale": (D,)}, "attn": p, "ln2": {"scale": (D,)},
-            "ffn": {"w_gate": (D, cfg.d_ff), "w_up": (D, cfg.d_ff),
-                    "w_down": (cfg.d_ff, D)}}
+    return p
+
+
+def _mamba(cfg) -> dict:
+    D = cfg.d_model
+    Di, R, N, K = mamba.dims(cfg)
+    return {"in_proj": (D, 2 * Di), "conv_w": (K, Di), "conv_b": (Di,),
+            "x_proj": (Di, R + 2 * N), "dt_proj": (R, Di), "dt_bias": (Di,),
+            "A_log": (Di, N), "D_skip": (Di,), "out_proj": (Di, D)}
+
+
+def _mixer_block(cfg, kind: str, j: int) -> dict:
+    """An attention or mamba block: norms, the mixer, then an FFN or (on
+    the MoE blocks) an MoE."""
+    D = cfg.d_model
+    p = {"ln1": {"scale": (D,)}, "ln2": {"scale": (D,)},
+         kind: _attn(cfg) if kind == "attn" else _mamba(cfg)}
+    if block_is_moe(cfg, j):
+        E, F = cfg.moe.n_experts, cfg.moe.d_ff_expert
+        p["moe"] = {"router": (D, E), "w_gate": (E, D, F),
+                    "w_up": (E, D, F), "w_down": (E, F, D)}
+    else:
+        p["ffn"] = {"w_gate": (D, cfg.d_ff), "w_up": (D, cfg.d_ff),
+                    "w_down": (cfg.d_ff, D)}
+    return p
 
 
 def _rwkv_block(cfg) -> dict:
@@ -46,7 +77,8 @@ def _rwkv_block(cfg) -> dict:
             "ln2": {"scale": (D,)}}
 
 
-_BLOCKS = {"attn": _attn_block, "rwkv": _rwkv_block}
+#: the block kinds the port lays out (``models/decoder.py`` reads it too)
+KINDS = ("attn", "mamba", "rwkv")
 
 #: the model families the port builds (``models/decoder.py`` reads it too)
 FAMILIES = ("decoder", "rwkv")
@@ -65,17 +97,20 @@ def _flatten(tree, prefix: str = "") -> List[Leaf]:
 def param_shapes(cfg) -> List[Leaf]:
     """``(path, shape)`` of every parameter leaf of the decoder, in the
     reference's flatten order; paths join dict keys with ``/``."""
-    if cfg.family not in FAMILIES or cfg.moe is not None or \
-            any(k not in _BLOCKS for k in cfg.block_pattern):
+    if cfg.family not in FAMILIES or \
+            any(k not in KINDS for k in cfg.block_pattern) or \
+            (cfg.moe is not None and cfg.moe.dense_residual):
         raise NotImplementedError(
-            f"{cfg.name}: only the attention and rwkv blocks are laid out "
-            f"so far (ROADMAP.md, queue 1: the model stack)")
+            f"{cfg.name}: only the attention, mamba and rwkv blocks and MoE "
+            f"without a dense residual are laid out so far (ROADMAP.md, "
+            f"queue 1: the model stack)")
     if cfg.n_layers % len(cfg.block_pattern):
         raise ValueError(f"{cfg.n_layers} layers do not cycle "
                          f"{cfg.block_pattern}")
     nc = cfg.n_layers // len(cfg.block_pattern)
     D, Vp = cfg.d_model, _pad_vocab(cfg.vocab)
-    cycle = {f"blk{j}": _BLOCKS[kind](cfg)
+    cycle = {f"blk{j}": _rwkv_block(cfg) if kind == "rwkv"
+             else _mixer_block(cfg, kind, j)
              for j, kind in enumerate(cfg.block_pattern)}
     stacked = [(p, (nc,) + s) for p, s in _flatten(cycle, "groups")]
     tree_top = _flatten({"embed": (Vp, D), "final_norm": {"scale": (D,)},

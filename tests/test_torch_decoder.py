@@ -239,15 +239,29 @@ def test_configs_register_only_ported_architectures():
 
 
 @pytest.mark.parametrize("change,item", [
-    (dict(block_pattern=("attn", "mamba")), "queue 2 item 11"),
-    (dict(moe=MoEConfig(n_experts=8, top_k=2, d_ff_expert=64)),
-     "queue 1 item 7"),
+    (dict(moe=MoEConfig(n_experts=8, top_k=2, d_ff_expert=64,
+                        dense_residual=True)), "queue 1 item 7"),
     (dict(family="encdec"), "queue 1 item 7"),
 ])
 def test_unported_blocks_raise(change, item):
     cfg = dataclasses.replace(reduced_config("smollm-360m"), **change)
     with pytest.raises(NotImplementedError, match=item):
         DecoderLM(cfg, device="meta")
+
+
+def test_mamba_and_moe_blocks_build_on_any_pattern():
+    """The hybrid family's blocks are ported: mamba blocks, and MoE on
+    every ``moe.every``-th block of the pattern (attention or mamba)."""
+    cfg = dataclasses.replace(
+        reduced_config("smollm-360m"), n_layers=4,
+        block_pattern=("attn", "mamba"),
+        moe=MoEConfig(n_experts=8, top_k=2, d_ff_expert=64))
+    model = DecoderLM(cfg, device="meta")
+    assert [(type(b).__name__, hasattr(b, "moe")) for b in model.blocks] == \
+        [("AttnBlock", True), ("MambaBlock", True)] * 2
+    with pytest.raises(ValueError, match="unknown block kind 'conv'"):
+        DecoderLM(dataclasses.replace(cfg, block_pattern=("conv",)),
+                  device="meta")
 
 
 def test_rwkv_family_builds():

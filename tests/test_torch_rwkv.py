@@ -27,15 +27,13 @@ the next request in the same slot; the port's zeroes it on admission. A
 request's correct answer is its run alone on a fresh engine, so the port
 is held against the reference's solo runs.
 """
-import os
-import pathlib
-import subprocess
 import sys
 
 import numpy as np
 import pytest
 import torch
 
+import torch_family as tf
 from repro_torch import interop
 from repro_torch.configs import reduced_config
 from repro_torch.core import runtime
@@ -53,6 +51,8 @@ MAX_BATCH, MAX_LEN, NEW = 2, 64, 6
 PROMPT_LENS = (12, 3, 7, 9, 5)
 #: the reference engine serving request 0, then request 3, in one slot
 STALE = (0, 3)
+#: the reference keeps these leaves float32 in its bf16 tree
+F32_LEAVES = ("w0", "w1", "w2", "u")
 
 
 def _tokens(step):
@@ -76,42 +76,8 @@ def _prompts():
             for n in PROMPT_LENS]
 
 
-def _top2(row):
-    row = np.asarray(row, np.float32)
-    a, b = np.sort(row)[-2:]
-    return b - a, np.abs(row).max()
 
 
-def _ref_serve(params, cfg, prompts, max_batch):
-    """Tokens and per-token (top-2 margin, max|logit|) of the reference
-    ``Engine`` serving ``prompts`` in order."""
-    from repro.serve.engine import Engine as JEngine
-    from repro.serve.engine import Request as JRequest
-
-    eng = JEngine(params, cfg, max_batch=max_batch, max_len=MAX_LEN)
-    margins = {}
-    prefill, decode, admit = eng._prefill, eng._decode, eng._admit
-
-    def rec_admit(req, slot):
-        def rec_prefill(*args):
-            last, caches = prefill(*args)
-            margins[id(req)] = [_top2(last[0, 0])]
-            return last, caches
-        eng._prefill = rec_prefill
-        admit(req, slot)
-
-    def rec_decode(*args):
-        logits, caches = decode(*args)
-        for slot, req in enumerate(eng.active):
-            if req is not None:
-                margins[id(req)].append(_top2(logits[slot, 0]))
-        return logits, caches
-
-    eng._admit, eng._decode = rec_admit, rec_decode
-    reqs = [JRequest(prompt=p, max_new_tokens=NEW) for p in prompts]
-    eng.run(reqs)
-    return [(np.array(r.out_tokens, np.int64),
-             np.array(margins[id(r)], np.float64)) for r in reqs]
 
 
 def _reference(out_path: str) -> None:
@@ -164,14 +130,14 @@ def _reference(out_path: str) -> None:
     logits, _, caches = decoder.forward(params, jnp.asarray(_tokens(-1)),
                                         cfg, caches=caches)
     last = np.asarray(logits[:, -1].astype(jnp.float32))
-    toks, margins = [last.argmax(-1)], [[_top2(row) for row in last]]
+    toks, margins = [last.argmax(-1)], [[tf.top2(row) for row in last]]
     for step in range(STEPS):
         logits, _, caches = decoder.forward(
             params, jnp.asarray(toks[-1][:, None].astype(np.int32)), cfg,
             caches=caches, cache_index=jnp.int32(T + step))
         last = np.asarray(logits[:, 0].astype(jnp.float32))
         toks.append(last.argmax(-1))
-        margins.append([_top2(row) for row in last])
+        margins.append([tf.top2(row) for row in last])
     res["bf16/greedy"] = np.stack(toks, 1)
     res["bf16/margins"] = np.array(margins, np.float64).transpose(1, 0, 2)
 
@@ -179,25 +145,17 @@ def _reference(out_path: str) -> None:
     # one after the other through one slot
     prompts = _prompts()
     for i, p in enumerate(prompts):
-        (res[f"solo{i}/tokens"], res[f"solo{i}/margins"]), = _ref_serve(
-            params, cfg, [p], 1)
-    stale = _ref_serve(params, cfg, [prompts[i] for i in STALE], 1)
+        (res[f"solo{i}/tokens"], res[f"solo{i}/margins"]), = tf.ref_serve(
+            params, cfg, [p], 1, MAX_LEN, NEW)
+    stale = tf.ref_serve(params, cfg, [prompts[i] for i in STALE], 1,
+                         MAX_LEN, NEW)
     res["stale/tokens"] = stale[1][0]
     np.savez(out_path, **res)
 
 
 @pytest.fixture(scope="module")
 def reference(tmp_path_factory):
-    pytest.importorskip("jax")
-    out = tmp_path_factory.mktemp("rwkv_ref") / "ref.npz"
-    repo = pathlib.Path(__file__).resolve().parent.parent
-    env = dict(os.environ, JAX_PLATFORMS="cpu",
-               PYTHONPATH=f"{repo / 'src'}:{os.environ.get('PYTHONPATH', '')}")
-    proc = subprocess.run([sys.executable, __file__, str(out)], env=env,
-                          capture_output=True, text=True, timeout=600)
-    assert proc.returncode == 0, proc.stderr[-4000:]
-    with np.load(out) as z:
-        return dict(z)
+    return tf.reference_npz(__file__, tmp_path_factory, "rwkv_ref")
 
 
 @pytest.fixture(scope="module")
@@ -205,52 +163,19 @@ def cfg():
     return reduced_config(ARCH)
 
 
-def _tree(reference, dtype):
-    """The reference parameter tree from the ``.npz``: float32, or the
-    reference's own dtypes (``ml_dtypes`` bfloat16 where it keeps bf16)."""
-    tree = {}
-    ml_dtypes = pytest.importorskip("ml_dtypes") if dtype == "bfloat16" \
-        else None
-    for key, a in reference.items():
-        if not key.startswith("param/"):
-            continue
-        node = tree
-        *parents, leaf = key.split("/")[1:]
-        for p in parents:
-            node = node.setdefault(p, {})
-        keep_f32 = dtype == "float32" or leaf in ("w0", "w1", "w2", "u")
-        node[leaf] = a.astype(np.float32 if keep_f32 else ml_dtypes.bfloat16)
-    return tree
 
 
 @pytest.fixture(scope="module")
 def models(reference, cfg):
-    return {dt: interop.params_from_reference(_tree(reference, dt), cfg,
-                                              device="cpu")
+    return {dt: interop.params_from_reference(
+                tf.tree(reference, dt, F32_LEAVES), cfg, device="cpu")
             for dt in ("float32", "bfloat16")}
 
 
-def _close(got, want, tol, what):
-    got = got.float().numpy() if torch.is_tensor(got) else got
-    np.testing.assert_allclose(got, want, rtol=tol, atol=tol, err_msg=what)
 
 
-def _relative(got, want, what):
-    err = float(np.abs(got.float().numpy() - want).max())
-    bound = F32_TOL * float(np.abs(want).max())
-    assert err <= bound, f"{what}: max error {err} > {bound}"
 
 
-def _guard(got, want, margins, what):
-    """``got`` equals ``want`` or first differs where the reference's top-2
-    margin is within the bf16 guard."""
-    diff = [j for j, (a, b) in enumerate(zip(got, want)) if a != b]
-    if diff:
-        margin, top = margins[diff[0]]
-        assert margin <= 2 * BF16_TOL * top, (
-            f"{what} token {diff[0]}: {got} vs {want}, reference top-2 "
-            f"margin {margin} (max |logit| {top})")
-    return not diff
 
 
 # ---------------------------------------------------------------------------
@@ -268,10 +193,10 @@ def test_time_mix_matches_reference(reference, models, carried, use_kernel):
         if carried else None
     name = "carried" if carried else "fresh"
     out = tm(x, state, use_kernel=use_kernel)
-    _close(out, reference[f"tm_{name}/out"], F32_TOL, "out")
+    tf.close(out, reference[f"tm_{name}/out"], F32_TOL, "out")
     if carried:
-        _close(state["tm_shift"], reference[f"tm_{name}/shift"], 0, "shift")
-        _close(state["wkv"], reference[f"tm_{name}/wkv"], F32_TOL, "wkv")
+        tf.close(state["tm_shift"], reference[f"tm_{name}/shift"], 0, "shift")
+        tf.close(state["wkv"], reference[f"tm_{name}/wkv"], F32_TOL, "wkv")
         assert torch.equal(state["cm_shift"],
                            torch.from_numpy(_layer_inputs()[3]))
 
@@ -282,9 +207,9 @@ def test_channel_mix_matches_reference(reference, models, carried):
     x, _, _, cm_shift = (torch.from_numpy(a) for a in _layer_inputs())
     state = {"cm_shift": cm_shift} if carried else None
     name = "carried" if carried else "fresh"
-    _close(cm(x, state), reference[f"cm_{name}/out"], F32_TOL, "out")
+    tf.close(cm(x, state), reference[f"cm_{name}/out"], F32_TOL, "out")
     if carried:
-        _close(state["cm_shift"], reference[f"cm_{name}/shift"], 0, "shift")
+        tf.close(state["cm_shift"], reference[f"cm_{name}/shift"], 0, "shift")
 
 
 def test_time_mix_refuses_tf32_on_the_card(models, monkeypatch):
@@ -341,12 +266,13 @@ def test_prefill_and_decode_match_reference(reference, models, use_kernel):
     logits, aux, caches = model(torch.from_numpy(_tokens(-1)), caches,
                                 flags=flags)
     assert float(aux) == 0.0
-    _relative(logits, reference["f32/prefill"], "prefill")
+    tf.relative(logits, reference["f32/prefill"], F32_TOL, "prefill")
     for step in range(STEPS):
         logits, _, caches = model(torch.from_numpy(_tokens(step)), caches,
                                   T + step, flags=flags)
         assert logits.shape == (B, 1, 512)
-        _relative(logits, reference[f"f32/step{step}"], f"step {step}")
+        tf.relative(logits, reference[f"f32/step{step}"], F32_TOL,
+                    f"step {step}")
 
 
 def test_forward_without_caches_matches_reference_kernel(reference, models):
@@ -356,7 +282,7 @@ def test_forward_without_caches_matches_reference_kernel(reference, models):
     logits, _, caches = models["float32"](torch.from_numpy(_tokens(-1)),
                                           flags=flags)
     assert caches is None
-    _relative(logits, reference["f32/nocache_kernel"], "forward")
+    tf.relative(logits, reference["f32/nocache_kernel"], F32_TOL, "forward")
 
 
 @pytest.mark.parametrize("use_kernel", [False, True])
@@ -373,8 +299,9 @@ def test_bf16_greedy_tokens_match_reference(reference, models, use_kernel):
         toks.append(logits[:, 0].argmax(-1))
     got = torch.stack(toks, 1).tolist()
     want = reference["bf16/greedy"].tolist()
-    same = sum(_guard(g, w, m, f"row {b}") for b, (g, w, m) in enumerate(
-        zip(got, want, reference["bf16/margins"])))
+    same = sum(tf.guard(g, w, m, BF16_TOL, f"row {b}")
+               for b, (g, w, m) in enumerate(
+                   zip(got, want, reference["bf16/margins"])))
     assert same >= B - 1, f"only {same} rows agree"
 
 
@@ -423,8 +350,8 @@ def test_engine_matches_reference_solo_runs(reference, models, cfg,
         toks = got[tuple(p.tolist())]
         want = reference[f"solo{i}/tokens"].tolist()
         assert len(toks) == len(want) == NEW
-        same += _guard(toks, want, reference[f"solo{i}/margins"],
-                       f"request {i}")
+        same += tf.guard(toks, want, reference[f"solo{i}/margins"],
+                         BF16_TOL, f"request {i}")
     assert same >= len(PROMPT_LENS) - 1, f"only {same} requests agree"
 
 
