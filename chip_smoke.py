@@ -3,12 +3,12 @@
 
 Usage: ``python3 chip_smoke.py`` from the repository root, on a machine
 with an NVIDIA Hopper card and the CUDA toolkit. It imports nothing of JAX
-or of the JAX package. Seven phases; any failure exits non-zero:
+or of the JAX package. Eight phases; any failure exits non-zero:
 
 1. **Kernels.** Builds ``kernels/csrc/codec_{int8,int4,fp8}.cu``,
-   ``flash_decode.cu``, ``rwkv6_wkv.cu`` and ``mamba_scan.cu`` with nvcc
-   (sm_90a), one compiler process each, all at once, and holds each of
-   the six codec
+   ``flash_decode.cu``, ``rwkv6_wkv.cu``, ``mamba_scan.cu`` and
+   ``staging.cu`` with nvcc (sm_90a), one compiler process each, all at
+   once, and holds each of the six codec
    kernels against its plain PyTorch version on the card, bitwise
    (tolerance 0): encodes at (16, 131072), (3, 1000) and (1, 256) with and
    without the carried error, plus rows with subnormal e4m3 outputs, signed
@@ -37,12 +37,25 @@ or of the JAX package. Seven phases; any failure exits non-zero:
    card's SM clock), and for flash decode (smollm's and jamba's shapes)
    also one ``scaled_dot_product_attention`` call as the library yardstick
    (no single PyTorch call computes the WKV6 recurrence or the scan).
+   The staging kernels are held bitwise against their plain versions:
+   pip_mcoll allgather's step-6 buffer V (8, 2, 4·m) rolled by the node
+   index and Bruck's (8, 8, m) rolled by the rank at 8 B and 4 MiB per
+   rank, the ring's per-rank take, the multi-object round's flat source
+   map (-1 where no rank sends) over the sliced ``V[:, :1]``, a full shift
+   map over a slice (both maps recorded from what ``ppermute`` hands the
+   kernel in one pip_mcoll and one Bruck allgather), float32, bf16, int8, uint64 and bool rows of lengths
+   that are no multiple of 16 B (whole, sliced and strided sources), and
+   zero-size operands (no launch). They are timed at those shapes as the
+   others are, each beside its bytes bound, its plain version and one
+   PyTorch call as the yardstick: advanced indexing for the roll and the
+   per-rank take, ``index_select`` for the flat pack.
 2. **Slice.** The full-width smollm-360m gradient sync: 409,007,040
    float32 gradients per rank on ``RankGrid(2, 4, "cuda")``, 4 MiB buckets
    (391), one persistent ``pip_mcoll`` carry op per bucket with error
    feedback (``OverlappedGradSync``): two steps each under ``int8_block``
    (budget 0.5/127), ``int4_block`` (0.5/7) and ``fp8_sim`` (2^-4), one
-   sync released before the next is built. Every bucket's sum must lie
+   sync released before the next is built (no staging launch: the
+   compressed allreduce moves no rows). Every bucket's sum must lie
    within ``collective_tolerance(codec, "allreduce", 8, A)`` of the
    float64 sum of the collective's input rows (gradient plus carried error;
    ``A`` their max-abs). Launch counts are zeroed just before each run and
@@ -61,8 +74,13 @@ or of the JAX package. Seven phases; any failure exits non-zero:
    Oracles by plain indexing on the card: data movement bitwise, reductions
    within ``8 * 2**-23 * sum|x|``, compressed gathers, exchanges, broadcasts
    and scatters bitwise equal to ``decode(encode(.))`` of the source rows,
-   compressed reductions within the codec's collective tolerance. One line
-   per pair with its median host-clock time per call at 8 B and 4 MiB.
+   compressed reductions within the codec's collective tolerance. The
+   staging counts are zeroed before each checked call and read after it:
+   more than 0 for every plan that moves rows (``oracles.moves_rows``), 0
+   for the others (the compressed allreduce among them). One line per pair
+   with its median host-clock time per call at 8 B and 4 MiB and its
+   staging launches at 8 B; one profiled pip_mcoll allgather at 8 B and 4
+   MiB gives the staging kernels' device time per launch on the path.
 4. **Serving smollm-360m.** Full width (bf16, random weights from a seeded
    ``torch.Generator``) served by ``Engine(max_batch=8, max_len=2048,
    flags=RunFlags(use_flash_decode=True), mesh=RankGrid(2, 4))`` with
@@ -70,7 +88,9 @@ or of the JAX package. Seven phases; any failure exits non-zero:
    16 requests with prompt lengths drawn from a numpy seed in [64, 1024],
    32 new tokens each. Every request must return 32 tokens within the
    vocab; every kernel count is zeroed just before the run and read just
-   after: flash-decode launches must equal ticks x 32 layers, every other
+   after: flash-decode launches must equal ticks x 32 layers, the staging
+   launches ticks x those of one call of the run's persistent sync op made
+   alone (more than 0: the broadcast tree moves rows), every other
    kernel's 0; the persistent sync op must start once per tick with no
    rebind, and the tokens must equal a sync-free engine's on the same
    weights, bitwise. Three teacher-forced ticks on the same caches hold
@@ -87,12 +107,13 @@ or of the JAX package. Seven phases; any failure exits non-zero:
    random weights) served by ``Engine(max_batch=8, max_len=2048,
    flags=RunFlags(use_rwkv_kernel=True), mesh=RankGrid(2, 4))``, the same
    16 requests. The WKV6 launches must equal 24 x (ticks + 16 prefills),
-   every other kernel's 0; the tick sync and the sync-free tokens as in
-   phase 4. The prefill of the longest prompt and three teacher-forced
-   ticks hold every layer's WKV6 call within ``RWKV_TOL * (1 + |plain|)``
-   of the plain version on its own operands (the live state and that
-   layer's r, k, v, w), and the kernel path's logits within ``TEACHER_TOL``
-   times the largest logit of the plain recurrence's. Records as phase 4,
+   the staging launches as in phase 4, every other kernel's 0; the tick
+   sync and the sync-free tokens as in phase 4. The prefill of the longest
+   prompt and three teacher-forced ticks hold every layer's WKV6 call
+   within ``RWKV_TOL * (1 + |plain|)`` of the plain version on its own
+   operands (the live state and that layer's r, k, v, w), and the kernel
+   path's logits within ``TEACHER_TOL`` times the largest logit of the
+   plain recurrence's. Records as phase 4,
    plus one profiled prefill of the longest prompt.
 6. **Serving jamba.** Full-width jamba-1.5-large cut to its first five
    layers (mamba+FFN, mamba+MoE, mamba+FFN, mamba+MoE, attention+FFN; d
@@ -102,18 +123,30 @@ or of the JAX package. Seven phases; any failure exits non-zero:
    True, use_mamba_kernel=True), mesh=RankGrid(2, 4))``, the earlier
    phases' memory freed first, the same 16 requests. The scan launches
    must equal 4 x (ticks + 16 prefills), the flash-decode launches the
-   ticks, every other kernel's 0; the tick sync and the sync-free tokens
-   as in phase 4. The prefill of the longest prompt and three
-   teacher-forced ticks hold every mamba layer's scan within ``MAMBA_TOL *
-   (1 + |plain|)`` of the plain version on its own operands, and the
-   kernel path's logits within ``TEACHER_TOL`` times the largest logit of
-   the plain-version path's (the plain scan and flash decode's plain
-   version). Records as phase 5, each profile with the device-time shares
+   ticks, the staging launches as in phase 4, every other kernel's 0; the
+   tick sync and the sync-free tokens as in phase 4. The prefill of the
+   longest prompt and three teacher-forced ticks hold every mamba layer's
+   scan within ``MAMBA_TOL * (1 + |plain|)`` of the plain version on its
+   own operands, and the kernel path's logits within ``TEACHER_TOL`` times
+   the largest logit of the plain-version path's (the plain scan and flash
+   decode's plain version). Records as phase 5, each profile with the device-time shares
    of the MoE's expert products, the other matrix products, the scan and
    flash decode.
-7. **Report.** The slice, collectives and serving summaries, the card's
-   name and power limit (as nvidia-smi gives them), the ``{"kernels":
-   [...]}`` line, and last ``{"ok": true, "device": {...}}``.
+7. **Calibration.** ``Communicator(RankGrid(2, 4)).calibrate(
+   include_splits=True, sizes=(8, 4 MiB))`` into a selector of its own:
+   every plan of every collective, timed on the host clock around a device
+   synchronize, on the root and on the ``("node",)``, ``("local",)`` and
+   ``("node", "local")`` groups. Each lattice member's ``comm.plan`` at
+   each size must resolve from measurement to its lossless argmin, and so
+   must the table saved and loaded back. One ``calibrate`` line per
+   (group, collective, size) with every measured plan's median.
+8. **Report.** The slice, collectives, serving and calibration summaries,
+   the card's name and power limit (as nvidia-smi gives them), the
+   ``{"kernels": [...]}`` line (the 14 TPU kernels of the repository, each
+   codec's feedback encode apart from its residual encode, with the
+   feedback launches the slice phase counted apart: 0, since its
+   compressed allreduce encodes without the carried error), and last
+   ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -149,10 +182,18 @@ CODEC_KERNELS = {
     "int4_block": (("int4_block_encode",), "int4_decode_reduce"),
     "fp8_sim": (("fp8_amax", "fp8_encode"), "fp8_decode_reduce"),
 }
+#: each codec's error-feedback encode launches, counted apart (the main
+#: path's compressed allreduce encodes without the carried error)
+FEEDBACK_KERNELS = {c: tuple(k + "_feedback" for k in encodes)
+                    for c, (encodes, _) in CODEC_KERNELS.items()}
 PEAK_LIMIT_BYTES = 50e9
 #: per-rank message sizes of the collectives phase (bytes)
 COLL_SIZES = (8, 64 << 10, 4 << 20)
 TIME_ITERS = 10
+#: per-rank message sizes at which the staging kernels are held and timed,
+#: and at which the calibration phase measures every plan: the paper's two
+#: regimes
+STAGING_SIZES = CAL_SIZES = (8, 4 << 20)
 #: serving (full-width smollm-360m, rwkv6-1.6b, then jamba's first five
 #: layers): max_batch slots of max_len positions, 16 requests with prompts
 #: drawn in [64, 1024] and 32 new tokens each
@@ -186,6 +227,10 @@ JAMBA_ARCH, JAMBA_LAYERS = "jamba-1.5-large-398b", 5
 GEMM_NAMES = ("gemm", "gemv", "nvjet", "xmma", "cutlass", "splitk")
 #: the profiler range put around the MoE's expert products
 EXPERT_RANGE = "moe_experts"
+#: the staging kernels' names in a profile (``csrc/staging.cu``) and in
+#: their wrapper's launch counts
+STAGING_KERNELS = ("shift_blocks_kernel", "pack_blocks_kernel")
+STAGING_NAMES = ("shift_blocks", "pack_blocks")
 
 
 def _smi(query: str, *fmt: str) -> str:
@@ -279,14 +324,26 @@ def max_diff(torch, got, want) -> float:
         if got.numel() else 0.0
 
 
+def byte_diff(torch, got, want) -> int:
+    """The largest difference of two same-shaped outputs' bytes, read as
+    uint8: the error of a kernel that moves bytes, defined for every dtype
+    and NaN payload."""
+    if not got.numel():
+        return 0
+    a = got.contiguous().view(torch.uint8).int()
+    b = want.contiguous().view(torch.uint8).int()
+    return int((a - b).abs().max())
+
+
 def same_bits(torch, got, want) -> bool:
-    """Bitwise equality; floats compare as bytes, so signed zeros count."""
+    """Bitwise equality, compared as bytes: signed zeros and NaN payloads
+    count, and every dtype compares (the card has no ``eq`` for uint64)."""
     if got.dtype != want.dtype or got.shape != want.shape:
         return False
-    if got.is_floating_point():
-        return torch.equal(got.contiguous().view(torch.uint8),
-                           want.contiguous().view(torch.uint8))
-    return torch.equal(got, want)
+    if got.dim() == 0:
+        got, want = got[None], want[None]
+    return torch.equal(got.contiguous().view(torch.uint8),
+                       want.contiguous().view(torch.uint8))
 
 
 # ---------------------------------------------------------------------------
@@ -555,13 +612,14 @@ def profile_step(torch, gs, buckets, mvec, step, names):
     return profile_call(torch, run, names)
 
 
-def sync_run(torch, comm, kcodec, grads, slices, codec, budget, gen,
-             steps: int = STEPS):
+def sync_run(torch, comm, kcodec, kstaging, grads, slices, codec, budget,
+             gen, steps: int = STEPS):
     """``steps`` compressed sync steps of every bucket under ``codec``,
     each bucket checked against the float64 sum of its input rows, then
     one profiled step. Launch counts are zeroed just before the first step
-    and read just after the last; the sync's ops and error state are
-    released before returning."""
+    and read just after the last (the compressed allreduce moves no rows
+    through the grid's staging primitives: its staging launches are 0);
+    the sync's ops and error state are released before returning."""
     from repro_torch.core import compress
     from repro_torch.train import manual_step as ms
 
@@ -575,6 +633,7 @@ def sync_run(torch, comm, kcodec, grads, slices, codec, budget, gen,
     gs.ensure_ops(0)  # init: resolve the plans, allocate buffers and state
     torch.cuda.synchronize(dev)
     kcodec.reset_launches()
+    kstaging.reset_launches()
     step_s, worst = [], 0.0
     for step in range(steps):
         grads.normal_(0.0, 1e-2, generator=gen)
@@ -603,7 +662,7 @@ def sync_run(torch, comm, kcodec, grads, slices, codec, budget, gen,
             raise AssertionError("metric allreduce is not exact")
         del synced, want
     torch.cuda.synchronize(dev)
-    launches = dict(kcodec.launches)
+    launches = {**kcodec.launches, **kstaging.launches}
     encodes, decode = CODEC_KERNELS[codec]
     want_launches = {k: 0 for k in launches}
     for k in encodes:
@@ -619,19 +678,24 @@ def sync_run(torch, comm, kcodec, grads, slices, codec, budget, gen,
     return {"codec": codec, "budget": budget, "plan": plan,
             "steps": steps, "step_s": step_s, "worst_err_over_tol": worst,
             "launches": {k: v for k, v in launches.items() if v},
+            "feedback_launches": {k: launches[k]
+                                  for k in FEEDBACK_KERNELS[codec]},
             "profile": profile}
 
 
-def reduce_scatter_run(torch, comm, kcodec, grads, slices, codec, gen):
+def reduce_scatter_run(torch, comm, kcodec, kstaging, grads, slices, codec,
+                       gen):
     """One full-width pass of the compressed reduce_scatter over every
     bucket: each within the codec's reduce_scatter tolerance of the
-    float64 sum, exactly one decode-reduce launch per bucket."""
+    float64 sum, exactly one decode-reduce launch per bucket, no other
+    kernel's (no staging launch either)."""
     from repro_torch.core import compress
 
     world = comm.grid.world
     grads.normal_(0.0, 1e-2, generator=gen)
     torch.cuda.synchronize()
     kcodec.reset_launches()
+    kstaging.reset_launches()
     worst = 0.0
     t0 = time.perf_counter()
     for i, (s, n) in enumerate(slices):
@@ -649,7 +713,8 @@ def reduce_scatter_run(torch, comm, kcodec, grads, slices, codec, gen):
         worst = max(worst, got / tol)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = {k: v for k, v in kcodec.launches.items() if v}
+    launches = {k: v for k, v in {**kcodec.launches,
+                                  **kstaging.launches}.items() if v}
     want = {CODEC_KERNELS[codec][1]: len(slices)}
     if launches != want:
         raise AssertionError(f"{codec} reduce_scatter: kernel launches "
@@ -658,7 +723,7 @@ def reduce_scatter_run(torch, comm, kcodec, grads, slices, codec, gen):
             "worst_err_over_tol": worst, "launches": launches}
 
 
-def slice_phase(torch, dev, cfg, kcodec):
+def slice_phase(torch, dev, cfg, kcodec, kstaging):
     """The main path on the card at full width: the three codecs' sync
     runs, one lossless auto bucket, the compressed reduce_scatter passes.
     Returns a summary dict."""
@@ -682,8 +747,8 @@ def slice_phase(torch, dev, cfg, kcodec):
     grads = torch.empty((world, total), dtype=torch.float32, device=dev)
     leaves = leaf_views(grads, shapes)  # the tree: views, no copies
     slices = ms.bucket_slices(total, bucket_bytes // 4)
-    syncs = [sync_run(torch, comm, kcodec, grads, slices, codec, budget, gen)
-             for codec, budget in SYNC_CODECS]
+    syncs = [sync_run(torch, comm, kcodec, kstaging, grads, slices, codec,
+                      budget, gen) for codec, budget in SYNC_CODECS]
 
     # one lossless bucket through algo="auto"
     b = grads[:, :slices[0][1]]
@@ -695,8 +760,8 @@ def slice_phase(torch, dev, cfg, kcodec):
         raise AssertionError("lossless auto allreduce outside the float32 "
                              "summation bound")
     del y, exact, bound
-    rs = [reduce_scatter_run(torch, comm, kcodec, grads, slices, codec, gen)
-          for codec, _ in SYNC_CODECS]
+    rs = [reduce_scatter_run(torch, comm, kcodec, kstaging, grads, slices,
+                             codec, gen) for codec, _ in SYNC_CODECS]
     peak = torch.cuda.max_memory_allocated(dev)
     if peak > PEAK_LIMIT_BYTES:
         raise AssertionError(f"peak device memory {peak} B over "
@@ -766,8 +831,13 @@ def _host_ms(torch, fn, n: int = TIME_ITERS) -> float:
     return statistics.median(times)
 
 
-def collectives_phase(torch, dev):
-    """Every pair, every variant, checked; one timing line per pair."""
+def collectives_phase(torch, dev, kstaging):
+    """Every pair, every variant, checked; one timing line per pair. The
+    staging counts are zeroed just before each checked call and read just
+    after: more than 0 where the plan moves rows (``oracles.moves_rows``),
+    0 elsewhere (the compressed allreduce among them). Then one profiled
+    pip_mcoll allgather at 8 B and at 4 MiB per rank, for the staging
+    kernels' device time per launch on the path."""
     from repro_torch.core import compress, mcoll, oracles, runtime
     from repro_torch.core.comm import Communicator
     from repro_torch.core.grid import RankGrid
@@ -777,6 +847,7 @@ def collectives_phase(torch, dev):
     world = N * P
     gen = torch.Generator(device=dev).manual_seed(SEED + 2)
     lines, checked = [], 0
+    staged = {k: 0 for k in kstaging.launches}
     for coll in runtime.collectives():
         for algo in mcoll.algorithms(coll):
             variants = [(nb, torch.float32, {}) for nb in COLL_SIZES]
@@ -787,19 +858,32 @@ def collectives_phase(torch, dev):
             if mcoll.supports_codec(coll, algo):
                 variants += [(nb, torch.float32, {"codec": c})
                              for c, _ in SYNC_CODECS for nb in COLL_SIZES]
-            times = {}
+            times, moved = {}, {}
             for nbytes, dtype, knobs in variants:
                 x = _operand(torch, coll, nbytes, dtype, world, gen, dev)
                 what = (f"{coll}/{algo} {nbytes} B {dtype} "
                         f"{json.dumps(knobs)}")
+                codec = knobs.get("codec", "none")
+                torch.cuda.synchronize()
+                kstaging.reset_launches()
                 got = comm.invoke(coll, x, algo=algo, **knobs)
                 torch.cuda.synchronize()
+                launched = dict(kstaging.launches)
                 try:
                     _check_pair(torch, compress, oracles, coll, x, got,
-                                world, N, P, knobs.get("codec", "none"))
+                                world, N, P, codec)
                 except AssertionError as e:
                     raise AssertionError(f"{what}: {e}") from None
+                moves = oracles.moves_rows(coll, algo, codec)
+                if (sum(launched.values()) > 0) != moves:
+                    raise AssertionError(
+                        f"{what}: staging launches {launched}, expected "
+                        f"{'more than 0' if moves else '0'}")
+                for k, n in launched.items():
+                    staged[k] += n
                 checked += 1
+                if not knobs and dtype == torch.float32:
+                    moved[nbytes] = launched
                 if not knobs and dtype == torch.float32 \
                         and nbytes in (COLL_SIZES[0], COLL_SIZES[-1]):
                     times[nbytes] = _host_ms(
@@ -807,10 +891,21 @@ def collectives_phase(torch, dev):
             line = {"collective": coll, "algo": algo,
                     "variants": len(variants),
                     "ms_8B": times[COLL_SIZES[0]],
-                    "ms_4MiB": times[COLL_SIZES[-1]]}
+                    "ms_4MiB": times[COLL_SIZES[-1]],
+                    "staging_launches_8B": moved[COLL_SIZES[0]]}
             print("collective " + json.dumps(line))
             lines.append(line)
-    return {"pairs": len(lines), "checked": checked, "rows": lines}
+    profiles = {}
+    for nbytes in STAGING_SIZES:
+        x = _operand(torch, "allgather", nbytes, torch.float32, world, gen,
+                     dev)
+        comm.allgather(x, algo="pip_mcoll")
+        profiles[nbytes] = profile_call(
+            torch, lambda: comm.allgather(x, algo="pip_mcoll"),
+            STAGING_KERNELS)
+    return {"pairs": len(lines), "checked": checked,
+            "staging_launches": staged, "rows": lines,
+            "allgather_profiles": profiles}
 
 
 # ---------------------------------------------------------------------------
@@ -1125,6 +1220,200 @@ def mamba_phase(torch, kmamba, ref, dev, sm_mhz):
         "dtype": "bfloat16", "prefill": timed["prefill"]}
 
 
+# ---------------------------------------------------------------------------
+# phase 1, continued: the staging kernels
+# ---------------------------------------------------------------------------
+
+
+def _random_bits(torch, shape, dtype, gen, dev):
+    """A tensor of ``dtype`` with random bits (NaN payloads and signed
+    zeros among them for the float types)."""
+    if dtype == torch.bool:
+        return torch.randint(0, 2, shape, generator=gen, device=dev).bool()
+    size = torch.empty((), dtype=dtype).element_size()
+    return torch.randint(0, 256, tuple(shape) + (size,), generator=gen,
+                         device=dev, dtype=torch.uint8).view(dtype).reshape(
+                             shape)
+
+
+def _staging_maps(torch, kstaging, dev):
+    """The flat source maps that ``ppermute`` hands ``pack_blocks`` in one
+    pip_mcoll allgather (its multi-object round: -1 on the lanes that
+    receive nothing) and in one Bruck allgather (its second round, a shift
+    by 2 where every rank receives), recorded from those two collectives on
+    the 2x4 grid at 8 B per rank."""
+    from repro_torch.core.comm import Communicator
+    from repro_torch.core.grid import RankGrid
+
+    comm = Communicator(RankGrid(2, 4, dev))
+    x = torch.zeros((8, 2), device=dev)
+    pack, maps = kstaging.pack_blocks, {}
+
+    def record(src, idx):
+        if idx.dim() == 1:  # the flat form: a ppermute round
+            maps.setdefault(algo, []).append(idx.clone())
+        return pack(src, idx)
+
+    kstaging.pack_blocks = record
+    try:
+        for algo in ("pip_mcoll", "bruck"):
+            comm.allgather(x, algo=algo)
+    finally:
+        kstaging.pack_blocks = pack
+    torch.cuda.synchronize()
+    mo, shift = maps["pip_mcoll"][0], maps["bruck"][1]
+    if not bool((mo < 0).any()) or bool((shift < 0).any()):
+        raise AssertionError(f"recorded source maps {mo.tolist()} (pip_mcoll) "
+                             f"and {shift.tolist()} (Bruck): expected -1 in "
+                             f"the first and none in the second")
+    return mo, shift
+
+
+def staging_phase(torch, kstaging, ref, dev):
+    """The staging kernels against their plain versions, bitwise, on the
+    card: pip_mcoll allgather's step-6 buffer V (8, 2, 4·m) rolled by the
+    node index and Bruck's (8, 8, m) rolled by the rank, at 8 B and 4 MiB
+    per rank; the ring's per-rank take (8, 8) of Bruck's buffer; the
+    multi-object round's flat source map (-1 on three lanes of each node)
+    over the sliced V[:, :1]; a full shift map over a slice of Bruck's
+    buffer; pip_mcoll scatter's lane slice (m scalar rows per rank of a
+    strided source); then float32, bf16, int8, uint64 and bool rows of
+    lengths that are no multiple of 16 B (sliced, strided and whole
+    sources, shifts of either sign, indices outside the rows); and
+    zero-size operands, which launch nothing. Then the times at the main
+    path's shapes. Returns the two records (without launches)."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    W, N, P = 8, 2, 4
+    r = torch.arange(W, device=dev)
+    node = r // P
+    ring = (r[:, None] - torch.arange(W, device=dev)[None, :]) % W
+    mo_map, full_map = _staging_maps(torch, kstaging, dev)
+    checked = {"shift_blocks": 0, "pack_blocks": 0}
+    worst = {"shift_blocks": 0, "pack_blocks": 0}
+
+    def check(kernel, what, *args):
+        got = getattr(kstaging, kernel)(*args)
+        want = getattr(ref, kernel)(*args)
+        torch.cuda.synchronize()
+        worst[kernel] = max(worst[kernel], byte_diff(torch, got, want))
+        if not same_bits(torch, got, want):
+            raise AssertionError(f"{kernel} {what}: differs from its plain "
+                                 f"version")
+        checked[kernel] += 1
+
+    for nbytes in STAGING_SIZES:
+        m = max(1, nbytes // 4)
+        V = _random_bits(torch, (W, N, P * m), torch.float32, gen, dev)
+        Bk = _random_bits(torch, (W, W, m), torch.float32, gen, dev)
+        check("shift_blocks", f"V {nbytes} B per rank", V, node)
+        check("shift_blocks", f"Bruck {nbytes} B per rank", Bk, r)
+        check("pack_blocks", f"ring take {nbytes} B per rank", Bk, ring)
+        check("pack_blocks", f"multi-object round {nbytes} B per rank",
+              V[:, :1], mo_map)
+        check("pack_blocks", f"shift round {nbytes} B per rank",
+              Bk[:, 2:4], full_map)
+        lane = (r % P * m)[:, None] + torch.arange(m, device=dev)[None, :]
+        check("pack_blocks", f"scatter lane slice {nbytes} B per rank",
+              V[:, 0], lane)
+        del V, Bk
+    idx = torch.stack([(r * 3 + k) % 8 - 1 for k in range(3)], 1)
+    for dtype in (torch.float32, torch.bfloat16, torch.int8, torch.uint64,
+                  torch.bool):
+        for m in (1, 3, 5, 7, 33, 1001):
+            x = _random_bits(torch, (W, 6, m), dtype, gen, dev)
+            for what, src in (("whole", x), ("sliced", x[:, 1:5]),
+                              ("strided rows", x[:, :, :(m + 1) // 2])):
+                label = f"{dtype} rows of {m} ({what})"
+                check("shift_blocks", label, src, r * 5 - 7)
+                check("pack_blocks", label + " per rank", src, idx)
+                check("pack_blocks", label + " flat", src, mo_map)
+    kstaging.reset_launches()
+    empty = (kstaging.shift_blocks(torch.zeros((W, 0, 3), device=dev), r),
+             kstaging.pack_blocks(torch.zeros((W, 5), device=dev),
+                                  r[:0]),
+             kstaging.pack_blocks(torch.zeros((W, 4, 0), device=dev), idx))
+    if [tuple(t.shape) for t in empty] != [(W, 0, 3), (0, 5), (W, 3, 0)] \
+            or any(kstaging.launches.values()):
+        raise AssertionError(f"zero-size staging operands: shapes "
+                             f"{[tuple(t.shape) for t in empty]}, launches "
+                             f"{kstaging.launches}")
+
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    rows = r[:, None]
+    # the multi-object round reads only the rows that are sent
+    sent = int((mo_map >= 0).sum())
+    timed = {"shift_blocks": {}, "pack_blocks": {}}
+    for nbytes in STAGING_SIZES:
+        m = max(1, nbytes // 4)
+        V = torch.randn((W, N, P * m), generator=gen, device=dev)
+        Bk = torch.randn((W, W, m), generator=gen, device=dev)
+        sidx = (torch.arange(N, device=dev)[None, :] - node[:, None]) % N
+        lane = (r % P * m)[:, None] + torch.arange(m, device=dev)[None, :]
+        src = Bk[:, 2:4]
+        # each output byte read once and written once, plus the int64
+        # shift or index per row
+        cases = {
+            "shift_blocks": ("V", V, node, lambda: V[rows, sidx],
+                             2 * V.numel() * 4 + 8 * W,
+                             "v[rows[:, None], idx] (advanced indexing, "
+                             "the index precomputed)"),
+            "pack_blocks": ("flat shift round", src, full_map,
+                            lambda: src.index_select(0, full_map),
+                            2 * src.numel() * 4 + 8 * W, "index_select"),
+            "pack_per_rank": ("ring take", Bk, ring,
+                              lambda: Bk[rows, ring],
+                              2 * Bk.numel() * 4 + 8 * W * W,
+                              "x[rows[:, None], idx] (advanced indexing)"),
+            "pack_multi_object": ("multi-object round", V[:, :1], mo_map,
+                                  None, (sent + W) * P * m * 4 + 8 * W,
+                                  None),
+            # pip_mcoll scatter's last step: each rank takes its m scalar
+            # rows of the node block (a strided source)
+            "pack_scalar_rows": ("scatter's lane slice", V[:, 0], lane,
+                                 lambda: V[:, 0][rows, lane],
+                                 2 * W * m * 4 + 8 * W * m,
+                                 "x[rows[:, None], idx] (advanced "
+                                 "indexing)")}
+        for key, (what, a, b, library, nb, lib_call) in cases.items():
+            kernel = "shift_blocks" if key == "shift_blocks" \
+                else "pack_blocks"
+            k_fn = getattr(kstaging, kernel)
+            p_fn = getattr(ref, kernel)
+            bound, bound_by = bound_ms(nb, 0)
+            timed[kernel].setdefault(key, {})[nbytes] = {
+                "what": what, "shape": list(a.shape), "bytes": nb,
+                "ms": time_ms(torch, lambda: k_fn(a, b), flush),
+                # the plain versions read their row mask back to the host
+                "plain_ms": time_ms(torch, lambda: p_fn(a, b), flush,
+                                    spin=False),
+                "bound_ms": bound, "bound_by": bound_by,
+                "library_ms": (time_ms(torch, library, flush)
+                               if library else None),
+                "library_call": lib_call}
+        del V, Bk, src
+    records = {}
+    for kernel, line, main in (("shift_blocks", 34, "shift_blocks"),
+                               ("pack_blocks", 60, "pack_blocks")):
+        head = timed[kernel][main][STAGING_SIZES[-1]]
+        records[kernel] = {
+            "name": kernel, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/staging.cu",
+            "replaces": f"src/repro/kernels/staging.py:{line}",
+            "max_abs_err": worst[kernel], "tolerance": "bitwise",
+            "max_abs_err_of": "the output bytes, read as uint8 (the rows "
+                              "hold random bits, NaN payloads among them)",
+            "cases_checked": checked[kernel],
+            **{k: head[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                    "library_ms", "library_call", "bytes",
+                                    "shape", "what")},
+            "plain_timing": "events around the call, its host read of the "
+                            "row mask included",
+            "dtype": "float32", "per_rank_bytes": STAGING_SIZES[-1],
+            "timed": {key: {str(nb): t for nb, t in by_size.items()}
+                      for key, by_size in timed[kernel].items()}}
+    return records
+
+
 def _serve_requests(np, vocab):
     rng = np.random.default_rng(SEED)
     lens = rng.integers(SERVE_PROMPT[0], SERVE_PROMPT[1] + 1,
@@ -1226,9 +1515,11 @@ def serve_main(torch, dev, cfg, flags, kmods):
     ``Engine(max_batch=SERVE_BATCH, max_len=SERVE_LEN, flags=flags,
     mesh=RankGrid(2, 4))``: SERVE_REQUESTS requests of SERVE_NEW tokens.
     Every kernel count of ``kmods`` is zeroed just before the run and read
-    just after. Checks the tokens, the tick sync, and the tokens of a
-    sync-free engine on the same weights (bitwise). Returns the model, an
-    engine factory, the request factory and the run's record."""
+    just after; then one call of the run's persistent sync op, alone, gives
+    the launches a tick's sync makes (``sync_launches``). Checks the
+    tokens, the tick sync, and the tokens of a sync-free engine on the same
+    weights (bitwise). Returns the model, an engine factory, the request
+    factory and the run's record."""
     import numpy as np
     from repro_torch.core.grid import RankGrid
     from repro_torch.models import params as tparams
@@ -1286,6 +1577,18 @@ def serve_main(torch, dev, cfg, flags, kmods):
                              f"{m['ticks']} ticks, {m['plan_rebinds']} "
                              f"rebinds")
     plan = eng._sync_op.plan
+    # one call of the same persistent op, alone: a tick's sync launches
+    # (its buffers were made in the engine's inference mode)
+    with torch.inference_mode():
+        tick_tokens = torch.zeros(SERVE_BATCH, dtype=torch.int32,
+                                  device=dev)
+        torch.cuda.synchronize()
+        for km in kmods:
+            km.reset_launches()
+        eng._sync_op.start(tick_tokens).wait()
+        torch.cuda.synchronize()
+    sync_launches = {k: n for km in kmods for k, n in km.launches.items()
+                     if n}
     tokens = {tuple(r.prompt.tolist()): r.out_tokens for r in done}
     del eng, done
 
@@ -1310,8 +1613,29 @@ def serve_main(torch, dev, cfg, flags, kmods):
                           "p99": sorted(decode_s)[
                               int(0.99 * (len(decode_s) - 1))],
                           "n": len(decode_s)},
-        "launches": launches}
+        "launches": launches, "sync_launches": sync_launches}
     return model, engine, requests, record
+
+
+def _staged(record):
+    """The staging launches of a serving run and its profiled tick's
+    device time per staging launch."""
+    per_launch = record["profile"].get("per_launch_ms", {})
+    return {**{k: record["launches"].get(k, 0) for k in STAGING_NAMES},
+            "tick_path_ms": {k: per_launch.get(k, "not measured")
+                             for k in STAGING_KERNELS}}
+
+
+def _with_sync(record, want):
+    """``want`` plus the tick sync's launches times the ticks; a tick's sync
+    must launch the staging kernels (its broadcast tree moves rows)."""
+    per_tick = record["sync_launches"]
+    if not sum(per_tick.get(k, 0) for k in STAGING_NAMES):
+        raise AssertionError(f"the tick sync ({record['sync_plan']}) "
+                             f"launched no staging kernel: {per_tick}")
+    ticks = record["metrics"]["ticks"]
+    return {**want, **{k: want.get(k, 0) + n * ticks
+                       for k, n in per_tick.items()}}
 
 
 def _check_launches(what, launches, want):
@@ -1333,8 +1657,8 @@ def serve_phase(torch, dev, cfg, kattn, ref, kmods):
     model, engine, requests, record = serve_main(
         torch, dev, cfg, RunFlags(use_flash_decode=True), kmods)
     m, launches = record["metrics"], record["launches"]
-    _check_launches("smollm serving", launches,
-                    {"flash_decode": m["ticks"] * cfg.n_layers})
+    _check_launches("smollm serving", launches, _with_sync(
+        record, {"flash_decode": m["ticks"] * cfg.n_layers}))
 
     # teacher-forced ticks: the kernel path against the plain-version path
     # on the same caches; then one profiled tick (with its sync)
@@ -1363,7 +1687,8 @@ def serve_phase(torch, dev, cfg, kattn, ref, kmods):
         # the profiled tick reads lengths + 1 positions per row
         valid = int(np.minimum(eng.lengths.astype(np.int64) + 1,
                                SERVE_LEN).sum())
-        profile = profile_call(torch, eng._decode_tick, ("flash_decode",))
+        profile = profile_call(torch, eng._decode_tick,
+                               ("flash_decode",) + STAGING_KERNELS)
     tick_bytes, tick_ops = _flash_bytes_ops(
         SERVE_BATCH, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, 2, valid)
     path_bound, _ = bound_ms(tick_bytes, tick_ops)
@@ -1409,8 +1734,8 @@ def rwkv_serve_phase(torch, dev, cfg, krwkv, ref, kmods):
     model, engine, requests, record = serve_main(
         torch, dev, cfg, RunFlags(use_rwkv_kernel=True), kmods)
     m, launches = record["metrics"], record["launches"]
-    _check_launches("rwkv serving", launches, {
-        "rwkv6_wkv": cfg.n_layers * (m["ticks"] + SERVE_REQUESTS)})
+    _check_launches("rwkv serving", launches, _with_sync(record, {
+        "rwkv6_wkv": cfg.n_layers * (m["ticks"] + SERVE_REQUESTS)}))
 
     eng = engine(RankGrid(2, 4))
     longest = max(requests(), key=lambda r: len(r.prompt))
@@ -1443,7 +1768,8 @@ def rwkv_serve_phase(torch, dev, cfg, krwkv, ref, kmods):
             raise AssertionError(f"teacher-forced logits: kernel path "
                                  f"{worst} from the plain-version path, "
                                  f"over {TEACHER_TOL} * {top}")
-        profile = profile_call(torch, eng._decode_tick, ("rwkv6_wkv",))
+        profile = profile_call(torch, eng._decode_tick,
+                               ("rwkv6_wkv",) + STAGING_KERNELS)
     H, hd = cfg.d_model // cfg.rwkv_head_dim, cfg.rwkv_head_dim
     record.update({
         "rwkv_launches": launches["rwkv6_wkv"],
@@ -1497,7 +1823,8 @@ def _profile_jamba(torch, fn):
 
     tmoe.MoE._experts = ranged
     try:
-        prof = profile_call(torch, fn, ("mamba_scan", "flash_decode"),
+        prof = profile_call(torch, fn, ("mamba_scan", "flash_decode")
+                            + STAGING_KERNELS,
                             ranges=(EXPERT_RANGE,))
     finally:
         tmoe.MoE._experts = experts
@@ -1529,9 +1856,9 @@ def jamba_serve_phase(torch, dev, cfg, kattn, kmamba, ref, kmods):
     pat = cfg.block_pattern
     kinds = [pat[i % len(pat)] for i in range(cfg.n_layers)]
     n_mamba, n_attn = kinds.count("mamba"), kinds.count("attn")
-    _check_launches("jamba serving", launches, {
+    _check_launches("jamba serving", launches, _with_sync(record, {
         "mamba_scan": n_mamba * (m["ticks"] + SERVE_REQUESTS),
-        "flash_decode": n_attn * m["ticks"]})
+        "flash_decode": n_attn * m["ticks"]}))
 
     eng = engine(RankGrid(2, 4))
     longest = max(requests(), key=lambda r: len(r.prompt))
@@ -1590,6 +1917,102 @@ def jamba_serve_phase(torch, dev, cfg, kattn, kmamba, ref, kmods):
     return record
 
 
+# ---------------------------------------------------------------------------
+# phase 7: calibration over the split lattice
+# ---------------------------------------------------------------------------
+
+
+def calibrate_phase(torch, dev):
+    """``Communicator(RankGrid(2, 4)).calibrate(include_splits=True)`` on
+    the card at ``CAL_SIZES``, every collective, into a selector of its own
+    (the serving phases' plans stay the priors'). Every member of the
+    lattice must then resolve ``auto`` at each calibrated size from
+    measurement, to the argmin of its lossless rows; the table is saved,
+    reloaded, and must resolve the same. Prints one ``calibrate`` line per
+    (group, collective, size) with every measured plan's median (codec
+    plans as ``algo@codec``)."""
+    from repro_torch.core import autotune, runtime
+    from repro_torch.core.comm import Communicator
+    from repro_torch.core.grid import RankGrid
+
+    comm = Communicator(RankGrid(2, 4), selector=autotune.Selector())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rows = comm.calibrate(include_splits=True, sizes=CAL_SIZES)
+    seconds = time.perf_counter() - t0
+    path = ROOT / "build" / "calibrated_table.json"
+    comm.selector.table.save(path)
+    loaded = autotune.Selector(autotune.TuningTable.load(path))
+    best = []
+    for c in (comm,) + comm.split_lattice():
+        group = c.topo.group or "root"
+        for coll in runtime.collectives():
+            for nb in CAL_SIZES:
+                measured = {autotune.encode_plan(r.algo, r.chunks,
+                                                 r.codec): r.seconds
+                            for r in rows if r.group == c.topo.group
+                            and r.collective == coll and r.nbytes == nb}
+                mine = {k: v for k, v in measured.items()
+                        if autotune.decode_plan(k)[2] == "none"}
+                sel = c.plan(coll, nb)
+                plan = autotune.encode_plan(sel.algo, sel.chunks, sel.codec)
+                if sel.source != "measured" or \
+                        mine.get(plan) != min(mine.values()):
+                    raise AssertionError(
+                        f"calibrated {group} {coll} at {nb} B resolves to "
+                        f"{plan} ({sel.source}); measured {mine}")
+                again = loaded.choose(coll, c.topo, nb)
+                if again.source != "measured" or (again.algo, again.chunks,
+                                                  again.codec) != \
+                        (sel.algo, sel.chunks, sel.codec):
+                    raise AssertionError(f"reloaded table: {group} {coll} "
+                                         f"at {nb} B resolves to {again}")
+                line = {"group": group, "collective": coll, "nbytes": nb,
+                        "auto": plan, "ms": {k: v * 1e3
+                                             for k, v in measured.items()}}
+                print("calibrate " + json.dumps(line))
+                best.append(line)
+    return {"rows": len(rows), "seconds": seconds,
+            "groups": sorted({r.group or "root" for r in rows}),
+            "resolved": len(best), "table": str(path.relative_to(ROOT))}
+
+
+#: line of each codec's feedback encode in ``src/repro/kernels/codec.py``
+FEEDBACK_LINES = {"int8": 123, "int4": 204, "fp8": 294}
+
+
+def kernel_lines(kernels):
+    """The ``{"kernels": [...]}`` entries, one per TPU kernel of the
+    repository, in the order of PERF.md's table: each codec's feedback
+    encode (the HAS_ERR variant of its encode kernel, timed in phase 1;
+    its launches counted apart in the slice phase, where the compressed
+    allreduce encodes without feedback), its residual encode and its
+    decode-reduce, then the staging, flash-decode, scan and WKV6
+    kernels."""
+    out = []
+    for c, encode in (("int8", "int8_block_encode"),
+                      ("int4", "int4_block_encode"), ("fp8", "fp8_encode")):
+        rec = kernels[encode]
+        out.append({
+            "name": f"{c}_encode_feedback", "route": "cuda",
+            "cuda_kernel": encode + " (HAS_ERR)", "source": rec["source"],
+            "replaces": f"src/repro/kernels/codec.py:{FEEDBACK_LINES[c]}",
+            "launches": rec["feedback_launches"],
+            "launches_by_cuda_kernel":
+                rec["feedback_launches_by_cuda_kernel"],
+            "max_abs_err": rec["max_abs_err"], "ms": rec["feedback_ms"],
+            "plain_ms": rec["feedback_plain_ms"],
+            "bound_ms": rec["feedback_bound_ms"], "bound_by": "bytes",
+            "library_ms": None, "shape": rec["shape"]})
+        out.append({**{k: v for k, v in rec.items()
+                       if not k.startswith("feedback_")},
+                    "name": f"{c}_encode_residual", "cuda_kernel": encode})
+        out.append(kernels[f"{c}_decode_reduce"])
+    out += [kernels[k] for k in ("shift_blocks", "pack_blocks",
+                                 "flash_decode", "mamba_scan", "rwkv6_wkv")]
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1603,6 +2026,7 @@ def main() -> int:
         from repro_torch.kernels import codec as kcodec
         from repro_torch.kernels import mamba as kmamba
         from repro_torch.kernels import rwkv as krwkv
+        from repro_torch.kernels import staging as kstaging
     except ImportError as e:
         return fail(f"the port's sources are missing ({e}); run from the "
                     f"repository root")
@@ -1610,7 +2034,7 @@ def main() -> int:
     torch.cuda.set_device(dev)
     smollm, rwkv6 = get_config("smollm-360m"), get_config("rwkv6-1.6b")
     jamba = first_layers(get_config(JAMBA_ARCH), JAMBA_LAYERS)
-    kmods = (kcodec, kattn, krwkv, kmamba)
+    kmods = (kcodec, kattn, krwkv, kmamba, kstaging)
     sm_mhz = float(_smi("clocks.max.sm", "nounits"))
 
     t0 = time.perf_counter()
@@ -1638,9 +2062,16 @@ def main() -> int:
     print(f"kernel phase: mamba_scan within {MAMBA_TOL} * (1 + |plain|) of "
           f"its plain version in {kernels['mamba_scan']['cases_checked']} "
           f"cases ({time.perf_counter() - t0:.3f} s so far)")
-    for name in ("flash_decode", "rwkv6_wkv", "mamba_scan"):
+    kernels.update(staging_phase(torch, kstaging, ref, dev))
+    print(f"kernel phase: shift_blocks and pack_blocks bitwise equal to "
+          f"their plain versions in "
+          f"{kernels['shift_blocks']['cases_checked']} and "
+          f"{kernels['pack_blocks']['cases_checked']} cases "
+          f"({time.perf_counter() - t0:.3f} s so far)")
+    for name in ("flash_decode", "rwkv6_wkv", "mamba_scan", "shift_blocks",
+                 "pack_blocks"):
         print("kernel " + json.dumps(kernels[name]))
-    summary = slice_phase(torch, dev, smollm, kcodec)
+    summary = slice_phase(torch, dev, smollm, kcodec, kstaging)
     for run in summary["syncs"]:
         per_launch = run["profile"].get("per_launch_ms", {})
         encodes, decode = CODEC_KERNELS[run["codec"]]
@@ -1651,6 +2082,9 @@ def main() -> int:
         rec["path_ms"] = {k: per_launch.get(k, "not measured")
                           for k in encodes} if len(encodes) > 1 \
             else per_launch.get(encodes[0], "not measured")
+        fb = run["feedback_launches"]
+        rec["feedback_launches"] = fb[FEEDBACK_KERNELS[run["codec"]][-1]]
+        rec["feedback_launches_by_cuda_kernel"] = fb
         kernels[decode]["launches"] = run["launches"][decode]
         kernels[decode]["path_ms"] = per_launch.get(decode, "not measured")
     for run in summary["reduce_scatter"]:
@@ -1658,16 +2092,28 @@ def main() -> int:
         kernels[dec]["reduce_scatter_launches"] = run["launches"][dec]
     print(json.dumps({"slice": summary}))
     print(f"slice phase done ({time.perf_counter() - t0:.3f} s so far)")
-    coll = collectives_phase(torch, dev)
+    coll = collectives_phase(torch, dev, kstaging)
     print(json.dumps({"collectives": {k: v for k, v in coll.items()
                                       if k != "rows"}}))
     print(f"collectives phase done ({time.perf_counter() - t0:.3f} s so "
           f"far)")
+    staged = {"collectives": coll["staging_launches"]}
+    for name, kname in zip(STAGING_NAMES, STAGING_KERNELS):
+        if not coll["staging_launches"][name]:
+            raise AssertionError(f"{name}: no launch in the collectives "
+                                 f"phase")
+        rec = kernels[name]
+        rec["launches"] = coll["staging_launches"][name]
+        rec["path_ms"] = {
+            f"pip_mcoll allgather {nb} B per rank": prof.get(
+                "per_launch_ms", {}).get(kname, "not measured")
+            for nb, prof in coll["allgather_profiles"].items()}
     serve = serve_phase(torch, dev, smollm, kattn, ref, kmods)
     kernels["flash_decode"]["launches"] = serve["flash_launches"]
     kernels["flash_decode"]["path_ms"] = serve["profile"].get(
         "per_launch_ms", {}).get("flash_decode", "not measured")
     kernels["flash_decode"]["path_bound_ms"] = serve["flash_path_bound_ms"]
+    staged["serve_smollm"] = _staged(serve)
     print(json.dumps({"serve": serve}))
     print(f"serving phase done ({time.perf_counter() - t0:.3f} s so far)")
     serve = rwkv_serve_phase(torch, dev, rwkv6, krwkv, ref, kmods)
@@ -1679,6 +2125,7 @@ def main() -> int:
     rec["prefill"]["path_ms"] = serve["prefill_profile"].get(
         "per_launch_ms", {}).get("rwkv6_wkv", "not measured")
     rec["prefill"]["path_bound_ms"] = serve["rwkv_prefill_path_bound_ms"]
+    staged["serve_rwkv"] = _staged(serve)
     print(json.dumps({"serve_rwkv": serve}))
     print(f"rwkv serving phase done ({time.perf_counter() - t0:.3f} s so "
           f"far)")
@@ -1698,12 +2145,26 @@ def main() -> int:
                                  "serve_jamba": serve["flash_launches"]}
     flash["jamba_shape"]["path_ms"] = serve["profile"].get(
         "per_launch_ms", {}).get("flash_decode", "not measured")
+    staged["serve_jamba"] = _staged(serve)
     print(json.dumps({"serve_jamba": serve}))
-    print(f"jamba serving phase done ({time.perf_counter() - t0:.3f} s in "
+    print(f"jamba serving phase done ({time.perf_counter() - t0:.3f} s so "
+          f"far)")
+    del serve
+    gc.collect()  # the jamba model
+    torch.cuda.empty_cache()
+    cal = calibrate_phase(torch, dev)
+    print(json.dumps({"calibrate": cal}))
+    print(f"calibration phase done ({time.perf_counter() - t0:.3f} s in "
           f"all)")
+    for name, kname in zip(STAGING_NAMES, STAGING_KERNELS):
+        kernels[name]["launches_by_path"] = {
+            path: launches.get(name, 0) for path, launches in staged.items()}
+        kernels[name]["tick_path_ms"] = {
+            path: launches["tick_path_ms"][kname]
+            for path, launches in staged.items() if path != "collectives"}
 
     print(_smi("name,power.limit"))
-    print(json.dumps({"kernels": list(kernels.values())}))
+    print(json.dumps({"kernels": kernel_lines(kernels)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

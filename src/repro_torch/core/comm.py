@@ -13,20 +13,29 @@ persistent, nonblocking ops (port of ``repro.core.comm``).
     returns a :class:`CollHandle` at once; ``handle.wait()`` waits on a
     CUDA event recorded after that work, not on the whole device.
 
+  * ``comm.split(axes=...)`` makes groups first-class (the
+    ``MPI_Comm_split`` analog): a child scoped to a sub-topology over the
+    named grid axes, on the parent's grid, running every group at once;
+    its tuning rows carry the group tag (``/g:`` keys) and its caches key
+    on the group topology. ``split(color=..., key=...)`` builds irregular
+    groups, each on a grid of its own. ``calibrate(include_splits=True)``
+    measures the root and every child of ``split_lattice()``.
+
 Every collective has its blocking method and its ``*_init`` persistent
 constructor; operands and results follow the reference's global
-conventions (``core/runtime.py``). ``comm.split`` is a later slice
-(ROADMAP.md, queue 1).
+conventions (``core/runtime.py``). :func:`communicator` is the
+process-wide memo per ``(grid, topo)``.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
 from repro_torch.core import autotune, runtime
+from repro_torch.core.grid import RankGrid
 from repro_torch.core.topology import Topology
 
 # ---------------------------------------------------------------------------
@@ -184,7 +193,7 @@ class PersistentOp:
             comm.grid, comm.topo, collective, algo, self.shape, dtype,
             stacked=self.stacked, carry=self.carry, **self.kw)
         out_shape = runtime.wiring(collective).result_shape(
-            self.shape, comm.grid.world, self.stacked)
+            self.shape, comm.grid.world, self.stacked, comm.topo.world)
         self._out = [torch.empty(out_shape, dtype=dtype,
                                  device=comm.grid.device)
                      for _ in range(self.depth)]
@@ -288,28 +297,123 @@ class Communicator:
     """A long-lived collective context bound to ``(grid, topo)``.
 
     ``topo`` defaults to :meth:`Topology.from_grid`; a given topology must
-    match the grid's axis sizes. The selector defaults to the process-wide
-    one (``autotune.default_selector()``)."""
+    name grid axes with the grid's sizes: both axes (a root, or the
+    two-axis group), or one axis at both levels (a ``1 x size`` group).
+    The selector defaults to the process-wide one
+    (``autotune.default_selector()``). A grid always has the ``node`` and
+    ``local`` axes, so every communicator is scoped: the reference's
+    unscoped root (a mesh without those axes) has no counterpart here.
+
+    ``ranks`` names, per row of this communicator's operands, the rank of
+    the parent grid it stands for: ``0 .. world-1``, except in a color
+    split's child, which holds its group's ranks in ``(key, rank)``
+    order."""
 
     def __init__(self, grid, topo: Optional[Topology] = None, *,
                  selector: Optional[autotune.Selector] = None):
         self.grid = grid
+        self.ranks: Tuple[int, ...] = tuple(range(grid.world))
         if topo is None:
             topo = Topology.from_grid(grid)
         sizes = grid.shape
-        if topo.world != grid.world or (
-                topo.node_axis != topo.local_axis
-                and (sizes.get(topo.node_axis), sizes.get(topo.local_axis))
-                != (topo.n_nodes, topo.n_local)):
+        if topo.node_axis == topo.local_axis:
+            fits = topo.n_nodes == 1 and \
+                sizes.get(topo.local_axis) == topo.n_local
+        else:
+            fits = (sizes.get(topo.node_axis), sizes.get(topo.local_axis)) \
+                == (topo.n_nodes, topo.n_local)
+        if not fits:
             raise ValueError(f"topology {topo.n_nodes}x{topo.n_local} over "
                              f"{topo.axes} does not match {grid!r}")
         self.topo = topo
         self.selector = (selector if selector is not None
                          else autotune.default_selector())
+        self._groups: Dict[tuple, Any] = {}
 
     def __repr__(self) -> str:
+        grp = f", group={self.topo.group!r}" if self.topo.group else ""
         return (f"Communicator({self.topo.n_nodes}x{self.topo.n_local}, "
-                f"device={self.grid.device})")
+                f"axes={self.topo.axes}{grp}, device={self.grid.device})")
+
+    # -- sub-communicators --------------------------------------------------
+
+    def split(self, axes=None, *, color=None, key=None,
+              group: Optional[str] = None):
+        """The ``MPI_Comm_split`` analog: child communicator(s) scoped to a
+        subset of this communicator's ranks. Children are memoized per spec
+        and share this communicator's selector.
+
+        ``split(axes=...)``: regular groups along one grid axis or a
+        ``(node_axis, local_axis)`` pair. The child shares this grid and
+        runs every group along the other axis at once, so one child serves
+        all siblings; its operand spans all of the grid's ranks, as the
+        parent's does. Its topology comes from :meth:`Topology.subset`
+        (links inherited where the axis matches), tagged ``group`` (default
+        ``"x".join(axes)``).
+
+        ``split(color=..., key=...)``: irregular groups. ``color`` holds one
+        int per rank of this grid (flat order); ranks of one color form a
+        group ordered by ``(key[rank], rank)`` (``key`` defaults to the
+        rank). Returns ``{color: Communicator}``, each on its own
+        ``RankGrid(1, size, device)`` and tagged ``color<c>`` unless
+        ``group`` is given; its operand is the caller's choice of the
+        group's rows, in that order (the child's ``ranks``)."""
+        if (axes is None) == (color is None):
+            raise ValueError("split() takes exactly one of axes= or color=")
+        if axes is not None:
+            if key is not None:
+                raise ValueError("key= only applies to color splits")
+            ax = (axes,) if isinstance(axes, str) else tuple(axes)
+            spec = ("axes", ax, group)
+            hit = self._groups.get(spec)
+            if hit is None:
+                topo = Topology.subset(self.grid, ax, parent=self.topo,
+                                       group=group)
+                hit = self._groups[spec] = Communicator(
+                    self.grid, topo, selector=self.selector)
+            return hit
+        return self._split_color(color, key, group)
+
+    def _split_color(self, color, key, group: Optional[str]
+                     ) -> Dict[int, "Communicator"]:
+        world = self.grid.world
+        color = tuple(int(c) for c in color)
+        if len(color) != world:
+            raise ValueError(
+                f"color needs one entry per parent rank: got {len(color)} "
+                f"for world {world}")
+        key = (tuple(range(world)) if key is None
+               else tuple(int(k) for k in key))
+        if len(key) != world:
+            raise ValueError(
+                f"key needs one entry per parent rank: got {len(key)} "
+                f"for world {world}")
+        spec = ("color", color, key, group)
+        hit = self._groups.get(spec)
+        if hit is None:
+            hit = {}
+            for c in sorted(set(color)):
+                ranks = sorted((r for r in range(world) if color[r] == c),
+                               key=lambda r: (key[r], r))
+                grid = RankGrid(1, len(ranks), self.grid.device)
+                tag = group if group is not None else f"color{c}"
+                topo = dataclasses.replace(Topology.from_grid(grid),
+                                           group=tag)
+                hit[c] = Communicator(grid, topo, selector=self.selector)
+                hit[c].ranks = tuple(ranks)
+            self._groups[spec] = hit
+        return dict(hit)
+
+    def split_lattice(self) -> Tuple["Communicator", ...]:
+        """Every axis-aligned split child: one per active (size > 1) axis,
+        plus the two-axis group when both are active (a 2x4 grid gives the
+        ``("node",)``, ``("local",)`` and ``("node", "local")`` children).
+        They are the memoized objects :meth:`split` returns."""
+        axes = tuple(self.topo.active_axes)
+        combos = [(a,) for a in axes]
+        if len(axes) > 1:
+            combos.append(axes)
+        return tuple(self.split(axes=c) for c in combos)
 
     # -- plan resolution ----------------------------------------------------
 
@@ -429,10 +533,52 @@ class Communicator:
     def scatter_init(self, x=None, **knobs) -> PersistentOp:
         return self.persistent("scatter", x, **knobs)
 
-    # -- observability passthroughs -----------------------------------------
+    # -- calibration and observability passthroughs -------------------------
+
+    def calibrate(self, include_splits: bool = False, path=None,
+                  **kw) -> List["runtime.CalibrationRow"]:
+        """Timed plan sweeps into this communicator's selector table (see
+        ``runtime.calibrate``; ``kw`` are its ``names``, ``sizes``,
+        ``dtype``, ``iters``, ``codecs``).
+
+        ``include_splits=True`` also sweeps every child of
+        :meth:`split_lattice`, so each group topology has measured
+        ``/g:``-keyed rows before its first use: a fresh ``split(axes=...)``
+        then resolves ``algo="auto"`` from measurement. Every row lands in
+        the shared selector's table; ``path`` is written once, after the
+        whole lattice. (Merging the tables of several processes comes with
+        the ``torch.distributed`` transport.)"""
+        kw.setdefault("selector", self.selector)
+        rows = list(runtime.calibrate(self.grid, self.topo, **kw))
+        if include_splits:
+            for child in self.split_lattice():
+                rows.extend(runtime.calibrate(child.grid, child.topo, **kw))
+        if path is not None:
+            kw["selector"].table.save(path)
+        return rows
 
     def cache_stats(self) -> "runtime.CacheStats":
         return runtime.cache_stats()
 
     def selection_stats(self) -> autotune.SelectionStats:
         return self.selector.stats
+
+
+# ---------------------------------------------------------------------------
+# process-wide memo
+# ---------------------------------------------------------------------------
+
+
+_COMMS: Dict[tuple, Communicator] = {}
+
+
+def communicator(grid, topo: Optional[Topology] = None) -> Communicator:
+    """The memoized Communicator per ``(grid, topo)`` (``topo`` defaults to
+    :meth:`Topology.from_grid`): hot loops that cannot keep a handle share
+    one object per context, and, since :meth:`Communicator.split` memoizes
+    its children, one child per split spec."""
+    t = topo if topo is not None else Topology.from_grid(grid)
+    hit = _COMMS.get((grid, t))
+    if hit is None:
+        hit = _COMMS[(grid, t)] = Communicator(grid, t)
+    return hit

@@ -12,6 +12,16 @@ address space, and a send is a copy out of a peer's buffer — so a
 ``ppermute`` round is one index gather over rows and a ``psum`` is an
 ordered sum over the group's rows.
 
+The row moves are the staging kernels (``kernels/staging.py``): ``roll``
+is ``shift_blocks`` (the paper's step 6), and ``ppermute``, ``take`` and
+``dynamic_slice`` are ``pack_blocks``. On the card they launch the
+hand-written kernels; on the CPU they run the plain index gathers of
+``kernels/ref.py``. A ``ppermute`` round gathers over flat ranks through a
+``(world,)`` source map built once per ``(axes, pairs)`` and kept on the
+grid's device, so a repeated round builds nothing on the host. ``psum``,
+``psum_scatter``, ``all_gather``, ``all_to_all`` and ``where`` stay torch
+ops: they are the reference's ``lax`` collectives, not Pallas kernels.
+
 Sums run in rank order (``((x0 + x1) + x2) + ...``), the same order for
 every element and every payload length, so a reduction is elementwise
 deterministic: splitting a payload into buckets never changes a bit.
@@ -25,6 +35,8 @@ from __future__ import annotations
 from typing import Dict, Iterable, Sequence, Tuple, Union
 
 import torch
+
+from repro_torch.kernels import staging
 
 Axes = Union[str, Sequence[str]]
 
@@ -75,6 +87,8 @@ class RankGrid:
         self.n_nodes = int(n_nodes)
         self.n_local = int(n_local)
         self.device = resolve_device(device)
+        # (axes, pairs) -> (world,) flat source map of a ppermute round
+        self._src_maps: Dict[tuple, torch.Tensor] = {}
 
     def __repr__(self) -> str:
         return f"RankGrid({self.n_nodes}, {self.n_local}, {self.device})"
@@ -210,25 +224,35 @@ class RankGrid:
         y = g.movedim(2 + split_axis, 2).transpose(1, 2)  # (Go, dst, src, ..)
         return self._ungroup(y.movedim(2, 2 + concat_axis), axes)
 
-    @_signed
+    def _src_map(self, axes: Axes, pairs) -> torch.Tensor:
+        """The ``(world,)`` flat source map of one ppermute round: entry
+        ``d`` is the flat rank whose row rank ``d`` receives, -1 where no
+        member sends. Built once per ``(axes, pairs)``, kept on the grid's
+        device."""
+        ax = self._axes(axes)
+        pairs = tuple((int(s), int(d)) for s, d in pairs)
+        key = (ax, pairs)
+        hit = self._src_maps.get(key)
+        if hit is not None:
+            return hit
+        # members[g, m]: flat rank of member m of group g
+        flat = torch.arange(self.world).reshape(self.n_nodes, self.n_local)
+        members = {("node", "local"): flat.reshape(1, self.world),
+                   ("local",): flat, ("node",): flat.t()}[ax]
+        src = torch.full((self.world,), -1, dtype=torch.long)
+        for s, d in pairs:
+            src[members[:, d]] = members[:, s]
+        hit = self._src_maps[key] = src.to(self.device)
+        return hit
+
     def ppermute(self, x: torch.Tensor, axes: Axes,
                  pairs: Iterable[Tuple[int, int]]) -> torch.Tensor:
         """Static permutation within each group: member ``dst`` receives
         member ``src``'s row for every ``(src, dst)`` pair; members with no
-        sender get zeros. One index gather over rows."""
-        g = self._groups(x, axes)
-        G = g.shape[1]
-        src_of = [-1] * G
-        for s, d in pairs:
-            src_of[int(d)] = int(s)
-        if all(s >= 0 for s in src_of):
-            idx = torch.tensor(src_of, device=g.device)
-            return self._ungroup(g.index_select(1, idx), axes)
-        out = torch.zeros_like(g)
-        dst = [d for d in range(G) if src_of[d] >= 0]
-        src = [src_of[d] for d in dst]
-        out[:, dst] = g[:, src]
-        return self._ungroup(out, axes)
+        sender get zeros. One row gather over the flat ranks
+        (``pack_blocks``)."""
+        self._rows(x)
+        return staging.pack_blocks(x, self._src_map(axes, pairs))
 
     # -- per-rank row helpers -----------------------------------------------
     #
@@ -237,27 +261,33 @@ class RankGrid:
     # (``axis_index``) and each helper is one index gather over the rows of
     # every rank at once. "Row" is dim 0 of a rank's payload (tensor dim 1).
 
-    def _rows(self, x: torch.Tensor) -> torch.Tensor:
+    def _rows(self, x: torch.Tensor) -> None:
         if x.shape[0] != self.world:
             raise ValueError(f"operand dim0 {x.shape[0]} != grid world "
                              f"{self.world}")
-        return torch.arange(self.world, device=x.device)
 
-    @_signed
     def take(self, x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         """``jnp.take(x_r, idx_r, axis=0)`` for every rank ``r``: ``idx``
         ``(world,)`` takes one row per rank (the row dim is consumed);
-        ``(world, J)`` takes J rows per rank."""
-        rows = self._rows(x)
-        idx = idx.to(device=x.device, dtype=torch.long)
-        return x[rows, idx] if idx.dim() == 1 else x[rows[:, None], idx]
+        ``(world, J)`` takes J rows per rank (``pack_blocks``). Every index
+        must lie in ``[0, K)``: on the CPU one outside raises
+        ``IndexError``; on the card it is not checked (that would read the
+        index back to the host) and gives a zero row."""
+        self._rows(x)
+        idx = idx.to(x.device)
+        if x.device.type == "cpu" and idx.numel() and (
+                bool((idx < 0).any()) or bool((idx >= x.shape[1]).any())):
+            raise IndexError(f"take: index outside [0, {x.shape[1]})")
+        if idx.dim() == 1:
+            return staging.pack_blocks(x, idx[:, None]).squeeze(1)
+        return staging.pack_blocks(x, idx)
 
     def roll(self, x: torch.Tensor, shift: torch.Tensor) -> torch.Tensor:
         """``jnp.roll(x_r, shift_r, axis=0)`` for every rank: row ``k`` of
-        the result is row ``(k - shift_r) % K`` of the input."""
-        K = x.shape[1]
-        k = torch.arange(K, device=x.device)
-        return self.take(x, (k[None, :] - shift.to(x.device)[:, None]) % K)
+        the result is row ``(k - shift_r) % K`` of the input
+        (``shift_blocks``)."""
+        self._rows(x)
+        return staging.shift_blocks(x, shift.to(x.device))
 
     def dynamic_slice(self, x: torch.Tensor, start: torch.Tensor,
                       size: int) -> torch.Tensor:

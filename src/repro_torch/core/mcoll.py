@@ -365,9 +365,11 @@ def pip_mcoll_allgather(x, topo: Topology, grid, radix: Optional[int] = None,
     PiP gather into the node's shared buffer; every lane keeps a copy, it
     sends in phase 2); (2) radix-B rounds, each ONE ppermute over the flat
     ``(node, local)`` ranks moving S node-blocks per lane, plus one intra
-    all_gather; (3) paper step 6, the shift into rank order: ``grid.roll``
-    by the node index, or ``shift_fn(V, n)`` with ``V`` the stacked
-    ``(world, N, P*m, ...)`` blocks and ``n`` the ``(world,)`` node index.
+    all_gather; (3) paper step 6, the shift into rank order: by default
+    ``grid.roll`` by the node index, which on the card is the staging
+    kernel ``shift_blocks`` (``kernels/staging.py``); or ``shift_fn(V, n)``
+    with ``V`` the stacked ``(world, N, P*m, ...)`` blocks and ``n`` the
+    ``(world,)`` node index.
 
     ``codec != "none"`` switches to the compressed execution."""
     if codec != "none":

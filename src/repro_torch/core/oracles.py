@@ -6,13 +6,40 @@ algorithm's result without running another algorithm.
     must deliver. Under a lossy codec it is the reference's wire-form
     invariant: each rank receives, bitwise, ``decode(encode(.))`` of the
     rows its source encoded;
-  * :func:`exact_sum` is the float64 sum a reduction approximates.
+  * :func:`exact_sum` is the float64 sum a reduction approximates;
+  * :func:`moves_rows` says which plans move rows through the grid's
+    staging primitives (``ppermute``, ``roll``, ``take``,
+    ``dynamic_slice``), and so launch the staging kernels on the card.
 """
 from __future__ import annotations
 
 from repro_torch.core import compress
 
 MOVEMENT = ("allgather", "scatter", "broadcast", "alltoall")
+
+#: (collective, algorithm) pairs whose lossless form moves rows through the
+#: staging primitives on a grid with more than one node: the trees, Bruck,
+#: the rings and recursive doubling. The reductions' two-level forms, the
+#: vendor baselines and the all-to-alls use only the grid's sums, gathers
+#: and exchanges.
+ROW_MOVERS = frozenset({
+    ("allgather", "pip_mcoll"), ("allgather", "bruck"),
+    ("allgather", "recursive_doubling"), ("allgather", "ring"),
+    ("allgather", "ring_pipeline"), ("allgather", "single_leader"),
+    ("scatter", "pip_mcoll"), ("scatter", "binomial"), ("scatter", "linear"),
+    ("broadcast", "pip_mcoll"), ("broadcast", "binomial"),
+    ("allreduce", "recursive_doubling"),
+})
+
+
+def moves_rows(coll: str, algo: str, codec: str = "none") -> bool:
+    """Whether the plan reaches the staging primitives on a 2-node grid.
+    A codec keeps the trees of broadcast and scatter (they forward the wire
+    form), but the compressed allgather and allreduce gather and exchange
+    their wire forms instead."""
+    if codec != "none" and coll not in ("broadcast", "scatter"):
+        return False
+    return (coll, algo) in ROW_MOVERS
 
 
 def round_trip(codec: str, rows):

@@ -12,7 +12,10 @@ the build/exec caches behind the Communicator.
   * :func:`compile_persistent` is the persistent-op backend. The reference
     compiles the plan ahead of time; PyTorch runs eagerly, so here it
     resolves and binds the plan once (``PersistentOp`` allocates its output
-    buffers at init). Capturing the plan into a CUDA graph is later work.
+    buffers at init). Capturing the plan into a CUDA graph is later work;
+  * :func:`calibrate` times every candidate plan at each size through the
+    same cached path and records the medians in the selector's tuning
+    table, so ``algo="auto"`` then resolves from measurement.
 
 Operands and results follow the reference's global conventions per
 collective (:data:`_WIRING`, the reference's ``runtime.build`` table); the
@@ -31,18 +34,22 @@ algorithms themselves take and give *stacked* rows, dim 0 the flat rank:
   alltoall        ``(D, G, s...)``        ``(D, G, s...)``
   ==============  ======================  ===============================
 
-(D ranks of the grid, G of the topology: equal until sub-communicators
-land.) A replicated operand becomes rows by ``expand``, a view, not a
-copy. Operands must already live on the grid's device: nothing is moved
-implicitly.
+D is the grid's ranks, G the topology's: equal for a root communicator;
+for a group (``Communicator.split(axes=...)``) G < D, every rank's result
+is computed within its own group, and the allgather without ``stacked``
+is group 0's gather. A replicated operand becomes rows by ``expand``, a
+view, not a copy. Operands must already live on the grid's device:
+nothing is moved implicitly.
 """
 from __future__ import annotations
 
 import dataclasses
 import inspect
+import statistics
+import time
 from collections import OrderedDict
 from functools import lru_cache, partial
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
 
 import torch
 
@@ -72,12 +79,15 @@ class Wiring:
     out_mode: "stack"     rows as they are, row d = rank d's result;
               "shard"     rows concatenated along dim 0.
     stackable: honors ``stacked=False`` by returning rank 0's row (every
-               row is the same gather).
+               row of a root communicator is the same gather).
+    rank_dim0: what the collective does to dim 0 of a rank's payload:
+               "gather" (times G), "split" (over G) or "keep".
     """
 
     in_mode: str
     out_mode: str
     stackable: bool = False
+    rank_dim0: str = "keep"
 
     def to_rows(self, x, world: int):
         if self.in_mode == "row":
@@ -96,27 +106,34 @@ class Wiring:
             return y.reshape((-1,) + tuple(y.shape[2:]))
         return y
 
-    def result_shape(self, shape, world: int,
-                     stacked: bool = True) -> Tuple[int, ...]:
-        """The global result's shape for an operand of ``shape`` (G == D):
-        a stacked result of a per-rank operand gains the rank dim, a
-        sharded result of stacked rows loses it."""
+    def result_shape(self, shape, world: int, stacked: bool = True,
+                     group: Optional[int] = None) -> Tuple[int, ...]:
+        """The global result's shape for an operand of ``shape`` on
+        ``world`` (D) ranks in groups of ``group`` (G, default D)."""
+        D = int(world)
+        G = D if group is None else int(group)
         shape = tuple(int(s) for s in shape)
+        mine = {"shard": lambda: (shape[0] // D,) + shape[1:],
+                "replicate": lambda: shape,
+                "row": lambda: shape[1:]}[self.in_mode]()
+        if self.rank_dim0 == "gather":
+            mine = (G * mine[0],) + mine[1:]
+        elif self.rank_dim0 == "split":
+            mine = (mine[0] // G,) + mine[1:]
         if self.stackable and not stacked:
-            return shape
-        if self.in_mode != "row" and self.out_mode == "stack":
-            return (int(world),) + shape
-        if self.in_mode == "row" and self.out_mode == "shard":
-            return shape[1:]
-        return shape
+            return mine
+        if self.out_mode == "stack":
+            return (D,) + mine
+        return (D * mine[0],) + mine[1:]
 
 
 _WIRING: Dict[str, Wiring] = {
-    "allgather": Wiring("shard", "stack", stackable=True),
-    "scatter": Wiring("replicate", "shard"),
+    "allgather": Wiring("shard", "stack", stackable=True,
+                        rank_dim0="gather"),
+    "scatter": Wiring("replicate", "shard", rank_dim0="split"),
     "broadcast": Wiring("replicate", "stack"),
     "allreduce": Wiring("row", "stack"),
-    "reduce_scatter": Wiring("row", "shard"),
+    "reduce_scatter": Wiring("row", "shard", rank_dim0="split"),
     "alltoall": Wiring("row", "stack"),
 }
 
@@ -472,3 +489,119 @@ def compile_persistent(grid, topo: Topology, name: str, algo: str,
            _codecs.fused_enabled())
     return _cached(_EXEC_CACHE, "exec", key, lambda: build(
         grid, topo, name, algo, stacked=stacked, carry=carry, **kw))
+
+
+# ---------------------------------------------------------------------------
+# calibration: measured sweeps -> the selector's tuning table
+# ---------------------------------------------------------------------------
+
+
+def example_input(collective: str, topo: Topology, nbytes: int,
+                  dtype: torch.dtype = torch.float32,
+                  devices: Optional[int] = None,
+                  device="cuda") -> torch.Tensor:
+    """A global operand for ``collective`` on ``device`` sized so the
+    per-rank message is ``nbytes`` (the cost model's size convention), the
+    reference's ``example_input`` values.
+
+    ``devices`` is the grid's rank count D that the operand's rank dim
+    spans; it defaults to ``topo.world`` (G) and must be passed for a group
+    topology, where G < D."""
+    G = topo.world
+    D = int(devices) if devices is not None else G
+    elems = max(1, int(nbytes) // dtype.itemsize)
+
+    def arange(n):
+        return torch.arange(n, dtype=dtype, device=device)
+
+    if collective == "allgather":
+        return arange(D * elems)
+    if collective == "scatter":
+        return arange(G * elems)
+    if collective == "broadcast":
+        return arange(elems)
+    if collective == "allreduce":
+        return (arange(D * elems) % 13).reshape(D, elems)
+    if collective == "reduce_scatter":
+        s = max(1, elems // G)
+        return (arange(D * G * s) % 11).reshape(D, G * s)
+    if collective == "alltoall":
+        s = max(1, elems // G)
+        return arange(D * G * s).reshape(D, G, s)
+    raise ValueError(f"unknown collective {collective!r}; "
+                     f"one of {collectives()}")
+
+
+@dataclasses.dataclass(frozen=True)
+class CalibrationRow:
+    collective: str
+    algo: str
+    nbytes: int
+    dtype: str
+    seconds: float
+    chunks: int = 1
+    codec: str = "none"
+    #: sub-communicator group tag ("" = the root topology); split-lattice
+    #: sweeps (``Communicator.calibrate(include_splits=True)``) fill this
+    group: str = ""
+
+
+def _synchronize(grid) -> None:
+    """Wait for the grid's device: the counterpart of the reference's
+    ``block_until_ready``. The CPU runs eagerly, so there is nothing to
+    wait for there."""
+    if grid.device.type == "cuda":
+        torch.cuda.synchronize(grid.device)
+
+
+def calibrate(grid, topo: Topology,
+              names: Optional[Iterable[str]] = None,
+              sizes: Iterable[int] = (256, 4096, 65536),
+              dtype: torch.dtype = torch.float32, iters: int = 10,
+              selector: Optional[autotune.Selector] = None,
+              codecs: Optional[Tuple[str, ...]] = None,
+              path=None) -> List[CalibrationRow]:
+    """Timed sweeps of every candidate plan x size through the cached call
+    path the hot loops use, recorded into the selector's tuning table (and
+    saved to ``path`` as JSON when given).
+
+    Plans are ``autotune.plans``: every feasible algorithm, chunk-count
+    variants of the pipelined ones, codec variants of the codec-capable
+    ones (``codecs=()`` keeps the lossless plans only). Each sample is the
+    host clock around one call that ends in a device synchronize; a plan's
+    row is the median of ``iters`` samples after one warm call. Afterwards
+    ``algo="auto"`` on this (topology, collective, dtype, size bucket)
+    resolves from measurement, codec plans still gated by the caller's
+    ``error_budget``."""
+    sel = selector if selector is not None else autotune.default_selector()
+    dt = dtype_name(dtype)
+    rows: List[CalibrationRow] = []
+    for name in (tuple(names) if names else collectives()):
+        for nb in sizes:
+            x = example_input(name, topo, int(nb), dtype,
+                              devices=grid.world, device=grid.device)
+            for algo, chunks, codec in autotune.plans(
+                    name, topo, int(nb), codecs=codecs, dtype=dt):
+                kw: Dict[str, Any] = {}
+                if _mcoll.supports_chunks(name, algo):
+                    kw["chunks"] = chunks
+                if codec != _codecs.NONE:
+                    kw["codec"] = codec
+                run(grid, topo, name, algo, x, **kw)  # warm: build, caches
+                _synchronize(grid)
+                samples = []
+                for _ in range(max(1, int(iters))):
+                    t0 = time.perf_counter()
+                    run(grid, topo, name, algo, x, **kw)
+                    _synchronize(grid)
+                    samples.append(time.perf_counter() - t0)
+                sec = float(statistics.median(samples))
+                sel.table.record(topo, name, dt, int(nb),
+                                 autotune.encode_plan(algo, chunks, codec),
+                                 sec)
+                rows.append(CalibrationRow(name, algo, int(nb), dt, sec,
+                                           chunks, codec,
+                                           group=topo.group or ""))
+    if path is not None:
+        sel.table.save(path)
+    return rows

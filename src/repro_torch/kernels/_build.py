@@ -61,6 +61,13 @@ SIGNATURES = {
                               _INT, _INT, _INT, _P]),
         "mamba_scan_error_string": (ctypes.c_char_p, [_INT]),
     },
+    "staging": {
+        "staging_shift_blocks": (_INT, [_P, _P, _P, _I64, _I64, _I64, _I64,
+                                        _I64, _P]),
+        "staging_pack_blocks": (_INT, [_P, _P, _P, _I64, _I64, _I64, _I64,
+                                       _I64, _I64, _P]),
+        "staging_error_string": (ctypes.c_char_p, [_INT]),
+    },
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

@@ -15,8 +15,11 @@ operand, a failed build or a refused launch raises — nothing falls back.
                             registers and write the f32 sum once.
 
 ``launches`` counts kernel launches per CUDA kernel (the CPU path counts
-nothing), so a run can show that its path went through the kernels; one
-fp8 encode counts one ``fp8_amax`` and one ``fp8_encode`` launch.
+nothing), so a run can show that its path went through the kernels. An
+encode's error-feedback variant (``HAS_ERR``) counts under its kernel's
+name plus ``_feedback``, apart from the residual-only variant; one fp8
+encode counts one ``fp8_amax`` and one ``fp8_encode`` launch (with the
+suffix under feedback).
 
 The :class:`CodecLowering` registry holds ``int8_block``, ``int4_block``
 and ``fp8_sim``.
@@ -35,13 +38,22 @@ from repro_torch.kernels._dispatch import (check as _check,
                                            raise_on as _raise_on,
                                            stream as _stream)
 
-#: launches per CUDA kernel; both encode wrappers of a codec launch the
-#: same kernel(s)
+#: launches per CUDA kernel; an encode kernel's error-feedback variant
+#: counts under its name plus ``_feedback``
 launches: Dict[str, int] = {
-    "int8_block_encode": 0, "int8_decode_reduce": 0,
-    "int4_block_encode": 0, "int4_decode_reduce": 0,
-    "fp8_amax": 0, "fp8_encode": 0, "fp8_decode_reduce": 0,
+    "int8_block_encode": 0, "int8_block_encode_feedback": 0,
+    "int8_decode_reduce": 0,
+    "int4_block_encode": 0, "int4_block_encode_feedback": 0,
+    "int4_decode_reduce": 0,
+    "fp8_amax": 0, "fp8_encode": 0, "fp8_amax_feedback": 0,
+    "fp8_encode_feedback": 0, "fp8_decode_reduce": 0,
 }
+
+
+def _variant(kernel: str, err: Optional[torch.Tensor]) -> str:
+    """The ``launches`` key of one encode launch: the feedback variant
+    (``err`` given) apart from the residual-only one."""
+    return kernel if err is None else kernel + "_feedback"
 
 
 def reset_launches() -> None:
@@ -82,7 +94,7 @@ def _block_encode_launch(lib: str, kernel: str, wire_dtype, wire_cols: int,
             x.data_ptr(), _ptr(err), q.data_ptr(), scale.data_ptr(),
             res.data_ptr(), S, L, nb, _stream(x))
         _raise_on(rc, lib, kernel)
-        launches[kernel] += 1
+        launches[_variant(kernel, err)] += 1
     return {"q": q, "scale": scale}, res
 
 
@@ -205,8 +217,8 @@ def _fp8_encode_launch(x: torch.Tensor, err: Optional[torch.Tensor]):
             x.data_ptr(), _ptr(err), amax.data_ptr(), q.data_ptr(),
             scale.data_ptr(), res.data_ptr(), S, L, _stream(x))
         _raise_on(rc, "codec_fp8", "fp8_encode")
-        launches["fp8_amax"] += 1
-        launches["fp8_encode"] += 1
+        launches[_variant("fp8_amax", err)] += 1
+        launches[_variant("fp8_encode", err)] += 1
     return {"q": q, "scale": scale}, res
 
 

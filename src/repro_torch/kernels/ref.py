@@ -2,9 +2,11 @@
 
 Each function computes what its CUDA kernel in ``kernels/csrc/`` computes,
 with ordinary tensor ops: the codec kernels (``codec_{int8,int4,fp8}.cu``)
-bitwise, :func:`flash_decode` (``flash_decode.cu``), :func:`rwkv6_wkv`
-(``rwkv6_wkv.cu``) and :func:`mamba_scan` (``mamba_scan.cu``) up to the
-order of their fp32 sums. The wrappers in ``kernels/codec.py``,
+bitwise, the staging row moves :func:`shift_blocks` and :func:`pack_blocks`
+(``staging.cu``) bitwise in every dtype, :func:`flash_decode`
+(``flash_decode.cu``), :func:`rwkv6_wkv` (``rwkv6_wkv.cu``) and
+:func:`mamba_scan` (``mamba_scan.cu``) up to the order of their fp32 sums.
+The wrappers in ``kernels/codec.py``, ``kernels/staging.py``,
 ``kernels/attention.py``, ``kernels/rwkv.py`` and ``kernels/mamba.py`` use
 these only for tensors on the CPU; the tests hold them against the
 reference's Pallas kernels (interpret mode), and ``chip_smoke.py`` holds
@@ -30,6 +32,8 @@ value written there is not specified (the int8 kernel writes -127, the
 int4 kernel nibble 1, the fp8 kernel a NaN byte): compare NaN positions.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -247,3 +251,71 @@ def mamba_scan(dt, A, Bm, Cm, x, h0=None):
         h = dA * h + (dt[:, t] * x[:, t])[..., None] * Bm[:, t, None, :]
         y[:, t] = (h * Cm[:, t, None, :]).sum(-1)
     return y, h
+
+
+# ---------------------------------------------------------------------------
+# the staging row moves (staging.cu): index gathers, every bit kept
+# ---------------------------------------------------------------------------
+
+
+def _byte_rows(x, lead: int):
+    """``x``'s rows (its dims past ``lead``) as rows of bytes, ``(*lead,
+    row bytes)`` uint8: a gather of bytes moves every dtype alike, on any
+    device."""
+    rows = x.reshape(tuple(x.shape[:lead]) + (-1,))
+    if rows.stride(-1) != 1:  # a strided or expanded row: copy it
+        rows = rows.clone(memory_format=torch.contiguous_format)
+    return rows.view(torch.uint8)
+
+
+def shift_blocks(v, shift):
+    """The reference's ``roll(v, shift, 0)`` for every rank at once: ``v``
+    ``(R, K, ...)``, ``shift`` ``(R,)`` integers; row ``k`` of rank ``r`` of
+    the result is ``v[r, (k - shift[r]) mod K]``. Returns a new tensor."""
+    R, K = v.shape[0], v.shape[1]
+    if shift.shape != (R,):
+        raise ValueError(f"shift_blocks: shift {tuple(shift.shape)} for "
+                         f"{R} ranks")
+    if v.numel() == 0:
+        return v.new_empty(v.shape)
+    k = torch.arange(K, device=v.device)
+    return pack_blocks(v, (k[None, :] - shift.to(
+        device=v.device, dtype=torch.long)[:, None]) % K)
+
+
+def pack_blocks(src, idx):
+    """A row gather, ``src[idx]``, where an index outside ``[0, N)`` (a
+    negative one: no row) gives a zero row. Two forms:
+
+      * flat, ``idx`` ``(K,)``: ``src`` ``(N, ...)``, the reference's form
+        (``out[j] = src[idx[j]]``);
+      * per rank, ``idx`` ``(R, J)``: ``src`` ``(R, N, ...)``, ``out[r, j] =
+        src[r, idx[r, j]]``.
+
+    Returns a new tensor ``(K, ...)`` or ``(R, J, ...)``; a zero row holds
+    +0 bits in every dtype, as a fresh ``zeros`` tensor does."""
+    idx = idx.to(device=src.device, dtype=torch.long)
+    lead = idx.dim()
+    if lead == 2 and src.shape[0] != idx.shape[0]:
+        raise ValueError(f"pack_blocks: idx {tuple(idx.shape)} for "
+                         f"{src.shape[0]} ranks")
+    if lead not in (1, 2):
+        raise ValueError(f"pack_blocks: idx must be (K,) or (R, J), got "
+                         f"{tuple(idx.shape)}")
+    N = src.shape[lead - 1]
+    out_shape = tuple(idx.shape) + tuple(src.shape[lead:])
+    if math.prod(out_shape) == 0:
+        return src.new_empty(out_shape)
+    if N == 0:
+        return src.new_zeros(out_shape)
+    keep = (idx >= 0) & (idx < N)
+    at = idx.clamp(0, N - 1)
+    rows = _byte_rows(src, lead)
+    if lead == 1:
+        rows = rows[at]
+    else:
+        rows = rows[torch.arange(idx.shape[0], device=src.device)[:, None],
+                    at]
+    if not bool(keep.all()):
+        rows[~keep] = 0
+    return rows.view(src.dtype).reshape(out_shape)

@@ -15,8 +15,8 @@ them (at jamba's width the whole ``(16, 8192, 24576)`` array is 12.9 GB in
 float32).
 
 Not ported yet: the expert-parallel path (``_moe_ep_shard``: dispatch and
-combine all-to-alls over a TP group), which needs ``comm.split``
-(ROADMAP.md, queue 1 item 2).
+combine all-to-alls over a TP group of ``comm.split``), ROADMAP.md, queue
+1 item 7.
 """
 from __future__ import annotations
 
@@ -83,8 +83,8 @@ class MoE(nn.Module):
         ported yet."""
         if grid is not None:
             raise NotImplementedError(
-                "expert-parallel MoE splits the experts over a TP group and "
-                "needs comm.split (ROADMAP.md, queue 1 item 2)")
+                "expert-parallel MoE (dispatch and combine all-to-alls over "
+                "a TP group) is not ported yet (ROADMAP.md, queue 1 item 7)")
         B, S, D = x.shape
         moe = self.cfg.moe
         E, k = moe.n_experts, moe.top_k

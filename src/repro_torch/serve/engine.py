@@ -21,7 +21,9 @@ so the plan is resolved once on the first tick
 (``comm.broadcast_init``) and every later tick is a bare
 ``op.start(x).wait()``. The op is rebound when the selector's tuning table
 changes generation, with a warning past ``REBIND_WARN_THRESHOLD`` rebinds.
-A world-1 grid skips the sync entirely.
+``sync_axes=`` scopes the sync to a group of the grid
+(``comm.split(axes=...)``). A world-1 grid or group skips the sync
+entirely.
 """
 from __future__ import annotations
 
@@ -56,15 +58,15 @@ class Engine:
 
     ``mesh`` is a ``RankGrid`` on the same device whose ranks are the DP
     replicas the tick tokens are synced across; the selector picks the
-    broadcast algorithm, lossless for integer tokens."""
+    broadcast algorithm, lossless for integer tokens. ``sync_axes`` (one
+    grid axis or a ``(node, local)`` pair; ignored without a mesh) scopes
+    the sync to the sub-communicator ``comm.split(axes=sync_axes)``: each
+    group broadcasts from its own first rank, and calibration for the sync
+    plan belongs on ``self.sync_comm`` (its tuning rows carry the group
+    tag)."""
 
     def __init__(self, model, cfg, max_batch: int = 8, max_len: int = 256,
                  flags: RunFlags = RunFlags(), mesh=None, sync_axes=None):
-        if sync_axes is not None:
-            raise NotImplementedError(
-                "Engine(sync_axes=...) scopes the tick sync to a "
-                "sub-communicator and needs comm.split (ROADMAP.md, queue 1 "
-                "item 2)")
         self.model = model
         self.cfg = cfg
         self.max_batch = max_batch
@@ -76,6 +78,9 @@ class Engine:
             raise ValueError(f"sync grid on {mesh.device}, model on "
                              f"{self.device}")
         self.comm = Communicator(mesh) if mesh is not None else None
+        self.sync_comm = (self.comm.split(axes=sync_axes)
+                          if mesh is not None and sync_axes is not None
+                          else self.comm)
         # bound on the first real sync (a world-1 engine never resolves a
         # plan), rebound when the selector's tuning table mutates
         self._sync_op: Optional[PersistentOp] = None
@@ -96,9 +101,9 @@ class Engine:
         """Cross-replica agreement on each slot's next token: a persistent
         small-message broadcast of the ``(max_batch,)`` int32 tick payload;
         returns rank 0's copy."""
-        if self.mesh is None or self.comm.topo.world == 1:
+        if self.mesh is None or self.sync_comm.topo.world == 1:
             return nxt  # nothing to reconcile; skip the per-tick dispatch
-        gen = self.comm.selector.table.generation
+        gen = self.sync_comm.selector.table.generation
         if self._sync_op is None or gen != self._sync_gen:
             # (re)resolve the plan: first tick, or the tuning table changed;
             # release the op being replaced
@@ -117,7 +122,7 @@ class Engine:
                         f"releases and re-inits the persistent sync op. "
                         f"See Engine.metrics()['plan_rebinds'].",
                         RuntimeWarning, stacklevel=3)
-            self._sync_op = self.comm.broadcast_init(nxt)
+            self._sync_op = self.sync_comm.broadcast_init(nxt)
             self._sync_gen = gen
         return self._sync_op.start(nxt).wait(block=False)[0]
 

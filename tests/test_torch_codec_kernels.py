@@ -126,8 +126,11 @@ def test_cpu_path_counts_no_launches():
         comp, _ = enc(torch.from_numpy(x), torch.from_numpy(err))
         dec({k: v[None] for k, v in comp.items()}, 300)
     assert set(tkern.launches) == {
-        "int8_block_encode", "int8_decode_reduce", "int4_block_encode",
-        "int4_decode_reduce", "fp8_amax", "fp8_encode", "fp8_decode_reduce"}
+        "int8_block_encode", "int8_block_encode_feedback",
+        "int8_decode_reduce", "int4_block_encode",
+        "int4_block_encode_feedback", "int4_decode_reduce", "fp8_amax",
+        "fp8_encode", "fp8_amax_feedback", "fp8_encode_feedback",
+        "fp8_decode_reduce"}
     assert not any(tkern.launches.values())
 
 
@@ -156,14 +159,15 @@ def cuda():
 @pytest.mark.parametrize("with_err", [False, True])
 def test_cuda_encode_matches_plain(cuda, S, L, with_err):
     x, err = (torch.from_numpy(a).to(cuda) for a in _payload((S, L), S + L))
-    before = tkern.launches["int8_block_encode"]
+    key = "int8_block_encode" + ("_feedback" if with_err else "")
+    before = dict(tkern.launches)
     if with_err:
         got, want = tkern.int8_encode_feedback(x, err), \
             ref.int8_encode_feedback(x, err)
     else:
         got, want = tkern.int8_encode_residual(x), ref.int8_encode_residual(x)
     torch.cuda.synchronize()
-    assert tkern.launches["int8_block_encode"] == before + 1
+    assert tkern.launches == {**before, key: before[key] + 1}
     assert torch.equal(got[0]["q"], want[0]["q"])
     assert torch.equal(got[0]["scale"], want[0]["scale"])
     assert torch.equal(got[1], want[1])

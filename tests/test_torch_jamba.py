@@ -229,7 +229,7 @@ def test_moe_matches_reference(reference, models):
 
 
 def test_moe_refuses_the_expert_parallel_path(models):
-    with pytest.raises(NotImplementedError, match="queue 1 item 2"):
+    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
         models["float32"].blocks[1].moe(torch.zeros((1, 2, 128)),
                                         grid=RankGrid(2, 4, device="cpu"))
 

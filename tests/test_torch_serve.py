@@ -282,9 +282,9 @@ def test_engine_records_tick_spans_and_rebind_counter(model, cfg):
 
 
 def test_engine_refuses_what_it_cannot_serve(model, cfg):
-    with pytest.raises(NotImplementedError, match="queue 1 item 2"):
+    with pytest.raises(ValueError, match="not in grid axes"):
         Engine(model, cfg, mesh=RankGrid(2, 4, device="cpu"),
-               sync_axes="node")
+               sync_axes="tp")
     with pytest.raises(ValueError, match="sync grid on meta"):
         Engine(model, cfg, mesh=RankGrid(2, 4, device="meta"))
     with pytest.raises(TypeError, match="greedy"):
