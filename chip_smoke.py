@@ -21,20 +21,28 @@ or of the JAX package. Eight phases; any failure exits non-zero:
    KV 8, hd 128 (jamba) and H 4, KV 2, hd 32 (the reduced config), S 2048
    and 1000, bf16 and fp32, for (B,) lengths (all S, all 1, mixed) and
    scalar lengths 1, S // 3, S and 0.
-   The WKV6 kernel is held against its plain version within ``RWKV_TOL * (1
-   + |plain|)`` on y and the final state at the rwkv6-1.6b decode tick (B
-   8, T 1, H 32, hd 64), at prefills (B 1, T 1024 and 1000) and at the
-   reduced config (H 4, hd 32, T 7 and 130), bf16 and fp32, s0 zero and
-   random, and with the final state written over s0. The scan kernel is
+   The split-S grid's own edges are held too: every split boundary +-1
+   of the kernel's split count and lengths 0 and -3, at smollm's and
+   jamba's shapes with B 8 and B 1 (the most splits); the combine tickets
+   must be back at zero. The WKV6 kernels (the recurrent one below 16
+   steps, the chunked one from 16) are held against their plain version
+   within ``RWKV_TOL * (1 + |plain|)`` on y and the final state at the
+   rwkv6-1.6b decode tick (B 8, T 1, H 32, hd 64), at prefills (B 1, T
+   1024 and 1000) and at the reduced config (H 4, hd 32, T 7 and 130),
+   bf16 and fp32, s0 zero and random, and with the final state written
+   over s0; the chunked one also alone at 15, 16 and 17 steps and at hd
+   20, with a tenth of the decays exactly 0 or subnormal. The scan kernel is
    held against its plain version within ``MAMBA_TOL * (1 + |plain|)`` on
    y and the final state at the jamba decode tick (B 8, T 1, Di 16384, N
    16), at prefills (B 1, T 1024 and 1000) and at the reduced config (Di
    256), bf16 and fp32 x, h0 none and random, and with the final state
    written over h0. Times each kernel and its plain version at the main
    paths' shapes (median of 20 runs, CUDA events around device work only,
-   L2 flushed between runs; the WKV6 and scan kernels at the decode tick
-   and at a 1024-step prefill, the scan's bound with its SFU term at the
-   card's SM clock), and for flash decode (smollm's and jamba's shapes)
+   L2 flushed between runs; the scan kernel at the decode tick and at a
+   1024-step prefill, the recurrent WKV6 kernel at both, the chunked one
+   at the prefill with its two passes profiled, the scan's bound with its
+   SFU term at the card's SM clock), and for flash decode (smollm's and
+   jamba's shapes)
    also one ``scaled_dot_product_attention`` call as the library yardstick
    (no single PyTorch call computes the WKV6 recurrence or the scan).
    The staging kernels are held bitwise against their plain versions:
@@ -106,7 +114,8 @@ or of the JAX package. Eight phases; any failure exits non-zero:
    full-width rwkv6-1.6b (24 layers, d 2048, 32 heads of 64; bf16, seeded
    random weights) served by ``Engine(max_batch=8, max_len=2048,
    flags=RunFlags(use_rwkv_kernel=True), mesh=RankGrid(2, 4))``, the same
-   16 requests. The WKV6 launches must equal 24 x (ticks + 16 prefills),
+   16 requests. The recurrent WKV6 launches must equal 24 x ticks and the
+   chunked ones 24 x 16 prefills,
    the staging launches as in phase 4, every other kernel's 0; the tick
    sync and the sync-free tokens as in phase 4. The prefill of the longest
    prompt and three teacher-forced ticks hold every layer's WKV6 call
@@ -143,7 +152,8 @@ or of the JAX package. Eight phases; any failure exits non-zero:
 8. **Report.** The slice, collectives, serving and calibration summaries,
    the card's name and power limit (as nvidia-smi gives them), the
    ``{"kernels": [...]}`` line (the 14 TPU kernels of the repository, each
-   codec's feedback encode apart from its residual encode, with the
+   codec's feedback encode apart from its residual encode and the WKV6
+   recurrence's chunked prefill kernel apart from its recurrent one, with the
    feedback launches the slice phase counted apart: 0, since its
    compressed allreduce encodes without the carried error), and last
    ``{"ok": true, "device": {...}}``.
@@ -225,6 +235,9 @@ SCAN_OPS_PER_ELEM = 6
 JAMBA_ARCH, JAMBA_LAYERS = "jamba-1.5-large-398b", 5
 #: kernel-name fragments of cuBLAS's matrix products in a profile
 GEMM_NAMES = ("gemm", "gemv", "nvjet", "xmma", "cutlass", "splitk")
+#: the chunked WKV6 kernel's two passes (``csrc/rwkv6_wkv.cu``), one
+#: launch each per call
+CHUNKED_PASSES = ("wkv_chunk_intra", "wkv_chunk_state")
 #: the profiler range put around the MoE's expert products
 EXPERT_RANGE = "moe_experts"
 #: the staging kernels' names in a profile (``csrc/staging.cu``) and in
@@ -958,14 +971,33 @@ def _flash_timed(torch, kattn, ref, dev, gen, flush, H, KV, hd):
         "bytes": nbytes, "shape": [B, S, H, KV, hd], "dtype": "bfloat16"}
 
 
+def _check_flash(torch, kattn, ref, q, k, v, lengths, what):
+    """The kernel's output within ``FLASH_TOL * (1 + |plain|)`` of the
+    plain version's; returns the largest absolute difference."""
+    got = kattn.flash_decode(q, k, v, lengths)
+    want = ref.flash_decode(q, k, v, lengths)
+    torch.cuda.synchronize()
+    err = max_diff(torch, got, want)
+    if not bool(torch.isfinite(got).all()) or not bool(
+            ((got - want).abs() <= FLASH_TOL * (1 + want.abs())).all()):
+        raise AssertionError(f"flash_decode {what} lengths={lengths}: max "
+                             f"error {err} outside {FLASH_TOL} * (1 + "
+                             f"|plain|)")
+    return err
+
+
 def flash_phase(torch, kattn, ref, dev):
     """The flash-decode kernel against its plain version at the serving
     shapes (smollm's full width, jamba's G 8, hd 128, and the reduced
     config's G 2, hd 32), at S = 2048 and at S = 1000 (no multiple of
     512), bf16 and fp32, for (B,) lengths (full, 1, mixed), scalar lengths
-    (1, S // 3, S) and the all-masked length 0; then its time, the plain
-    version's and one library call's at smollm's and jamba's full-width
-    shapes with every row at S. Returns its record (without launches)."""
+    (1, S // 3, S) and the all-masked length 0; then the split-S grid's
+    own edges at smollm's and jamba's shapes, B 8 and B 1 (the most
+    splits): every boundary of the kernel's split count +-1, and lengths 0
+    and -3 (every split all-masked); the combine tickets must be back at
+    zero. Then its time, the plain version's and one library call's at
+    smollm's and jamba's full-width shapes with every row at S. Returns
+    its record (without launches)."""
     gen = torch.Generator(device=dev).manual_seed(SEED + 3)
     worst, checked = 0.0, 0
     for B, S, H, KV, hd in ((SERVE_BATCH, SERVE_LEN, 15, 5, 64),
@@ -983,19 +1015,28 @@ def flash_phase(torch, kattn, ref, dev):
                                        device=dev),
                             torch.ones((B,), dtype=torch.int32, device=dev),
                             mixed, 1, S // 3, S, 0):
-                got = kattn.flash_decode(q, k, v, lengths)
-                want = ref.flash_decode(q, k, v, lengths)
-                torch.cuda.synchronize()
-                err = max_diff(torch, got, want)
-                if not bool(torch.isfinite(got).all()) or not bool(
-                        ((got - want).abs()
-                         <= FLASH_TOL * (1 + want.abs())).all()):
-                    raise AssertionError(
-                        f"flash_decode B={B} S={S} H={H} KV={KV} hd={hd} "
-                        f"{dtype} lengths={lengths}: max error {err} "
-                        f"outside {FLASH_TOL} * (1 + |plain|)")
-                worst = max(worst, err)
+                worst = max(worst, _check_flash(
+                    torch, kattn, ref, q, k, v, lengths,
+                    f"B={B} S={S} H={H} KV={KV} hd={hd} {dtype}"))
                 checked += 1
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    splits = {}
+    for B, H, KV, hd in ((SERVE_BATCH, 15, 5, 64), (1, 15, 5, 64),
+                         (SERVE_BATCH, 64, 8, 128), (1, 64, 8, 128)):
+        S = SERVE_LEN
+        q, k, v = _flash_inputs(torch, B, S, H, KV, hd, torch.bfloat16, gen,
+                                dev)
+        n = kattn.split_count(B, KV, S, hd, 2, n_sm)
+        span = -(-S // n)
+        splits[f"B={B} H={H} KV={KV} hd={hd}"] = {"n_split": n, "span": span}
+        edges = [e + d for e in range(span, S, span) for d in (-1, 0, 1)]
+        for lengths in (*edges, 0, -3):
+            worst = max(worst, _check_flash(
+                torch, kattn, ref, q, k, v, lengths,
+                f"B={B} S={S} H={H} KV={KV} hd={hd} {n} splits"))
+            checked += 1
+    if any(bool(t.any()) for t in kattn._tickets.values()):
+        raise AssertionError("flash_decode left a combine ticket non-zero")
 
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     smollm = _flash_timed(torch, kattn, ref, dev, gen, flush, 15, 5, 64)
@@ -1004,7 +1045,7 @@ def flash_phase(torch, kattn, ref, dev):
         "source": "src/repro_torch/kernels/csrc/flash_decode.cu",
         "replaces": "src/repro/kernels/flash_decode.py:60",
         "max_abs_err": worst, "tolerance": f"{FLASH_TOL} * (1 + |plain|)",
-        "cases_checked": checked, **smollm,
+        "cases_checked": checked, "splits": splits, **smollm,
         "library_call": "scaled_dot_product_attention(attn_mask=<per-row "
                         "length mask>, enable_gqa=True), bf16 out",
         "jamba_shape": _flash_timed(torch, kattn, ref, dev, gen, flush, 64,
@@ -1048,38 +1089,64 @@ def _check_rwkv(torch, what, got, want):
 
 
 def rwkv_phase(torch, krwkv, ref, dev):
-    """The WKV6 kernel against its plain version at the serving shapes: the
-    decode tick (B 8, T 1) and prefills (B 1, T 1024 and 1000) of
-    full-width rwkv6-1.6b (H 32, hd 64), and the reduced config (H 4, hd
-    32, T 7 and 130); bf16 and fp32 r/k/v, s0 zero and random, and the
-    final state written over s0 (it must equal the separate output). Then
-    the kernel's and the plain version's times at the decode and the
-    1024-step prefill shapes, with their bounds. Returns its record
+    """The WKV6 kernels against their plain version at the serving shapes,
+    through the wrapper's dispatch (the recurrent kernel below one chunk of
+    steps, the chunked one from there): the decode tick (B 8, T 1) and
+    prefills (B 1, T 1024 and 1000) of full-width rwkv6-1.6b (H 32, hd 64),
+    and the reduced config (H 4, hd 32, T 7 and 130); bf16 and fp32 r/k/v,
+    s0 zero and random, and the final state written over s0 (it must equal
+    the separate output). Then the chunked kernel alone at one chunk -1, +0
+    and +1 steps (H 32, hd 64) and at T 130 (H 4, hd 20), with a tenth of
+    the decays exactly 0 or subnormal, its final state also over s0. Then
+    the times at the decode and the 1024-step prefill shapes: the recurrent
+    kernel at both (the prefill for comparison: the dispatch takes the
+    chunked one there), the chunked one at the prefill with its two passes
+    profiled, each plain version, and the bounds. Returns the two records
     (without launches)."""
     gen = torch.Generator(device=dev).manual_seed(SEED + 4)
-    worst, checked = 0.0, 0
+    worst = {"rwkv6_wkv": 0.0, "rwkv6_wkv_chunked": 0.0}
+    checked = dict.fromkeys(worst, 0)
+
+    def check(what, launch, ops, key):
+        want = ref.rwkv6_wkv(*ops)
+        got = launch(*ops)
+        torch.cuda.synchronize()
+        worst[key] = max(worst[key], _check_rwkv(torch, what, got, want))
+        s0 = ops[-1]
+        y2, s2 = launch(*ops[:-1], s0, state_out=s0)
+        torch.cuda.synchronize()
+        if s2 is not s0 or not torch.equal(y2, got[0]) or \
+                not torch.equal(s0, got[1]):
+            raise AssertionError(f"rwkv6_wkv {what}: the state written "
+                                 f"over s0 differs from the separate output")
+        checked[key] += 1
+
     for B, T, H, hd in ((SERVE_BATCH, 1, 32, 64), (1, 1024, 32, 64),
                         (1, 1000, 32, 64), (SERVE_BATCH, 7, 4, 32),
                         (2, 130, 4, 32)):
+        key = "rwkv6_wkv_chunked" if T >= krwkv.CHUNKED_FROM \
+            else "rwkv6_wkv"
         for dtype in (torch.bfloat16, torch.float32):
             for zero_state in (True, False):
                 ops = _rwkv_inputs(torch, B, T, H, hd, dtype, zero_state,
                                    gen, dev)
-                what = f"B={B} T={T} H={H} hd={hd} {dtype} " \
-                       f"s0={'zero' if zero_state else 'random'}"
-                want = ref.rwkv6_wkv(*ops)
-                got = krwkv.rwkv6_wkv(*ops)
-                torch.cuda.synchronize()
-                worst = max(worst, _check_rwkv(torch, what, got, want))
-                s0 = ops[-1]
-                y2, s2 = krwkv.rwkv6_wkv(*ops[:-1], s0, state_out=s0)
-                torch.cuda.synchronize()
-                if s2 is not s0 or not torch.equal(y2, got[0]) or \
-                        not torch.equal(s0, got[1]):
-                    raise AssertionError(f"rwkv6_wkv {what}: the state "
-                                         f"written over s0 differs from "
-                                         f"the separate output")
-                checked += 1
+                check(f"B={B} T={T} H={H} hd={hd} {dtype} s0="
+                      f"{'zero' if zero_state else 'random'}",
+                      krwkv.rwkv6_wkv, ops, key)
+    tiny = torch.tensor([1e-39, 1e-42, 1e-45], device=dev)
+    for B, T, H, hd in ((1, krwkv.CHUNK - 1, 32, 64), (1, krwkv.CHUNK, 32, 64),
+                        (1, krwkv.CHUNK + 1, 32, 64), (2, 130, 4, 20)):
+        for decays in ("zeros", "subnormal"):
+            for dtype in (torch.bfloat16, torch.float32):
+                ops = _rwkv_inputs(torch, B, T, H, hd, dtype, False, gen,
+                                   dev)
+                w = ops[3]
+                pick = torch.rand(w.shape, generator=gen, device=dev) < 0.1
+                w[pick] = 0.0 if decays == "zeros" else tiny[torch.randint(
+                    0, 3, (int(pick.sum()),), generator=gen, device=dev)]
+                check(f"chunked B={B} T={T} H={H} hd={hd} {dtype} decays "
+                      f"{decays}", krwkv.rwkv6_wkv_chunked, ops,
+                      "rwkv6_wkv_chunked")
 
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     timed = {}
@@ -1091,27 +1158,60 @@ def rwkv_phase(torch, krwkv, ref, dev):
         bound, bound_by = bound_ms(nbytes, nops)
         timed[tag] = {
             "shape": [B, T, H, hd], "dtype": "bfloat16", "bytes": nbytes,
-            "flops": nops,
-            "ms": time_ms(torch, lambda: krwkv.rwkv6_wkv(*ops), flush),
+            "flops": nops, "bound_ms": bound, "bound_by": bound_by,
+            "recurrent_ms": time_ms(
+                torch, lambda: krwkv.rwkv6_wkv_recurrent(*ops), flush),
             # the plain version queues some 7 launches per step: at T 1024
             # more than the device's queue holds behind the spin
             "plain_ms": time_ms(torch, lambda: ref.rwkv6_wkv(*ops), flush,
                                 spin=T == 1),
             "plain_timing": "device time" if T == 1 else
                             "events around the call, host dispatch "
-                            "included",
-            "bound_ms": bound, "bound_by": bound_by}
-    dec = timed["decode"]
+                            "included"}
+        if tag == "prefill":
+            timed[tag].update({
+                "chunked_ms": time_ms(
+                    torch, lambda: krwkv.rwkv6_wkv_chunked(*ops), flush),
+                "chunked_plain_ms": time_ms(
+                    torch, lambda: ref.rwkv6_wkv_chunked(*ops), flush,
+                    spin=False),
+                "passes": profile_call(
+                    torch, lambda: krwkv.rwkv6_wkv_chunked(*ops),
+                    CHUNKED_PASSES)["per_launch_ms"]})
+    dec, pre = timed["decode"], timed["prefill"]
+    common = {"route": "cuda",
+              "source": "src/repro_torch/kernels/csrc/rwkv6_wkv.cu",
+              "replaces": "src/repro/kernels/rwkv6_wkv.py:51",
+              "tolerance": f"{RWKV_TOL} * (1 + |plain|)",
+              "library_ms": None, "dtype": "bfloat16"}
     return {
-        "name": "rwkv6_wkv", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/rwkv6_wkv.cu",
-        "replaces": "src/repro/kernels/rwkv6_wkv.py:51",
-        "max_abs_err": worst, "tolerance": f"{RWKV_TOL} * (1 + |plain|)",
-        "cases_checked": checked,
-        "ms": dec["ms"], "plain_ms": dec["plain_ms"],
-        "bound_ms": dec["bound_ms"], "bound_by": dec["bound_by"],
-        "library_ms": None, "bytes": dec["bytes"], "shape": dec["shape"],
-        "dtype": "bfloat16", "prefill": timed["prefill"]}
+        "rwkv6_wkv": {
+            "name": "rwkv6_wkv", **common,
+            "cuda_kernel": "rwkv6_wkv_kernel<T, HD> (recurrent; calls of "
+                           f"fewer than {krwkv.CHUNKED_FROM} steps)",
+            "max_abs_err": worst["rwkv6_wkv"],
+            "cases_checked": checked["rwkv6_wkv"],
+            "ms": dec["recurrent_ms"], "plain_ms": dec["plain_ms"],
+            "bound_ms": dec["bound_ms"], "bound_by": dec["bound_by"],
+            "bytes": dec["bytes"], "shape": dec["shape"],
+            "prefill_for_comparison": {
+                "shape": pre["shape"], "ms": pre["recurrent_ms"],
+                "bound_ms": pre["bound_ms"]}},
+        "rwkv6_wkv_chunked": {
+            "name": "rwkv6_wkv_chunked", **common,
+            "cuda_kernel": " + ".join(CHUNKED_PASSES) + " (chunks of "
+                           f"{krwkv.CHUNK} steps; calls of "
+                           f"{krwkv.CHUNKED_FROM} steps or more)",
+            "launches_per_call": len(CHUNKED_PASSES),
+            "max_abs_err": worst["rwkv6_wkv_chunked"],
+            "cases_checked": checked["rwkv6_wkv_chunked"],
+            "ms": pre["chunked_ms"], "plain_ms": pre["chunked_plain_ms"],
+            "plain_timing": "events around the call, host dispatch "
+                            "included",
+            "sequential_plain_ms": pre["plain_ms"],
+            "bound_ms": pre["bound_ms"], "bound_by": pre["bound_by"],
+            "passes_ms": pre["passes"], "bytes": pre["bytes"],
+            "shape": pre["shape"]}}
 
 
 def _mamba_inputs(torch, B, T, Di, N, dtype, zero_state, gen, dev):
@@ -1735,7 +1835,8 @@ def rwkv_serve_phase(torch, dev, cfg, krwkv, ref, kmods):
         torch, dev, cfg, RunFlags(use_rwkv_kernel=True), kmods)
     m, launches = record["metrics"], record["launches"]
     _check_launches("rwkv serving", launches, _with_sync(record, {
-        "rwkv6_wkv": cfg.n_layers * (m["ticks"] + SERVE_REQUESTS)}))
+        "rwkv6_wkv": cfg.n_layers * m["ticks"],
+        "rwkv6_wkv_chunked": cfg.n_layers * SERVE_REQUESTS}))
 
     eng = engine(RankGrid(2, 4))
     longest = max(requests(), key=lambda r: len(r.prompt))
@@ -1752,7 +1853,7 @@ def rwkv_serve_phase(torch, dev, cfg, krwkv, ref, kmods):
         prefill_err = max(errs)
         # one profiled prefill of the same prompt into the same slot
         prefill_profile = profile_call(
-            torch, lambda: eng._admit(longest, 0), ("rwkv6_wkv",))
+            torch, lambda: eng._admit(longest, 0), CHUNKED_PASSES)
         for slot, req in enumerate(requests()[:SERVE_BATCH - 1]):
             eng._admit(req, slot + 1)
         # the kernel, then the plain recurrence (the plain-version path)
@@ -1773,6 +1874,7 @@ def rwkv_serve_phase(torch, dev, cfg, krwkv, ref, kmods):
     H, hd = cfg.d_model // cfg.rwkv_head_dim, cfg.rwkv_head_dim
     record.update({
         "rwkv_launches": launches["rwkv6_wkv"],
+        "rwkv_chunked_launches": launches["rwkv6_wkv_chunked"],
         "held_to_plain": {
             "prefill_prompt_len": len(longest.prompt),
             "prefill_calls": cfg.n_layers,
@@ -1987,8 +2089,8 @@ def kernel_lines(kernels):
     encode (the HAS_ERR variant of its encode kernel, timed in phase 1;
     its launches counted apart in the slice phase, where the compressed
     allreduce encodes without feedback), its residual encode and its
-    decode-reduce, then the staging, flash-decode, scan and WKV6
-    kernels."""
+    decode-reduce, then the staging, flash-decode, scan and WKV6 kernels
+    (the recurrent one for the tick, the chunked one for the prefill)."""
     out = []
     for c, encode in (("int8", "int8_block_encode"),
                       ("int4", "int4_block_encode"), ("fp8", "fp8_encode")):
@@ -2009,7 +2111,8 @@ def kernel_lines(kernels):
                     "name": f"{c}_encode_residual", "cuda_kernel": encode})
         out.append(kernels[f"{c}_decode_reduce"])
     out += [kernels[k] for k in ("shift_blocks", "pack_blocks",
-                                 "flash_decode", "mamba_scan", "rwkv6_wkv")]
+                                 "flash_decode", "mamba_scan", "rwkv6_wkv",
+                                 "rwkv6_wkv_chunked")]
     return out
 
 
@@ -2054,10 +2157,12 @@ def main() -> int:
           f"of its plain version in "
           f"{kernels['flash_decode']['cases_checked']} cases "
           f"({time.perf_counter() - t0:.3f} s so far)")
-    kernels["rwkv6_wkv"] = rwkv_phase(torch, krwkv, ref, dev)
-    print(f"kernel phase: rwkv6_wkv within {RWKV_TOL} * (1 + |plain|) of "
-          f"its plain version in {kernels['rwkv6_wkv']['cases_checked']} "
-          f"cases ({time.perf_counter() - t0:.3f} s so far)")
+    kernels.update(rwkv_phase(torch, krwkv, ref, dev))
+    print(f"kernel phase: rwkv6_wkv and rwkv6_wkv_chunked within "
+          f"{RWKV_TOL} * (1 + |plain|) of their plain version in "
+          f"{kernels['rwkv6_wkv']['cases_checked']} and "
+          f"{kernels['rwkv6_wkv_chunked']['cases_checked']} cases "
+          f"({time.perf_counter() - t0:.3f} s so far)")
     kernels["mamba_scan"] = mamba_phase(torch, kmamba, ref, dev, sm_mhz)
     print(f"kernel phase: mamba_scan within {MAMBA_TOL} * (1 + |plain|) of "
           f"its plain version in {kernels['mamba_scan']['cases_checked']} "
@@ -2068,8 +2173,8 @@ def main() -> int:
           f"{kernels['shift_blocks']['cases_checked']} and "
           f"{kernels['pack_blocks']['cases_checked']} cases "
           f"({time.perf_counter() - t0:.3f} s so far)")
-    for name in ("flash_decode", "rwkv6_wkv", "mamba_scan", "shift_blocks",
-                 "pack_blocks"):
+    for name in ("flash_decode", "rwkv6_wkv", "rwkv6_wkv_chunked",
+                 "mamba_scan", "shift_blocks", "pack_blocks"):
         print("kernel " + json.dumps(kernels[name]))
     summary = slice_phase(torch, dev, smollm, kcodec, kstaging)
     for run in summary["syncs"]:
@@ -2122,9 +2227,12 @@ def main() -> int:
     rec["path_ms"] = serve["profile"].get("per_launch_ms", {}).get(
         "rwkv6_wkv", "not measured")
     rec["path_bound_ms"] = serve["rwkv_path_bound_ms"]
-    rec["prefill"]["path_ms"] = serve["prefill_profile"].get(
-        "per_launch_ms", {}).get("rwkv6_wkv", "not measured")
-    rec["prefill"]["path_bound_ms"] = serve["rwkv_prefill_path_bound_ms"]
+    rec = kernels["rwkv6_wkv_chunked"]
+    rec["launches"] = serve["rwkv_chunked_launches"]
+    rec["path_ms"] = {name: serve["prefill_profile"].get(
+        "per_launch_ms", {}).get(name, "not measured")
+        for name in CHUNKED_PASSES}
+    rec["path_bound_ms"] = serve["rwkv_prefill_path_bound_ms"]
     staged["serve_rwkv"] = _staged(serve)
     print(json.dumps({"serve_rwkv": serve}))
     print(f"rwkv serving phase done ({time.perf_counter() - t0:.3f} s so "

@@ -47,13 +47,16 @@ SIGNATURES = {
         "codec_fp8_error_string": (ctypes.c_char_p, [_INT]),
     },
     "flash_decode": {
-        "flash_decode": (_INT, [_P, _P, _P, _P, _P, _INT, _INT, _INT, _INT,
-                                _INT, _INT, ctypes.c_float, _P]),
+        "flash_decode": (_INT, [_P, _P, _P, _P, _P, _P, _P, _INT, _INT,
+                                _INT, _INT, _INT, _INT, _INT,
+                                ctypes.c_float, _P]),
         "flash_decode_error_string": (ctypes.c_char_p, [_INT]),
     },
     "rwkv6_wkv": {
         "rwkv6_wkv": (_INT, [_P, _P, _P, _P, _P, _P, _P, _P, _INT, _INT,
                              _INT, _INT, _INT, _P]),
+        "rwkv6_wkv_chunked": (_INT, [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                     _INT, _INT, _INT, _INT, _INT, _P]),
         "rwkv6_wkv_error_string": (ctypes.c_char_p, [_INT]),
     },
     "mamba_scan": {

@@ -12,12 +12,15 @@ reference's ``ops.flash_decode``, the length may be a ``(B,)`` vector (row
 ``b`` masked at ``lengths[b]``, what the reference kernel computes row by
 row with a scalar) and ``S`` need not be a multiple of any chunk.
 
-``launches`` counts kernel launches (the CPU path counts nothing), so a run
-can show that its decode ticks went through the kernel.
+The kernel cuts each row's cache into :func:`split_count` spans, one CTA
+each, and merges their partials in the same launch (``ref.flash_decode_split``
+is its algorithm in plain PyTorch). ``launches`` counts kernel launches (the
+CPU path counts nothing), so a run can show that its decode ticks went
+through the kernel.
 """
 from __future__ import annotations
 
-from typing import Dict, Union
+from typing import Dict, Tuple, Union
 
 import torch
 
@@ -29,11 +32,46 @@ launches: Dict[str, int] = {"flash_decode": 0}
 
 #: limits of the kernel (``csrc/flash_decode.cu``)
 MAX_GROUP, MAX_HEAD_DIM = 8, 128
+#: the kernel's CTA width and staged tile (``csrc/flash_decode.cu``)
+_WARPS, _TILE_BYTES, _MAX_ROWS = 4, 9216, 128
+#: CTAs per SM the split rule aims for
+CTAS_PER_SM = 2
+
+#: the combine tickets per (device, stream): one int32 per (b, kv) pair,
+#: zero between launches (the kernel's last split of a pair resets its own)
+_tickets: Dict[Tuple[torch.device, int], torch.Tensor] = {}
 
 
 def reset_launches() -> None:
     for k in launches:
         launches[k] = 0
+
+
+def tile_rows(hd: int, esize: int) -> int:
+    """Rows of K (or V) per tile the kernel stages: ``_TILE_BYTES`` of rows
+    padded by 16 bytes, at most ``_MAX_ROWS``, a multiple of the rows one
+    pass of the CTA scores (``launch`` in ``csrc/flash_decode.cu``)."""
+    cpr = hd * esize // 16
+    lpr = 1 << max(0, (cpr - 1).bit_length())  # lanes per row
+    per_pass = 32 // lpr * _WARPS
+    rows = min(_TILE_BYTES // (hd * esize + 16), _MAX_ROWS)
+    return max(per_pass, rows // per_pass * per_pass)
+
+
+def split_count(B: int, KV: int, S: int, hd: int, esize: int,
+                n_sm: int) -> int:
+    """The kernel's splits per row: enough CTAs for ``CTAS_PER_SM`` on each
+    of ``n_sm`` SMs, but no span shorter than one staged tile."""
+    want = -(-CTAS_PER_SM * n_sm // (B * KV))
+    return max(1, min(want, S // tile_rows(hd, esize), 65535))
+
+
+def _tickets_for(device: torch.device, st: int, pairs: int) -> torch.Tensor:
+    t = _tickets.get((device, st))
+    if t is None or t.numel() < pairs:
+        t = torch.zeros(max(pairs, 1024), dtype=torch.int32, device=device)
+        _tickets[(device, st)] = t
+    return t
 
 
 def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -77,11 +115,17 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lens = (lengths.to(torch.int32).expand(B).contiguous() if vec
             else torch.full((B,), int(lengths), dtype=torch.int32,
                             device=q.device))
+    n_sm = torch.cuda.get_device_properties(q.device).multi_processor_count
+    n_split = split_count(B, KV, S, hd, esize, n_sm)
     out = torch.empty((B, 1, H * hd), dtype=torch.float32, device=q.device)
+    part = torch.empty(B * KV * n_split * G * (hd + 2), dtype=torch.float32,
+                       device=q.device)
+    st = stream(q)
+    tickets = _tickets_for(q.device, st, B * KV)
     rc = _build.load("flash_decode").flash_decode(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(),
-        out.data_ptr(), B, S, KV, G, hd, int(q.dtype == torch.bfloat16),
-        1.0 / hd ** 0.5, stream(q))
+        out.data_ptr(), part.data_ptr(), tickets.data_ptr(), B, S, KV, G, hd,
+        n_split, int(q.dtype == torch.bfloat16), 1.0 / hd ** 0.5, st)
     raise_on(rc, "flash_decode", "flash_decode")
     launches["flash_decode"] += 1
     return out

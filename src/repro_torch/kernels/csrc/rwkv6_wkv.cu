@@ -1,50 +1,68 @@
-// Hand-written Hopper (sm_90a) kernel for the RWKV-6 (Finch) WKV recurrence:
+// Hand-written Hopper (sm_90a) kernels for the RWKV-6 (Finch) WKV recurrence:
 // the time-mixing core of every rwkv layer, on prefill and on every decode
 // tick of the serving engine.
 //
-// rwkv6_wkv replaces the Pallas kernel repro/kernels/rwkv6_wkv.py
-//   rwkv6_wkv (its pl.pallas_call at rwkv6_wkv.py:59, body _kernel at :21).
+// rwkv6_wkv and rwkv6_wkv_chunked replace the Pallas kernel
+// repro/kernels/rwkv6_wkv.py rwkv6_wkv (its pl.pallas_call at
+// rwkv6_wkv.py:59, body _kernel at :21).
 //
-// What it computes (the Pallas body, step by step in fp32): per batch row b
+// What they compute (the Pallas body, step by step in fp32): per batch row b
 // and head h, with the (hd x hd) state S starting at s0[b, h],
 //   kv_ij = k_i * v_j
 //   y_j   = sum_i r_i * (S_ij + u_i * kv_ij)
 //   S_ij  = w_i * S_ij + kv_ij
 // for t = 0 .. T-1, writing y[b, t, h, :] each step and S to sT[b, h] once
 // at the end. r, k, v are (B, T, H, hd), all bf16 or all fp32; w (B, T, H,
-// hd), u (H, hd), s0 and sT (B, H, hd, hd) are fp32; y is fp32.
-//
-// The bonus term needs no work per state element: sum_i r_i * u_i * k_i *
-// v_j = v_j * a with a = sum_i r_i * u_i * k_i, one dot product per step. So
-// the kernel computes y_j = sum_i r_i * S_ij + v_j * a: 2 flops per state
-// element for y and 3 for the update, 5 in all, plus O(hd) per step.
+// hd), u (H, hd), s0 and sT (B, H, hd, hd) are fp32; y is fp32. sT may be
+// s0 itself (a layer updates its cache's state in place).
 //
 // Bound: a decode tick (T = 1) reads and writes the state once and does 5
-// flops per state element, below the card's ops-per-byte ridge, so the
-// memory rate bounds it; a long prefill (B 1, T 1024) does 5*T*hd^2 flops per
-// head on little data and is bound by the fp32 rate. The TPU grid walked
-// (B, H, T/chunk) with the time axis sequential and the state in VMEM
-// scratch. Here one CTA owns one (b, h) pair and a loop over time takes the
-// place of the chunk axis: thread j holds column j of S in registers for the
-// whole walk, so the state never leaves the SM between steps, and s0 is read
-// and sT written once. Each thread reads its own column before any write, so
-// sT may alias s0 (a layer updates its cache's state in place).
+// flops per state element, below the card's ops-per-byte ridge: the memory
+// rate bounds it (0.0026 ms at B 8, H 32, hd 64). A long prefill (B 1, T
+// 1024) does 5*T*hd^2 flops per head on little data: the fp32 rate bounds
+// it (0.0101 ms). The wrapper (kernels/rwkv.py) takes the recurrent kernel
+// for calls of fewer than 16 steps and the chunked one from 16 steps on.
 //
-// Per run of CH steps the CTA stages r, k, w and v (converted to fp32) in
-// shared memory with plain loads and then works out each step's a, one step
-// per thread; then every thread walks the run reading r_i, k_i and w_i as
-// broadcast float4s. The sums over i keep four partial sums (i mod 4), so the
-// chain of dependent fused multiply-adds is a quarter as long; this, the
-// bonus term taken as v_j * a and the fused multiply-adds are the only
-// departures from the plain version's order of fp32 operations. The library
-// is built with -fmad=false, so every fused multiply-add is an explicit
-// __fmaf_rn.
+// rwkv6_wkv, the recurrent kernel (the tick). One CTA per (b, h) and a
+// loop over time take the place of the TPU grid's sequential chunk axis:
+// thread j holds column j of S in registers for the whole walk, so s0 is
+// read and sT written once. The bonus term needs no work per state
+// element: sum_i r_i u_i k_i v_j = v_j * a with a = sum_i r_i u_i k_i, one
+// dot product per step, so each step is 5 flops per state element. Per run
+// of CH steps the CTA stages r, k, w and v (as fp32) in shared memory and
+// works out each step's a, one step per thread; every thread then walks
+// the run reading r_i, k_i and w_i as broadcast float4s, with four partial
+// sums (i mod 4). B 8, H 32 gives 256 CTAs at the tick; a B 1 prefill would
+// give 32, each walking T steps in turn, hence the chunked form.
 //
-// One CTA per (b, h) gives 256 CTAs of 64 threads at the decode tick (B 8,
-// H 32, hd 64) but only 32 CTAs, each walking T steps one after another, at a
-// B 1 prefill: that shape sits far above its bound. The chunked form (the
-// intra-chunk products on tensor cores, the state carried between chunks) is
-// the redesign for it.
+// rwkv6_wkv_chunked, the chunked form (the prefill), in chunks of L = 16
+// steps. Within a chunk, with D_t = prod_{tau<=t} w_tau and E_s =
+// prod_{tau>s} w_tau counted from the chunk's start and to its end:
+//   y_t = (r_t * D_{t-1}) @ S0 + sum_{s<=t} A_ts v_s
+//   S_L = D_{L-1} * S0 + sum_s (k_s * E_s)^T v_s
+// with A_ts = sum_i r_ti k_si prod_{s<tau<t} w_tau,i below the diagonal and
+// A_tt = sum_i r_ti u_i k_ti. Column j of S and y_j depend only on column
+// j, so a (b, h) pair splits over column blocks. Two launches, shape (b) of
+// the choice: wkv_chunk_intra runs every chunk of every (b, h) at once
+// (2048 CTAs at B 1, T 1024, H 32) and writes A @ v and the chunk's decayed
+// operands; wkv_chunk_state then walks the chunks in order, one CTA per
+// (b, h, 16 columns) (128 CTAs there) with its slice of S in registers,
+// doing the two products per chunk on the tensor cores. The intra pass's
+// work is parallel in time, so only the state pass's short per-chunk step
+// is sequential; a single launch (shape (a)) would recompute A in each
+// column block's CTA on that sequential path.
+//
+// Decays: on the model path w = exp(-exp(dd)) may be subnormal or exactly
+// 0. Every decay here is a product of decays (D, E, and A's running
+// product x_i = k_si prod w, one multiply per step), never a quotient or a
+// difference of logarithms: a decay of 0 gives exact zeros, never inf or
+// NaN, and products keep their relative accuracy.
+//
+// Precision: fp32 throughout. The state pass's products run on the tensor
+// cores as 3xTF32 (each fp32 operand split into two tf32 parts, three
+// products; about 2^-22 of each product's size, where plain TF32 keeps
+// 2^-11 and would not hold 1e-4 on y). The library is built with
+// -fmad=false, so every fused multiply-add is an explicit __fmaf_rn.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -57,6 +75,22 @@ constexpr int MAX_HD = 128;
 constexpr int STAGE = 2048;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// Wait until at most N committed groups are still in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
@@ -171,6 +205,437 @@ int launch(const void* r, const void* k, const void* v, const float* w,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// The chunked form (rwkv6_wkv_chunked): wkv_chunk_intra over every chunk at
+// once, then wkv_chunk_state along the chunks. Steps past T are padded with
+// r = k = v = 0 and w = 1, which leaves every formula below exact for a
+// last, shorter chunk.
+// ---------------------------------------------------------------------------
+
+constexpr int L = 16;          // steps per chunk
+constexpr int NG = 8;          // groups of state rows in the pair matrix
+constexpr int INTRA_THREADS = 128;
+constexpr int JB = 16;         // state columns per CTA of the state pass
+
+// grid (chunks, H, B), INTRA_THREADS threads: one CTA per (chunk, head,
+// batch row). Writes yi_t = sum_{s<=t} A_ts v_s for the chunk's steps, with
+// A_ts = sum_i r_ti k_si prod_{s<tau<t} w_tau,i below the diagonal and
+// A_tt = sum_i r_ti u_i k_ti, and the chunk's decayed operands for the
+// state pass, all in chunk blocks of rows of HD (zeros past hd): v as
+// fp32, rd_t = r_t * D_{t-1}, ke_s = k_s * E_s and dl = D_{L-1}, with
+// D_t = prod_{tau<=t} w_tau and E_s = prod_{tau>s} w_tau inside the chunk.
+// Thread (s, group) walks t forward from s, carrying x_i = k_si
+// prod_{s<tau<t} w_tau,i (one multiply per step) over its group of HD / NG
+// rows i; the groups' partial sums are then added in group order. Every
+// decay is a product of decays, never a quotient: a decay of 0 or a
+// subnormal one gives 0 or a tiny term, never inf or NaN.
+template <typename T, int HD>
+__global__ void __launch_bounds__(INTRA_THREADS)
+wkv_chunk_intra(const T* __restrict__ r, const T* __restrict__ k,
+                const T* __restrict__ v, const float* __restrict__ w,
+                const float* __restrict__ u, float* __restrict__ yi,
+                float* __restrict__ vf, float* __restrict__ rd,
+                float* __restrict__ ke, float* __restrict__ dl, int steps,
+                int H, int hd) {
+  constexpr int GI = HD / NG;  // rows i per group
+  constexpr int NLD = L * HD / INTRA_THREADS;
+  __shared__ __align__(16) float r_s[L][HD];
+  __shared__ __align__(16) float k_s[L][HD];
+  __shared__ __align__(16) float w_s[L][HD];
+  __shared__ __align__(16) float v_s[L][HD];
+  __shared__ __align__(16) float u_s[HD];
+  __shared__ float part_s[NG][L][L + 1];
+  __shared__ float a_s[L][L + 1];
+
+  const int tid = threadIdx.x;
+  const int c = blockIdx.x;
+  const int t0 = c * L;
+  const int h = blockIdx.y;
+  const long long b = blockIdx.z;
+  const int n = min(L, steps - t0);
+  const long long row_stride = static_cast<long long>(H) * hd;
+  const long long base = (b * steps + t0) * row_stride
+                         + static_cast<long long>(h) * hd;
+  // this chunk's block of every [L][HD] operand, and of dl ([HD])
+  const long long blk = (b * H + h) * static_cast<long long>(gridDim.x) + c;
+
+  {
+    float rr[NLD], kk[NLD], vv[NLD], ww[NLD];
+#pragma unroll
+    for (int m = 0; m < NLD; ++m) {
+      const int o = tid + m * INTRA_THREADS, t = o / HD, i = o % HD;
+      const bool live = t < n && i < hd;
+      const long long at = base + t * row_stride + i;
+      rr[m] = live ? to_f32(r[at]) : 0.f;
+      kk[m] = live ? to_f32(k[at]) : 0.f;
+      vv[m] = live ? to_f32(v[at]) : 0.f;
+      ww[m] = live ? w[at] : 1.f;
+    }
+#pragma unroll
+    for (int m = 0; m < NLD; ++m) {
+      const int o = tid + m * INTRA_THREADS, t = o / HD, i = o % HD;
+      r_s[t][i] = rr[m];
+      k_s[t][i] = kk[m];
+      v_s[t][i] = vv[m];
+      w_s[t][i] = ww[m];
+      vf[blk * L * HD + o] = vv[m];
+    }
+  }
+  for (int i = tid; i < HD; i += INTRA_THREADS)
+    u_s[i] = i < hd ? u[static_cast<long long>(h) * hd + i] : 0.f;
+  __syncthreads();
+
+  // the decays: D forward for row i < HD, E backward for row i - HD (rows
+  // past hd are written as zeros: the state pass copies whole rows)
+  for (int q = tid; q < 2 * HD; q += INTRA_THREADS) {
+    const int i = q % HD;
+    float d = 1.f;
+    if (q < HD) {
+#pragma unroll
+      for (int t = 0; t < L; ++t) {
+        rd[(blk * L + t) * HD + i] = __fmul_rn(r_s[t][i], d);
+        d = __fmul_rn(d, w_s[t][i]);
+      }
+      dl[blk * HD + i] = i < hd ? d : 0.f;
+    } else {
+#pragma unroll
+      for (int t = L - 1; t >= 0; --t) {
+        ke[(blk * L + t) * HD + i] = __fmul_rn(k_s[t][i], d);
+        d = __fmul_rn(d, w_s[t][i]);
+      }
+    }
+  }
+
+  for (int p = tid; p < L * NG; p += INTRA_THREADS) {
+    const int s = p % L, i0 = (p / L) * GI;
+    float x[GI];
+#pragma unroll
+    for (int e = 0; e < GI; ++e) x[e] = k_s[s][i0 + e];
+    float part[L];
+#pragma unroll
+    for (int t = 0; t < L; ++t) {
+      const float4* r4 = reinterpret_cast<const float4*>(&r_s[t][i0]);
+      float a = 0.f;
+      if (t == s) {
+        const float4* u4 = reinterpret_cast<const float4*>(&u_s[i0]);
+#pragma unroll
+        for (int q = 0; q < GI / 4; ++q) {
+          const float4 rr = r4[q], uu = u4[q];
+          a = __fmaf_rn(__fmul_rn(rr.x, uu.x), x[4 * q], a);
+          a = __fmaf_rn(__fmul_rn(rr.y, uu.y), x[4 * q + 1], a);
+          a = __fmaf_rn(__fmul_rn(rr.z, uu.z), x[4 * q + 2], a);
+          a = __fmaf_rn(__fmul_rn(rr.w, uu.w), x[4 * q + 3], a);
+        }
+      } else if (t > s) {
+        const float4* w4 = reinterpret_cast<const float4*>(&w_s[t][i0]);
+#pragma unroll
+        for (int q = 0; q < GI / 4; ++q) {
+          const float4 rr = r4[q], ww = w4[q];
+          a = __fmaf_rn(rr.x, x[4 * q], a);
+          a = __fmaf_rn(rr.y, x[4 * q + 1], a);
+          a = __fmaf_rn(rr.z, x[4 * q + 2], a);
+          a = __fmaf_rn(rr.w, x[4 * q + 3], a);
+          x[4 * q] = __fmul_rn(x[4 * q], ww.x);
+          x[4 * q + 1] = __fmul_rn(x[4 * q + 1], ww.y);
+          x[4 * q + 2] = __fmul_rn(x[4 * q + 2], ww.z);
+          x[4 * q + 3] = __fmul_rn(x[4 * q + 3], ww.w);
+        }
+      }
+      part[t] = a;
+    }
+#pragma unroll
+    for (int t = 0; t < L; ++t) part_s[p / L][t][s] = part[t];
+  }
+  __syncthreads();
+  for (int o = tid; o < L * L; o += INTRA_THREADS) {
+    const int t = o / L, s = o % L;
+    float a = 0.f;
+    if (s <= t)
+      for (int g = 0; g < NG; ++g) a = __fadd_rn(a, part_s[g][t][s]);
+    a_s[t][s] = a;
+  }
+  __syncthreads();
+  // y: thread (column j, block of TB steps), its TB sums in registers
+  constexpr int TB = L * HD / INTRA_THREADS;
+  const int j = tid % HD, tb = (tid / HD) * TB;
+  float acc[TB];
+#pragma unroll
+  for (int q = 0; q < TB; ++q) acc[q] = 0.f;
+#pragma unroll
+  for (int s = 0; s < L; ++s) {
+    const float vs = v_s[s][j];
+#pragma unroll
+    for (int q = 0; q < TB; ++q)
+      if (tb + q >= s) acc[q] = __fmaf_rn(a_s[tb + q][s], vs, acc[q]);
+  }
+#pragma unroll
+  for (int q = 0; q < TB; ++q) yi[(blk * L + tb + q) * HD + j] = acc[q];
+}
+
+// 3xTF32 on the tensor cores: x = hi + lo, both tf32 (rounded to nearest),
+// and a * b taken as al * bh + ah * bl + ah * bh in fp32 accumulation: the
+// product of two fp32 values to about 2^-22 of its size, where one tf32
+// product would keep 2^-11.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                          uint32_t& lo) {
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(x));
+  const float rest = __fsub_rn(x, __uint_as_float(hi));
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(rest));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// d += a * b for an m16n8k8 tile in 3xTF32 (a: 4 fp32 fragment values, b: 2)
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4], const float (&a)[4],
+                                           const float (&b)[2]) {
+  uint32_t ah[4], al[4], bh[2], bl[2];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) split_tf32(a[q], ah[q], al[q]);
+#pragma unroll
+  for (int q = 0; q < 2; ++q) split_tf32(b[q], bh[q], bl[q]);
+  mma_tf32(d, al, bh);
+  mma_tf32(d, ah, bl);
+  mma_tf32(d, ah, bh);
+}
+
+// grid (ceil(hd / JB), H, B), 2 * HD threads: one CTA per (block of JB
+// state columns, head, batch row), walking the chunks in order with its
+// (HD x JB) slice of the state in registers. Warp w holds rows [16w, 16w +
+// 16) of the slice as two m16n8 accumulator tiles. Per chunk, from the
+// intra pass's rd, ke and dl, on the tensor cores (3xTF32):
+//   y_t += rd_t @ S          (y holds the intra-chunk part; warp w adds its
+//                             rows' share, the warps' shares summed in order)
+//   S    = dl * S + ke^T @ v
+// The operands of the chunk after next are loaded into registers while
+// this one is worked. s0 is read and sT written once per slice, so sT may
+// be s0.
+// The state pass's shared memory: a ring of RING chunks of its operands,
+// filled by cp.async, so that one barrier per chunk orders everything: rd
+// and ke (rows padded to P), dl, and its JB columns of v and of y's intra
+// part; each warp's share of y (2 chunks) and its S tile (for its B
+// operand). Above 48 KB: dynamic.
+template <int HD>
+struct StateSmem {
+  static constexpr int NW = 2 * HD / 32;  // warps, one 16-row tile of S each
+  static constexpr int P = HD + 4;
+  static constexpr int PJ = JB + 8;
+  static constexpr int RING = 4;
+  float rd[RING][L][P];
+  float ke[RING][L][P];
+  float dl[RING][HD];
+  float v[RING][L][PJ];
+  float yi[RING][L][PJ];
+  float yw[2][NW][L][PJ];
+  float sb[NW][16][PJ];
+};
+
+// grid (ceil(hd / JB), H, B), 2 * HD threads: one CTA per (block of JB
+// state columns, head, batch row), walking the chunks in order with its
+// (HD x JB) slice of the state in registers. Warp w holds rows [16w, 16w +
+// 16) of the slice as two m16n8 accumulator tiles. Per chunk c, from the
+// intra pass's blocks, on the tensor cores (3xTF32):
+//   y_t = yi_t + rd_t @ S   (warp w's rows' share, into a ring; the shares
+//                            are added in warp order a chunk later)
+//   S   = dl * S + ke^T @ v
+// Chunk c + 2's operands are copied in while chunk c is worked, one
+// barrier per chunk. s0 is read and sT written once per slice, so sT may
+// be s0.
+template <typename T, int HD>
+__global__ void __launch_bounds__(2 * HD)
+wkv_chunk_state(const float* __restrict__ yi, const float* __restrict__ vf,
+                const float* __restrict__ rd, const float* __restrict__ ke,
+                const float* __restrict__ dl, const float* s0,
+                float* __restrict__ y, float* sT, int steps, int H, int hd) {
+  using Smem = StateSmem<HD>;
+  constexpr int NT = 2 * HD;           // threads
+  constexpr int NW = Smem::NW;
+  constexpr int RING = Smem::RING;
+  constexpr int CPR = HD / 4;          // 16-byte pieces per row
+  constexpr int NO = (L * JB + NT - 1) / NT;  // y outputs per thread
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int r0 = 16 * warp;            // this warp's first state row
+  const int j0 = blockIdx.x * JB;      // the slice's first column
+  const int h = blockIdx.y;
+  const long long b = blockIdx.z;
+  const int n_chunks = (steps + L - 1) / L;
+  const int rs = H * hd;               // one step of y
+  const long long head = b * steps * static_cast<long long>(rs)
+                         + static_cast<long long>(h) * hd;
+  const long long blk0 = (b * H + h) * static_cast<long long>(n_chunks);
+  const long long state0 = (b * H + h) * static_cast<long long>(hd) * hd;
+
+  // the accumulator tiles: Sc[nt] holds rows r0 + g (0, 1) and r0 + g + 8
+  // (2, 3), columns j0 + nt * 8 + 2 * t4 + 0 (0, 2) and + 1 (1, 3)
+  float Sc[2][4];
+#pragma unroll
+  for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int i = r0 + g + (q >> 1) * 8, j = j0 + nt * 8 + 2 * t4 + (q & 1);
+      Sc[nt][q] = (i < hd && j < hd)
+                      ? s0[state0 + static_cast<long long>(i) * hd + j]
+                      : 0.f;
+    }
+
+  // chunk c's operands into ring slot c % RING, by cp.async
+  auto stage = [&](int c) {
+    if (c < n_chunks) {
+      const int slot = c % RING;
+      const long long at = (blk0 + c) * L * HD;
+      for (int q = tid; q < L * CPR; q += NT) {
+        const int t = q / CPR, x = (q % CPR) * 4;
+        cp_async16(&sm.rd[slot][t][x], rd + at + t * HD + x);
+        cp_async16(&sm.ke[slot][t][x], ke + at + t * HD + x);
+      }
+      for (int q = tid; q < L * JB / 4; q += NT) {
+        const int t = q / (JB / 4), x = (q % (JB / 4)) * 4;
+        cp_async16(&sm.v[slot][t][x], vf + at + t * HD + j0 + x);
+        cp_async16(&sm.yi[slot][t][x], yi + at + t * HD + j0 + x);
+      }
+      if (tid < CPR)
+        cp_async16(&sm.dl[slot][tid * 4], dl + (blk0 + c) * HD + tid * 4);
+    }
+    cp_async_commit();
+  };
+  // y of chunk c: its intra part plus the warps' shares, in warp order
+  auto finish = [&](int c) {
+    const int t0 = c * L, n = min(L, steps - t0);
+    float* yo = y + head + static_cast<long long>(t0) * rs + j0;
+#pragma unroll
+    for (int m = 0; m < NO; ++m) {
+      const int o = tid + m * NT, t = o / JB, jl = o % JB;
+      if (o < L * JB && t < n && j0 + jl < hd) {
+        float a = 0.f;
+#pragma unroll
+        for (int w = 0; w < NW; ++w) a = __fadd_rn(a, sm.yw[c % 2][w][t][jl]);
+        yo[t * rs + jl] = __fadd_rn(sm.yi[c % RING][t][jl], a);
+      }
+    }
+  };
+
+  stage(0);
+  stage(1);
+  for (int c = 0; c < n_chunks; ++c) {
+    const int slot = c % RING;
+    cp_async_wait<1>();  // chunk c's ring slot has landed (this thread's)
+    __syncthreads();     // ... everyone's; chunk c - 1's shares are in
+    stage(c + 2);
+    // this warp's tile of S as it stands, for y's B operand
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        sm.sb[warp][g + (q >> 1) * 8][nt * 8 + 2 * t4 + (q & 1)] = Sc[nt][q];
+    __syncwarp();
+    const float d0 = sm.dl[slot][r0 + g], d1 = sm.dl[slot][r0 + g + 8];
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) {
+      Sc[nt][0] = __fmul_rn(d0, Sc[nt][0]);
+      Sc[nt][1] = __fmul_rn(d0, Sc[nt][1]);
+      Sc[nt][2] = __fmul_rn(d1, Sc[nt][2]);
+      Sc[nt][3] = __fmul_rn(d1, Sc[nt][3]);
+    }
+    // two independent chains on the tensor cores, interleaved: y's share of
+    // this warp's rows, rd[:, r0:r0+16] @ S[r0:r0+16, :], and the update
+    // S = dl * S + ke^T @ v
+    float yc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+    for (int k0 = 0; k0 < 16; k0 += 8) {
+      const float a[4] = {sm.rd[slot][g][r0 + k0 + t4],
+                          sm.rd[slot][g + 8][r0 + k0 + t4],
+                          sm.rd[slot][g][r0 + k0 + t4 + 4],
+                          sm.rd[slot][g + 8][r0 + k0 + t4 + 4]};
+      const float e[4] = {sm.ke[slot][k0 + t4][r0 + g],
+                          sm.ke[slot][k0 + t4][r0 + g + 8],
+                          sm.ke[slot][k0 + t4 + 4][r0 + g],
+                          sm.ke[slot][k0 + t4 + 4][r0 + g + 8]};
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        const float bs[2] = {sm.sb[warp][k0 + t4][nt * 8 + g],
+                             sm.sb[warp][k0 + t4 + 4][nt * 8 + g]};
+        const float bv[2] = {sm.v[slot][k0 + t4][nt * 8 + g],
+                             sm.v[slot][k0 + t4 + 4][nt * 8 + g]};
+        mma_3xtf32(yc[nt], a, bs);
+        mma_3xtf32(Sc[nt], e, bv);
+      }
+    }
+    if (c > 0) finish(c - 1);
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        sm.yw[c % 2][warp][g + (q >> 1) * 8][nt * 8 + 2 * t4 + (q & 1)] =
+            yc[nt][q];
+    __syncwarp();  // the tile's reads are done before the next chunk's writes
+  }
+  __syncthreads();
+  finish(n_chunks - 1);
+
+#pragma unroll
+  for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int i = r0 + g + (q >> 1) * 8, j = j0 + nt * 8 + 2 * t4 + (q & 1);
+      if (i < hd && j < hd)
+        sT[state0 + static_cast<long long>(i) * hd + j] = Sc[nt][q];
+    }
+}
+
+template <typename T, int HD>
+int launch_chunked_hd(const T* r, const T* k, const T* v, const float* w,
+                      const float* u, const float* s0, float* y, float* sT,
+                      float* ws, int B, int steps, int H, int hd,
+                      cudaStream_t st) {
+  const int n_chunks = (steps + L - 1) / L;
+  const long long block = static_cast<long long>(B) * H * n_chunks * L * HD;
+  float* yi = ws;
+  float* vf = yi + block;
+  float* rd = vf + block;
+  float* ke = rd + block;
+  float* dl = ke + block;
+  wkv_chunk_intra<T, HD><<<dim3(n_chunks, H, B), INTRA_THREADS, 0, st>>>(
+      r, k, v, w, u, yi, vf, rd, ke, dl, steps, H, hd);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  constexpr int smem = sizeof(StateSmem<HD>);
+  if (smem > 48 * 1024)
+    cudaFuncSetAttribute(wkv_chunk_state<T, HD>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  wkv_chunk_state<T, HD><<<dim3((hd + JB - 1) / JB, H, B), 2 * HD, smem,
+                           st>>>(yi, vf, rd, ke, dl, s0, y, sT, steps, H, hd);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_chunked(const void* r, const void* k, const void* v,
+                   const float* w, const float* u, const float* s0, float* y,
+                   float* sT, float* ws, int B, int steps, int H, int hd,
+                   cudaStream_t st) {
+  const T* rt = static_cast<const T*>(r);
+  const T* kt = static_cast<const T*>(k);
+  const T* vt = static_cast<const T*>(v);
+  if (hd <= 32)
+    return launch_chunked_hd<T, 32>(rt, kt, vt, w, u, s0, y, sT, ws, B, steps,
+                                    H, hd, st);
+  if (hd <= 64)
+    return launch_chunked_hd<T, 64>(rt, kt, vt, w, u, s0, y, sT, ws, B, steps,
+                                    H, hd, st);
+  return launch_chunked_hd<T, 128>(rt, kt, vt, w, u, s0, y, sT, ws, B, steps,
+                                   H, hd, st);
+}
+
 }  // namespace
 
 extern "C" {
@@ -189,6 +654,26 @@ int rwkv6_wkv(const void* r, const void* k, const void* v, const float* w,
   return bf16 ? launch<__nv_bfloat16>(r, k, v, w, u, s0, y, sT, B, T, H, hd,
                                       st)
               : launch<float>(r, k, v, w, u, s0, y, sT, B, T, H, hd, st);
+}
+
+// Launch rwkv6_wkv_chunked on `stream`: the same operands and result as
+// rwkv6_wkv, in two kernel launches (wkv_chunk_intra, then
+// wkv_chunk_state); ws is fp32 scratch of B * H * ceil(T / 16) * HD * 65
+// floats, HD = hd rounded up to 32, 64 or 128. Takes B, T, H >= 1, B,
+// H <= 65535 and 1 <= hd <= 128. Returns the CUDA error code of the
+// launches (0 = success).
+int rwkv6_wkv_chunked(const void* r, const void* k, const void* v,
+                      const float* w, const float* u, const float* s0,
+                      float* y, float* sT, float* ws, int B, int T, int H,
+                      int hd, int bf16, void* stream) {
+  if (B <= 0 || T <= 0 || H <= 0 || B > 65535 || H > 65535 || hd < 1 ||
+      hd > MAX_HD)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return bf16 ? launch_chunked<__nv_bfloat16>(r, k, v, w, u, s0, y, sT, ws,
+                                              B, T, H, hd, st)
+              : launch_chunked<float>(r, k, v, w, u, s0, y, sT, ws, B, T, H,
+                                      hd, st);
 }
 
 const char* rwkv6_wkv_error_string(int code) {

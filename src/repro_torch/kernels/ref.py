@@ -10,7 +10,10 @@ The wrappers in ``kernels/codec.py``, ``kernels/staging.py``,
 ``kernels/attention.py``, ``kernels/rwkv.py`` and ``kernels/mamba.py`` use
 these only for tensors on the CPU; the tests hold them against the
 reference's Pallas kernels (interpret mode), and ``chip_smoke.py`` holds
-each kernel against them on the card.
+each kernel against them on the card. :func:`flash_decode_split` and
+:func:`rwkv6_wkv_chunked` write out the algorithms of the split-S
+flash-decode kernel and of the chunked WKV6 prefill kernel in plain
+PyTorch, for the tests; no main path calls them.
 
 Every codec function takes an optional leading rank dim: ``x`` is
 ``(S, L)`` or ``(R, S, L)``; wire leaves and outputs carry the same
@@ -200,6 +203,57 @@ def flash_decode(q, k, v, lengths):
     return o.reshape(B, 1, H * hd)
 
 
+def flash_decode_split(q, k, v, lengths, n_split: int):
+    """:func:`flash_decode` as the split-S kernel computes it: split ``s``
+    of ``n_split`` scores positions ``[s*span, (s+1)*span)`` of its row
+    (``span = ceil(S / n_split)``), cut at the row's visited length
+    (``min(len, S)`` for ``len > 0``, else ``S``), into a partial (``m``,
+    ``l``, ``acc``): the running max from ``NEG_INF``, the sum of
+    ``exp(score - m)`` and the fp32 ``p @ v``. A split with no visited
+    position keeps ``m = NEG_INF``, ``l = 0``, ``acc = 0``. The combine
+    takes ``M = max m_s`` and sums ``l_s * exp(m_s - M)`` and ``acc_s *
+    exp(m_s - M)`` over the splits in order; the output is ``acc / max(l,
+    1e-30)``. Same operands and result as :func:`flash_decode`."""
+    B, _, H, hd = q.shape
+    S, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    span = -(-S // n_split)
+    qg = q.reshape(B, KV, G, hd).float()
+    s = torch.einsum("bkgd,bskd->bkgs", qg, k.float()) * (1.0 / hd ** 0.5)
+    lengths = torch.as_tensor(lengths, device=q.device)
+    if lengths.dim() == 0:
+        lengths = lengths.expand(B)
+    lengths = lengths.long()
+    visit = torch.where(lengths > 0, lengths.clamp(max=S), S)
+    pos = torch.arange(S, device=q.device)
+    s = torch.where((pos[None, :] < lengths[:, None])[:, None, None, :], s,
+                    NEG_INF)
+    vf = v.float()
+    m = torch.full((B, KV, G, 1), NEG_INF, device=q.device)
+    parts = []
+    for i in range(n_split):
+        lo, hi = i * span, min((i + 1) * span, S)
+        seen = ((pos[None, lo:hi] < visit[:, None])[:, None, None, :]
+                if lo < hi else None)
+        if seen is None or not bool(seen.any()):
+            parts.append((torch.full_like(m, NEG_INF), torch.zeros_like(m),
+                          torch.zeros((B, KV, G, hd), device=q.device)))
+            continue
+        si = torch.where(seen, s[..., lo:hi], -math.inf)
+        mi = torch.maximum(si.amax(-1, keepdim=True), m)
+        p = torch.where(seen, torch.exp(si - mi), 0.0)
+        parts.append((mi, p.sum(-1, keepdim=True),
+                      torch.einsum("bkgs,bskd->bkgd", p, vf[:, lo:hi])))
+    M = torch.stack([mi for mi, _, _ in parts]).amax(0)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((B, KV, G, hd), device=q.device)
+    for mi, li, ai in parts:
+        e = torch.exp(mi - M)
+        l = l + li * e
+        acc = acc + ai * e
+    return (acc / l.clamp_min(1e-30)).reshape(B, 1, H * hd)
+
+
 def rwkv6_wkv(r, k, v, w, u, s0):
     """The WKV6 recurrence, as the Pallas body (``repro/kernels/
     rwkv6_wkv.py`` ``_kernel``) computes it, step by step in fp32: with
@@ -223,6 +277,49 @@ def rwkv6_wkv(r, k, v, w, u, s0):
         S = w[:, t, :, :, None] * S + kv
     y = torch.stack(ys, 1) if ys else r.new_empty(r.shape)
     return y, S
+
+
+def rwkv6_wkv_chunked(r, k, v, w, u, s0, chunk: int = 16):
+    """:func:`rwkv6_wkv` in the chunked form of the prefill kernel
+    (``rwkv6_wkv.cu``, ``wkv_chunk_intra`` then ``wkv_chunk_state``): for
+    each run of ``chunk`` steps (the last one shorter) from the carried
+    state ``S0``, with ``D_t = prod_{tau<=t} w_tau`` from the chunk's start
+    and ``E_s = prod_{tau>s} w_tau`` to its end,
+
+        y_t = (r_t * D_{t-1}) @ S0 + sum_{s<=t} A_ts v_s
+        S   = D_last[:, None] * S0 + sum_s (k_s * E_s)[:, None] v_s[None, :]
+
+    with ``A_ts = sum_i r_ti k_si prod_{s<tau<t} w_tau,i`` below the
+    diagonal and ``A_tt = sum_i r_ti u_i k_ti``. Every decay is a product
+    of decays, never a quotient or a difference of logarithms: a decay of
+    0 or a subnormal one gives 0 or a tiny term, never inf or NaN, and
+    nothing loses relative accuracy. ``A``'s products run from ``s``
+    forward, one multiply per step, as the kernel's do. Operands and
+    results as :func:`rwkv6_wkv`."""
+    r, k, v, w = (t.float().transpose(1, 2) for t in (r, k, v, w))
+    u = u.float()
+    S = s0.to(torch.float32, copy=True)
+    B, H, T, hd = r.shape
+    y = r.new_empty((B, H, T, hd))
+    for c0 in range(0, T, chunk):
+        rc, kc, vc, wc = (t[:, :, c0:c0 + chunk] for t in (r, k, v, w))
+        n = rc.shape[2]
+        ones = torch.ones_like(wc[:, :, :1])
+        D = torch.cumprod(torch.cat([ones, wc[:, :, :-1]], 2), 2)
+        E = torch.cumprod(torch.cat([wc[:, :, 1:], ones], 2).flip(2),
+                          2).flip(2)
+        A = torch.zeros((B, H, n, n), device=r.device)
+        X = kc.clone()  # X_s = k_s * prod_{s<tau<t} w_tau at step t
+        for t in range(n):
+            A[:, :, t, t] = (rc[:, :, t] * u * kc[:, :, t]).sum(-1)
+            A[:, :, t, :t] = torch.einsum("bhi,bhsi->bhs", rc[:, :, t],
+                                          X[:, :, :t])
+            X[:, :, :t] = X[:, :, :t] * wc[:, :, t, None]
+        y[:, :, c0:c0 + n] = torch.einsum("bhts,bhsj->bhtj", A, vc) \
+            + torch.einsum("bhti,bhij->bhtj", rc * D, S)
+        S = (D[:, :, -1] * wc[:, :, -1])[..., None] * S \
+            + torch.einsum("bhsi,bhsj->bhij", kc * E, vc)
+    return y.transpose(1, 2), S
 
 
 def mamba_scan(dt, A, Bm, Cm, x, h0=None):

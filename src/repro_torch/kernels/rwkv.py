@@ -11,8 +11,15 @@ the card, a failed build or a refused launch raises — nothing falls back.
 Unlike the reference's ``ops.rwkv6_wkv``, ``T`` need not be a multiple of
 any chunk, and the final state may be written in place over ``s0``.
 
-``launches`` counts kernel launches (the CPU path counts nothing), so a run
-can show that its prefills and decode ticks went through the kernel.
+Two kernels compute the recurrence on the card, and :func:`rwkv6_wkv`
+picks by the number of steps: the recurrent one
+(:func:`rwkv6_wkv_recurrent`, one CTA per (b, head) walking the steps) for
+calls of fewer than ``CHUNKED_FROM`` steps, the decode tick among them, and
+the chunked one (:func:`rwkv6_wkv_chunked`; ``ref.rwkv6_wkv_chunked`` is its
+algorithm in plain PyTorch) for longer ones, the prefill. Each entry point
+also runs its own kernel at any ``T``. ``launches`` counts each under its
+own key (the CPU path counts nothing), so a run can show that its prefills
+and decode ticks went through the kernels.
 """
 from __future__ import annotations
 
@@ -24,12 +31,16 @@ from repro_torch.kernels import _build, ref
 from repro_torch.kernels._dispatch import (check, on_card, overlaps_partly,
                                           raise_on, stream)
 
-#: launches of the CUDA kernel
-launches: Dict[str, int] = {"rwkv6_wkv": 0}
+#: calls of each CUDA entry point (one call of the chunked one is two
+#: kernel launches: its intra-chunk pass and its state pass)
+launches: Dict[str, int] = {"rwkv6_wkv": 0, "rwkv6_wkv_chunked": 0}
 
-#: the kernel keeps one column of the (hd, hd) state per thread
-#: (``csrc/rwkv6_wkv.cu``)
+#: the recurrent kernel keeps one column of the (hd, hd) state per thread,
+#: the chunked one 16-row tiles per warp (``csrc/rwkv6_wkv.cu``)
 MAX_HEAD_DIM = 128
+#: steps per chunk of the chunked kernel, and the fewest steps a call needs
+#: for ``rwkv6_wkv`` to take it: one whole chunk
+CHUNK = CHUNKED_FROM = 16
 
 
 def reset_launches() -> None:
@@ -78,12 +89,38 @@ def rwkv6_wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     H, hd)`` float32 decay; u: ``(H, hd)`` float32; s0: ``(B, H, hd, hd)``
     float32. ``T`` may be 0 (an empty ``y``, the state unchanged).
     ``state_out`` (float32, the shape of ``s0``; may be ``s0`` itself, but
-    may not partly overlap it) receives the final state; without it a new tensor does. Returns ``(y
+    may not partly overlap it) receives the final state; without it a new
+    tensor does. On the card a call of ``CHUNKED_FROM`` steps or more runs
+    the chunked kernel, a shorter one the recurrent kernel. Returns ``(y
     (B, T, H, hd) float32, final state)``."""
+    return _run(r, k, v, w, u, s0, state_out, chunked=None)
+
+
+def rwkv6_wkv_recurrent(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        w: torch.Tensor, u: torch.Tensor, s0: torch.Tensor,
+                        state_out: Optional[torch.Tensor] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`rwkv6_wkv` through the recurrent kernel at any ``T`` (on the
+    CPU its plain version, ``ref.rwkv6_wkv``)."""
+    return _run(r, k, v, w, u, s0, state_out, chunked=False)
+
+
+def rwkv6_wkv_chunked(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      w: torch.Tensor, u: torch.Tensor, s0: torch.Tensor,
+                      state_out: Optional[torch.Tensor] = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`rwkv6_wkv` through the chunked kernel at any ``T`` (on the
+    CPU its plain version, ``ref.rwkv6_wkv_chunked``)."""
+    return _run(r, k, v, w, u, s0, state_out, chunked=True)
+
+
+def _run(r, k, v, w, u, s0, state_out, chunked):
+    """``chunked``: True or False picks a kernel, None picks by ``T``."""
     _check_operands(r, k, v, w, u, s0, state_out)
     outs = () if state_out is None else (state_out,)
     if not on_card(r, k, v, w, u, s0, *outs):
-        y, sT = ref.rwkv6_wkv(r, k, v, w, u, s0)
+        plain = ref.rwkv6_wkv_chunked if chunked else ref.rwkv6_wkv
+        y, sT = plain(r, k, v, w, u, s0)
         return y, (sT if state_out is None else state_out.copy_(sT))
     for t, what in ((r, "r"), (k, "k"), (v, "v")):
         check(t, r.dtype, what)
@@ -95,10 +132,22 @@ def rwkv6_wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     sT = torch.empty_like(s0) if state_out is None else state_out
     if y.numel() == 0:
         return y, (sT if sT is s0 else sT.copy_(s0))
-    rc = _build.load("rwkv6_wkv").rwkv6_wkv(
-        r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
-        s0.data_ptr(), y.data_ptr(), sT.data_ptr(), B, T, H, hd,
-        int(r.dtype == torch.bfloat16), stream(r))
-    raise_on(rc, "rwkv6_wkv", "rwkv6_wkv")
-    launches["rwkv6_wkv"] += 1
+    lib = _build.load("rwkv6_wkv")
+    ptrs = (r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+            u.data_ptr(), s0.data_ptr(), y.data_ptr(), sT.data_ptr())
+    shape = (B, T, H, hd, int(r.dtype == torch.bfloat16), stream(r))
+    if chunked or (chunked is None and T >= CHUNKED_FROM):
+        entry = "rwkv6_wkv_chunked"
+        # the intra pass's blocks for the state pass (y's intra part, v,
+        # the decayed r and k, the chunks' decays), in rows of the
+        # kernel's width (hd rounded up to 32, 64 or 128)
+        width = 32 if hd <= 32 else 64 if hd <= 64 else 128
+        ws = torch.empty(B * H * -(-T // CHUNK) * width * (4 * CHUNK + 1),
+                         dtype=torch.float32, device=r.device)
+        rc = lib.rwkv6_wkv_chunked(*ptrs, ws.data_ptr(), *shape)
+    else:
+        entry = "rwkv6_wkv"
+        rc = lib.rwkv6_wkv(*ptrs, *shape)
+    raise_on(rc, "rwkv6_wkv", entry)
+    launches[entry] += 1
     return y, sT

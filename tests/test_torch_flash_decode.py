@@ -9,8 +9,12 @@ fp32 and keep the probabilities in fp32, so bf16 and f32 share one
 tolerance: ``TOL`` relative and absolute, for the order of the fp32 sums
 (the Pallas body rescales chunk by chunk, the plain version takes one
 softmax). A ``(B,)`` length vector is held against per-row scalar calls
-of the reference kernel. The ``cuda``-marked tests hold the CUDA kernel
-against its plain version on the card and skip where there is no card.
+of the reference kernel. The split-S algorithm of the CUDA kernel, in
+plain PyTorch (``ref.flash_decode_split``), is held against the same
+Pallas kernel and the one-softmax plain version at S 1000 and 2048, for
+every length class the splits make (0, 1, S, each split boundary +-1,
+per-row vectors). The ``cuda``-marked tests hold the CUDA kernel against
+its plain version on the card and skip where there is no card.
 """
 import os
 import pathlib
@@ -56,6 +60,30 @@ def _curs(S):
     return (0, 1, S // 3, S)
 
 
+#: (B, S, H, KV, hd) of the split-S checks: no chunk divides 1000; the
+#: splits per row, 40 giving spans shorter than one 64-row tile
+SPLIT_SHAPES = [(3, 1000, 6, 2, 16), (2, 2048, 8, 2, 32)]
+SPLITS = (1, 2, 7, 40)
+#: Pallas chunk per S (the reference kernel wants S % chunk == 0)
+SPLIT_CHUNK = {1000: 200, 2048: 512}
+
+
+def _split_lengths(S):
+    """Scalar lengths: 0, 1, S, and both sides of the first and the last
+    split boundary of each of ``SPLITS`` (span = ceil(S / n_split))."""
+    lens = {0, 1, S}
+    for n in SPLITS:
+        span = -(-S // n)
+        for edge in {span, (S - 1) // span * span}:
+            lens.update((edge - 1, edge, edge + 1))
+    return sorted(lens)
+
+
+def _split_rows(B, S):
+    """A (B,) vector of per-row lengths: 0, a boundary + 1, S."""
+    return np.array([0, -(-S // 7) + 1, S][:B], np.int32)
+
+
 def _reference(out_path: str) -> None:
     import jax.numpy as jnp
     from repro.kernels.flash_decode import flash_decode
@@ -73,6 +101,15 @@ def _reference(out_path: str) -> None:
             res[f"{tag}_rows"] = np.concatenate([np.asarray(flash_decode(
                 jq[b:b + 1], jk[b:b + 1], jv[b:b + 1], jnp.int32(lens[b]),
                 chunk=CHUNK, interpret=True)) for b in range(B)])
+    for B, S, H, KV, hd in SPLIT_SHAPES:
+        q, k, v = _inputs(B, S, H, KV, hd, B * S + hd)
+        for dt in DTYPES:
+            jq, jk, jv = (jnp.asarray(a, getattr(jnp, dt)) for a in (q, k, v))
+            tag = f"split_{B}_{S}_{H}_{KV}_{hd}_{dt}"
+            for cur in _split_lengths(S):
+                res[f"{tag}_cur{cur}"] = np.asarray(flash_decode(
+                    jq, jk, jv, jnp.int32(cur), chunk=SPLIT_CHUNK[S],
+                    interpret=True))
     np.savez(out_path, **res)
 
 
@@ -140,6 +177,45 @@ def test_plain_any_length_matches_float64(S):
                                rtol=TOL, atol=TOL)
 
 
+@pytest.mark.parametrize("n_split", SPLITS)
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B,S,H,KV,hd", SPLIT_SHAPES)
+def test_split_plain_matches_pallas(reference, B, S, H, KV, hd, dtype,
+                                    n_split):
+    """The split-S partials and their combine against the Pallas kernel
+    and the one-softmax plain version: lengths 0 (every split scores
+    NEG_INF, equal weights), 1, S, each boundary +-1 (splits wholly past
+    the length add nothing), and per-row (B,) lengths."""
+    q, k, v = _torch(_inputs(B, S, H, KV, hd, B * S + hd), dtype)
+    tag = f"split_{B}_{S}_{H}_{KV}_{hd}_{dtype}"
+    for cur in _split_lengths(S):
+        got = ref.flash_decode_split(q, k, v, cur, n_split)
+        assert got.shape == (B, 1, H * hd) and bool(torch.isfinite(got).all())
+        np.testing.assert_allclose(got.numpy(), reference[f"{tag}_cur{cur}"],
+                                   rtol=TOL, atol=TOL, err_msg=f"cur={cur}")
+        torch.testing.assert_close(got, ref.flash_decode(q, k, v, cur),
+                                   rtol=TOL, atol=TOL)
+    lens = _split_rows(B, S)
+    got = ref.flash_decode_split(q, k, v, torch.from_numpy(lens), n_split)
+    want = np.concatenate([reference[f"{tag}_cur{n}"][b:b + 1]
+                           for b, n in enumerate(lens)])
+    np.testing.assert_allclose(got.numpy(), want, rtol=TOL, atol=TOL)
+
+
+def test_split_count_fills_the_card_at_the_serving_shapes():
+    """Two CTAs per SM or more at smollm's and jamba's decode shapes on
+    132 SMs, no span under one tile, and the most splits at B 1."""
+    for B, KV, hd in ((8, 5, 64), (8, 8, 128)):
+        n = kattn.split_count(B, KV, 2048, hd, 2, 132)
+        assert B * KV * n >= 2 * 132
+        assert -(-2048 // n) >= kattn.tile_rows(hd, 2)
+    assert kattn.split_count(1, 5, 2048, 64, 2, 132) == 2048 // 64
+    assert kattn.split_count(8, 5, 40, 64, 2, 132) == 1
+    assert [kattn.tile_rows(hd, e) for hd, e in ((64, 2), (128, 2), (128, 4),
+                                                (20, 4), (8, 2))] \
+        == [64, 32, 16, 96, 128]
+
+
 def test_cpu_path_counts_no_launch():
     kattn.reset_launches()
     q, k, v = _torch(_inputs(2, 64, 4, 2, 16, 0), "bfloat16")
@@ -178,24 +254,36 @@ def cuda():
     return torch.device("cuda")
 
 
-#: full width (smollm-360m serving: B=max_batch, S=max_len), the reduced
-#: config (G 2, hd 32) at an S no chunk divides, and the reference's grid
-CUDA_SHAPES = [(8, 2048, 15, 5, 64), (8, 1000, 4, 2, 32)] + GRID
+#: full width (smollm-360m serving: B=max_batch, S=max_len), jamba's (G 8,
+#: hd 128), one row (the most splits), the reduced config (G 2, hd 32) at
+#: an S no chunk divides, and the reference's grid
+CUDA_SHAPES = [(8, 2048, 15, 5, 64), (8, 2048, 64, 8, 128),
+               (1, 2048, 15, 5, 64), (8, 1000, 4, 2, 32)] + GRID
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("B,S,H,KV,hd", CUDA_SHAPES)
 def test_cuda_kernel_matches_plain(cuda, B, S, H, KV, hd, dtype):
+    """Mixed, scalar, all-masked (0 and negative) and past-the-end lengths,
+    and every split boundary +-1 of the kernel's own split count; the
+    combine tickets are back at zero after each call."""
     q, k, v = _torch(_inputs(B, S, H, KV, hd, B + S), dtype, cuda)
     lens = torch.from_numpy(_lengths(B, S, S)).to(cuda)
-    for lengths in (lens, 1, S, S // 3, 0, S + 5, lens.to(torch.int64)):
+    n = kattn.split_count(B, KV, S, hd, q.element_size(),
+                          torch.cuda.get_device_properties(
+                              cuda).multi_processor_count)
+    span = -(-S // n)
+    edges = [e + d for e in range(span, S, span) for d in (-1, 0, 1)]
+    for lengths in (lens, 1, S, S // 3, 0, -3, S + 5, lens.to(torch.int64),
+                    *edges):
         before = kattn.launches["flash_decode"]
         got = kattn.flash_decode(q, k, v, lengths)
         torch.cuda.synchronize()
         assert kattn.launches["flash_decode"] == before + 1
         want = ref.flash_decode(q, k, v, lengths)
         torch.testing.assert_close(got, want, rtol=CUDA_TOL, atol=CUDA_TOL)
+    assert not any(bool(t.any()) for t in kattn._tickets.values())
 
 
 @pytest.mark.cuda

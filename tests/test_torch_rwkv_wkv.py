@@ -8,8 +8,17 @@ kernel ``repro.kernels.rwkv6_wkv.rwkv6_wkv(..., interpret=True)`` on the
 same numpy inputs (a nonzero initial state) and writes an ``.npz``. All
 three compute in fp32 from the same (bf16-rounded, for bf16) operands and
 differ only in the order of their fp32 sums: ``TOL * (1 + |ref|)``. The
-``cuda``-marked tests hold the CUDA kernel against its plain version on the
-card and skip where there is no card.
+chunked form of the prefill kernel, in plain PyTorch
+(``ref.rwkv6_wkv_chunked``), is held against the same two, the sequential
+plain version and a float64 recurrence at one chunk -1, +0, +1 and 130
+steps, hd 20, 32 and 128, zero and random states, and decays with exact
+zeros, subnormals and values near 1. It reorders the recurrence's fp32
+operations as the kernel does, so it is held to the tolerance this file
+states for that, ``CUDA_TOL``: at hd 128 and decays near 1 two fp32 orders
+differ by up to 7e-5 (the sequential fp32 recurrence itself is that far
+from float64 there), beyond ``TOL``. The ``cuda``-marked tests hold the
+CUDA kernels against their plain versions on the card and skip where there
+is no card.
 """
 import os
 import pathlib
@@ -55,6 +64,46 @@ def _seed(B, T, H, hd):
     return 1000 * B + 10 * T + H + hd
 
 
+#: (B, T, H, hd) of the chunked form's checks: one chunk (16 steps) -1,
+#: +0, +1, and 130 steps, at hd 20, 32 and 128
+CHUNK_GRID = [(1, 15, 2, 20), (2, 16, 2, 32), (1, 17, 2, 128),
+              (2, 130, 3, 32), (1, 130, 2, 128)]
+#: decays: as drawn; a tenth exactly 0; a tenth subnormal; all in
+#: (1 - 1e-3, 1)
+DECAYS = ("drawn", "zeros", "subnormal", "near1")
+
+
+def _decayed(w, mode, seed):
+    rng = np.random.default_rng(seed + 99)
+    w = w.copy()
+    pick = rng.random(w.shape) < 0.1
+    if mode == "zeros":
+        w[pick] = 0.0
+    elif mode == "subnormal":
+        w[pick] = rng.choice(np.array([1e-39, 1e-42, 1e-45], np.float32),
+                             size=int(pick.sum()))
+    elif mode == "near1":
+        w = (1 - 1e-3 * w).astype(np.float32)
+    return w
+
+
+def _chunk_inputs(B, T, H, hd, mode, zero_state):
+    seed = _seed(B, T, H, hd)
+    r, k, v, w, u, s0 = _inputs(B, T, H, hd, seed, zero_state)
+    return r, k, v, _decayed(w, mode, seed), u, s0
+
+
+def _f64_recurrence(r, k, v, w, u, s0):
+    r, k, v, w, u, s0 = (a.astype(np.float64) for a in (r, k, v, w, u, s0))
+    S = s0.copy()
+    ys = []
+    for t in range(r.shape[1]):
+        kv = k[:, t, :, :, None] * v[:, t, :, None, :]
+        ys.append(np.einsum("bhi,bhij->bhj", r[:, t], S + u[..., None] * kv))
+        S = w[:, t, :, :, None] * S + kv
+    return np.stack(ys, 1), S
+
+
 def _reference(out_path: str) -> None:
     import jax.numpy as jnp
     from repro.kernels import ref as jref
@@ -73,6 +122,17 @@ def _reference(out_path: str) -> None:
             y, sT = rwkv6_wkv(jr, jk, jv, jw, ju, js, interpret=True)
             res[f"{tag}_pallas_y"], res[f"{tag}_pallas_s"] = (np.asarray(y),
                                                               np.asarray(sT))
+    for B, T, H, hd in CHUNK_GRID:
+        for mode in DECAYS:
+            for zero_state in (False, True):
+                ops = [jnp.asarray(a) for a in _chunk_inputs(
+                    B, T, H, hd, mode, zero_state)]
+                tag = f"chunk_{B}_{T}_{H}_{hd}_{mode}_{int(zero_state)}"
+                for against, (y, sT) in (
+                        ("ref", jref.rwkv6_wkv(*ops)),
+                        ("pallas", rwkv6_wkv(*ops, chunk=T, interpret=True))):
+                    res[f"{tag}_{against}_y"] = np.asarray(y)
+                    res[f"{tag}_{against}_s"] = np.asarray(sT)
     np.savez(out_path, **res)
 
 
@@ -152,11 +212,61 @@ def test_state_out_may_alias_s0_and_t0_keeps_the_state():
     assert s_new is not s0 and torch.equal(s_new, before)
 
 
+@pytest.mark.parametrize("zero_state", [False, True])
+@pytest.mark.parametrize("mode", DECAYS)
+@pytest.mark.parametrize("B,T,H,hd", CHUNK_GRID)
+def test_chunked_plain_matches_reference(reference, B, T, H, hd, mode,
+                                         zero_state):
+    """The chunk formulas and their decay handling (products of decays
+    only) against the reference's recurrence and Pallas body, the
+    sequential plain version and float64; no inf or NaN where decays are
+    0 or subnormal."""
+    arrays = _chunk_inputs(B, T, H, hd, mode, zero_state)
+    ops = _torch(arrays, "float32")
+    y, sT = krwkv.rwkv6_wkv_chunked(*ops)
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(sT).all())
+    tag = f"chunk_{B}_{T}_{H}_{hd}_{mode}_{int(zero_state)}"
+    want = {against: (reference[f"{tag}_{against}_y"],
+                      reference[f"{tag}_{against}_s"])
+            for against in ("ref", "pallas")}
+    want["plain"] = ref.rwkv6_wkv(*ops)
+    exact = _f64_recurrence(*arrays)
+    _assert_close(y, exact[0], CUDA_TOL, "y against float64")
+    _assert_close(sT, exact[1], CUDA_TOL, "sT against float64")
+    for against, (wy, ws) in want.items():
+        if mode == "near1":
+            # each fp32 order lies up to 7e-5 from float64 here, two of
+            # them up to 1.2e-4 apart: each is held to float64 instead
+            wy, ws = exact
+            y, sT = (torch.as_tensor(want[against][0]),
+                     torch.as_tensor(want[against][1]))
+        _assert_close(y, wy, CUDA_TOL, f"y against {against}")
+        _assert_close(sT, ws, CUDA_TOL, f"sT against {against}")
+    y, sT = krwkv.rwkv6_wkv_chunked(*ops)
+    # the wrapper's final state written over s0
+    s0 = ops[-1].clone()
+    y2, s2 = krwkv.rwkv6_wkv_chunked(*ops[:-1], s0, state_out=s0)
+    assert s2 is s0 and torch.equal(y2, y) and torch.equal(s0, sT)
+
+
+def test_chunked_plain_takes_any_chunk():
+    """Chunks of 1 step, of 5 (no divisor of T) and longer than T give the
+    recurrence."""
+    ops = _torch(_inputs(2, 23, 3, 8, 11), "float32")
+    want_y, want_s = ref.rwkv6_wkv(*ops)
+    for chunk in (1, 5, 64):
+        y, sT = ref.rwkv6_wkv_chunked(*ops, chunk=chunk)
+        _assert_close(y, want_y, TOL, f"y, chunk {chunk}")
+        _assert_close(sT, want_s, TOL, f"sT, chunk {chunk}")
+
+
 def test_cpu_path_counts_no_launch():
     krwkv.reset_launches()
     krwkv.rwkv6_wkv(*_torch(_inputs(1, 4, 2, 8, 0), "bfloat16"))
     krwkv.rwkv6_wkv(*_torch(_inputs(2, 1, 2, 8, 1), "float32"))
-    assert krwkv.launches == {"rwkv6_wkv": 0}
+    krwkv.rwkv6_wkv(*_torch(_inputs(1, 40, 2, 8, 2), "float32"))
+    krwkv.rwkv6_wkv_chunked(*_torch(_inputs(1, 4, 2, 8, 3), "float32"))
+    assert krwkv.launches == {"rwkv6_wkv": 0, "rwkv6_wkv_chunked": 0}
 
 
 def test_dispatch_refuses_other_devices_dtypes_and_shapes():
@@ -214,9 +324,11 @@ def cuda():
 
 
 #: the decode tick and a prefill of full-width rwkv6-1.6b (H 32, hd 64),
-#: the reduced config (H 4, hd 32), hd 128 and the reference's grid
+#: the reduced config (H 4, hd 32), hd 128, one chunk -1, +0 and +1 steps,
+#: and the reference's grid
 CUDA_SHAPES = [(8, 1, 32, 64), (1, 300, 32, 64), (2, 130, 4, 32),
-               (1, 7, 4, 32), (2, 33, 2, 128), (1, 5, 3, 20)] + GRID
+               (1, 7, 4, 32), (2, 33, 2, 128), (1, 5, 3, 20),
+               (1, 15, 4, 64), (2, 16, 4, 32), (1, 17, 2, 128)] + GRID
 
 
 @pytest.mark.cuda
@@ -224,12 +336,15 @@ CUDA_SHAPES = [(8, 1, 32, 64), (1, 300, 32, 64), (2, 130, 4, 32),
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("B,T,H,hd", CUDA_SHAPES)
 def test_cuda_kernel_matches_plain(cuda, B, T, H, hd, dtype, zero_state):
+    """Through the dispatch: the chunked kernel from ``CHUNKED_FROM``
+    steps, the recurrent one below."""
     ops = _torch(_inputs(B, T, H, hd, B + T + hd, zero_state), dtype, cuda)
     want_y, want_s = ref.rwkv6_wkv(*ops)
-    before = krwkv.launches["rwkv6_wkv"]
+    key = "rwkv6_wkv_chunked" if T >= krwkv.CHUNKED_FROM else "rwkv6_wkv"
+    before = dict(krwkv.launches)
     y, sT = krwkv.rwkv6_wkv(*ops)
     torch.cuda.synchronize()
-    assert krwkv.launches["rwkv6_wkv"] == before + 1
+    assert krwkv.launches == {**before, key: before[key] + 1}
     _assert_close(y, want_y, CUDA_TOL, "y")
     _assert_close(sT, want_s, CUDA_TOL, "sT")
     # the final state written in place over s0
@@ -237,6 +352,32 @@ def test_cuda_kernel_matches_plain(cuda, B, T, H, hd, dtype, zero_state):
     y2, s2 = krwkv.rwkv6_wkv(*ops[:-1], s0, state_out=s0)
     torch.cuda.synchronize()
     assert s2 is s0 and torch.equal(y2, y) and torch.equal(s0, sT)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", DECAYS[:3])
+@pytest.mark.parametrize("B,T,H,hd", [(1, 1, 4, 64), (1, 15, 4, 64),
+                                      (1, 16, 32, 64), (1, 17, 2, 128),
+                                      (2, 130, 3, 20), (1, 1000, 32, 64)])
+def test_cuda_chunked_kernel_matches_plain(cuda, B, T, H, hd, mode):
+    """The chunked kernel at any T (one step and one chunk -1 included),
+    decays with exact zeros and subnormals, bf16 and fp32, the final state
+    written over s0."""
+    arrays = _chunk_inputs(B, T, H, hd, mode, False)
+    for dtype in DTYPES:
+        ops = _torch(arrays, dtype, cuda)
+        want_y, want_s = ref.rwkv6_wkv(*ops)
+        before = dict(krwkv.launches)
+        y, sT = krwkv.rwkv6_wkv_chunked(*ops)
+        torch.cuda.synchronize()
+        assert krwkv.launches == {**before, "rwkv6_wkv_chunked":
+                                  before["rwkv6_wkv_chunked"] + 1}
+        _assert_close(y, want_y, CUDA_TOL, f"y {dtype}")
+        _assert_close(sT, want_s, CUDA_TOL, f"sT {dtype}")
+        s0 = ops[-1]
+        y2, s2 = krwkv.rwkv6_wkv_chunked(*ops[:-1], s0, state_out=s0)
+        torch.cuda.synchronize()
+        assert s2 is s0 and torch.equal(y2, y) and torch.equal(s0, sT)
 
 
 @pytest.mark.cuda
