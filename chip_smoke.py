@@ -14,13 +14,15 @@ or of the JAX package. Eight phases; any failure exits non-zero:
    without the carried error, plus rows with subnormal e4m3 outputs, signed
    zeros and a NaN (in the NaN's quantization block, or fp8 slice, only NaN
    positions are compared; the row's other blocks stay bitwise);
-   decode-reduce over W in {1, 2, 8} and at the compressed reduce_scatter's
-   (8, 2, 524288). The flash-decode kernel is held against its plain
-   version within ``FLASH_TOL * (1 + |plain|)`` (both fp32 from the same
-   inputs) at the serving shapes: B 8, H 15, KV 5, hd 64 (smollm), H 64,
-   KV 8, hd 128 (jamba) and H 4, KV 2, hd 32 (the reduced config), S 2048
-   and 1000, bf16 and fp32, for (B,) lengths (all S, all 1, mixed) and
-   scalar lengths 1, S // 3, S and 0.
+   decode-reduce over W in {1, 2, 3, 5, 8} (3 and 5 outside the int8
+   kernel's unrolled peer counts), at the compressed reduce_scatter's
+   (8, 2, 524288) and at lengths 1000 and 999 (a row of the int8 output
+   that does not start 16-byte aligned). The flash-decode kernel is held
+   against its plain version within ``FLASH_TOL * (1 + |plain|)`` (both
+   fp32 from the same inputs) at the serving shapes: B 8, H 15, KV 5, hd 64
+   (smollm), H 64, KV 8, hd 128 (jamba) and H 4, KV 2, hd 32 (the reduced
+   config), S 2048 and 1000, bf16 and fp32, for (B,) lengths (all S, all 1,
+   mixed) and scalar lengths 1, S // 3, S and 0.
    The split-S grid's own edges are held too: every split boundary +-1
    of the kernel's split count and lengths 0 and -3, at smollm's and
    jamba's shapes with B 8 and B 1 (the most splits); the combine tickets
@@ -34,17 +36,22 @@ or of the JAX package. Eight phases; any failure exits non-zero:
    20, with a tenth of the decays exactly 0 or subnormal. The scan kernel is
    held against its plain version within ``MAMBA_TOL * (1 + |plain|)`` on
    y and the final state at the jamba decode tick (B 8, T 1, Di 16384, N
-   16), at prefills (B 1, T 1024 and 1000) and at the reduced config (Di
-   256), bf16 and fp32 x, h0 none and random, and with the final state
-   written over h0. Times each kernel and its plain version at the main
-   paths' shapes (median of 20 runs, CUDA events around device work only,
-   L2 flushed between runs; the scan kernel at the decode tick and at a
-   1024-step prefill, the recurrent WKV6 kernel at both, the chunked one
-   at the prefill with its two passes profiled, the scan's bound with its
-   SFU term at the card's SM clock), and for flash decode (smollm's and
+   16), at prefills (B 1, T 1024 and 1000), at the reduced config (Di
+   256), at N 5 and 32 (the kernel's padded and widest lane splits) and
+   at Di 200 (no CTA's 32 channels divide it), bf16 and fp32 x, h0 none
+   and random, and with the final state written over h0. Times each kernel
+   and its plain version at the main paths' shapes (median of 20 runs, CUDA
+   events around device work only, L2 flushed between runs; the scan kernel
+   at the decode tick and at a 1024-step prefill, the recurrent WKV6 kernel
+   at both, the chunked one at the prefill with its two passes profiled,
+   the scan's bound with its SFU term at the card's SM clock), and for
+   flash decode (smollm's and
    jamba's shapes)
    also one ``scaled_dot_product_attention`` call as the library yardstick
-   (no single PyTorch call computes the WKV6 recurrence or the scan).
+   (no single PyTorch call computes the WKV6 recurrence or the scan). For
+   the scan and int8 decode-reduce kernels it also records CUPTI's time
+   of the kernel alone (L2 flushed) and the events' own floor, the
+   events' time of a one-element fill.
    The staging kernels are held bitwise against their plain versions:
    pip_mcoll allgather's step-6 buffer V (8, 2, 4·m) rolled by the node
    index and Bruck's (8, 8, m) rolled by the rank at 8 B and 4 MiB per
@@ -313,6 +320,27 @@ def time_ms(torch, fn, flush, n: int = 20, spin: bool = True) -> float:
     return statistics.median(times)
 
 
+def event_floor_ms(torch, dev, flush) -> float:
+    """:func:`time_ms` of a one-element fill: what the CUDA events around
+    any single launch measure at least (the launch and the events
+    themselves), beside each kernel's ``ms``."""
+    one = torch.empty(1, device=dev)
+    return time_ms(torch, lambda: one.zero_(), flush)
+
+
+def cupti_ms(torch, fn, flush, name: str, n: int = 5):
+    """Mean device time per launch of the kernels whose name contains
+    ``name`` over ``n`` runs of ``fn``, the L2 cache flushed before each
+    (CUPTI, by :func:`profile_call`): the kernel's own time, without the
+    launch and event overhead that :func:`time_ms` includes."""
+    def runs():
+        for _ in range(n):
+            flush.zero_()
+            fn()
+    return profile_call(torch, runs, [name]).get("per_launch_ms", {}).get(
+        name, "not measured")
+
+
 def bound_ms(nbytes: float, ops: float):
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_FLOP_PER_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
@@ -455,7 +483,8 @@ def kernel_phase(torch, kcodec, ref, dev):
                                      "e4m3 value")
     # (8, 2, 524288): the compressed reduce_scatter's wire on the main path
     for R, W, L in ((8, 1, 131072), (8, 2, 131072), (8, 8, 131072),
-                    (8, 2, 524288), (1, 2, 1000)):
+                    (8, 2, 524288), (1, 2, 1000), (8, 3, 131072),
+                    (8, 5, 131072), (2, 2, 999)):
         x = torch.randn((R, W, L), generator=gen, device=dev)
         for c in codecs:
             comp, _ = getattr(ref, f"{c}_encode_residual")(x)
@@ -496,6 +525,8 @@ def kernel_phase(torch, kcodec, ref, dev):
         enc_b, enc_by = bound_ms(enc_bytes, ops[c] * S * L)
         fb_b, _ = bound_ms(enc_bytes + 4 * S * L, ops[c] * S * L)
         comp, _ = penc(xw)
+        if c == "int8":
+            comp_int8 = comp
         # R * W == S: decode reads the same wire and scale bytes the encode
         # wrote, and writes the f32 sum per rank
         dec_bytes = wire[c] + scales[c] + 4 * R * L
@@ -523,6 +554,11 @@ def kernel_phase(torch, kcodec, ref, dev):
             "bound_ms": dec_b, "bound_by": dec_by, "library_ms": None,
             "bytes": dec_bytes,
             "shape": list(comp["q"].shape)}
+    rec = records["int8_decode_reduce"]
+    rec["kernel_cupti_ms"] = cupti_ms(
+        torch, lambda: kcodec.int8_decode_reduce(comp_int8, L), flush,
+        "int8_decode_reduce")
+    rec["event_floor_ms"] = event_floor_ms(torch, dev, flush)
     return records
 
 
@@ -1254,9 +1290,10 @@ def _check_mamba(torch, what, got, want):
 def mamba_phase(torch, kmamba, ref, dev, sm_mhz):
     """The scan kernel against its plain version at the serving shapes:
     the decode tick (B 8, T 1) and prefills (B 1, T 1024 and 1000) of
-    full-width jamba (Di 16384, N 16), and the reduced config (Di 256, T 1
-    and 130); bf16 and fp32 x, h0 zero (none) and random, and the final
-    state written over h0 (it must equal the separate output). Then the
+    full-width jamba (Di 16384, N 16), the reduced config (Di 256, T 1
+    and 130), and at T 130 N 5 and 32 and Di 200; bf16 and fp32 x, h0
+    zero (none) and random, and the final state written over h0 (it must
+    equal the separate output). Then the
     kernel's and the plain version's times at the tick and the 1024-step
     prefill, with their bounds (``scan_bound``, at ``sm_mhz``). Returns its
     record (without launches)."""
@@ -1264,7 +1301,8 @@ def mamba_phase(torch, kmamba, ref, dev, sm_mhz):
     worst, checked = 0.0, 0
     for B, T, Di, N in ((SERVE_BATCH, 1, 16384, 16), (1, 1024, 16384, 16),
                         (1, 1000, 16384, 16), (SERVE_BATCH, 1, 256, 16),
-                        (2, 130, 256, 16)):
+                        (2, 130, 256, 16), (2, 130, 256, 5),
+                        (2, 130, 256, 32), (2, 130, 200, 16)):
         for dtype in (torch.bfloat16, torch.float32):
             for zero_state in (True, False):
                 ops = _mamba_inputs(torch, B, T, Di, N, dtype, zero_state,
@@ -1305,7 +1343,9 @@ def mamba_phase(torch, kmamba, ref, dev, sm_mhz):
                             "events around the call, host dispatch "
                             "included",
             "bound_ms": bound, "bound_by": bound_by,
-            "bound_terms_ms": terms}
+            "bound_terms_ms": terms,
+            "kernel_cupti_ms": cupti_ms(
+                torch, lambda: kmamba.mamba_scan(*ops), flush, "mamba_scan")}
     dec = timed["decode"]
     return {
         "name": "mamba_scan", "route": "cuda",
@@ -1317,7 +1357,9 @@ def mamba_phase(torch, kmamba, ref, dev, sm_mhz):
         "bound_ms": dec["bound_ms"], "bound_by": dec["bound_by"],
         "bound_terms_ms": dec["bound_terms_ms"], "sm_clock_max_mhz": sm_mhz,
         "library_ms": None, "bytes": dec["bytes"], "shape": dec["shape"],
-        "dtype": "bfloat16", "prefill": timed["prefill"]}
+        "dtype": "bfloat16", "kernel_cupti_ms": dec["kernel_cupti_ms"],
+        "event_floor_ms": event_floor_ms(torch, dev, flush),
+        "prefill": timed["prefill"]}
 
 
 # ---------------------------------------------------------------------------

@@ -99,13 +99,19 @@ def _block_encode_launch(lib: str, kernel: str, wire_dtype, wire_cols: int,
 
 
 def _block_decode_launch(lib: str, kernel: str, wire_dtype, wire_cols: int,
-                         comp, length: int) -> torch.Tensor:
+                         comp, length: int, align: int = 1) -> torch.Tensor:
     """One launch of a block codec's decode-reduce over ``(*B, W, nb,
     wire_cols)`` wire slices and ``(*B, W, nb)`` scales -> ``(*B,
-    length)`` f32 (at most one leading batch dim)."""
+    length)`` f32 (at most one leading batch dim). ``align``: the bytes
+    the kernel's vector loads of ``q`` need its address to be a multiple
+    of; any other address raises."""
     q, scale = comp["q"], comp["scale"]
     _check(q, wire_dtype, "q")
     _check(scale, torch.float32, "scale")
+    if q.data_ptr() % align:
+        raise ValueError(f"q: the {kernel} kernel reads the wire in "
+                         f"{align}-byte vectors; its address is not "
+                         f"{align}-byte aligned")
     if q.dim() not in (3, 4) or tuple(q.shape[:-1]) != tuple(scale.shape) \
             or q.shape[-1] != wire_cols:
         raise ValueError(f"wire form q {tuple(q.shape)} / scale "
@@ -160,7 +166,7 @@ def int8_decode_reduce(comp, length: int) -> torch.Tensor:
     if not _on_card(comp["q"], comp["scale"]):
         return ref.int8_decode_reduce(comp, length)
     return _block_decode_launch("codec_int8", "int8_decode_reduce",
-                                torch.int8, BLOCK, comp, length)
+                                torch.int8, BLOCK, comp, length, align=8)
 
 
 # ---------------------------------------------------------------------------

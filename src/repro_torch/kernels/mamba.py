@@ -29,7 +29,8 @@ from repro_torch.kernels._dispatch import (check, on_card, overlaps_partly,
 #: launches of the CUDA kernel
 launches: Dict[str, int] = {"mamba_scan": 0}
 
-#: the kernel keeps a channel's N states in one thread's registers
+#: the kernel spreads a channel's N states (padded to 4, 8, 16 or 32) over
+#: up to 8 lanes of one warp, four in each thread's registers
 #: (``csrc/mamba_scan.cu``)
 MAX_STATE = 32
 

@@ -11,9 +11,10 @@ The wrappers in ``kernels/codec.py``, ``kernels/staging.py``,
 these only for tensors on the CPU; the tests hold them against the
 reference's Pallas kernels (interpret mode), and ``chip_smoke.py`` holds
 each kernel against them on the card. :func:`flash_decode_split` and
-:func:`rwkv6_wkv_chunked` write out the algorithms of the split-S
-flash-decode kernel and of the chunked WKV6 prefill kernel in plain
-PyTorch, for the tests; no main path calls them.
+:func:`rwkv6_wkv_chunked` and :func:`mamba_scan_lanes` write out the
+algorithms of the split-S flash-decode kernel, of the chunked WKV6 prefill
+kernel and of the lane-split scan kernel in plain PyTorch, for the tests;
+no main path calls them.
 
 Every codec function takes an optional leading rank dim: ``x`` is
 ``(S, L)`` or ``(R, S, L)``; wire leaves and outputs carry the same
@@ -348,6 +349,68 @@ def mamba_scan(dt, A, Bm, Cm, x, h0=None):
         h = dA * h + (dt[:, t] * x[:, t])[..., None] * Bm[:, t, None, :]
         y[:, t] = (h * Cm[:, t, None, :]).sum(-1)
     return y, h
+
+
+#: log2(e); the scan kernel pre-scales A by it, rounded to float32
+_LOG2E = math.log2(math.e)
+#: the smallest normal float32: the scan kernel's exponential flushes a
+#: smaller result to zero
+_FTZ = 2.0 ** -126
+
+
+def _fma32(a, b, c):
+    """``a * b + c`` of float32 tensors rounded once to float32 (the
+    product is exact in float64; the sum is rounded to float64 first, so
+    rarely the result is one float32 ulp from a true fused multiply-add)."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def mamba_scan_lanes(dt, A, Bm, Cm, x, h0=None):
+    """:func:`mamba_scan` as the redesigned kernel (``mamba_scan.cu``)
+    computes it: the N states padded with zeros to ``NS`` (4, 8, 16 or
+    32), a channel's states spread over ``LPC = NS / 4`` lanes, four each;
+    per step
+
+        dA = exp2(dt * A2)            A2 = A * float32(log2 e), fp32;
+                                      a dA below 2**-126 flushed to 0
+        h  = fma(dA, h, (dt * x) * B)
+        p_l = fma chain over lane l's four states of h * C, from 0
+        y  = the LPC partials p_l joined as the shuffle tree joins them:
+             for o = LPC/2, ..., 1: p_l = p_l + p_(l xor o); y = p_0
+
+    all in fp32. Same operands and results as :func:`mamba_scan`, which
+    the wrapper's CPU path keeps; this mirror is for the tests."""
+    B, T, Di = dt.shape
+    N = A.shape[1]
+    NS = 4
+    while NS < N:
+        NS *= 2
+    lpc = NS // 4
+    pad = (0, NS - N)
+    dt, x = dt.float(), x.float()
+    Bm, Cm = (torch.nn.functional.pad(t.float(), pad) for t in (Bm, Cm))
+    A2 = torch.nn.functional.pad(
+        A.float() * torch.tensor(_LOG2E, dtype=torch.float32), pad)
+    h = (torch.zeros((B, Di, NS), dtype=torch.float32, device=dt.device)
+         if h0 is None else torch.nn.functional.pad(h0.float(), pad))
+    lanes = torch.arange(lpc, device=dt.device)
+    y = dt.new_empty((B, T, Di))
+    for t in range(T):
+        dA = torch.exp2(dt[:, t, :, None] * A2)
+        dA = torch.where(dA < _FTZ, 0.0, dA)
+        h = _fma32(dA, h, (dt[:, t] * x[:, t])[..., None] * Bm[:, t, None])
+        hl = h.reshape(B, Di, lpc, 4)
+        cl = Cm[:, t].reshape(B, 1, lpc, 4)
+        part = torch.zeros((B, Di, lpc), dtype=torch.float32,
+                           device=dt.device)
+        for i in range(4):
+            part = _fma32(hl[..., i], cl[..., i], part)
+        o = lpc // 2
+        while o:
+            part = part + part[..., lanes ^ o]
+            o //= 2
+        y[:, t] = part[..., 0]
+    return y, h[..., :N].contiguous()
 
 
 # ---------------------------------------------------------------------------

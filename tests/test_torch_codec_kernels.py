@@ -90,7 +90,7 @@ def test_int8_encode_zero_block_and_nan():
     assert float(comp["scale"][0, 1]) == np.float32(2.0) * np.float32(1 / 127)
 
 
-@pytest.mark.parametrize("W", [1, 2, 8])
+@pytest.mark.parametrize("W", [1, 2, 3, 5, 8])
 def test_int8_decode_reduce_matches_pallas(jkern, W):
     L = 777
     x, _ = _payload((W, L), seed=W)
@@ -134,6 +134,27 @@ def test_cpu_path_counts_no_launches():
     assert not any(tkern.launches.values())
 
 
+def _misaligned_wire(R, W, nb, offset):
+    """A contiguous ``(R, W, nb, 256)`` int8 wire view starting ``offset``
+    bytes into its storage, with its scales."""
+    buf = torch.zeros(R * W * nb * 256 + offset, dtype=torch.int8)
+    q = buf[offset:].view(R, W, nb, 256)
+    return {"q": q, "scale": torch.ones((R, W, nb))}
+
+
+def test_int8_decode_launch_refuses_a_misaligned_wire():
+    """The vector kernel reads q in 8-byte vectors: its launch raises on a
+    wire address that is not 8-byte aligned (before it builds or launches
+    anything), and the plain version takes the same wire."""
+    comp = _misaligned_wire(2, 3, 2, 4)
+    assert comp["q"].is_contiguous() and comp["q"].data_ptr() % 8 == 4
+    with pytest.raises(ValueError, match="8-byte aligned"):
+        tkern._block_decode_launch("codec_int8", "int8_decode_reduce",
+                                   torch.int8, 256, comp, 300, align=8)
+    got = tkern.int8_decode_reduce(comp, 300)
+    assert got.shape == (2, 300) and not bool(got.any())
+
+
 def test_wrappers_reject_unsupported_operands():
     x = torch.zeros(2, 256)
     with pytest.raises(ValueError):
@@ -174,7 +195,7 @@ def test_cuda_encode_matches_plain(cuda, S, L, with_err):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("W", [1, 2, 8])
+@pytest.mark.parametrize("W", [1, 2, 3, 5, 8])
 def test_cuda_decode_reduce_matches_plain(cuda, W):
     x, _ = _payload((8, W, 131072), seed=W)
     comp, _ = ref.int8_encode_residual(torch.from_numpy(x).to(cuda))
@@ -183,3 +204,36 @@ def test_cuda_decode_reduce_matches_plain(cuda, W):
     torch.cuda.synchronize()
     assert tkern.launches["int8_decode_reduce"] == before + 1
     assert torch.equal(got, ref.int8_decode_reduce(comp, 131072 - 5))
+
+
+#: (R, W, encoded length, decoded length): rows whose float4 stores are
+#: misaligned (L % 4 != 0), a last vector cut inside (L % 16 != 0), W
+#: outside the unrolled 1, 2, 4, 8 (3, 5, 9, 13: groups of 8 and a rest),
+#: and a decode shorter than the wire
+TAIL_CASES = [(2, 2, 999, 999), (1, 2, 1000, 1000), (3, 4, 4097, 4097),
+              (8, 3, 131072, 131072), (8, 5, 131072, 131072),
+              (2, 9, 2000, 2000), (2, 13, 515, 515), (1, 1, 1, 1),
+              (2, 2, 16, 16), (2, 2, 1024, 1001), (2, 2, 1024, 1020)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,W,L,length", TAIL_CASES)
+def test_cuda_decode_reduce_vector_tails(cuda, R, W, L, length):
+    x, _ = _payload((R, W, L), seed=R * 100 + W * 10 + L)
+    comp, _ = ref.int8_encode_residual(torch.from_numpy(x).to(cuda))
+    got = tkern.int8_decode_reduce(comp, length)
+    torch.cuda.synchronize()
+    want = ref.int8_decode_reduce(comp, length)
+    assert got.shape == (R, length)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_cuda_decode_reduce_refuses_a_misaligned_wire(cuda):
+    comp = {k: v.to(cuda) for k, v in _misaligned_wire(2, 3, 2, 0).items()}
+    buf = torch.zeros(comp["q"].numel() + 4, dtype=torch.int8, device=cuda)
+    comp["q"] = buf[4:].view(comp["q"].shape)
+    before = tkern.launches["int8_decode_reduce"]
+    with pytest.raises(ValueError, match="8-byte aligned"):
+        tkern.int8_decode_reduce(comp, 300)
+    assert tkern.launches["int8_decode_reduce"] == before

@@ -9,9 +9,12 @@ zero state, T a multiple of the chunk), and the layer's sequential scan
 ``repro.layers.mamba._scan_ref`` from a nonzero state at any T, on the same
 numpy inputs, and writes an ``.npz``. All compute in fp32 from the same
 (bf16-rounded, for bf16) operands and differ only in the order of their
-fp32 sums: ``TOL * (1 + |ref|)``. The ``cuda``-marked tests hold the CUDA
-kernel against its plain version on the card and skip where there is no
-card.
+fp32 sums: ``TOL * (1 + |ref|)``. ``ref.mamba_scan_lanes``, the CPU
+mirror of the kernel's arithmetic (``exp2`` on a pre-scaled A, a channel's
+states over lanes), is held against the same reference outputs within
+``CUDA_TOL``. The ``cuda``-marked tests hold the CUDA kernel against its
+plain version and against the mirror on the card and skip where there is
+no card.
 """
 import os
 import pathlib
@@ -32,12 +35,16 @@ GRID = [(1, 32, 16, 4, 8, 8), (2, 64, 64, 16, 32, 32),
 #: (B, T, Di, N) from a nonzero state: reduced jamba's width (Di 256, N
 #: 16) at a prefill and a decode step, and a T and Di no chunk divides
 STATE_GRID = [(2, 7, 256, 16), (3, 1, 256, 16), (1, 37, 24, 8)]
+#: (B, T, Di, N) from a nonzero state at the state counts the kernel pads
+#: (N 5 to 8 states over two lanes) or spreads widest (N 32 over 8 lanes)
+LANE_GRID = [(2, 9, 40, 5), (1, 13, 24, 32)]
 DTYPES = ("float32", "bfloat16")
 #: plain version against the reference's plain scans and Pallas body, all
 #: fp32: sum order only
 TOL = 1e-5
-#: the CUDA kernel against the plain version on the card (fp32 sums in
-#: another order, fused multiply-adds)
+#: the CUDA kernel against the plain version on the card, and the kernel's
+#: CPU mirror against the reference (fp32 sums in another order, fused
+#: multiply-adds, exp2 of a pre-scaled A for exp)
 CUDA_TOL = 1e-4
 
 
@@ -80,7 +87,7 @@ def _reference(out_path: str) -> None:
                                interpret=True)
             res[f"{tag}_pallas_y"], res[f"{tag}_pallas_h"] = (np.asarray(y),
                                                               np.asarray(hT))
-        for B, T, Di, N in STATE_GRID:
+        for B, T, Di, N in STATE_GRID + LANE_GRID:
             dt, A, Bm, Cm, x, h0 = (jnp.asarray(a) for a in _inputs(
                 B, T, Di, N, _seed(B, T, Di, N)))
             x = x.astype(getattr(jnp, dt_name))
@@ -147,6 +154,51 @@ def test_plain_matches_layer_scan_from_a_state(reference, B, T, Di, N,
     y, hT = kmamba.mamba_scan(*ops)
     assert torch.equal(ops[-1], h0), "h0 was written without state_out"
     tag = f"{B}_{T}_{Di}_{N}_{dtype}_state"
+    _assert_close(y, reference[f"{tag}_y"], TOL, "y")
+    _assert_close(hT, reference[f"{tag}_h"], TOL, "hT")
+
+
+@pytest.mark.parametrize("against", ["ref", "pallas"])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B,T,Di,N,chunk,dblk", GRID)
+def test_lanes_mirror_matches_reference_from_zero(reference, B, T, Di, N,
+                                                  chunk, dblk, dtype,
+                                                  against):
+    """The kernel's arithmetic (``ref.mamba_scan_lanes``) against the
+    reference's plain scan and its interpret-mode Pallas kernel."""
+    ops = _torch(_inputs(B, T, Di, N, _seed(B, T, Di, N)), dtype,
+                 with_state=False)
+    y, hT = ref.mamba_scan_lanes(*ops)
+    assert y.shape == (B, T, Di) and y.dtype == torch.float32
+    assert hT.shape == (B, Di, N) and hT.dtype == torch.float32
+    tag = f"{B}_{T}_{Di}_{N}_{dtype}_{against}"
+    _assert_close(y, reference[f"{tag}_y"], CUDA_TOL, f"y against {against}")
+    _assert_close(hT, reference[f"{tag}_h"], CUDA_TOL,
+                  f"hT against {against}")
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B,T,Di,N", STATE_GRID + LANE_GRID)
+def test_lanes_mirror_matches_layer_scan_from_a_state(reference, B, T, Di,
+                                                      N, dtype):
+    """The mirror from a nonzero carried state against ``_scan_ref``, at
+    the padded (N 5) and widest (N 32) lane splits too; ``h0`` is left as
+    it was."""
+    ops = _torch(_inputs(B, T, Di, N, _seed(B, T, Di, N)), dtype)
+    h0 = ops[-1].clone()
+    y, hT = ref.mamba_scan_lanes(*ops)
+    assert torch.equal(ops[-1], h0)
+    tag = f"{B}_{T}_{Di}_{N}_{dtype}_state"
+    _assert_close(y, reference[f"{tag}_y"], CUDA_TOL, "y")
+    _assert_close(hT, reference[f"{tag}_h"], CUDA_TOL, "hT")
+
+
+@pytest.mark.parametrize("B,T,Di,N", LANE_GRID)
+def test_plain_matches_layer_scan_at_lane_splits(reference, B, T, Di, N):
+    """The plain version at N 5 and 32 against ``_scan_ref``."""
+    ops = _torch(_inputs(B, T, Di, N, _seed(B, T, Di, N)), "float32")
+    y, hT = kmamba.mamba_scan(*ops)
+    tag = f"{B}_{T}_{Di}_{N}_float32_state"
     _assert_close(y, reference[f"{tag}_y"], TOL, "y")
     _assert_close(hT, reference[f"{tag}_h"], TOL, "hT")
 
@@ -254,11 +306,13 @@ def cuda():
 
 
 #: the decode tick and a prefill of full-width jamba (Di 16384, N 16), the
-#: reduced config (Di 256), channels no warp divides, N 32 and N 5, and the
-#: reference's grid
+#: reduced config (Di 256), channels no CTA's 32 divide, N 32 and N 5, and
+#: the reference's grid; then runs of 32 steps and more at N 5 and 32 and
+#: at a Di no CTA width divides
 CUDA_SHAPES = [(8, 1, 16384, 16), (1, 77, 16384, 16), (2, 130, 256, 16),
                (1, 7, 256, 16), (2, 33, 40, 32), (3, 5, 20, 5)] + \
-    [g[:4] for g in GRID]
+    [g[:4] for g in GRID] + \
+    [(2, 130, 256, 5), (2, 130, 256, 32), (2, 130, 200, 16)]
 
 
 @pytest.mark.cuda
@@ -280,6 +334,23 @@ def test_cuda_kernel_matches_plain(cuda, B, T, Di, N, dtype, zero_state):
     y2, h2 = kmamba.mamba_scan(*ops[:-1], h0, state_out=h0)
     torch.cuda.synchronize()
     assert h2 is h0 and torch.equal(y2, y) and torch.equal(h0, hT)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B,T,Di,N", CUDA_SHAPES)
+def test_cuda_kernel_matches_lanes_mirror(cuda, B, T, Di, N, dtype):
+    """The kernel against the mirror of its own arithmetic, run on the
+    card, from a random state: within ``TOL``, since only the
+    exponential's last bits (the card's 2-ulp MUFU against the mirror's
+    ``exp2``) and the mirror's float64 route to a fused multiply-add may
+    differ."""
+    ops = _torch(_inputs(B, T, Di, N, B + T + Di + N), dtype, cuda)
+    want_y, want_h = ref.mamba_scan_lanes(*ops)
+    y, hT = kmamba.mamba_scan(*ops)
+    torch.cuda.synchronize()
+    _assert_close(y, want_y, TOL, "y")
+    _assert_close(hT, want_h, TOL, "hT")
 
 
 @pytest.mark.cuda
