@@ -14,10 +14,15 @@ or of the JAX package. Eight phases; any failure exits non-zero:
    without the carried error, plus rows with subnormal e4m3 outputs, signed
    zeros and a NaN (in the NaN's quantization block, or fp8 slice, only NaN
    positions are compared; the row's other blocks stay bitwise);
-   decode-reduce over W in {1, 2, 3, 5, 8} (3 and 5 outside the int8
-   kernel's unrolled peer counts), at the compressed reduce_scatter's
-   (8, 2, 524288) and at lengths 1000 and 999 (a row of the int8 output
-   that does not start 16-byte aligned). The flash-decode kernel is held
+   decode-reduce over W in {1, 2, 3, 5, 8, 9, 17} (3, 5, 9 and 17
+   outside the kernels' unrolled peer counts), at the compressed
+   reduce_scatter's (8, 2, 524288), at the last gradient bucket's rows of
+   7800 (fp8: wire rows of 8-byte, not 16-byte multiples) and at lengths
+   1000, 999 and 1001 (rows of the output that do not start 16-byte
+   aligned; fp8 wire rows that are no multiple of 8 bytes), each decoded
+   whole and 3 short, and with the wire copied 1 and 3 bytes into a
+   buffer (a contiguous view at an odd address: int4 and fp8 must take
+   it, bitwise; the int8 wrapper must refuse it, launching nothing). The flash-decode kernel is held
    against its plain version within ``FLASH_TOL * (1 + |plain|)`` (both
    fp32 from the same inputs) at the serving shapes: B 8, H 15, KV 5, hd 64
    (smollm), H 64, KV 8, hd 128 (jamba) and H 4, KV 2, hd 32 (the reduced
@@ -26,14 +31,18 @@ or of the JAX package. Eight phases; any failure exits non-zero:
    The split-S grid's own edges are held too: every split boundary +-1
    of the kernel's split count and lengths 0 and -3, at smollm's and
    jamba's shapes with B 8 and B 1 (the most splits); the combine tickets
-   must be back at zero. The WKV6 kernels (the recurrent one below 16
+   must be back at zero. The WKV6 kernels (the tick kernel below 16
    steps, the chunked one from 16) are held against their plain version
    within ``RWKV_TOL * (1 + |plain|)`` on y and the final state at the
    rwkv6-1.6b decode tick (B 8, T 1, H 32, hd 64), at prefills (B 1, T
-   1024 and 1000) and at the reduced config (H 4, hd 32, T 7 and 130),
-   bf16 and fp32, s0 zero and random, and with the final state written
-   over s0; the chunked one also alone at 15, 16 and 17 steps and at hd
-   20, with a tenth of the decays exactly 0 or subnormal. The scan kernel is
+   1024 and 1000), at the reduced config (H 4, hd 32, T 7 and 130) and
+   the tick kernel at hd 20 and 128 (1 and 9-12 steps), bf16 and fp32, s0
+   zero and random, and with the final state written over s0; the tick
+   kernel also at the decode tick and at 7 steps, hd 20, and the chunked
+   one alone at 15, 16 and 17 steps and at hd 20, with a tenth of the
+   decays exactly 0 or subnormal; the recurrent kernel (reached only by
+   ``rwkv6_wkv_recurrent``) at the decode tick and at T 130. The scan
+   kernel is
    held against its plain version within ``MAMBA_TOL * (1 + |plain|)`` on
    y and the final state at the jamba decode tick (B 8, T 1, Di 16384, N
    16), at prefills (B 1, T 1024 and 1000), at the reduced config (Di
@@ -42,16 +51,19 @@ or of the JAX package. Eight phases; any failure exits non-zero:
    and random, and with the final state written over h0. Times each kernel
    and its plain version at the main paths' shapes (median of 20 runs, CUDA
    events around device work only, L2 flushed between runs; the scan kernel
-   at the decode tick and at a 1024-step prefill, the recurrent WKV6 kernel
-   at both, the chunked one at the prefill with its two passes profiled,
+   at the decode tick and at a 1024-step prefill, the WKV6 tick kernel at
+   the decode tick, the recurrent one at both, the chunked one at the
+   prefill with its two passes profiled,
    the scan's bound with its SFU term at the card's SM clock), and for
    flash decode (smollm's and
    jamba's shapes)
    also one ``scaled_dot_product_attention`` call as the library yardstick
    (no single PyTorch call computes the WKV6 recurrence or the scan). For
-   the scan and int8 decode-reduce kernels it also records CUPTI's time
-   of the kernel alone (L2 flushed) and the events' own floor, the
-   events' time of a one-element fill.
+   the scan, the WKV6 tick and recurrent kernels at the decode tick and
+   the int8 and fp8 decode-reduce kernels it also records CUPTI's time of
+   the kernel alone (L2 flushed) and the events' own floor, the events'
+   time of a one-element fill; fp8 decode-reduce also at the compressed
+   reduce_scatter's (8, 2, 524288).
    The staging kernels are held bitwise against their plain versions:
    pip_mcoll allgather's step-6 buffer V (8, 2, 4·m) rolled by the node
    index and Bruck's (8, 8, m) rolled by the rank at 8 B and 4 MiB per
@@ -80,8 +92,9 @@ or of the JAX package. Eight phases; any failure exits non-zero:
    bucket sync, and one full-width pass of ``comm.reduce_scatter(bucket,
    algo="pip_mcoll", codec=c)`` over all 391 buckets for each codec: within
    ``collective_tolerance(c, "reduce_scatter", 8, A)`` of the float64 sum,
-   exactly one decode-reduce launch per bucket. Peak memory must stay
-   under 50 GB.
+   exactly one decode-reduce launch per bucket; then one more pass over
+   the first 16 buckets under ``torch.profiler`` (the decode-reduce's time
+   per launch on that path). Peak memory must stay under 50 GB.
 3. **Collectives.** Every (collective, algorithm) pair through the
    ``Communicator`` on the 2x4 grid at per-rank sizes 8 B, 64 KiB and
    4 MiB of float32 and 64 KiB of int32; chunk-capable algorithms also at
@@ -121,8 +134,8 @@ or of the JAX package. Eight phases; any failure exits non-zero:
    full-width rwkv6-1.6b (24 layers, d 2048, 32 heads of 64; bf16, seeded
    random weights) served by ``Engine(max_batch=8, max_len=2048,
    flags=RunFlags(use_rwkv_kernel=True), mesh=RankGrid(2, 4))``, the same
-   16 requests. The recurrent WKV6 launches must equal 24 x ticks and the
-   chunked ones 24 x 16 prefills,
+   16 requests. The tick kernel's WKV6 launches must equal 24 x ticks,
+   the chunked ones 24 x 16 prefills and the recurrent kernel's 0,
    the staging launches as in phase 4, every other kernel's 0; the tick
    sync and the sync-free tokens as in phase 4. The prefill of the longest
    prompt and three teacher-forced ticks hold every layer's WKV6 call
@@ -160,7 +173,7 @@ or of the JAX package. Eight phases; any failure exits non-zero:
    the card's name and power limit (as nvidia-smi gives them), the
    ``{"kernels": [...]}`` line (the 14 TPU kernels of the repository, each
    codec's feedback encode apart from its residual encode and the WKV6
-   recurrence's chunked prefill kernel apart from its recurrent one, with the
+   recurrence's chunked prefill kernel apart from its tick kernel, with the
    feedback launches the slice phase counted apart: 0, since its
    compressed allreduce encodes without the carried error), and last
    ``{"ok": true, "device": {...}}``.
@@ -204,6 +217,8 @@ CODEC_KERNELS = {
 FEEDBACK_KERNELS = {c: tuple(k + "_feedback" for k in encodes)
                     for c, (encodes, _) in CODEC_KERNELS.items()}
 PEAK_LIMIT_BYTES = 50e9
+#: full 4 MiB buckets of the profiled compressed reduce_scatter pass
+PROFILED_BUCKETS = 16
 #: per-rank message sizes of the collectives phase (bytes)
 COLL_SIZES = (8, 64 << 10, 4 << 20)
 TIME_ITERS = 10
@@ -243,8 +258,9 @@ JAMBA_ARCH, JAMBA_LAYERS = "jamba-1.5-large-398b", 5
 #: kernel-name fragments of cuBLAS's matrix products in a profile
 GEMM_NAMES = ("gemm", "gemv", "nvjet", "xmma", "cutlass", "splitk")
 #: the chunked WKV6 kernel's two passes (``csrc/rwkv6_wkv.cu``), one
-#: launch each per call
+#: launch each per call, and the tick and recurrent kernels' names
 CHUNKED_PASSES = ("wkv_chunk_intra", "wkv_chunk_state")
+TICK_KERNEL, RECURRENT_KERNEL = "rwkv6_wkv_tick_kernel", "rwkv6_wkv_kernel"
 #: the profiler range put around the MoE's expert products
 EXPERT_RANGE = "moe_experts"
 #: the staging kernels' names in a profile (``csrc/staging.cu``) and in
@@ -452,6 +468,7 @@ def kernel_phase(torch, kcodec, ref, dev):
     gen = torch.Generator(device=dev).manual_seed(SEED)
     codecs = ("int8", "int4", "fp8")
     err = {c: {"enc": 0.0, "dec": 0.0} for c in codecs}
+    checked = dict.fromkeys(codecs, 0)  # decode-reduce cases
     for S, L in ((16, 131072), (3, 1000), (1, 256)):
         x = torch.randn((S, L), generator=gen, device=dev) \
             * torch.rand((S, 1), generator=gen, device=dev) * 100
@@ -481,21 +498,50 @@ def kernel_phase(torch, kcodec, ref, dev):
             if not bool(((q & 0x78) == 0).logical_and((q & 0x07) != 0).any()):
                 raise AssertionError("fp8 edge rows reached no subnormal "
                                      "e4m3 value")
-    # (8, 2, 524288): the compressed reduce_scatter's wire on the main path
+    # (8, 2, 524288): the compressed reduce_scatter's wire on the main path;
+    # (8, 2, 7800): the last gradient bucket's (fp8 rows of 7800 bytes,
+    # 8-byte but not 16-byte multiples); 999 and 1001: odd rows; W 9, 17:
+    # a group of 8 peers and a rest
     for R, W, L in ((8, 1, 131072), (8, 2, 131072), (8, 8, 131072),
                     (8, 2, 524288), (1, 2, 1000), (8, 3, 131072),
-                    (8, 5, 131072), (2, 2, 999)):
+                    (8, 5, 131072), (2, 2, 999), (8, 2, 7800),
+                    (8, 9, 131072), (2, 17, 1001), (8, 17, 7800)):
         x = torch.randn((R, W, L), generator=gen, device=dev)
         for c in codecs:
             comp, _ = getattr(ref, f"{c}_encode_residual")(x)
-            got = getattr(kcodec, f"{c}_decode_reduce")(comp, L)
-            want = getattr(ref, f"{c}_decode_reduce")(comp, L)
-            torch.cuda.synchronize()
-            if not same_bits(torch, got, want):
-                raise AssertionError(f"{c} decode_reduce R={R} W={W} L={L} "
-                                     f"differs from its plain version: max "
-                                     f"{max_diff(torch, got, want)}")
-            err[c]["dec"] = max(err[c]["dec"], max_diff(torch, got, want))
+            # the wire as encoded, decoded whole and 3 short; then copied
+            # to 1 and 3 bytes into a buffer (a contiguous view at an odd
+            # address), where the int8 kernel's wrapper must refuse it
+            for offset, length in ((0, L), (0, L - 3), (1, L), (3, L - 3)):
+                if offset:
+                    buf = torch.zeros(comp["q"].numel() + offset,
+                                      dtype=comp["q"].dtype, device=dev)
+                    comp = {**comp, "q": buf[offset:].view(
+                        comp["q"].shape).copy_(comp["q"])}
+                what = (f"{c} decode_reduce R={R} W={W} L={L} length "
+                        f"{length} wire at byte {offset}")
+                if offset and c == "int8":
+                    before = dict(kcodec.launches)
+                    try:
+                        kcodec.int8_decode_reduce(comp, length)
+                    except ValueError as e:
+                        if "8-byte aligned" not in str(e):
+                            raise
+                    else:
+                        raise AssertionError(f"{what}: not refused")
+                    if kcodec.launches != before:
+                        raise AssertionError(f"{what}: launched")
+                    continue
+                got = getattr(kcodec, f"{c}_decode_reduce")(comp, length)
+                want = getattr(ref, f"{c}_decode_reduce")(comp, length)
+                torch.cuda.synchronize()
+                if not same_bits(torch, got, want):
+                    raise AssertionError(f"{what} differs from its plain "
+                                         f"version: max "
+                                         f"{max_diff(torch, got, want)}")
+                err[c]["dec"] = max(err[c]["dec"], max_diff(torch, got,
+                                                            want))
+                checked[c] += 1
 
     # times at the main path's shapes: the first encode of each bucket is
     # (ranks * W, Ls) = (16, 131072); decode-reduce gets (8, 2, ...) wire
@@ -552,13 +598,38 @@ def kernel_phase(torch, kcodec, ref, dev):
             "ms": time_ms(torch, lambda: kdec(comp, L), flush),
             "plain_ms": time_ms(torch, lambda: pdec(comp, L), flush),
             "bound_ms": dec_b, "bound_by": dec_by, "library_ms": None,
-            "bytes": dec_bytes,
+            "bytes": dec_bytes, "cases_checked": checked[c],
             "shape": list(comp["q"].shape)}
+        if c == "fp8":
+            comp_fp8 = comp
+    floor = event_floor_ms(torch, dev, flush)
     rec = records["int8_decode_reduce"]
     rec["kernel_cupti_ms"] = cupti_ms(
         torch, lambda: kcodec.int8_decode_reduce(comp_int8, L), flush,
         "int8_decode_reduce")
-    rec["event_floor_ms"] = event_floor_ms(torch, dev, flush)
+    rec["event_floor_ms"] = floor
+    rec = records["fp8_decode_reduce"]
+    rec["cuda_kernel"] = ("fp8_decode_reduce<W_T, VEC_IN, VEC_OUT> (8 "
+                          "outputs a thread, all peers' loads in flight; "
+                          "8-byte wire reads where q and Lq allow, single "
+                          "bytes elsewhere)")
+    rec["kernel_cupti_ms"] = cupti_ms(
+        torch, lambda: kcodec.fp8_decode_reduce(comp_fp8, L), flush,
+        "fp8_decode_reduce")
+    rec["event_floor_ms"] = floor
+    # the compressed reduce_scatter's wire, (8, 2, 524288)
+    Lrs = 4 * L
+    comp, _ = ref.fp8_encode_residual(
+        torch.randn((R, W, Lrs), generator=gen, device=dev))
+    rec["reduce_scatter_shape"] = {
+        "shape": list(comp["q"].shape),
+        "ms": time_ms(torch, lambda: kcodec.fp8_decode_reduce(comp, Lrs),
+                      flush),
+        "kernel_cupti_ms": cupti_ms(
+            torch, lambda: kcodec.fp8_decode_reduce(comp, Lrs), flush,
+            "fp8_decode_reduce"),
+        "bound_ms": bound_ms(R * W * Lrs + 4 * R * W + 4 * R * Lrs,
+                             DECODE_OPS_PER_ELEM_PEER * R * W * Lrs)[0]}
     return records
 
 
@@ -764,12 +835,23 @@ def reduce_scatter_run(torch, comm, kcodec, kstaging, grads, slices, codec,
     seconds = time.perf_counter() - t0
     launches = {k: v for k, v in {**kcodec.launches,
                                   **kstaging.launches}.items() if v}
-    want = {CODEC_KERNELS[codec][1]: len(slices)}
+    decode = CODEC_KERNELS[codec][1]
+    want = {decode: len(slices)}
     if launches != want:
         raise AssertionError(f"{codec} reduce_scatter: kernel launches "
                              f"{launches}, expected {want}")
+
+    def profiled():
+        for s, n in slices[:PROFILED_BUCKETS]:
+            comm.reduce_scatter(grads[:, s:s + n], algo="pip_mcoll",
+                                codec=codec)
+    profile = profile_call(torch, profiled, (decode,))
     return {"codec": codec, "buckets": len(slices), "seconds": seconds,
-            "worst_err_over_tol": worst, "launches": launches}
+            "worst_err_over_tol": worst, "launches": launches,
+            "profile": {"buckets": len(slices[:PROFILED_BUCKETS]),
+                        **{k: profile.get(k) for k in (
+                            "device_busy_ms", "step_ms", "idle_share",
+                            "per_launch_ms")}}}
 
 
 def slice_phase(torch, dev, cfg, kcodec, kstaging):
@@ -1126,27 +1208,37 @@ def _check_rwkv(torch, what, got, want):
 
 def rwkv_phase(torch, krwkv, ref, dev):
     """The WKV6 kernels against their plain version at the serving shapes,
-    through the wrapper's dispatch (the recurrent kernel below one chunk of
+    through the wrapper's dispatch (the tick kernel below one chunk of
     steps, the chunked one from there): the decode tick (B 8, T 1) and
     prefills (B 1, T 1024 and 1000) of full-width rwkv6-1.6b (H 32, hd 64),
-    and the reduced config (H 4, hd 32, T 7 and 130); bf16 and fp32 r/k/v,
-    s0 zero and random, and the final state written over s0 (it must equal
-    the separate output). Then the chunked kernel alone at one chunk -1, +0
-    and +1 steps (H 32, hd 64) and at T 130 (H 4, hd 20), with a tenth of
-    the decays exactly 0 or subnormal, its final state also over s0. Then
-    the times at the decode and the 1024-step prefill shapes: the recurrent
-    kernel at both (the prefill for comparison: the dispatch takes the
-    chunked one there), the chunked one at the prefill with its two passes
-    profiled, each plain version, and the bounds. Returns the two records
-    (without launches)."""
+    the reduced config (H 4, hd 32, T 7 and 130), and the tick kernel at hd
+    20 and 128, 1 and 9-12 steps; bf16 and fp32 r/k/v, s0 zero and random,
+    and the final state written over s0 (it must equal the separate
+    output). Then the tick kernel at the decode tick and at 7 steps, hd 20,
+    and the chunked kernel alone at one chunk -1, +0 and +1 steps (H 32, hd
+    64) and at T 130 (H 4, hd 20), with a tenth of the decays exactly 0 or
+    subnormal, the final state also over s0; the recurrent kernel (which
+    only ``rwkv6_wkv_recurrent`` reaches) at the tick and at T 130. Then
+    the times at the decode and the 1024-step prefill shapes: the tick
+    kernel at the decode (events and CUPTI), the recurrent kernel at both
+    (CUPTI at the decode too; the prefill for comparison: the dispatch
+    takes the chunked one there), the chunked one at the prefill with its
+    two passes profiled, each plain version, and the bounds. Returns the
+    two records (without launches)."""
     gen = torch.Generator(device=dev).manual_seed(SEED + 4)
-    worst = {"rwkv6_wkv": 0.0, "rwkv6_wkv_chunked": 0.0}
-    checked = dict.fromkeys(worst, 0)
+    keys = ("rwkv6_wkv", "rwkv6_wkv_recurrent", "rwkv6_wkv_chunked")
+    worst = dict.fromkeys(keys, 0.0)
+    checked = dict.fromkeys(keys, 0)
 
     def check(what, launch, ops, key):
         want = ref.rwkv6_wkv(*ops)
+        before = dict(krwkv.launches)
         got = launch(*ops)
         torch.cuda.synchronize()
+        if krwkv.launches != {**before, key: before[key] + 1}:
+            raise AssertionError(f"rwkv6_wkv {what}: launches "
+                                 f"{krwkv.launches}, expected one more "
+                                 f"{key} than {before}")
         worst[key] = max(worst[key], _check_rwkv(torch, what, got, want))
         s0 = ops[-1]
         y2, s2 = launch(*ops[:-1], s0, state_out=s0)
@@ -1159,7 +1251,9 @@ def rwkv_phase(torch, krwkv, ref, dev):
 
     for B, T, H, hd in ((SERVE_BATCH, 1, 32, 64), (1, 1024, 32, 64),
                         (1, 1000, 32, 64), (SERVE_BATCH, 7, 4, 32),
-                        (2, 130, 4, 32)):
+                        (2, 130, 4, 32), (SERVE_BATCH, 1, 4, 20),
+                        (2, 9, 4, 20), (SERVE_BATCH, 1, 2, 128),
+                        (1, 12, 2, 128)):
         key = "rwkv6_wkv_chunked" if T >= krwkv.CHUNKED_FROM \
             else "rwkv6_wkv"
         for dtype in (torch.bfloat16, torch.float32):
@@ -1170,8 +1264,14 @@ def rwkv_phase(torch, krwkv, ref, dev):
                       f"{'zero' if zero_state else 'random'}",
                       krwkv.rwkv6_wkv, ops, key)
     tiny = torch.tensor([1e-39, 1e-42, 1e-45], device=dev)
-    for B, T, H, hd in ((1, krwkv.CHUNK - 1, 32, 64), (1, krwkv.CHUNK, 32, 64),
-                        (1, krwkv.CHUNK + 1, 32, 64), (2, 130, 4, 20)):
+    for B, T, H, hd, key in (
+            (SERVE_BATCH, 1, 32, 64, "rwkv6_wkv"), (2, 7, 4, 20, "rwkv6_wkv"),
+            (1, krwkv.CHUNK - 1, 32, 64, "rwkv6_wkv_chunked"),
+            (1, krwkv.CHUNK, 32, 64, "rwkv6_wkv_chunked"),
+            (1, krwkv.CHUNK + 1, 32, 64, "rwkv6_wkv_chunked"),
+            (2, 130, 4, 20, "rwkv6_wkv_chunked")):
+        launch = krwkv.rwkv6_wkv_chunked if key == "rwkv6_wkv_chunked" \
+            else krwkv.rwkv6_wkv
         for decays in ("zeros", "subnormal"):
             for dtype in (torch.bfloat16, torch.float32):
                 ops = _rwkv_inputs(torch, B, T, H, hd, dtype, False, gen,
@@ -1180,9 +1280,13 @@ def rwkv_phase(torch, krwkv, ref, dev):
                 pick = torch.rand(w.shape, generator=gen, device=dev) < 0.1
                 w[pick] = 0.0 if decays == "zeros" else tiny[torch.randint(
                     0, 3, (int(pick.sum()),), generator=gen, device=dev)]
-                check(f"chunked B={B} T={T} H={H} hd={hd} {dtype} decays "
-                      f"{decays}", krwkv.rwkv6_wkv_chunked, ops,
-                      "rwkv6_wkv_chunked")
+                check(f"{key} B={B} T={T} H={H} hd={hd} {dtype} decays "
+                      f"{decays}", launch, ops, key)
+    for B, T, H, hd in ((SERVE_BATCH, 1, 32, 64), (2, 130, 4, 32)):
+        for dtype in (torch.bfloat16, torch.float32):
+            ops = _rwkv_inputs(torch, B, T, H, hd, dtype, False, gen, dev)
+            check(f"recurrent B={B} T={T} H={H} hd={hd} {dtype}",
+                  krwkv.rwkv6_wkv_recurrent, ops, "rwkv6_wkv_recurrent")
 
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     timed = {}
@@ -1204,6 +1308,17 @@ def rwkv_phase(torch, krwkv, ref, dev):
             "plain_timing": "device time" if T == 1 else
                             "events around the call, host dispatch "
                             "included"}
+        if tag == "decode":
+            timed[tag].update({
+                "tick_ms": time_ms(torch, lambda: krwkv.rwkv6_wkv(*ops),
+                                   flush),
+                "tick_cupti_ms": cupti_ms(
+                    torch, lambda: krwkv.rwkv6_wkv(*ops), flush,
+                    TICK_KERNEL),
+                "recurrent_cupti_ms": cupti_ms(
+                    torch, lambda: krwkv.rwkv6_wkv_recurrent(*ops), flush,
+                    RECURRENT_KERNEL),
+                "event_floor_ms": event_floor_ms(torch, dev, flush)})
         if tag == "prefill":
             timed[tag].update({
                 "chunked_ms": time_ms(
@@ -1223,16 +1338,27 @@ def rwkv_phase(torch, krwkv, ref, dev):
     return {
         "rwkv6_wkv": {
             "name": "rwkv6_wkv", **common,
-            "cuda_kernel": "rwkv6_wkv_kernel<T, HD> (recurrent; calls of "
-                           f"fewer than {krwkv.CHUNKED_FROM} steps)",
+            "cuda_kernel": "rwkv6_wkv_tick_kernel<T, HD, VEC, EXACT, ONE> "
+                           "(a (b, h) state over 4 * HD threads, whole-row "
+                           "warp loads; calls of fewer than "
+                           f"{krwkv.CHUNKED_FROM} steps)",
             "max_abs_err": worst["rwkv6_wkv"],
             "cases_checked": checked["rwkv6_wkv"],
-            "ms": dec["recurrent_ms"], "plain_ms": dec["plain_ms"],
+            "ms": dec["tick_ms"], "kernel_cupti_ms": dec["tick_cupti_ms"],
+            "event_floor_ms": dec["event_floor_ms"],
+            "plain_ms": dec["plain_ms"],
             "bound_ms": dec["bound_ms"], "bound_by": dec["bound_by"],
             "bytes": dec["bytes"], "shape": dec["shape"],
-            "prefill_for_comparison": {
-                "shape": pre["shape"], "ms": pre["recurrent_ms"],
-                "bound_ms": pre["bound_ms"]}},
+            "recurrent": {
+                "cuda_kernel": "rwkv6_wkv_kernel<T, HD> (rwkv6_wkv_"
+                               "recurrent only)",
+                "max_abs_err": worst["rwkv6_wkv_recurrent"],
+                "cases_checked": checked["rwkv6_wkv_recurrent"],
+                "ms": dec["recurrent_ms"],
+                "kernel_cupti_ms": dec["recurrent_cupti_ms"],
+                "prefill_for_comparison": {
+                    "shape": pre["shape"], "ms": pre["recurrent_ms"],
+                    "bound_ms": pre["bound_ms"]}}},
         "rwkv6_wkv_chunked": {
             "name": "rwkv6_wkv_chunked", **common,
             "cuda_kernel": " + ".join(CHUNKED_PASSES) + " (chunks of "
@@ -1912,7 +2038,8 @@ def rwkv_serve_phase(torch, dev, cfg, krwkv, ref, kmods):
                                  f"{worst} from the plain-version path, "
                                  f"over {TEACHER_TOL} * {top}")
         profile = profile_call(torch, eng._decode_tick,
-                               ("rwkv6_wkv",) + STAGING_KERNELS)
+                               (TICK_KERNEL, RECURRENT_KERNEL)
+                               + STAGING_KERNELS)
     H, hd = cfg.d_model // cfg.rwkv_head_dim, cfg.rwkv_head_dim
     record.update({
         "rwkv_launches": launches["rwkv6_wkv"],
@@ -2132,7 +2259,7 @@ def kernel_lines(kernels):
     its launches counted apart in the slice phase, where the compressed
     allreduce encodes without feedback), its residual encode and its
     decode-reduce, then the staging, flash-decode, scan and WKV6 kernels
-    (the recurrent one for the tick, the chunked one for the prefill)."""
+    (the tick kernel for the tick, the chunked one for the prefill)."""
     out = []
     for c, encode in (("int8", "int8_block_encode"),
                       ("int4", "int4_block_encode"), ("fp8", "fp8_encode")):
@@ -2200,9 +2327,11 @@ def main() -> int:
           f"{kernels['flash_decode']['cases_checked']} cases "
           f"({time.perf_counter() - t0:.3f} s so far)")
     kernels.update(rwkv_phase(torch, krwkv, ref, dev))
-    print(f"kernel phase: rwkv6_wkv and rwkv6_wkv_chunked within "
+    print(f"kernel phase: rwkv6_wkv (tick kernel), its recurrent kernel "
+          f"and rwkv6_wkv_chunked within "
           f"{RWKV_TOL} * (1 + |plain|) of their plain version in "
-          f"{kernels['rwkv6_wkv']['cases_checked']} and "
+          f"{kernels['rwkv6_wkv']['cases_checked']}, "
+          f"{kernels['rwkv6_wkv']['recurrent']['cases_checked']} and "
           f"{kernels['rwkv6_wkv_chunked']['cases_checked']} cases "
           f"({time.perf_counter() - t0:.3f} s so far)")
     kernels["mamba_scan"] = mamba_phase(torch, kmamba, ref, dev, sm_mhz)
@@ -2237,6 +2366,9 @@ def main() -> int:
     for run in summary["reduce_scatter"]:
         dec = CODEC_KERNELS[run["codec"]][1]
         kernels[dec]["reduce_scatter_launches"] = run["launches"][dec]
+        kernels[dec]["reduce_scatter_path_ms"] = (
+            run["profile"].get("per_launch_ms") or {}).get(
+                dec, "not measured")
     print(json.dumps({"slice": summary}))
     print(f"slice phase done ({time.perf_counter() - t0:.3f} s so far)")
     coll = collectives_phase(torch, dev, kstaging)
@@ -2267,7 +2399,7 @@ def main() -> int:
     rec = kernels["rwkv6_wkv"]
     rec["launches"] = serve["rwkv_launches"]
     rec["path_ms"] = serve["profile"].get("per_launch_ms", {}).get(
-        "rwkv6_wkv", "not measured")
+        TICK_KERNEL, "not measured")
     rec["path_bound_ms"] = serve["rwkv_path_bound_ms"]
     rec = kernels["rwkv6_wkv_chunked"]
     rec["launches"] = serve["rwkv_chunked_launches"]

@@ -55,6 +55,8 @@ SIGNATURES = {
     "rwkv6_wkv": {
         "rwkv6_wkv": (_INT, [_P, _P, _P, _P, _P, _P, _P, _P, _INT, _INT,
                              _INT, _INT, _INT, _P]),
+        "rwkv6_wkv_tick": (_INT, [_P, _P, _P, _P, _P, _P, _P, _P, _INT,
+                                  _INT, _INT, _INT, _INT, _P]),
         "rwkv6_wkv_chunked": (_INT, [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                                      _INT, _INT, _INT, _INT, _INT, _P]),
         "rwkv6_wkv_error_string": (ctypes.c_char_p, [_INT]),

@@ -247,7 +247,9 @@ def fp8_encode_residual(x: torch.Tensor):
 def fp8_decode_reduce(comp, length: int) -> torch.Tensor:
     """Sum the ``(*B, W, Lq)`` e4m3 wire slices times their ``(*B, W)``
     scales over W -> ``(*B, length)`` f32 (at most one leading batch
-    dim)."""
+    dim). The kernel takes the wire at any address and any ``Lq``: it
+    reads 8-byte vectors where ``q``'s address and ``Lq`` are multiples of
+    8, single bytes elsewhere."""
     q, scale = comp["q"], comp["scale"]
     if not _on_card(q, scale):
         return ref.fp8_decode_reduce(comp, length)

@@ -24,8 +24,21 @@
 // Both passes form c = x + err the same way (one __fadd_rn), so the second
 // pass reads the input again (4 or 8 bytes per element) rather than keeping
 // c anywhere: the amax needs the whole slice before any element can be
-// scaled. Decode has no cross-block carry: one thread owns one output
-// element and loops over the W peers itself, in order, from 0.0f.
+// scaled.
+//
+// Decode has no cross-block carry. At 1 byte read per peer and 4 written
+// per element, one element a thread (a byte load and a scale load per
+// peer, each peer's load waiting on the previous multiply-add) is held by
+// instructions and latency, not bytes. So one thread makes DEC_V = 8
+// consecutive outputs of one row: per peer one 8-byte vector of the wire
+// and one scale (the scale is the whole row's), the loads of all W peers
+// issued before the first multiply-add (W 1, 2, 4, 8 unrolled; other W in
+// unrolled groups of DEC_GROUP peers), the bytes decoded two at a time,
+// and two float4 stores. The wire's rows need not be 8-byte aligned (the
+// last gradient bucket's rows are 7,800 bytes): where q's address or Lq
+// does not allow the vector, the same kernel reads each thread's 8 bytes
+// one by one (the element path), still all peers in flight. Each element
+// sums its peers in order from 0.0f: no atomics, no second pass.
 //
 // Rounding contract (kept bitwise with kernels/ref.py and with the
 // reference's jitted XLA): scale = max(amax * float32(1/448), 1e-30), v =
@@ -117,24 +130,131 @@ fp8_encode(const float* __restrict__ x, const float* __restrict__ err,
   res[i] = __fmaf_rn(-fp8_to_float(f8), sc, c);
 }
 
-// One thread per output element of (R, L): out[r, e] = sum over w of
-// e4m3(q[r, w, e]) * scale[r, w], in order w = 0..W-1 from 0.0f. q is
-// (R, W, Lq) uint8 with Lq >= L, scale (R, W).
-__global__ void __launch_bounds__(THREADS)
+constexpr int DEC_V = 8;         // outputs per thread: 8 wire bytes a peer
+constexpr int DEC_THREADS = 128;
+constexpr int DEC_GROUP = 8;     // peers in flight at once for other W
+
+// acc[k] += e4m3(byte k of b) * s, k < 8: the bytes decoded in pairs by
+// one cvt.rn.f16x2.e4m3x2 each (the low byte to the low half), then to
+// float, both exact.
+__device__ __forceinline__ void add_fp8x8(uint2 b, float s,
+                                          float (&acc)[DEC_V]) {
+  const unsigned words[2] = {b.x, b.y};
+#pragma unroll
+  for (int p = 0; p < DEC_V / 2; ++p) {
+    const __nv_fp8x2_storage_t two = static_cast<__nv_fp8x2_storage_t>(
+        words[p >> 1] >> (16 * (p & 1)));
+    const float2 f = __half22float2(
+        __half2(__nv_cvt_fp8x2_to_halfraw2(two, __NV_E4M3)));
+    acc[2 * p] = __fmaf_rn(f.x, s, acc[2 * p]);
+    acc[2 * p + 1] = __fmaf_rn(f.y, s, acc[2 * p + 1]);
+  }
+}
+
+// A peer's 8 wire bytes at q: one 8-byte load where VEC_IN (q 8-byte
+// aligned, 8 bytes inside the row), else its first n <= 8 bytes one by one
+// (the others 0).
+template <bool VEC_IN>
+__device__ __forceinline__ uint2 load8(const uint8_t* __restrict__ q,
+                                       int n) {
+  if (VEC_IN) return __ldg(reinterpret_cast<const uint2*>(q));
+  unsigned words[2] = {0u, 0u};
+#pragma unroll
+  for (int k = 0; k < DEC_V; ++k)
+    if (k < n)
+      words[k >> 2] |= static_cast<unsigned>(__ldg(q + k)) << (8 * (k & 3));
+  return make_uint2(words[0], words[1]);
+}
+
+// Adds `count` (<= G) peers to acc, in order: their wire bytes (q + j *
+// qstep) and scales (scale[j]) are all loaded first.
+template <int G, bool VEC_IN>
+__device__ __forceinline__ void add_peers(const uint8_t* __restrict__ q,
+                                          const float* __restrict__ scale,
+                                          long long qstep, int count, int n,
+                                          float (&acc)[DEC_V]) {
+  uint2 b[G];
+  float s[G];
+#pragma unroll
+  for (int j = 0; j < G; ++j) {
+    if (j < count) {
+      b[j] = load8<VEC_IN>(q + j * qstep, n);
+      s[j] = __ldg(scale + j);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < G; ++j)
+    if (j < count) add_fp8x8(b[j], s[j], acc);
+}
+
+// out[r, e] = sum over w of e4m3(q[r, w, e]) * scale[r, w], in order w =
+// 0..W-1 from 0.0f. q is (R, W, Lq) uint8 with Lq >= L, scale (R, W), out
+// (R, L). grid (ceil(L / (DEC_V * DEC_THREADS)), min(R, 65535)); thread j
+// of a row makes elements DEC_V * j onwards. W_T is W where it is 1, 2, 4
+// or 8, else 0 (groups of DEC_GROUP). VEC_IN: q 8-byte aligned and Lq % 8
+// == 0, so every thread's 8 bytes of a peer are one aligned vector inside
+// its row (else the element path: byte loads, all peers still in flight).
+// VEC_OUT: L % 4 == 0 and out 16-byte aligned, so every row of out starts
+// 16-byte aligned (float4 stores; scalar ones for the last vector of a row,
+// which writes only e < L).
+template <int W_T, bool VEC_IN, bool VEC_OUT>
+__global__ void __launch_bounds__(DEC_THREADS)
 fp8_decode_reduce(const uint8_t* __restrict__ q,
                   const float* __restrict__ scale, float* __restrict__ out,
-                  long long W, long long Lq, long long L, long long total) {
-  const long long t = static_cast<long long>(blockIdx.x) * blockDim.x
-                      + threadIdx.x;
-  if (t >= total) return;
-  const long long r = t / L;
-  const long long e = t - r * L;
-  float acc = 0.f;
-  for (long long w = 0; w < W; ++w) {
-    const long long rw = r * W + w;
-    acc = __fmaf_rn(fp8_to_float(q[rw * Lq + e]), scale[rw], acc);
+                  int W, long long Lq, long long L, long long R) {
+  const long long e0 =
+      (static_cast<long long>(blockIdx.x) * DEC_THREADS + threadIdx.x) *
+      DEC_V;
+  if (e0 >= L) return;
+  const int n = static_cast<int>(min(static_cast<long long>(DEC_V), L - e0));
+  for (long long r = blockIdx.y; r < R; r += gridDim.y) {
+    const long long rw = r * W;
+    const uint8_t* qp = q + rw * Lq + e0;
+    const float* sp = scale + rw;
+    float acc[DEC_V];
+#pragma unroll
+    for (int k = 0; k < DEC_V; ++k) acc[k] = 0.f;
+    if constexpr (W_T > 0) {
+      add_peers<W_T, VEC_IN>(qp, sp, Lq, W_T, n, acc);
+    } else {
+      for (int w0 = 0; w0 < W; w0 += DEC_GROUP)
+        add_peers<DEC_GROUP, VEC_IN>(qp + w0 * Lq, sp + w0, Lq,
+                                     min(DEC_GROUP, W - w0), n, acc);
+    }
+    float* o = out + r * L + e0;
+    if (VEC_OUT && n == DEC_V) {
+#pragma unroll
+      for (int k = 0; k < DEC_V; k += 4)
+        *reinterpret_cast<float4*>(o + k) =
+            make_float4(acc[k], acc[k + 1], acc[k + 2], acc[k + 3]);
+    } else {
+#pragma unroll
+      for (int k = 0; k < DEC_V; ++k)
+        if (k < n) o[k] = acc[k];
+    }
   }
-  out[t] = acc;
+}
+
+template <int W_T, bool VEC_IN>
+void launch_decode_out(dim3 grid, cudaStream_t st, const uint8_t* q,
+                       const float* scale, float* out, int W, long long Lq,
+                       long long L, long long R) {
+  if (L % 4 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0)
+    fp8_decode_reduce<W_T, VEC_IN, true><<<grid, DEC_THREADS, 0, st>>>(
+        q, scale, out, W, Lq, L, R);
+  else
+    fp8_decode_reduce<W_T, VEC_IN, false><<<grid, DEC_THREADS, 0, st>>>(
+        q, scale, out, W, Lq, L, R);
+}
+
+template <int W_T>
+void launch_decode(dim3 grid, cudaStream_t st, const uint8_t* q,
+                   const float* scale, float* out, int W, long long Lq,
+                   long long L, long long R) {
+  if (reinterpret_cast<uintptr_t>(q) % 8 == 0 && Lq % 8 == 0)
+    launch_decode_out<W_T, true>(grid, st, q, scale, out, W, Lq, L, R);
+  else
+    launch_decode_out<W_T, false>(grid, st, q, scale, out, W, Lq, L, R);
 }
 
 int grid_of(long long total, unsigned* blocks) {
@@ -184,18 +304,26 @@ int codec_fp8_encode(const float* x, const float* err, unsigned int* amax,
 }
 
 // Launch the decode-reduce on `stream`: R rank batches of W peers, wire
-// rows of Lq bytes, L output columns (L <= Lq).
+// rows of Lq bytes, L output columns (L <= Lq); q at any address.
 int codec_fp8_decode_reduce(const uint8_t* q, const float* scale, float* out,
                             long long R, long long W, long long Lq,
                             long long L, void* stream) {
-  const long long total = R * L;
-  if (total <= 0) return 0;
-  unsigned blocks = 0;
-  const int rc = grid_of(total, &blocks);
-  if (rc) return rc;
-  fp8_decode_reduce<<<blocks, THREADS, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-      q, scale, out, W, Lq, L, total);
+  if (R <= 0 || L <= 0) return 0;
+  const long long per_cta = static_cast<long long>(DEC_V) * DEC_THREADS;
+  const long long blocks = (L + per_cta - 1) / per_cta;
+  if (W < 0 || W > 2147483647LL || Lq < L || blocks > 2147483647LL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(static_cast<unsigned>(blocks),
+                  static_cast<unsigned>(R < 65535 ? R : 65535));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int w = static_cast<int>(W);
+  switch (w) {
+    case 1: launch_decode<1>(grid, st, q, scale, out, w, Lq, L, R); break;
+    case 2: launch_decode<2>(grid, st, q, scale, out, w, Lq, L, R); break;
+    case 4: launch_decode<4>(grid, st, q, scale, out, w, Lq, L, R); break;
+    case 8: launch_decode<8>(grid, st, q, scale, out, w, Lq, L, R); break;
+    default: launch_decode<0>(grid, st, q, scale, out, w, Lq, L, R);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -2,8 +2,8 @@
 // the time-mixing core of every rwkv layer, on prefill and on every decode
 // tick of the serving engine.
 //
-// rwkv6_wkv and rwkv6_wkv_chunked replace the Pallas kernel
-// repro/kernels/rwkv6_wkv.py rwkv6_wkv (its pl.pallas_call at
+// rwkv6_wkv_tick, rwkv6_wkv and rwkv6_wkv_chunked replace the Pallas
+// kernel repro/kernels/rwkv6_wkv.py rwkv6_wkv (its pl.pallas_call at
 // rwkv6_wkv.py:59, body _kernel at :21).
 //
 // What they compute (the Pallas body, step by step in fp32): per batch row b
@@ -20,10 +20,26 @@
 // flops per state element, below the card's ops-per-byte ridge: the memory
 // rate bounds it (0.0026 ms at B 8, H 32, hd 64). A long prefill (B 1, T
 // 1024) does 5*T*hd^2 flops per head on little data: the fp32 rate bounds
-// it (0.0101 ms). The wrapper (kernels/rwkv.py) takes the recurrent kernel
-// for calls of fewer than 16 steps and the chunked one from 16 steps on.
+// it (0.0101 ms). The wrapper (kernels/rwkv.py) takes the tick kernel for
+// calls of fewer than 16 steps and the chunked one from 16 steps on; the
+// recurrent kernel runs only when asked for by name.
 //
-// rwkv6_wkv, the recurrent kernel (the tick). One CTA per (b, h) and a
+// rwkv6_wkv_tick, the tick kernel (rwkv6_wkv_tick_kernel). The tick's 4
+// MiB of state must be in flight at once to come near the memory rate, so
+// a (b, h) state is spread over 4 * HD threads (256 at hd 64: 65,536 at
+// B 8, H 32), each holding 4 columns of hd / 16 rows as float4s, all
+// loaded before any use, each warp load reading whole rows; the state is
+// written with a streaming cache hint. No staging: a is worked
+// out by every warp for itself by shuffles, and y's row partials are
+// joined by shuffles within a warp and then across warps in one pass
+// through shared memory, behind the step's one barrier (after the state
+// update and, at the last step, its stores). On the H100 whole-row warp
+// loads ran faster than warps of 8 columns each reading a 32-byte sector
+// of 16 rows (which needed no barrier at all). It walks T steps with the
+// state in registers.
+//
+// rwkv6_wkv, the recurrent kernel (the first tick kernel, kept for
+// comparison at any T). One CTA per (b, h) and a
 // loop over time take the place of the TPU grid's sequential chunk axis:
 // thread j holds column j of S in registers for the whole walk, so s0 is
 // read and sT written once. The bonus term needs no work per state
@@ -202,6 +218,206 @@ int launch(const void* r, const void* k, const void* v, const float* w,
   else
     rwkv6_wkv_kernel<T, 128><<<grid, 128, 0, st>>>(rt, kt, vt, w, u, s0, y,
                                                    sT, steps, H, hd);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// The tick kernel (rwkv6_wkv_tick): calls of a few steps, the decode tick.
+// ---------------------------------------------------------------------------
+
+constexpr unsigned FULL = 0xffffffffu;
+
+// grid (H, B), 4 * HD threads: one CTA per (b, h) state, NW = HD / 8
+// warps. Warp w owns state rows [8w, 8w + 8); LPR = HD / 4 of its lanes
+// cover a row, 4 columns each (j0 = 4 (lane % LPR)), so one warp load
+// reads 32 / LPR whole rows, contiguous. Lane l holds the 4 columns of rows
+// i = 8w + q + R m (q = lane / LPR, R = 32 / LPR, m < RPT = HD / 16) in
+// registers across the steps, read and written as float4s (VEC: hd a
+// multiple of 4 and s0, sT 16-byte aligned; scalars otherwise), written
+// with a streaming cache hint (the state is not read again before the next
+// tick); lanes and rows past hd hold zeros and write nothing. EXACT: VEC
+// and hd == HD, so no lane or row is past hd and no access needs a
+// predicate; ONE (EXACT only): a single step, known when compiling, so the
+// step is straight-line code (the predicates and the runtime step loop
+// each slowed the rwkv6 tick on the H100).
+// Every state load is issued before the first use. Per step, in fp32:
+//   a   = sum_i (r_i u_i) k_i: lane l sums i = l + 32 m in order of m,
+//         then a butterfly over the warp's 32 lanes (xor 16, 8, 4, 2, 1)
+//   p   = sum_m r_i S_ij over the lane's rows in order of m, then a
+//         butterfly over the warp's row groups q (lane xor 16 .. LPR),
+//         written to shared memory by the lanes of q = 0
+//   S_ij = fma(w_i, S_ij, k_i v_j), stored at the last step
+//   one barrier; thread j < HD: y_j = fma(v_j, a, sum over warps w in
+//   order, from 0, of p_w,j)
+// A butterfly leaves the same sum, bit for bit, in every lane it joins.
+// The partials alternate between two buffers, so one barrier per step
+// orders them. Each thread reads its own state elements before it writes
+// them, so sT may be s0.
+template <typename T, int HD, bool VEC, bool EXACT, bool ONE>
+__global__ void __launch_bounds__(4 * HD)
+rwkv6_wkv_tick_kernel(const T* __restrict__ r, const T* __restrict__ k,
+                      const T* __restrict__ v, const float* __restrict__ w,
+                      const float* __restrict__ u, const float* s0,
+                      float* __restrict__ y, float* sT, int steps, int H,
+                      int hd) {
+  constexpr int NW = HD / 8;      // warps: 8 state rows each
+  constexpr int LPR = HD / 4;     // lanes per state row
+  constexpr int R = 32 / LPR;     // rows per warp load
+  constexpr int RPT = 8 / R;      // state rows per thread
+  constexpr int IPL = HD / 32;    // a's terms per lane
+  __shared__ __align__(16) float part[2][NW][HD];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int q = lane / LPR;
+  const int j0 = 4 * (lane % LPR);
+  const int h = blockIdx.x;
+  const long long b = blockIdx.y;
+  const long long state0 = (b * H + h) * static_cast<long long>(hd) * hd;
+
+  float S[RPT][4];
+#pragma unroll
+  for (int m = 0; m < RPT; ++m) {
+    const int i = 8 * warp + q + R * m;
+    const float* row = s0 + state0 + static_cast<long long>(i) * hd + j0;
+    if (VEC) {
+      float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (EXACT || (i < hd && j0 < hd))
+        s = *reinterpret_cast<const float4*>(row);
+      S[m][0] = s.x;
+      S[m][1] = s.y;
+      S[m][2] = s.z;
+      S[m][3] = s.w;
+    } else {
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        S[m][c] = (i < hd && j0 + c < hd) ? row[c] : 0.f;
+    }
+  }
+  float ul[IPL];
+#pragma unroll
+  for (int m = 0; m < IPL; ++m) {
+    const int i = lane + 32 * m;
+    ul[m] = EXACT || i < hd ? u[static_cast<long long>(h) * hd + i] : 0.f;
+  }
+
+  const long long row_stride = static_cast<long long>(H) * hd;  // one step
+  const long long head = b * steps * row_stride
+                         + static_cast<long long>(h) * hd;
+  const int n = ONE ? 1 : steps;
+  for (int t = 0; t < n; ++t) {
+    const long long at = head + t * row_stride;
+    float ri[RPT], ki[RPT], wi[RPT], vj[4], ra[IPL], ka[IPL];
+#pragma unroll
+    for (int m = 0; m < RPT; ++m) {
+      const int i = 8 * warp + q + R * m;
+      const bool live = EXACT || i < hd;
+      ri[m] = live ? to_f32(r[at + i]) : 0.f;
+      ki[m] = live ? to_f32(k[at + i]) : 0.f;
+      wi[m] = live ? w[at + i] : 0.f;
+    }
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      vj[c] = EXACT || j0 + c < hd ? to_f32(v[at + j0 + c]) : 0.f;
+#pragma unroll
+    for (int m = 0; m < IPL; ++m) {
+      const int i = lane + 32 * m;
+      const bool live = EXACT || i < hd;
+      ra[m] = live ? to_f32(r[at + i]) : 0.f;
+      ka[m] = live ? to_f32(k[at + i]) : 0.f;
+    }
+
+    float a = 0.f;
+#pragma unroll
+    for (int m = 0; m < IPL; ++m)
+      a = __fmaf_rn(__fmul_rn(ra[m], ul[m]), ka[m], a);
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      a = __fadd_rn(a, __shfl_xor_sync(FULL, a, o));
+
+    float p[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int m = 0; m < RPT; ++m)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) p[c] = __fmaf_rn(ri[m], S[m][c], p[c]);
+#pragma unroll
+    for (int m = 0; m < RPT; ++m)
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        S[m][c] = __fmaf_rn(wi[m], S[m][c], __fmul_rn(ki[m], vj[c]));
+    if (t == n - 1) {
+#pragma unroll
+      for (int m = 0; m < RPT; ++m) {
+        const int i = 8 * warp + q + R * m;
+        if (!EXACT && i >= hd) continue;
+        float* row = sT + state0 + static_cast<long long>(i) * hd + j0;
+        if (VEC) {
+          if (EXACT || j0 < hd)
+            __stcs(reinterpret_cast<float4*>(row),
+                   make_float4(S[m][0], S[m][1], S[m][2], S[m][3]));
+        } else {
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            if (j0 + c < hd) __stcs(row + c, S[m][c]);
+        }
+      }
+    }
+#pragma unroll
+    for (int o = 16; o >= LPR; o >>= 1)
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        p[c] = __fadd_rn(p[c], __shfl_xor_sync(FULL, p[c], o));
+    float* pw = part[t & 1][warp];
+    if (q == 0)
+      *reinterpret_cast<float4*>(pw + j0) = make_float4(p[0], p[1], p[2],
+                                                        p[3]);
+    __syncthreads();
+    if (threadIdx.x < (EXACT ? HD : hd)) {
+      const int j = threadIdx.x;
+      float sum = 0.f;
+#pragma unroll
+      for (int x = 0; x < NW; ++x) sum = __fadd_rn(sum, part[t & 1][x][j]);
+      y[at + j] = __fmaf_rn(to_f32(v[at + j]), a, sum);
+    }
+  }
+}
+
+template <typename T, int HD>
+void launch_tick_hd(const T* r, const T* k, const T* v, const float* w,
+                    const float* u, const float* s0, float* y, float* sT,
+                    int B, int steps, int H, int hd, bool vec,
+                    cudaStream_t st) {
+  const dim3 grid(H, B);
+  if (vec && hd == HD && steps == 1)
+    rwkv6_wkv_tick_kernel<T, HD, true, true, true><<<grid, 4 * HD, 0, st>>>(
+        r, k, v, w, u, s0, y, sT, steps, H, hd);
+  else if (vec && hd == HD)
+    rwkv6_wkv_tick_kernel<T, HD, true, true, false><<<grid, 4 * HD, 0, st>>>(
+        r, k, v, w, u, s0, y, sT, steps, H, hd);
+  else if (vec)
+    rwkv6_wkv_tick_kernel<T, HD, true, false, false><<<grid, 4 * HD, 0, st>>>(
+        r, k, v, w, u, s0, y, sT, steps, H, hd);
+  else
+    rwkv6_wkv_tick_kernel<T, HD, false, false, false>
+        <<<grid, 4 * HD, 0, st>>>(r, k, v, w, u, s0, y, sT, steps, H, hd);
+}
+
+template <typename T>
+int launch_tick(const void* r, const void* k, const void* v, const float* w,
+                const float* u, const float* s0, float* y, float* sT, int B,
+                int steps, int H, int hd, cudaStream_t st) {
+  const T* rt = static_cast<const T*>(r);
+  const T* kt = static_cast<const T*>(k);
+  const T* vt = static_cast<const T*>(v);
+  const bool vec = hd % 4 == 0 && reinterpret_cast<uintptr_t>(s0) % 16 == 0
+                   && reinterpret_cast<uintptr_t>(sT) % 16 == 0;
+  if (hd <= 32)
+    launch_tick_hd<T, 32>(rt, kt, vt, w, u, s0, y, sT, B, steps, H, hd, vec,
+                          st);
+  else if (hd <= 64)
+    launch_tick_hd<T, 64>(rt, kt, vt, w, u, s0, y, sT, B, steps, H, hd, vec,
+                          st);
+  else
+    launch_tick_hd<T, 128>(rt, kt, vt, w, u, s0, y, sT, B, steps, H, hd,
+                           vec, st);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -654,6 +870,22 @@ int rwkv6_wkv(const void* r, const void* k, const void* v, const float* w,
   return bf16 ? launch<__nv_bfloat16>(r, k, v, w, u, s0, y, sT, B, T, H, hd,
                                       st)
               : launch<float>(r, k, v, w, u, s0, y, sT, B, T, H, hd, st);
+}
+
+// Launch rwkv6_wkv_tick on `stream`: the same operands, limits and result
+// as rwkv6_wkv, by the tick kernel (meant for calls of a few steps: it
+// walks the steps with 4 * HD threads per (b, h) state).
+int rwkv6_wkv_tick(const void* r, const void* k, const void* v,
+                   const float* w, const float* u, const float* s0, float* y,
+                   float* sT, int B, int T, int H, int hd, int bf16,
+                   void* stream) {
+  if (B <= 0 || T <= 0 || H <= 0 || B > 65535 || hd < 1 || hd > MAX_HD)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return bf16 ? launch_tick<__nv_bfloat16>(r, k, v, w, u, s0, y, sT, B, T, H,
+                                           hd, st)
+              : launch_tick<float>(r, k, v, w, u, s0, y, sT, B, T, H, hd,
+                                   st);
 }
 
 // Launch rwkv6_wkv_chunked on `stream`: the same operands and result as

@@ -10,9 +10,10 @@ The wrappers in ``kernels/codec.py``, ``kernels/staging.py``,
 ``kernels/attention.py``, ``kernels/rwkv.py`` and ``kernels/mamba.py`` use
 these only for tensors on the CPU; the tests hold them against the
 reference's Pallas kernels (interpret mode), and ``chip_smoke.py`` holds
-each kernel against them on the card. :func:`flash_decode_split` and
-:func:`rwkv6_wkv_chunked` and :func:`mamba_scan_lanes` write out the
-algorithms of the split-S flash-decode kernel, of the chunked WKV6 prefill
+each kernel against them on the card. :func:`flash_decode_split`,
+:func:`rwkv6_wkv_chunked`, :func:`rwkv6_wkv_tick_lanes` and
+:func:`mamba_scan_lanes` write out the algorithms of the split-S
+flash-decode kernel, of the chunked WKV6 prefill kernel, of the WKV6 tick
 kernel and of the lane-split scan kernel in plain PyTorch, for the tests;
 no main path calls them.
 
@@ -321,6 +322,65 @@ def rwkv6_wkv_chunked(r, k, v, w, u, s0, chunk: int = 16):
         S = (D[:, :, -1] * wc[:, :, -1])[..., None] * S \
             + torch.einsum("bhsi,bhsj->bhij", kc * E, vc)
     return y.transpose(1, 2), S
+
+
+def rwkv6_wkv_tick_lanes(r, k, v, w, u, s0):
+    """:func:`rwkv6_wkv` in the tick kernel's order of operations
+    (``rwkv6_wkv.cu``, ``rwkv6_wkv_tick_kernel``): hd padded with zeros to
+    ``HD`` (32, 64 or 128), ``NW = HD / 8`` warps of 8 state rows, ``R =
+    128 / HD`` rows per warp load; per (b, head) and step, in fp32,
+
+        a   = lanes l < 32 each sum (r_i * u_i) * k_i over i = l + 32 m by
+              fused multiply-adds in order of m, from 0; then for o = 16,
+              8, 4, 2, 1: p_l = p_l + p_(l xor o); a = p_0
+        p   = in warp x, row group g < R sums r_i * S_ij over i = 8 x + g
+              + R m by fused multiply-adds in order of m, from 0; then for
+              o = R / 2, ..., 1: p_g = p_g + p_(g xor o); p_x = p_0
+        y_j = fma(v_j, a, s) with s = 0 + p_0 + p_1 + ... + p_(NW-1)
+        S_ij = fma(w_i, S_ij, k_i * v_j)
+
+    Same operands and results as :func:`rwkv6_wkv`, which the wrapper's CPU
+    path keeps; this mirror is for the tests."""
+    B, T, H, hd = r.shape
+    HD = 32 if hd <= 32 else 64 if hd <= 64 else 128
+    NW, R = HD // 8, 128 // HD
+    pad = HD - hd
+    r, k, v, w = (torch.nn.functional.pad(t.float(), (0, pad))
+                  for t in (r, k, v, w))
+    u = torch.nn.functional.pad(u.float(), (0, pad))
+    S = torch.nn.functional.pad(s0.float(), (0, pad, 0, pad))
+    lanes = torch.arange(32, device=r.device)
+    groups = torch.arange(R, device=r.device)
+    y = r.new_empty((B, T, H, HD))
+    for t in range(T):
+        rt, kt, vt, wt = (x[:, t] for x in (r, k, v, w))  # (B, H, HD)
+        ru = rt * u
+        p = torch.zeros((B, H, 32), dtype=torch.float32, device=r.device)
+        for m in range(HD // 32):
+            p = _fma32(ru[..., 32 * m:32 * m + 32],
+                       kt[..., 32 * m:32 * m + 32], p)
+        o = 16
+        while o:
+            p = p + p[..., lanes ^ o]
+            o //= 2
+        a = p[..., :1]
+        # row 8 x + R m + g of the padded state is [x, m, g]
+        Sw = S.reshape(B, H, NW, 8 // R, R, HD)
+        rw = rt.reshape(B, H, NW, 8 // R, R, 1)
+        q = torch.zeros((B, H, NW, R, HD), dtype=torch.float32,
+                        device=r.device)
+        for m in range(8 // R):
+            q = _fma32(rw[:, :, :, m], Sw[:, :, :, m], q)
+        o = R // 2
+        while o:
+            q = q + q[:, :, :, groups ^ o]
+            o //= 2
+        s = torch.zeros((B, H, HD), dtype=torch.float32, device=r.device)
+        for x in range(NW):
+            s = s + q[:, :, x, 0]
+        y[:, t] = _fma32(vt, a, s)
+        S = _fma32(wt[..., None], S, kt[..., None] * vt[..., None, :])
+    return y[..., :hd].contiguous(), S[..., :hd, :hd].contiguous()
 
 
 def mamba_scan(dt, A, Bm, Cm, x, h0=None):

@@ -11,15 +11,19 @@ the card, a failed build or a refused launch raises — nothing falls back.
 Unlike the reference's ``ops.rwkv6_wkv``, ``T`` need not be a multiple of
 any chunk, and the final state may be written in place over ``s0``.
 
-Two kernels compute the recurrence on the card, and :func:`rwkv6_wkv`
-picks by the number of steps: the recurrent one
-(:func:`rwkv6_wkv_recurrent`, one CTA per (b, head) walking the steps) for
-calls of fewer than ``CHUNKED_FROM`` steps, the decode tick among them, and
-the chunked one (:func:`rwkv6_wkv_chunked`; ``ref.rwkv6_wkv_chunked`` is its
-algorithm in plain PyTorch) for longer ones, the prefill. Each entry point
-also runs its own kernel at any ``T``. ``launches`` counts each under its
-own key (the CPU path counts nothing), so a run can show that its prefills
-and decode ticks went through the kernels.
+Three kernels compute the recurrence on the card, and :func:`rwkv6_wkv`
+picks between two by the number of steps: the tick kernel (a (b, head)
+state over ``4 * HD`` threads, each warp reading whole state rows, its
+sums over rows joined by shuffles and one pass through shared memory;
+``ref.rwkv6_wkv_tick_lanes`` is its order of operations in plain PyTorch)
+for calls of fewer than ``CHUNKED_FROM`` steps, the decode tick among them,
+and the chunked one (:func:`rwkv6_wkv_chunked`; ``ref.rwkv6_wkv_chunked``
+is its algorithm in plain PyTorch) for longer ones, the prefill. The
+recurrent kernel (:func:`rwkv6_wkv_recurrent`, one CTA per (b, head)
+walking the steps) runs only when asked for by name; it and the chunked
+one take any ``T``. ``launches`` counts each kernel under its own key (the
+CPU path counts nothing): the tick kernel under ``rwkv6_wkv``, so a run can
+show that its prefills and decode ticks went through the kernels.
 """
 from __future__ import annotations
 
@@ -31,12 +35,16 @@ from repro_torch.kernels import _build, ref
 from repro_torch.kernels._dispatch import (check, on_card, overlaps_partly,
                                           raise_on, stream)
 
-#: calls of each CUDA entry point (one call of the chunked one is two
-#: kernel launches: its intra-chunk pass and its state pass)
-launches: Dict[str, int] = {"rwkv6_wkv": 0, "rwkv6_wkv_chunked": 0}
+#: calls of each CUDA kernel: ``rwkv6_wkv`` the tick kernel's (through
+#: :func:`rwkv6_wkv`), ``rwkv6_wkv_recurrent`` the recurrent kernel's, and
+#: ``rwkv6_wkv_chunked`` the chunked one's (one call is two kernel
+#: launches: its intra-chunk pass and its state pass)
+launches: Dict[str, int] = {"rwkv6_wkv": 0, "rwkv6_wkv_recurrent": 0,
+                            "rwkv6_wkv_chunked": 0}
 
-#: the recurrent kernel keeps one column of the (hd, hd) state per thread,
-#: the chunked one 16-row tiles per warp (``csrc/rwkv6_wkv.cu``)
+#: the tick kernel keeps 4 columns of HD / 16 state rows per thread, the
+#: recurrent one one column per thread, the chunked one 16-row tiles per
+#: warp (``csrc/rwkv6_wkv.cu``)
 MAX_HEAD_DIM = 128
 #: steps per chunk of the chunked kernel, and the fewest steps a call needs
 #: for ``rwkv6_wkv`` to take it: one whole chunk
@@ -91,8 +99,8 @@ def rwkv6_wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``state_out`` (float32, the shape of ``s0``; may be ``s0`` itself, but
     may not partly overlap it) receives the final state; without it a new
     tensor does. On the card a call of ``CHUNKED_FROM`` steps or more runs
-    the chunked kernel, a shorter one the recurrent kernel. Returns ``(y
-    (B, T, H, hd) float32, final state)``."""
+    the chunked kernel, a shorter one the tick kernel. Returns ``(y (B, T,
+    H, hd) float32, final state)``."""
     return _run(r, k, v, w, u, s0, state_out, chunked=None)
 
 
@@ -136,7 +144,13 @@ def _run(r, k, v, w, u, s0, state_out, chunked):
     ptrs = (r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
             u.data_ptr(), s0.data_ptr(), y.data_ptr(), sT.data_ptr())
     shape = (B, T, H, hd, int(r.dtype == torch.bfloat16), stream(r))
-    if chunked or (chunked is None and T >= CHUNKED_FROM):
+    if chunked is None and T < CHUNKED_FROM:
+        entry = "rwkv6_wkv"
+        rc = lib.rwkv6_wkv_tick(*ptrs, *shape)
+    elif chunked is False:
+        entry = "rwkv6_wkv_recurrent"
+        rc = lib.rwkv6_wkv(*ptrs, *shape)
+    else:
         entry = "rwkv6_wkv_chunked"
         # the intra pass's blocks for the state pass (y's intra part, v,
         # the decayed r and k, the chunks' decays), in rows of the
@@ -145,9 +159,6 @@ def _run(r, k, v, w, u, s0, state_out, chunked):
         ws = torch.empty(B * H * -(-T // CHUNK) * width * (4 * CHUNK + 1),
                          dtype=torch.float32, device=r.device)
         rc = lib.rwkv6_wkv_chunked(*ptrs, ws.data_ptr(), *shape)
-    else:
-        entry = "rwkv6_wkv"
-        rc = lib.rwkv6_wkv(*ptrs, *shape)
     raise_on(rc, "rwkv6_wkv", entry)
     launches[entry] += 1
     return y, sT

@@ -90,7 +90,7 @@ def test_int8_encode_zero_block_and_nan():
     assert float(comp["scale"][0, 1]) == np.float32(2.0) * np.float32(1 / 127)
 
 
-@pytest.mark.parametrize("W", [1, 2, 3, 5, 8])
+@pytest.mark.parametrize("W", [1, 2, 3, 5, 8, 9, 17])
 def test_int8_decode_reduce_matches_pallas(jkern, W):
     L = 777
     x, _ = _payload((W, L), seed=W)
@@ -208,12 +208,15 @@ def test_cuda_decode_reduce_matches_plain(cuda, W):
 
 #: (R, W, encoded length, decoded length): rows whose float4 stores are
 #: misaligned (L % 4 != 0), a last vector cut inside (L % 16 != 0), W
-#: outside the unrolled 1, 2, 4, 8 (3, 5, 9, 13: groups of 8 and a rest),
-#: and a decode shorter than the wire
+#: outside the unrolled 1, 2, 4, 8 (3, 5, 9, 13, 17: groups of 8 and a
+#: rest), a decode shorter than the wire, and the last gradient bucket's
+#: rows (7800: for fp8 a wire row of 8-byte, not 16-byte multiples)
 TAIL_CASES = [(2, 2, 999, 999), (1, 2, 1000, 1000), (3, 4, 4097, 4097),
               (8, 3, 131072, 131072), (8, 5, 131072, 131072),
               (2, 9, 2000, 2000), (2, 13, 515, 515), (1, 1, 1, 1),
-              (2, 2, 16, 16), (2, 2, 1024, 1001), (2, 2, 1024, 1020)]
+              (2, 2, 16, 16), (2, 2, 1024, 1001), (2, 2, 1024, 1020),
+              (8, 2, 7800, 7800), (3, 17, 999, 999), (2, 9, 7800, 7795),
+              (2, 3, 1001, 1001)]
 
 
 @pytest.mark.cuda
@@ -224,6 +227,29 @@ def test_cuda_decode_reduce_vector_tails(cuda, R, W, L, length):
     got = tkern.int8_decode_reduce(comp, length)
     torch.cuda.synchronize()
     want = ref.int8_decode_reduce(comp, length)
+    assert got.shape == (R, length)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1, 3, 8])
+@pytest.mark.parametrize("R,W,L,length", TAIL_CASES)
+def test_cuda_fp8_decode_reduce_tails(cuda, R, W, L, length, offset):
+    """The fp8 kernel on the same tails, with its wire rows of L bytes (the
+    vector path where L % 8 == 0, the element path elsewhere) and the wire
+    starting ``offset`` bytes into its buffer (odd offsets: the element
+    path), bitwise."""
+    x, _ = _payload((R, W, L), seed=R * 100 + W * 10 + L)
+    comp, _ = ref.fp8_encode_residual(torch.from_numpy(x).to(cuda))
+    buf = torch.zeros(comp["q"].numel() + offset, dtype=torch.uint8,
+                      device=cuda)
+    comp["q"] = buf[offset:].view(comp["q"].shape).copy_(comp["q"])
+    assert comp["q"].data_ptr() % 8 == offset % 8
+    before = tkern.launches["fp8_decode_reduce"]
+    got = tkern.fp8_decode_reduce(comp, length)
+    torch.cuda.synchronize()
+    assert tkern.launches["fp8_decode_reduce"] == before + 1
+    want = ref.fp8_decode_reduce(comp, length)
     assert got.shape == (R, length)
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 

@@ -12,6 +12,8 @@ byte is not specified; NaN positions are compared instead. The
 ``cuda``-marked tests hold each CUDA kernel against its plain version on
 the card, bitwise, and skip where there is no card.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -154,6 +156,68 @@ def test_decode_reduce_matches_pallas(jkern, codec, W):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+#: fp8 wires (W, Lq, decoded length): the last gradient bucket's rows
+#: (Lq 7800: 8-byte but not 16-byte multiples), an odd Lq and a one-byte
+#: row, each decoded shorter than the wire, and W 9 and 17 (a group of 8
+#: peers and a rest)
+FP8_WIRES = [(2, 7800, 7799), (2, 999, 990), (2, 1, 0), (9, 7800, 7800),
+             (17, 999, 999), (9, 1, 1), (17, 7800, 4000)]
+
+
+def _offset_view(a, offset, device="cpu"):
+    """A contiguous copy of the uint8 array ``a`` starting ``offset`` bytes
+    into a larger buffer."""
+    buf = torch.zeros(a.size + offset, dtype=torch.uint8, device=device)
+    q = buf[offset:].view(a.shape)
+    q.copy_(torch.from_numpy(np.array(a)))
+    return q
+
+
+@pytest.mark.parametrize("offset", [0, 3])
+@pytest.mark.parametrize("W,Lq,length", FP8_WIRES)
+def test_fp8_decode_reduce_wires_match_pallas(jkern, W, Lq, length, offset):
+    """Any Lq and decoded length, any W, and a wire starting at an odd
+    byte of its buffer (a contiguous view): bitwise."""
+    x, _ = _payload((W, Lq), seed=W * 7 + Lq)
+    comp = jkern.fp8_encode_residual(x, interpret=True)[0]
+    want = np.asarray(jkern.fp8_decode_reduce(comp, length, interpret=True))
+    q = _offset_view(np.asarray(comp["q"]), offset)
+    assert q.is_contiguous() and q.storage_offset() == offset
+    got = tkern.fp8_decode_reduce(
+        {"q": q, "scale": torch.from_numpy(np.array(comp["scale"]))}, length)
+    assert got.shape == (length,)
+    np.testing.assert_array_equal(got.view(torch.int32).numpy(),
+                                  want.view(np.int32))
+
+
+@pytest.mark.parametrize("n", [1 << 20, 62400])
+@pytest.mark.parametrize("collective", ["allreduce", "reduce_scatter"])
+def test_fp8_wire_rows_on_the_main_path(monkeypatch, collective, n):
+    """The wires the main path hands the fp8 decode-reduce: smollm-360m's
+    4 MiB gradient buckets (2**20 floats per rank) and its last one (62,400)
+    on the 2x4 grid. The compressed allreduce decodes (8, 2, Lq) rows of
+    131072 and 7800 bytes (7800 % 16 == 8), the compressed reduce_scatter
+    rows of 524288 and 31200, each wire a fresh contiguous tensor."""
+    from repro_torch.core.comm import Communicator
+    from repro_torch.core.grid import RankGrid
+
+    seen = []
+    lw = tkern.lowering("fp8_sim")
+
+    def spy(comp, length):
+        seen.append((tuple(comp["q"].shape), comp["q"].storage_offset(),
+                     length))
+        return lw.decode_reduce(comp, length)
+
+    monkeypatch.setitem(tkern.LOWERINGS, "fp8_sim",
+                        dataclasses.replace(lw, decode_reduce=spy))
+    comm = Communicator(RankGrid(2, 4, "cpu"))
+    x = torch.from_numpy(_payload((8, n), seed=n)[0])
+    getattr(comm, collective)(x, algo="pip_mcoll", codec="fp8_sim")
+    Lq = {"allreduce": n // 8, "reduce_scatter": n // 2}[collective]
+    assert seen == [((8, 2, Lq), 0, Lq)]
+
+
 @pytest.mark.parametrize("codec", CODECS)
 def test_decode_reduce_rank_batch(jkern, codec):
     """A leading rank dim reduces each rank's W peers on its own."""
@@ -231,15 +295,24 @@ def test_cuda_edge_values_match_plain(cuda, codec):
     assert _same(got[1], want[1])
 
 
+#: (W, L, offset): the unrolled W, W 9 and 17 (groups of 8 and a rest), L
+#: 7800 (the last gradient bucket's fp8 rows: 8-byte, not 16-byte
+#: multiples), an odd L, and the wire starting 1 or 3 bytes into its buffer
+DECODE_CASES = [(1, 131072, 0), (2, 131072, 0), (8, 131072, 0),
+                (9, 131072, 0), (17, 7800, 0), (2, 7800, 0), (2, 999, 0),
+                (2, 131072, 1), (9, 7800, 3), (17, 999, 1)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("W", [1, 2, 8])
+@pytest.mark.parametrize("W,L,offset", DECODE_CASES)
 @pytest.mark.parametrize("codec", CODECS)
-def test_cuda_decode_reduce_matches_plain(cuda, codec, W):
-    x, _ = _payload((8, W, 131072), seed=W)
+def test_cuda_decode_reduce_matches_plain(cuda, codec, W, L, offset):
+    x, _ = _payload((8, W, L), seed=W)
     comp, _ = _fn(codec, "encode_residual")[1](torch.from_numpy(x).to(cuda))
+    comp["q"] = _offset_view(comp["q"].cpu().numpy(), offset, cuda)
     kern, plain = _fn(codec, "decode_reduce")
     before = tkern.launches[DECODE_KERNEL[codec]]
-    got = kern(comp, 131072 - 5)
+    got = kern(comp, L - 5)
     torch.cuda.synchronize()
     assert tkern.launches[DECODE_KERNEL[codec]] == before + 1
-    assert _same(got, plain(comp, 131072 - 5))
+    assert _same(got, plain(comp, L - 5))

@@ -16,10 +16,13 @@ zeros, subnormals and values near 1. It reorders the recurrence's fp32
 operations as the kernel does, so it is held to the tolerance this file
 states for that, ``CUDA_TOL``: at hd 128 and decays near 1 two fp32 orders
 differ by up to 7e-5 (the sequential fp32 recurrence itself is that far
-from float64 there), beyond ``TOL``. The ``cuda``-marked tests hold the
-CUDA kernels against their plain versions on the card and skip where there
-is no card.
+from float64 there), beyond ``TOL``. The tick kernel's order of operations
+in plain PyTorch (``ref.rwkv6_wkv_tick_lanes``) is held against the same
+four within ``TOL``, at 1 and 7 steps, hd 8, 20, 64 and 128, zero and
+random states and the same decays. The ``cuda``-marked tests hold the CUDA kernels against their plain
+versions on the card and skip where there is no card.
 """
+import itertools
 import os
 import pathlib
 import subprocess
@@ -87,6 +90,12 @@ def _decayed(w, mode, seed):
     return w
 
 
+#: (B, T, H, hd) of the tick kernel's mirror: 1 and 7 steps at hd 8, 20,
+#: 64 and 128
+TICK_GRID = [(2, 1, 3, 8), (1, 7, 2, 8), (2, 1, 2, 20), (1, 7, 2, 20),
+             (2, 1, 2, 64), (1, 7, 2, 64), (1, 1, 2, 128), (1, 7, 1, 128)]
+
+
 def _chunk_inputs(B, T, H, hd, mode, zero_state):
     seed = _seed(B, T, H, hd)
     r, k, v, w, u, s0 = _inputs(B, T, H, hd, seed, zero_state)
@@ -122,17 +131,17 @@ def _reference(out_path: str) -> None:
             y, sT = rwkv6_wkv(jr, jk, jv, jw, ju, js, interpret=True)
             res[f"{tag}_pallas_y"], res[f"{tag}_pallas_s"] = (np.asarray(y),
                                                               np.asarray(sT))
-    for B, T, H, hd in CHUNK_GRID:
-        for mode in DECAYS:
-            for zero_state in (False, True):
-                ops = [jnp.asarray(a) for a in _chunk_inputs(
-                    B, T, H, hd, mode, zero_state)]
-                tag = f"chunk_{B}_{T}_{H}_{hd}_{mode}_{int(zero_state)}"
-                for against, (y, sT) in (
-                        ("ref", jref.rwkv6_wkv(*ops)),
-                        ("pallas", rwkv6_wkv(*ops, chunk=T, interpret=True))):
-                    res[f"{tag}_{against}_y"] = np.asarray(y)
-                    res[f"{tag}_{against}_s"] = np.asarray(sT)
+    for form, grid in (("chunk", CHUNK_GRID), ("tick", TICK_GRID)):
+        for (B, T, H, hd), mode, zero_state in itertools.product(
+                grid, DECAYS, (False, True)):
+            ops = [jnp.asarray(a) for a in _chunk_inputs(
+                B, T, H, hd, mode, zero_state)]
+            tag = f"{form}_{B}_{T}_{H}_{hd}_{mode}_{int(zero_state)}"
+            for against, (y, sT) in (
+                    ("ref", jref.rwkv6_wkv(*ops)),
+                    ("pallas", rwkv6_wkv(*ops, chunk=T, interpret=True))):
+                res[f"{tag}_{against}_y"] = np.asarray(y)
+                res[f"{tag}_{against}_s"] = np.asarray(sT)
     np.savez(out_path, **res)
 
 
@@ -249,6 +258,34 @@ def test_chunked_plain_matches_reference(reference, B, T, H, hd, mode,
     assert s2 is s0 and torch.equal(y2, y) and torch.equal(s0, sT)
 
 
+@pytest.mark.parametrize("zero_state", [False, True])
+@pytest.mark.parametrize("mode", DECAYS)
+@pytest.mark.parametrize("B,T,H,hd", TICK_GRID)
+def test_tick_mirror_matches_reference(reference, B, T, H, hd, mode,
+                                       zero_state):
+    """The tick kernel's order of operations (sums over lanes and row
+    groups joined by butterflies, then over warps in order; fused
+    multiply-adds) against the
+    reference's recurrence and Pallas body, the sequential plain version
+    and float64, within ``TOL`` (over 1 and 7 steps it lies within 4.8e-6
+    of each, decays near 1 included); no inf or NaN where decays are 0 or
+    subnormal."""
+    arrays = _chunk_inputs(B, T, H, hd, mode, zero_state)
+    ops = _torch(arrays, "float32")
+    y, sT = ref.rwkv6_wkv_tick_lanes(*ops)
+    assert y.shape == (B, T, H, hd) and sT.shape == (B, H, hd, hd)
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(sT).all())
+    tag = f"tick_{B}_{T}_{H}_{hd}_{mode}_{int(zero_state)}"
+    want = {against: (reference[f"{tag}_{against}_y"],
+                      reference[f"{tag}_{against}_s"])
+            for against in ("ref", "pallas")}
+    want["plain"] = ref.rwkv6_wkv(*ops)
+    want["float64"] = _f64_recurrence(*arrays)
+    for against, (wy, ws) in want.items():
+        _assert_close(y, wy, TOL, f"y against {against}")
+        _assert_close(sT, ws, TOL, f"sT against {against}")
+
+
 def test_chunked_plain_takes_any_chunk():
     """Chunks of 1 step, of 5 (no divisor of T) and longer than T give the
     recurrence."""
@@ -266,7 +303,9 @@ def test_cpu_path_counts_no_launch():
     krwkv.rwkv6_wkv(*_torch(_inputs(2, 1, 2, 8, 1), "float32"))
     krwkv.rwkv6_wkv(*_torch(_inputs(1, 40, 2, 8, 2), "float32"))
     krwkv.rwkv6_wkv_chunked(*_torch(_inputs(1, 4, 2, 8, 3), "float32"))
-    assert krwkv.launches == {"rwkv6_wkv": 0, "rwkv6_wkv_chunked": 0}
+    krwkv.rwkv6_wkv_recurrent(*_torch(_inputs(1, 4, 2, 8, 4), "float32"))
+    assert krwkv.launches == {"rwkv6_wkv": 0, "rwkv6_wkv_recurrent": 0,
+                              "rwkv6_wkv_chunked": 0}
 
 
 def test_dispatch_refuses_other_devices_dtypes_and_shapes():
@@ -325,10 +364,14 @@ def cuda():
 
 #: the decode tick and a prefill of full-width rwkv6-1.6b (H 32, hd 64),
 #: the reduced config (H 4, hd 32), hd 128, one chunk -1, +0 and +1 steps,
-#: and the reference's grid
+#: the reference's grid, and the tick kernel at 1 and 2-15 steps with hd 1
+#: (scalar state I/O), 20, 100 (a second 64-column half cut short) and 128
 CUDA_SHAPES = [(8, 1, 32, 64), (1, 300, 32, 64), (2, 130, 4, 32),
                (1, 7, 4, 32), (2, 33, 2, 128), (1, 5, 3, 20),
-               (1, 15, 4, 64), (2, 16, 4, 32), (1, 17, 2, 128)] + GRID
+               (1, 15, 4, 64), (2, 16, 4, 32), (1, 17, 2, 128)] + GRID + [
+    (2, 1, 3, 1), (1, 3, 2, 1), (8, 1, 4, 20), (2, 11, 3, 20),
+    (2, 1, 2, 100), (1, 9, 2, 100), (8, 1, 2, 128), (1, 12, 2, 128),
+    (1, 2, 32, 64)]
 
 
 @pytest.mark.cuda
@@ -378,6 +421,63 @@ def test_cuda_chunked_kernel_matches_plain(cuda, B, T, H, hd, mode):
         y2, s2 = krwkv.rwkv6_wkv_chunked(*ops[:-1], s0, state_out=s0)
         torch.cuda.synchronize()
         assert s2 is s0 and torch.equal(y2, y) and torch.equal(s0, sT)
+
+
+#: the tick kernel's own cases: 1 and several steps, hd 1, 20, 64, 100,
+#: 128, and a state row of hd floats that leaves s0's rows 16-byte aligned
+#: only at hd % 4 == 0 (the vector and the scalar state I/O)
+TICK_SHAPES = [(8, 1, 32, 64), (2, 5, 4, 64), (3, 1, 2, 1), (2, 7, 3, 20),
+               (2, 1, 2, 100), (1, 15, 2, 128), (4, 1, 2, 128)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", DECAYS)
+@pytest.mark.parametrize("B,T,H,hd", TICK_SHAPES)
+def test_cuda_tick_kernel_matches_plain_and_its_mirror(cuda, B, T, H, hd,
+                                                       mode):
+    """The tick kernel through the dispatch (counted under ``rwkv6_wkv``),
+    bf16 and fp32, decays with exact zeros, subnormals and near 1, zero
+    and random states: within ``CUDA_TOL`` of the plain version, within
+    1e-5 of its mirror (the same order of fp32 operations; the mirror's
+    fused multiply-add rounds twice, through float64), the final state
+    written over s0 equal to the separate one."""
+    for dtype, zero_state in itertools.product(DTYPES, (False, True)):
+        ops = _torch(_chunk_inputs(B, T, H, hd, mode, zero_state), dtype,
+                     cuda)
+        want_y, want_s = ref.rwkv6_wkv(*ops)
+        mir_y, mir_s = ref.rwkv6_wkv_tick_lanes(*ops)
+        before = dict(krwkv.launches)
+        y, sT = krwkv.rwkv6_wkv(*ops)
+        torch.cuda.synchronize()
+        assert krwkv.launches == {**before,
+                                  "rwkv6_wkv": before["rwkv6_wkv"] + 1}
+        what = f"{dtype} s0 {'zero' if zero_state else 'random'}"
+        _assert_close(y, want_y, CUDA_TOL, f"y {what}")
+        _assert_close(sT, want_s, CUDA_TOL, f"sT {what}")
+        _assert_close(y, mir_y, 1e-5, f"y against the mirror, {what}")
+        _assert_close(sT, mir_s, 1e-5, f"sT against the mirror, {what}")
+        s0 = ops[-1]
+        y2, s2 = krwkv.rwkv6_wkv(*ops[:-1], s0, state_out=s0)
+        torch.cuda.synchronize()
+        assert s2 is s0 and torch.equal(y2, y) and torch.equal(s0, sT)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,H,hd", [(8, 1, 32, 64), (1, 7, 4, 32),
+                                      (2, 33, 2, 128), (1, 5, 3, 20)])
+def test_cuda_recurrent_kernel_matches_plain(cuda, B, T, H, hd):
+    """The recurrent kernel, which only ``rwkv6_wkv_recurrent`` reaches,
+    at any T, counted under its own key."""
+    for dtype in DTYPES:
+        ops = _torch(_inputs(B, T, H, hd, B + T + hd), dtype, cuda)
+        want_y, want_s = ref.rwkv6_wkv(*ops)
+        before = dict(krwkv.launches)
+        y, sT = krwkv.rwkv6_wkv_recurrent(*ops)
+        torch.cuda.synchronize()
+        assert krwkv.launches == {**before, "rwkv6_wkv_recurrent":
+                                  before["rwkv6_wkv_recurrent"] + 1}
+        _assert_close(y, want_y, CUDA_TOL, f"y {dtype}")
+        _assert_close(sT, want_s, CUDA_TOL, f"sT {dtype}")
 
 
 @pytest.mark.cuda
