@@ -22,7 +22,9 @@ or of the JAX package. Eight phases; any failure exits non-zero:
    aligned; fp8 wire rows that are no multiple of 8 bytes), each decoded
    whole and 3 short, and with the wire copied 1 and 3 bytes into a
    buffer (a contiguous view at an odd address: int4 and fp8 must take
-   it, bitwise; the int8 wrapper must refuse it, launching nothing). The flash-decode kernel is held
+   it, bitwise; the int8 wrapper must refuse it, launching nothing), int4
+   also 2 and 4 bytes in (its byte reads, and its 4-byte reads at an
+   address that is no multiple of 8). The flash-decode kernel is held
    against its plain version within ``FLASH_TOL * (1 + |plain|)`` (both
    fp32 from the same inputs) at the serving shapes: B 8, H 15, KV 5, hd 64
    (smollm), H 64, KV 8, hd 128 (jamba) and H 4, KV 2, hd 32 (the reduced
@@ -60,10 +62,11 @@ or of the JAX package. Eight phases; any failure exits non-zero:
    also one ``scaled_dot_product_attention`` call as the library yardstick
    (no single PyTorch call computes the WKV6 recurrence or the scan). For
    the scan, the WKV6 tick and recurrent kernels at the decode tick and
-   the int8 and fp8 decode-reduce kernels it also records CUPTI's time of
-   the kernel alone (L2 flushed) and the events' own floor, the events'
-   time of a one-element fill; fp8 decode-reduce also at the compressed
-   reduce_scatter's (8, 2, 524288).
+   the three decode-reduce kernels it also records CUPTI's time of the
+   kernel alone (L2 flushed) and the events' own floor, the events' time
+   of a one-element fill; each decode-reduce kernel also at the
+   compressed reduce_scatter's (8, 2, 524288): events, CUPTI and its
+   bytes bound.
    The staging kernels are held bitwise against their plain versions:
    pip_mcoll allgather's step-6 buffer V (8, 2, 4·m) rolled by the node
    index and Bruck's (8, 8, m) rolled by the rank at 8 B and 4 MiB per
@@ -212,6 +215,18 @@ CODEC_KERNELS = {
     "int4_block": (("int4_block_encode",), "int4_decode_reduce"),
     "fp8_sim": (("fp8_amax", "fp8_encode"), "fp8_decode_reduce"),
 }
+#: the CUDA kernel behind each codec's decode-reduce wrapper
+DECODE_CUDA_KERNELS = {
+    "int8": "int8_decode_reduce<W_T, VEC_OUT> (8 outputs a thread, all "
+            "peers' loads in flight; 8-byte wire reads, the wrapper refuses "
+            "a wire that is not 8-byte aligned)",
+    "int4": "int4_decode_reduce<W_T, VEC_IN, VEC_OUT> (8 outputs a thread, "
+            "all peers' loads in flight; 4-byte wire reads where q's "
+            "address allows, single bytes elsewhere)",
+    "fp8": "fp8_decode_reduce<W_T, VEC_IN, VEC_OUT> (8 outputs a thread, "
+           "all peers' loads in flight; 8-byte wire reads where q and Lq "
+           "allow, single bytes elsewhere)",
+}
 #: each codec's error-feedback encode launches, counted apart (the main
 #: path's compressed allreduce encodes without the carried error)
 FEEDBACK_KERNELS = {c: tuple(k + "_feedback" for k in encodes)
@@ -348,13 +363,20 @@ def cupti_ms(torch, fn, flush, name: str, n: int = 5):
     """Mean device time per launch of the kernels whose name contains
     ``name`` over ``n`` runs of ``fn``, the L2 cache flushed before each
     (CUPTI, by :func:`profile_call`): the kernel's own time, without the
-    launch and event overhead that :func:`time_ms` includes."""
+    launch and event overhead that :func:`time_ms` includes. A trace now
+    and then records none of the kernels, so up to three traces are
+    taken."""
     def runs():
         for _ in range(n):
             flush.zero_()
             fn()
-    return profile_call(torch, runs, [name]).get("per_launch_ms", {}).get(
-        name, "not measured")
+    ms = "not measured"
+    for _ in range(3):
+        ms = profile_call(torch, runs, [name]).get("per_launch_ms", {}).get(
+            name, "not measured")
+        if ms != "not measured":
+            break
+    return ms
 
 
 def bound_ms(nbytes: float, ops: float):
@@ -511,8 +533,11 @@ def kernel_phase(torch, kcodec, ref, dev):
             comp, _ = getattr(ref, f"{c}_encode_residual")(x)
             # the wire as encoded, decoded whole and 3 short; then copied
             # to 1 and 3 bytes into a buffer (a contiguous view at an odd
-            # address), where the int8 kernel's wrapper must refuse it
-            for offset, length in ((0, L), (0, L - 3), (1, L), (3, L - 3)):
+            # address), where the int8 kernel's wrapper must refuse it;
+            # int4 also at bytes 2 (its byte reads) and 4 (its 4-byte
+            # reads, at an address that is no multiple of 8)
+            for offset, length in ((0, L), (0, L - 3), (1, L), (3, L - 3)) \
+                    + (((2, L), (4, L - 3)) if c == "int4" else ()):
                 if offset:
                     buf = torch.zeros(comp["q"].numel() + offset,
                                       dtype=comp["q"].dtype, device=dev)
@@ -558,7 +583,7 @@ def kernel_phase(torch, kcodec, ref, dev):
     replaces = {"int8": (136, 146), "int4": (214, 223), "fp8": (303, 311)}
     ops = {"int8": ENCODE_OPS_PER_ELEM, "int4": ENCODE_OPS_PER_ELEM,
            "fp8": FP8_ENCODE_OPS_PER_ELEM}
-    records = {}
+    records, dec_comp = {}, {}
     for c in codecs:
         src = f"src/repro_torch/kernels/csrc/codec_{c}.cu"
         kenc = getattr(kcodec, f"{c}_encode_residual")
@@ -571,8 +596,7 @@ def kernel_phase(torch, kcodec, ref, dev):
         enc_b, enc_by = bound_ms(enc_bytes, ops[c] * S * L)
         fb_b, _ = bound_ms(enc_bytes + 4 * S * L, ops[c] * S * L)
         comp, _ = penc(xw)
-        if c == "int8":
-            comp_int8 = comp
+        dec_comp[c] = comp
         # R * W == S: decode reads the same wire and scale bytes the encode
         # wrote, and writes the f32 sum per rank
         dec_bytes = wire[c] + scales[c] + 4 * R * L
@@ -600,36 +624,29 @@ def kernel_phase(torch, kcodec, ref, dev):
             "bound_ms": dec_b, "bound_by": dec_by, "library_ms": None,
             "bytes": dec_bytes, "cases_checked": checked[c],
             "shape": list(comp["q"].shape)}
-        if c == "fp8":
-            comp_fp8 = comp
+    # each decode-reduce kernel alone (CUPTI), the events' floor, and the
+    # compressed reduce_scatter's wire, (8, 2, 524288) decoded
     floor = event_floor_ms(torch, dev, flush)
-    rec = records["int8_decode_reduce"]
-    rec["kernel_cupti_ms"] = cupti_ms(
-        torch, lambda: kcodec.int8_decode_reduce(comp_int8, L), flush,
-        "int8_decode_reduce")
-    rec["event_floor_ms"] = floor
-    rec = records["fp8_decode_reduce"]
-    rec["cuda_kernel"] = ("fp8_decode_reduce<W_T, VEC_IN, VEC_OUT> (8 "
-                          "outputs a thread, all peers' loads in flight; "
-                          "8-byte wire reads where q and Lq allow, single "
-                          "bytes elsewhere)")
-    rec["kernel_cupti_ms"] = cupti_ms(
-        torch, lambda: kcodec.fp8_decode_reduce(comp_fp8, L), flush,
-        "fp8_decode_reduce")
-    rec["event_floor_ms"] = floor
-    # the compressed reduce_scatter's wire, (8, 2, 524288)
     Lrs = 4 * L
-    comp, _ = ref.fp8_encode_residual(
-        torch.randn((R, W, Lrs), generator=gen, device=dev))
-    rec["reduce_scatter_shape"] = {
-        "shape": list(comp["q"].shape),
-        "ms": time_ms(torch, lambda: kcodec.fp8_decode_reduce(comp, Lrs),
-                      flush),
-        "kernel_cupti_ms": cupti_ms(
-            torch, lambda: kcodec.fp8_decode_reduce(comp, Lrs), flush,
-            "fp8_decode_reduce"),
-        "bound_ms": bound_ms(R * W * Lrs + 4 * R * W + 4 * R * Lrs,
-                             DECODE_OPS_PER_ELEM_PEER * R * W * Lrs)[0]}
+    for c in codecs:
+        rec = records[f"{c}_decode_reduce"]
+        kdec = getattr(kcodec, f"{c}_decode_reduce")
+        rec["cuda_kernel"] = DECODE_CUDA_KERNELS[c]
+        rec["kernel_cupti_ms"] = cupti_ms(
+            torch, lambda: kdec(dec_comp[c], L), flush, rec["name"])
+        rec["event_floor_ms"] = floor
+        comp, _ = getattr(ref, f"{c}_encode_residual")(
+            torch.randn((R, W, Lrs), generator=gen, device=dev))
+        nbytes = sum(t.numel() * t.element_size() for t in comp.values()) \
+            + 4 * R * Lrs
+        rec["reduce_scatter_shape"] = {
+            "shape": list(comp["q"].shape),
+            "ms": time_ms(torch, lambda: kdec(comp, Lrs), flush),
+            "kernel_cupti_ms": cupti_ms(
+                torch, lambda: kdec(comp, Lrs), flush, rec["name"]),
+            "bytes": nbytes,
+            "bound_ms": bound_ms(nbytes, DECODE_OPS_PER_ELEM_PEER * R * W
+                                 * Lrs)[0]}
     return records
 
 

@@ -190,6 +190,29 @@ def test_fp8_decode_reduce_wires_match_pallas(jkern, W, Lq, length, offset):
                                   want.view(np.int32))
 
 
+def _main_path_wires(monkeypatch, codec, collective, n):
+    """``(q shape, q storage offset, length)`` of each wire that
+    ``collective`` over ``n`` floats per rank on the 2x4 grid, through
+    pip_mcoll under ``codec``, hands that codec's decode-reduce."""
+    from repro_torch.core.comm import Communicator
+    from repro_torch.core.grid import RankGrid
+
+    seen = []
+    lw = tkern.lowering(codec)
+
+    def spy(comp, length):
+        seen.append((tuple(comp["q"].shape), comp["q"].storage_offset(),
+                     length))
+        return lw.decode_reduce(comp, length)
+
+    monkeypatch.setitem(tkern.LOWERINGS, codec,
+                        dataclasses.replace(lw, decode_reduce=spy))
+    comm = Communicator(RankGrid(2, 4, "cpu"))
+    x = torch.from_numpy(_payload((8, n), seed=n)[0])
+    getattr(comm, collective)(x, algo="pip_mcoll", codec=codec)
+    return seen
+
+
 @pytest.mark.parametrize("n", [1 << 20, 62400])
 @pytest.mark.parametrize("collective", ["allreduce", "reduce_scatter"])
 def test_fp8_wire_rows_on_the_main_path(monkeypatch, collective, n):
@@ -198,24 +221,22 @@ def test_fp8_wire_rows_on_the_main_path(monkeypatch, collective, n):
     on the 2x4 grid. The compressed allreduce decodes (8, 2, Lq) rows of
     131072 and 7800 bytes (7800 % 16 == 8), the compressed reduce_scatter
     rows of 524288 and 31200, each wire a fresh contiguous tensor."""
-    from repro_torch.core.comm import Communicator
-    from repro_torch.core.grid import RankGrid
-
-    seen = []
-    lw = tkern.lowering("fp8_sim")
-
-    def spy(comp, length):
-        seen.append((tuple(comp["q"].shape), comp["q"].storage_offset(),
-                     length))
-        return lw.decode_reduce(comp, length)
-
-    monkeypatch.setitem(tkern.LOWERINGS, "fp8_sim",
-                        dataclasses.replace(lw, decode_reduce=spy))
-    comm = Communicator(RankGrid(2, 4, "cpu"))
-    x = torch.from_numpy(_payload((8, n), seed=n)[0])
-    getattr(comm, collective)(x, algo="pip_mcoll", codec="fp8_sim")
     Lq = {"allreduce": n // 8, "reduce_scatter": n // 2}[collective]
-    assert seen == [((8, 2, Lq), 0, Lq)]
+    assert _main_path_wires(monkeypatch, "fp8_sim", collective, n) == \
+        [((8, 2, Lq), 0, Lq)]
+
+
+@pytest.mark.parametrize("collective,n,nb,length", [
+    ("allreduce", 1 << 20, 512, 131072), ("allreduce", 62400, 31, 7800),
+    ("reduce_scatter", 1 << 20, 2048, 524288),
+    ("reduce_scatter", 62400, 122, 31200)])
+def test_int4_wire_rows_on_the_main_path(monkeypatch, collective, n, nb,
+                                         length):
+    """The same buckets under int4_block: the wire is (8, 2, nb, 128)
+    nibble pairs, nb = ceil(length / 256), each a fresh contiguous tensor
+    (storage offset 0), so the kernel reads it in 4-byte words."""
+    assert _main_path_wires(monkeypatch, "int4_block", collective, n) == \
+        [((8, 2, nb, 128), 0, length)]
 
 
 @pytest.mark.parametrize("codec", CODECS)
@@ -297,10 +318,14 @@ def test_cuda_edge_values_match_plain(cuda, codec):
 
 #: (W, L, offset): the unrolled W, W 9 and 17 (groups of 8 and a rest), L
 #: 7800 (the last gradient bucket's fp8 rows: 8-byte, not 16-byte
-#: multiples), an odd L, and the wire starting 1 or 3 bytes into its buffer
+#: multiples), an odd L, and the wire starting 1, 2, 3 or 4 bytes into its
+#: buffer (at 4, int4's 4-byte reads at an address no multiple of 8; at 2,
+#: its byte reads), also at W 3 and 5 (outside the unrolled peer counts)
 DECODE_CASES = [(1, 131072, 0), (2, 131072, 0), (8, 131072, 0),
                 (9, 131072, 0), (17, 7800, 0), (2, 7800, 0), (2, 999, 0),
-                (2, 131072, 1), (9, 7800, 3), (17, 999, 1)]
+                (2, 131072, 1), (9, 7800, 3), (17, 999, 1),
+                (3, 131072, 4), (5, 131072, 2), (3, 7800, 2), (5, 7800, 4),
+                (3, 999, 4), (5, 1001, 2), (2, 131072, 4), (8, 999, 2)]
 
 
 @pytest.mark.cuda
