@@ -91,7 +91,14 @@ or of the JAX package. Eight phases; any failure exits non-zero:
    ``A`` their max-abs). Launch counts are zeroed just before each run and
    must equal 2 encodes and 1 decode-reduce per bucket per step (fp8: each
    encode is one ``fp8_amax`` and one ``fp8_encode`` launch). One more step
-   of each runs under ``torch.profiler``. Then one lossless ``algo="auto"``
+   of each runs under ``torch.profiler``. Under ``int8_block`` one more
+   step runs untraced and one with telemetry on, both timed: the traced
+   step must leave one start->wait window per bucket (391), each on its
+   own ``bucket:<i>`` track inside the step's ``train/sync`` span, its
+   Chrome trace exported to ``build/grad_sync_trace.json`` must load back
+   equal, and ``telemetry.snapshot()`` must hold one sampled
+   error-feedback and one achieved-ratio observation per bucket. Then one
+   lossless ``algo="auto"``
    bucket sync, and one full-width pass of ``comm.reduce_scatter(bucket,
    algo="pip_mcoll", codec=c)`` over all 391 buckets for each codec: within
    ``collective_tolerance(c, "reduce_scatter", 8, A)`` of the float64 sum,
@@ -121,7 +128,8 @@ or of the JAX package. Eight phases; any failure exits non-zero:
    vocab; every kernel count is zeroed just before the run and read just
    after: flash-decode launches must equal ticks x 32 layers, the staging
    launches ticks x those of one call of the run's persistent sync op made
-   alone (more than 0: the broadcast tree moves rows), every other
+   alone (more than 0 exactly when the plan moves rows:
+   ``oracles.moves_rows``), every other
    kernel's 0; the persistent sync op must start once per tick with no
    rebind, and the tokens must equal a sync-free engine's on the same
    weights, bitwise. Three teacher-forced ticks on the same caches hold
@@ -132,7 +140,13 @@ or of the JAX package. Eight phases; any failure exits non-zero:
    gross path faults only: the kernel's precision is held by the per-layer
    check). Records prefill and tick times (host clock), tokens per second,
    one profiled decode tick (device busy, idle share, top device kernels,
-   flash-decode time per launch) and peak device memory.
+   flash-decode time per launch), peak device memory and the plan the tick
+   sync resolved to. This phase passes the engine's ``sync_algo="auto"``
+   and ``sync_error_budget=0.0`` explicitly, and measures the telemetry
+   hooks' cost, telemetry off, on the tick sync's persistent broadcast:
+   under ``HOOK_LIMIT`` (2%) against a stripped copy of ``start`` and
+   ``wait`` without them, the min over ``HOOK_BLOCKS`` blocks of the
+   medians of ``HOOK_PAIRS`` interleaved pairs.
 5. **Serving rwkv6-1.6b.** The same run for the attention-free family:
    full-width rwkv6-1.6b (24 layers, d 2048, 32 heads of 64; bf16, seeded
    random weights) served by ``Engine(max_batch=8, max_len=2048,
@@ -165,13 +179,29 @@ or of the JAX package. Eight phases; any failure exits non-zero:
    of the MoE's expert products, the other matrix products, the scan and
    flash decode.
 7. **Calibration.** ``Communicator(RankGrid(2, 4)).calibrate(
-   include_splits=True, sizes=(8, 4 MiB))`` into a selector of its own:
-   every plan of every collective, timed on the host clock around a device
-   synchronize, on the root and on the ``("node",)``, ``("local",)`` and
-   ``("node", "local")`` groups. Each lattice member's ``comm.plan`` at
-   each size must resolve from measurement to its lossless argmin, and so
-   must the table saved and loaded back. One ``calibrate`` line per
-   (group, collective, size) with every measured plan's median.
+   include_splits=True, sizes=(8, 4 MiB))`` into a selector of its own,
+   with telemetry on: every plan of every collective, timed on the host
+   clock around a device synchronize, on the root and on the
+   ``("node",)``, ``("local",)`` and ``("node", "local")`` groups; every
+   timed sample must be one synced plan observation (rows x 10). Each
+   lattice member's ``comm.plan`` at each size must resolve from
+   measurement to its lossless argmin, and so must the table saved and
+   loaded back. One ``calibrate`` line per (group, collective, size) with
+   every measured plan's median. The artifact's calibrate sections
+   (``topology``, ``sizes``, ``backend``, ``process_count``, ``table``,
+   ``latency_rows``, ``model_vs_measured`` with ``per_plan`` rows) must
+   validate under the port's schema (``core/artifact.py``) and are written
+   to ``build/calibration_artifact.json``. A fresh fit of the link preset
+   to the lossless rows (``costmodel.fit_net``) is printed beside the
+   checked-in ``h100_grid`` in one ``calibrate_fit`` line, with the count
+   of cells where the prior's argmin equals the measured one and the
+   median |signed_rel_err| under the checked-in preset, the fresh fit and
+   ``host_cpu`` on the same rows. Then drift and repair (one ``drift``
+   line): the slowest lossless allreduce plan at 4 MiB gets a 1e-9 s row
+   and ``choose`` must take it; run through a persistent op with blocking
+   waits, ``drift_report`` must flag it (``drift_vs_table > 0.5``), and
+   after ``Selector.ingest`` ``choose`` must give the measured argmin
+   again.
 8. **Report.** The slice, collectives, serving and calibration summaries,
    the card's name and power limit (as nvidia-smi gives them), the
    ``{"kernels": [...]}`` line (the 14 TPU kernels of the repository, each
@@ -183,6 +213,7 @@ or of the JAX package. Eight phases; any failure exits non-zero:
 """
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
 import pathlib
@@ -204,8 +235,9 @@ ENCODE_OPS_PER_ELEM = 9
 FP8_ENCODE_OPS_PER_ELEM = 11
 DECODE_OPS_PER_ELEM_PEER = 2
 #: clock cycles of the spin kernel queued ahead of each timed run (about
-#: 2 ms at the H100's 1.98 GHz boost clock)
-SPIN_CYCLES = 4_000_000
+#: 4 ms at the H100's 1.98 GHz boost clock: a plain version at jamba's
+#: flash-decode shape takes over 1 ms of host time to queue)
+SPIN_CYCLES = 8_000_000
 #: (codec, error budget) of the slice's sync runs, in order
 SYNC_CODECS = (("int8_block", 0.5 / 127), ("int4_block", 0.5 / 7),
                ("fp8_sim", 2.0 ** -4))
@@ -232,6 +264,10 @@ DECODE_CUDA_KERNELS = {
 FEEDBACK_KERNELS = {c: tuple(k + "_feedback" for k in encodes)
                     for c, (encodes, _) in CODEC_KERNELS.items()}
 PEAK_LIMIT_BYTES = 50e9
+#: the disabled telemetry hooks' cost on the tick sync's round trip, and
+#: the interleaved blocks and pairs it is measured over
+HOOK_LIMIT = 0.02
+HOOK_BLOCKS, HOOK_PAIRS = 25, 60
 #: full 4 MiB buckets of the profiled compressed reduce_scatter pass
 PROFILED_BUCKETS = 16
 #: per-rank message sizes of the collectives phase (bytes)
@@ -241,6 +277,14 @@ TIME_ITERS = 10
 #: and at which the calibration phase measures every plan: the paper's two
 #: regimes
 STAGING_SIZES = CAL_SIZES = (8, 4 << 20)
+#: timed samples per calibrated plan (each after one warm call)
+CAL_ITERS = 10
+#: the artifact sections phase 7 builds (the reference benchmark's
+#: ``pipeline_crossover`` and ``compression`` are not ported)
+CAL_SECTIONS = ("topology", "sizes", "backend", "process_count", "table",
+                "latency_rows", "model_vs_measured")
+#: blocking waits of the poisoned plan in the drift leg
+DRIFT_WAITS = 10
 #: serving (full-width smollm-360m, rwkv6-1.6b, then jamba's first five
 #: layers): max_batch slots of max_len positions, 16 requests with prompts
 #: drawn in [64, 1024] and 32 new tokens each
@@ -749,14 +793,83 @@ def profile_step(torch, gs, buckets, mvec, step, names):
     return profile_call(torch, run, names)
 
 
+def traced_step(torch, gs, buckets, mvec, step):
+    """One sync step untraced, then one with telemetry on inside a
+    ``train/sync`` span, both timed on the host clock around a device
+    synchronize. The traced step must leave one window per bucket, each on
+    its own ``bucket:<i>`` track and inside the span; the Chrome trace is
+    exported to ``build/grad_sync_trace.json`` and must load back equal;
+    ``snapshot()`` must hold one sampled error-feedback and one ratio
+    observation per bucket (each bucket's first traced wait is sampled)."""
+    from repro_torch.core import telemetry
+
+    dev = mvec.device
+
+    def timed():
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        gs.ensure_ops(step)
+        gs.sync(buckets, mvec)
+        torch.cuda.synchronize(dev)
+        return time.perf_counter() - t0
+
+    untraced_s = timed()
+    telemetry.reset()
+    telemetry.enable()
+    try:
+        with telemetry.span("train/sync", cat="train"):
+            traced_s = timed()
+    finally:
+        telemetry.disable()
+    spans = telemetry.spans()
+    (outer,) = [sp for sp in spans if sp.name == "train/sync"]
+    windows = [sp for sp in spans if sp.cat == "bucket"]
+    n = len(gs.slices)
+    if sorted(sp.track for sp in windows) != sorted(
+            f"bucket:{i}" for i in range(n)):
+        raise AssertionError(f"traced sync: {len(windows)} bucket windows "
+                             f"on {len({sp.track for sp in windows})} "
+                             f"tracks, expected one on each of {n}")
+    for sp in windows:
+        if not outer.start <= sp.start <= sp.end <= outer.end:
+            raise AssertionError(f"{sp.name} on {sp.track} lies outside "
+                                 f"the traced sync's span")
+    path = ROOT / "build" / "grad_sync_trace.json"
+    trace = telemetry.export_chrome_trace(path)
+    if json.loads(path.read_text()) != trace:
+        raise AssertionError(f"{path} does not load back equal")
+    tracks = {e["args"]["name"] for e in trace["traceEvents"]
+              if e["ph"] == "M"}
+    if not {f"bucket:{i}" for i in range(n)} <= tracks:
+        raise AssertionError("the exported trace lacks bucket tracks")
+    snap = telemetry.snapshot()
+    codec = gs._ops[0].codec
+    ef = snap["histograms"].get(f"codec.{codec}.ef_rel_error", {})
+    ratio = snap["histograms"].get(f"codec.{codec}.achieved_ratio", {})
+    if ef.get("count") != n or ratio.get("count") != n:
+        raise AssertionError(f"sampled probes: {ef.get('count')} error and "
+                             f"{ratio.get('count')} ratio observations, "
+                             f"expected {n} each")
+    telemetry.reset()
+    return {"untraced_s": untraced_s, "traced_s": traced_s,
+            "bucket_windows": len(windows), "spans": len(spans),
+            "spans_dropped": snap["tracer"]["dropped"],
+            "trace": str(path.relative_to(ROOT)),
+            "trace_events": len(trace["traceEvents"]),
+            "ef_rel_error": ef, "achieved_ratio": ratio,
+            "ef_bound_exceeded": snap["counters"].get(
+                f"codec.{codec}.ef_bound_exceeded", 0)}
+
+
 def sync_run(torch, comm, kcodec, kstaging, grads, slices, codec, budget,
-             gen, steps: int = STEPS):
+             gen, steps: int = STEPS, trace: bool = False):
     """``steps`` compressed sync steps of every bucket under ``codec``,
     each bucket checked against the float64 sum of its input rows, then
-    one profiled step. Launch counts are zeroed just before the first step
-    and read just after the last (the compressed allreduce moves no rows
-    through the grid's staging primitives: its staging launches are 0);
-    the sync's ops and error state are released before returning."""
+    one profiled step, and with ``trace`` one untraced and one traced step
+    (:func:`traced_step`). Launch counts are zeroed just before the first
+    step and read just after the last (the compressed allreduce moves no
+    rows through the grid's staging primitives: its staging launches are
+    0); the sync's ops and error state are released before returning."""
     from repro_torch.core import compress
     from repro_torch.train import manual_step as ms
 
@@ -811,13 +924,17 @@ def sync_run(torch, comm, kcodec, kstaging, grads, slices, codec, budget,
     profile = profile_step(torch, gs, buckets, mvec, steps,
                            names=encodes + (decode,))
     plan = gs.plans()[0]
+    traced = traced_step(torch, gs, buckets, mvec, steps) if trace else None
     gs.release()
-    return {"codec": codec, "budget": budget, "plan": plan,
-            "steps": steps, "step_s": step_s, "worst_err_over_tol": worst,
-            "launches": {k: v for k, v in launches.items() if v},
-            "feedback_launches": {k: launches[k]
-                                  for k in FEEDBACK_KERNELS[codec]},
-            "profile": profile}
+    out = {"codec": codec, "budget": budget, "plan": plan,
+           "steps": steps, "step_s": step_s, "worst_err_over_tol": worst,
+           "launches": {k: v for k, v in launches.items() if v},
+           "feedback_launches": {k: launches[k]
+                                 for k in FEEDBACK_KERNELS[codec]},
+           "profile": profile}
+    if traced is not None:
+        out["traced"] = traced
+    return out
 
 
 def reduce_scatter_run(torch, comm, kcodec, kstaging, grads, slices, codec,
@@ -896,7 +1013,8 @@ def slice_phase(torch, dev, cfg, kcodec, kstaging):
     leaves = leaf_views(grads, shapes)  # the tree: views, no copies
     slices = ms.bucket_slices(total, bucket_bytes // 4)
     syncs = [sync_run(torch, comm, kcodec, kstaging, grads, slices, codec,
-                      budget, gen) for codec, budget in SYNC_CODECS]
+                      budget, gen, trace=codec == "int8_block")
+             for codec, budget in SYNC_CODECS]
 
     # one lossless bucket through algo="auto"
     b = grads[:, :slices[0][1]]
@@ -1343,9 +1461,10 @@ def rwkv_phase(torch, krwkv, ref, dev):
                 "chunked_plain_ms": time_ms(
                     torch, lambda: ref.rwkv6_wkv_chunked(*ops), flush,
                     spin=False),
+                # a trace that recorded no device time is "not measured"
                 "passes": profile_call(
                     torch, lambda: krwkv.rwkv6_wkv_chunked(*ops),
-                    CHUNKED_PASSES)["per_launch_ms"]})
+                    CHUNKED_PASSES).get("per_launch_ms", "not measured")})
     dec, pre = timed["decode"], timed["prefill"]
     common = {"route": "cuda",
               "source": "src/repro_torch/kernels/csrc/rwkv6_wkv.cu",
@@ -1793,18 +1912,20 @@ def _check_held(name, errs, want):
                              f"version, expected {want}")
 
 
-def serve_main(torch, dev, cfg, flags, kmods):
+def serve_main(torch, dev, cfg, flags, kmods, hooks=False, **sync_kw):
     """The serving main path at full width: ``cfg`` in bf16 with random
     weights from a seeded generator, built with the default devices (the
     card) as the README's serving example builds it, served by
     ``Engine(max_batch=SERVE_BATCH, max_len=SERVE_LEN, flags=flags,
-    mesh=RankGrid(2, 4))``: SERVE_REQUESTS requests of SERVE_NEW tokens.
-    Every kernel count of ``kmods`` is zeroed just before the run and read
-    just after; then one call of the run's persistent sync op, alone, gives
-    the launches a tick's sync makes (``sync_launches``). Checks the
-    tokens, the tick sync, and the tokens of a sync-free engine on the same
-    weights (bitwise). Returns the model, an engine factory, the request
-    factory and the run's record."""
+    mesh=RankGrid(2, 4), **sync_kw)``: SERVE_REQUESTS requests of SERVE_NEW
+    tokens. Every kernel count of ``kmods`` is zeroed just before the run
+    and read just after; then one call of the run's persistent sync op,
+    alone, gives the launches a tick's sync makes (``sync_launches``), and
+    with ``hooks`` the telemetry hooks' cost on that op
+    (:func:`hook_cost`). Checks the tokens, the tick sync, and the tokens
+    of a sync-free engine on the same weights (bitwise). Returns the
+    model, an engine factory, the request factory and the run's record
+    (with ``sync_plan``, the plan the tick sync resolved to)."""
     import numpy as np
     from repro_torch.core.grid import RankGrid
     from repro_torch.models import params as tparams
@@ -1833,7 +1954,7 @@ def serve_main(torch, dev, cfg, flags, kmods):
 
     def engine(mesh):
         return Engine(model, cfg, max_batch=SERVE_BATCH, max_len=SERVE_LEN,
-                      flags=flags, mesh=mesh)
+                      flags=flags, mesh=mesh, **sync_kw)
 
     # the main path: launch counts zeroed just before, read just after
     eng = engine(RankGrid(2, 4))
@@ -1872,8 +1993,9 @@ def serve_main(torch, dev, cfg, flags, kmods):
             km.reset_launches()
         eng._sync_op.start(tick_tokens).wait()
         torch.cuda.synchronize()
-    sync_launches = {k: n for km in kmods for k, n in km.launches.items()
-                     if n}
+        sync_launches = {k: n for km in kmods
+                         for k, n in km.launches.items() if n}
+        hook = hook_cost(torch, eng._sync_op, tick_tokens) if hooks else None
     tokens = {tuple(r.prompt.tolist()): r.out_tokens for r in done}
     del eng, done
 
@@ -1899,7 +2021,90 @@ def serve_main(torch, dev, cfg, flags, kmods):
                               int(0.99 * (len(decode_s) - 1))],
                           "n": len(decode_s)},
         "launches": launches, "sync_launches": sync_launches}
+    if hook is not None:
+        record["hook_cost"] = hook
     return model, engine, requests, record
+
+
+def hook_cost(torch, op, x, blocks: int = HOOK_BLOCKS,
+              pairs: int = HOOK_PAIRS):
+    """The telemetry hooks' cost, telemetry disabled, on a persistent op's
+    blocking round trip ``op.start(x).wait()`` (after the reference's
+    ``tests/checks/telemetry_check.py`` part 3): against a stripped copy of
+    ``PersistentOp.start`` and ``CollHandle.wait`` without the hook lines,
+    the two interleaved pairwise, ``pairs`` of each in each of ``blocks``
+    blocks; the cost is the min over blocks of the instrumented medians
+    over the min of the stripped ones, less 1, and must stay under
+    ``HOOK_LIMIT``. Also gives the reference's hook-level bound: what the
+    disabled hooks execute (an ``enabled()`` read and the token checks),
+    timed in a tight loop, over the round trip."""
+    from repro_torch.core import telemetry
+    from repro_torch.core.comm import CollHandle
+
+    if telemetry.enabled():
+        raise AssertionError("the hook cost is measured with telemetry off")
+
+    def instrumented():
+        op.start(x).wait(block=True)
+
+    def stripped():
+        # PersistentOp.start + CollHandle.wait(block=True), hooks removed
+        if op._released or op._inflight >= op.depth or op.carry:
+            raise AssertionError("the op cannot start")
+        op._check_operand(x)
+        out = op._out[op.starts % op.depth]
+        out.copy_(op._fn(x))
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(out.device))
+        op._inflight += 1
+        op.starts += 1
+        handle = CollHandle(op, out, event)
+        handle._done = True
+        op._inflight -= 1
+        event.synchronize()
+
+    def hook_lines():
+        if telemetry.enabled():
+            raise AssertionError
+        token, t0 = None, 0.0
+        if token is not None:
+            raise AssertionError
+        return t0
+
+    for _ in range(5):  # warm both
+        instrumented()
+        stripped()
+    inst, strip = [], []
+    for _ in range(blocks):
+        a, b = [], []
+        for r in range(pairs):
+            first, second = (instrumented, stripped) if r % 2 else \
+                (stripped, instrumented)
+            t0 = time.perf_counter()
+            first()
+            t1 = time.perf_counter()
+            second()
+            t2 = time.perf_counter()
+            (a if r % 2 else b).append(t1 - t0)
+            (b if r % 2 else a).append(t2 - t1)
+        inst.append(statistics.median(a))
+        strip.append(statistics.median(b))
+    reps = 200_000
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        hook_lines()
+    hook_s = (time.perf_counter() - t0) / reps
+    cost = min(inst) / min(strip) - 1.0
+    if cost >= HOOK_LIMIT:
+        raise AssertionError(f"disabled telemetry hooks cost {cost:.4f} of "
+                             f"the tick sync's round trip ({min(inst)} s "
+                             f"against {min(strip)} s stripped), over "
+                             f"{HOOK_LIMIT}")
+    return {"plan": op.plan, "blocks": blocks, "pairs": pairs,
+            "instrumented_s": min(inst), "stripped_s": min(strip),
+            "cost": cost, "limit": HOOK_LIMIT,
+            "block_medians_s": {"instrumented": inst, "stripped": strip},
+            "hook_lines_s": hook_s, "hook_lines_share": hook_s / min(inst)}
 
 
 def _staged(record):
@@ -1913,11 +2118,18 @@ def _staged(record):
 
 def _with_sync(record, want):
     """``want`` plus the tick sync's launches times the ticks; a tick's sync
-    must launch the staging kernels (its broadcast tree moves rows)."""
+    launches the staging kernels exactly when its plan moves rows
+    (``oracles.moves_rows``: the broadcast trees do, the vendor baseline
+    does not)."""
+    from repro_torch.core import autotune, oracles
+
     per_tick = record["sync_launches"]
-    if not sum(per_tick.get(k, 0) for k in STAGING_NAMES):
+    algo, _, codec = autotune.decode_plan(record["sync_plan"])
+    staged = sum(per_tick.get(k, 0) for k in STAGING_NAMES)
+    if bool(staged) != oracles.moves_rows("broadcast", algo, codec):
         raise AssertionError(f"the tick sync ({record['sync_plan']}) "
-                             f"launched no staging kernel: {per_tick}")
+                             f"launched {staged} staging kernels: "
+                             f"{per_tick}")
     ticks = record["metrics"]["ticks"]
     return {**want, **{k: want.get(k, 0) + n * ticks
                        for k, n in per_tick.items()}}
@@ -1940,7 +2152,8 @@ def serve_phase(torch, dev, cfg, kattn, ref, kmods):
     from repro_torch.models.decoder import RunFlags
 
     model, engine, requests, record = serve_main(
-        torch, dev, cfg, RunFlags(use_flash_decode=True), kmods)
+        torch, dev, cfg, RunFlags(use_flash_decode=True), kmods, hooks=True,
+        sync_algo="auto", sync_error_budget=0.0)
     m, launches = record["metrics"], record["launches"]
     _check_launches("smollm serving", launches, _with_sync(
         record, {"flash_decode": m["ticks"] * cfg.n_layers}))
@@ -2210,24 +2423,68 @@ def jamba_serve_phase(torch, dev, cfg, kattn, kmamba, ref, kmods):
 # ---------------------------------------------------------------------------
 
 
+def _fit_samples(comm, rows):
+    """``costmodel.fit_net`` samples from the lossless calibration rows of
+    ``comm`` and its split lattice, each with its group's topology."""
+    topos = {c.topo.group: c.topo for c in (comm,) + comm.split_lattice()}
+    return [(r.collective, r.algo, topos[r.group], r.nbytes, r.chunks,
+             r.seconds) for r in rows if r.codec == "none"]
+
+
+def _agreement(sections):
+    """Over the ``model_vs_measured`` cells: how many the prior's algorithm
+    (and full plan) matches the measured lossless argmin in, and the
+    median |signed_rel_err| of the lossless per-plan rows."""
+    cells = sections["model_vs_measured"]
+    errs = [abs(pp["signed_rel_err"]) for c in cells for pp in c["per_plan"]
+            if "@" not in pp["plan"] and pp["signed_rel_err"] is not None]
+    return {"cells": len(cells),
+            "agree_algo": sum(c["agree"] for c in cells),
+            "agree_plan": sum(c["prior_plan"] == c["measured_plan"]
+                              for c in cells),
+            "median_abs_rel_err": statistics.median(errs),
+            "rows": len(errs)}
+
+
 def calibrate_phase(torch, dev):
     """``Communicator(RankGrid(2, 4)).calibrate(include_splits=True)`` on
     the card at ``CAL_SIZES``, every collective, into a selector of its own
-    (the serving phases' plans stay the priors'). Every member of the
-    lattice must then resolve ``auto`` at each calibrated size from
-    measurement, to the argmin of its lossless rows; the table is saved,
-    reloaded, and must resolve the same. Prints one ``calibrate`` line per
-    (group, collective, size) with every measured plan's median (codec
-    plans as ``algo@codec``)."""
-    from repro_torch.core import autotune, runtime
+    (the serving phases' plans stay the priors'), with telemetry on: every
+    timed sample must be one synced plan observation (rows x iters). Every
+    member of the lattice must then resolve ``auto`` at each calibrated
+    size from measurement, to the argmin of its lossless rows; the table is
+    saved, reloaded, and must resolve the same. Prints one ``calibrate``
+    line per (group, collective, size) with every measured plan's median
+    (codec plans as ``algo@codec``).
+
+    Then the tuning loop: the artifact's calibrate sections
+    (``artifact.calibration_sections``) validated by the port's schema and
+    written to ``build/calibration_artifact.json``; a fresh fit of the
+    link preset to the lossless rows (``costmodel.fit_net``), beside the
+    checked-in ``h100_grid``; one ``calibrate_fit`` line with each preset's
+    argmin agreement and median |signed rel err| on the same rows (the
+    checked-in preset, the fresh fit, ``host_cpu``); and the drift leg
+    (:func:`drift_leg`)."""
+    from repro_torch.core import artifact, autotune, costmodel, runtime
+    from repro_torch.core import telemetry
     from repro_torch.core.comm import Communicator
     from repro_torch.core.grid import RankGrid
 
     comm = Communicator(RankGrid(2, 4), selector=autotune.Selector())
     torch.cuda.synchronize()
+    telemetry.reset()
+    telemetry.enable()
     t0 = time.perf_counter()
-    rows = comm.calibrate(include_splits=True, sizes=CAL_SIZES)
+    try:
+        rows = comm.calibrate(include_splits=True, sizes=CAL_SIZES,
+                              iters=CAL_ITERS)
+    finally:
+        telemetry.disable()
     seconds = time.perf_counter() - t0
+    synced = sum(len(o.samples) for o in telemetry.plan_observations())
+    if synced != len(rows) * CAL_ITERS:
+        raise AssertionError(f"calibration: {synced} synced observations, "
+                             f"expected {len(rows)} rows x {CAL_ITERS}")
     path = ROOT / "build" / "calibrated_table.json"
     comm.selector.table.save(path)
     loaded = autotune.Selector(autotune.TuningTable.load(path))
@@ -2260,9 +2517,97 @@ def calibrate_phase(torch, dev):
                                              for k, v in measured.items()}}
                 print("calibrate " + json.dumps(line))
                 best.append(line)
+
+    # the artifact, validated by the port's schema before it is written
+    sections = artifact.calibration_sections(comm, rows)
+    artifact.validate(sections, sections=CAL_SECTIONS)
+    art_path = ROOT / "build" / "calibration_artifact.json"
+    art_path.write_text(json.dumps(sections))
+    artifact.validate_file(art_path, sections=CAL_SECTIONS)
+    # a fresh fit beside the checked-in preset, each priced on these rows
+    fitted, report = costmodel.fit_net(_fit_samples(comm, rows),
+                                       "h100_grid")
+    checked_in = costmodel.resolve_net(comm.topo.link_names[0])
+    fit_line = {
+        "link": comm.topo.link_names[0],
+        "checked_in": dataclasses.asdict(checked_in),
+        "fresh_fit": {**dataclasses.asdict(fitted),
+                      **{k: v for k, v in report.items()
+                         if k != "rel_err"}},
+        "agreement": {
+            "checked_in": _agreement(sections),
+            "fresh_fit": _agreement(artifact.calibration_sections(
+                comm, rows, link=fitted)),
+            "host_cpu": _agreement(artifact.calibration_sections(
+                comm, rows, link="host_cpu"))}}
+    print("calibrate_fit " + json.dumps(fit_line))
+    drift = drift_leg(torch, comm)
     return {"rows": len(rows), "seconds": seconds,
+            "synced_observations": synced,
             "groups": sorted({r.group or "root" for r in rows}),
-            "resolved": len(best), "table": str(path.relative_to(ROOT))}
+            "resolved": len(best), "table": str(path.relative_to(ROOT)),
+            "artifact": str(art_path.relative_to(ROOT)),
+            "fit": fit_line, "fit_rel_err": report["rel_err"],
+            "drift": drift}
+
+
+def drift_leg(torch, comm):
+    """Drift and repair on the card, after the reference's
+    ``tests/checks/telemetry_check.py`` part 2, on the calibrated root (its
+    calibration's synced observations still held): the slowest lossless
+    allreduce plan at 4 MiB per rank gets a table row of 1e-9 s and
+    ``choose`` must take it; that plan then runs through a persistent op
+    with ``DRIFT_WAITS`` blocking waits, telemetry on; ``drift_report`` must
+    flag its row with ``drift_vs_table > 0.5``; ``Selector.ingest`` must
+    repair the table, so that ``choose`` returns the measured argmin again
+    and nothing of the victim is flagged."""
+    from repro_torch.core import autotune, runtime, telemetry
+
+    topo, sel, nb = comm.topo, comm.selector, CAL_SIZES[-1]
+    good = sel.choose("allreduce", topo, nb)
+    good_plan = autotune.encode_plan(good.algo, good.chunks, good.codec)
+    entry = sel.table.lookup(topo, "allreduce", "float32", nb)
+    lossless = {k: v for k, v in entry.items()
+                if autotune.decode_plan(k)[2] == "none"}
+    victim = max(lossless, key=lossless.get)
+    sel.table.record(topo, "allreduce", "float32", nb, victim, 1e-9)
+    hijacked = sel.choose("allreduce", topo, nb)
+    if autotune.encode_plan(hijacked.algo, hijacked.chunks,
+                            hijacked.codec) != victim:
+        raise AssertionError(f"the poisoned {victim} row did not hijack "
+                             f"choose: {hijacked}")
+    algo, chunks, _ = autotune.decode_plan(victim)
+    x = runtime.example_input("allreduce", topo, nb, device=comm.grid.device)
+    telemetry.enable()
+    try:
+        op = comm.allreduce_init(x, algo=algo,
+                                 chunks=chunks if chunks > 1 else None)
+        for _ in range(DRIFT_WAITS):
+            op.start(x).wait(block=True)
+        op.release()
+    finally:
+        telemetry.disable()
+    flagged = {r.plan: r for r in telemetry.drifted_plans(selector=sel)}
+    row = flagged.get(victim)
+    if row is None or row.table_s != 1e-9 or not row.drift_vs_table > 0.5:
+        raise AssertionError(f"drift_report did not flag the poisoned "
+                             f"{victim} row: {row}")
+    ingested = sel.ingest(min_samples=2)
+    repaired = sel.choose("allreduce", topo, nb)
+    repaired_plan = autotune.encode_plan(repaired.algo, repaired.chunks,
+                                         repaired.codec)
+    if repaired_plan != good_plan or victim in {
+            r.plan for r in telemetry.drifted_plans(selector=sel)}:
+        raise AssertionError(f"ingest did not repair the table: choose "
+                             f"gives {repaired_plan}, measured argmin "
+                             f"{good_plan}")
+    telemetry.reset()
+    line = {"victim": victim, "victim_measured_s": lossless[victim],
+            "argmin": good_plan, "argmin_s": lossless[good_plan],
+            "flagged": dataclasses.asdict(row), "ingested": ingested,
+            "repaired": repaired_plan}
+    print("drift " + json.dumps(line))
+    return line
 
 
 #: line of each codec's feedback encode in ``src/repro/kernels/codec.py``

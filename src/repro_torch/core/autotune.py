@@ -6,8 +6,9 @@ reference, so one table loads in both packages. A measurement for the
 exact key wins over the prior; codec plans are gated by the caller's
 ``error_budget`` (0.0 admits lossless plans only).
 
-Timed calibration arrives with the collectives bench, and folding
-telemetry back into the table with the telemetry slice.
+Measurements come from ``runtime.calibrate`` (timed sweeps) and from
+:meth:`Selector.ingest`, which folds telemetry's observed per-plan medians
+back into the table.
 """
 from __future__ import annotations
 
@@ -457,6 +458,36 @@ class Selector:
         return {s: self.choose(collective, topo, s, net=net, dtype=dtype,
                                error_budget=error_budget)
                 for s in sizes}
+
+    # -- observed-evidence ingestion (telemetry loop closure) ---------------
+
+    def ingest(self, telemetry=None, min_samples: int = 1) -> int:
+        """Fold telemetry's observed per-plan medians into the tuning table
+        as measured evidence (opt-in: nothing flows back unless called).
+
+        ``telemetry`` is the ``repro_torch.core.telemetry`` module or any object
+        with a ``plan_observations()`` iterable of observation records
+        (``topo / collective / dtype / nbytes / plan`` plus
+        ``median(synced=True)``). Only synced samples count — dispatch-only
+        wall clock must not overwrite blocking calibration rows. Each
+        ingested row goes through :meth:`TuningTable.record`, so the
+        generation bump invalidates selection memos and the next
+        ``choose()`` resolves from the corrected entries — this is how a
+        drifted (or poisoned) table row heals from live observation.
+        Returns the number of rows recorded."""
+        if telemetry is None:
+            from repro_torch.core import telemetry  # lazy: no import cycle
+        ingested = 0
+        for obs in telemetry.plan_observations():
+            if len(obs.samples) < max(1, int(min_samples)):
+                continue
+            med = obs.median(synced=True)
+            if med is None or med <= 0.0:
+                continue
+            self.table.record(obs.topo, obs.collective, obs.dtype,
+                              obs.nbytes, obs.plan, med)
+            ingested += 1
+        return ingested
 
     # -- table persistence passthroughs ------------------------------------
 

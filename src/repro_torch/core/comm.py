@@ -25,16 +25,25 @@ Every collective has its blocking method and its ``*_init`` persistent
 constructor; operands and results follow the reference's global
 conventions (``core/runtime.py``). :func:`communicator` is the
 process-wide memo per ``(grid, topo)``.
+
+Telemetry (``core.telemetry``, the reference's hooks at its places): plan
+resolution and persistent init emit spans, init and release bump the
+``comm.persistent_inits`` / ``comm.persistent_releases`` counters, and each
+``start`` opens a window on the op's own ``comm:<collective>#<n>`` track
+that ``wait`` closes; a blocking wait also records a synced plan
+observation (the window ends after the card's work is done).
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+import time
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
 from repro_torch.core import autotune, runtime
+from repro_torch.core import telemetry as _tm
 from repro_torch.core.grid import RankGrid
 from repro_torch.core.topology import Topology
 
@@ -117,13 +126,16 @@ class CollHandle:
     """One in-flight persistent-op invocation. ``wait()`` yields the result
     exactly once; a second ``wait`` is a misuse error."""
 
-    __slots__ = ("_op", "_value", "_done", "_event")
+    __slots__ = ("_op", "_value", "_done", "_event", "_token", "_t0")
 
-    def __init__(self, op: "PersistentOp", value, event=None):
+    def __init__(self, op: "PersistentOp", value, event=None, token=None,
+                 t0=0.0):
         self._op = op
         self._value = value
         self._done = False
         self._event = event
+        self._token = token
+        self._t0 = t0
 
     @property
     def done(self) -> bool:
@@ -145,11 +157,25 @@ class CollHandle:
         self._op._inflight -= 1
         if block and self._event is not None:
             self._event.synchronize()
+        if self._token is not None:
+            # the telemetry window opened at start(): close it here; after
+            # a blocking wait it is a synced sample for the drift detector
+            _tm.end(self._token)
+            if block:
+                op = self._op
+                _tm.observe_plan(op.comm.topo, op.collective,
+                                 runtime.dtype_name(op.dtype),
+                                 op._msg_nbytes, op.plan,
+                                 time.perf_counter() - self._t0,
+                                 synced=True)
         return self._value
 
 
 #: count of live (initialised, not yet released) persistent ops
 _LIVE_OPS = 0
+
+#: monotone op id feeding per-op telemetry track names
+_OP_SEQ = 0
 
 
 def live_persistent_ops() -> int:
@@ -189,6 +215,18 @@ class PersistentOp:
         self.starts = 0
         self._inflight = 0
         self._released = False
+        total = int(math.prod(self.shape)) * dtype.itemsize
+        # per-rank message bytes in the cost model's convention (as
+        # runtime._message_bytes): the drift detector's size key
+        self._msg_nbytes = (max(1, total) if collective == "broadcast"
+                            else max(1, total // comm.topo.world))
+        global _LIVE_OPS, _OP_SEQ
+        _OP_SEQ += 1
+        # each op its own trace track, so concurrent windows render as
+        # parallel lanes
+        self._track = f"comm:{collective}#{_OP_SEQ}"
+        tm_on = _tm.enabled()
+        t0 = time.perf_counter() if tm_on else 0.0
         self._fn = runtime.compile_persistent(
             comm.grid, comm.topo, collective, algo, self.shape, dtype,
             stacked=self.stacked, carry=self.carry, **self.kw)
@@ -197,8 +235,17 @@ class PersistentOp:
         self._out = [torch.empty(out_shape, dtype=dtype,
                                  device=comm.grid.device)
                      for _ in range(self.depth)]
-        global _LIVE_OPS
+        if tm_on:
+            _tm.emit(f"persistent_init/{collective}", t0,
+                     time.perf_counter() - t0, cat="persistent",
+                     **self._tags())
+        _tm.counter("comm.persistent_inits").inc()
         _LIVE_OPS += 1
+
+    def _tags(self) -> Dict[str, Any]:
+        return _tm.plan_tags(self.collective, self.algo, self.chunks,
+                             self.codec, self.comm.topo.group or "",
+                             nbytes=self._msg_nbytes)
 
     @property
     def chunks(self) -> int:
@@ -232,6 +279,11 @@ class PersistentOp:
         self._fn = None
         self._out = []
         _LIVE_OPS -= 1
+        _tm.counter("comm.persistent_releases").inc()
+        if _tm.enabled():
+            _tm.instant(f"persistent_release/{self.collective}",
+                        cat="persistent", starts=self.starts,
+                        **self._tags())
 
     def _check_operand(self, x, what: str = "operand") -> None:
         if not torch.is_tensor(x) or tuple(x.shape) != self.shape \
@@ -265,6 +317,12 @@ class PersistentOp:
                 + ("requires carry=state" if self.carry
                    else "does not take a carry operand"))
         self._check_operand(x)
+        token, t0 = None, 0.0
+        if _tm.enabled():
+            # the start->wait window rides this op's own track
+            t0 = time.perf_counter()
+            token = _tm.begin(f"{self.collective}[{self.plan}]",
+                              cat="comm", track=self._track, **self._tags())
         out = self._out[self.starts % self.depth]
         if self.carry:
             self._check_operand(carry, what="carry")
@@ -281,7 +339,7 @@ class PersistentOp:
             event.record(torch.cuda.current_stream(out.device))
         self._inflight += 1
         self.starts += 1
-        return CollHandle(self, value, event)
+        return CollHandle(self, value, event, token, t0)
 
     def __call__(self, x, carry=None):
         """Blocking convenience: ``start(x).wait()``."""
@@ -432,9 +490,22 @@ class Communicator:
         if overlap:
             raise ValueError(f"duplicate plan knobs {sorted(overlap)}")
         kw.update(extra)
-        return runtime.resolve_algo(self.topo, spec.collective, spec.algo,
-                                    proto, kw, error_budget=spec.error_budget,
-                                    selector=self.selector)
+        tm_on = _tm.enabled()
+        t0 = time.perf_counter() if tm_on else 0.0
+        algo_r, kw_r = runtime.resolve_algo(
+            self.topo, spec.collective, spec.algo, proto, kw,
+            error_budget=spec.error_budget, selector=self.selector)
+        if tm_on:
+            _tm.emit(f"plan_resolve/{spec.collective}", t0,
+                     time.perf_counter() - t0, cat="resolve",
+                     requested=spec.algo,
+                     **_tm.plan_tags(spec.collective, algo_r,
+                                     int(kw_r.get("chunks", 1)),
+                                     str(kw_r.get("codec", "none")),
+                                     self.topo.group or "",
+                                     nbytes=runtime._message_bytes(
+                                         spec.collective, self.topo, proto)))
+        return algo_r, kw_r
 
     # -- blocking methods ---------------------------------------------------
 

@@ -200,6 +200,16 @@ class Codec:
         """Actual bytes of the wire form."""
         return sum(v.numel() * v.element_size() for v in comp.values())
 
+    def achieved_ratio(self, x2d) -> float:
+        """Measured compression ratio on one payload: float32 payload bytes
+        over actual wire bytes of ``encode(x2d)`` (>= 1 means the codec
+        shrinks the wire). Runs an encode, so callers sample it (the
+        telemetry error-feedback probe) rather than calling it per
+        collective."""
+        x2d = torch.as_tensor(x2d).float()
+        return float(x2d.numel() * 4.0) / max(1, self.wire_bytes(
+            self.encode(x2d)))
+
 
 # ---------------------------------------------------------------------------
 # block codecs

@@ -1,12 +1,13 @@
 """Alpha-beta-gamma cost models for multi-object collectives (a copy of
 ``repro.core.costmodel``: pure Python, so the port keeps it verbatim and
-its priors match the reference's).
+its priors match the reference's on every preset the reference has).
 
 The paper evaluates end-to-end latency on a real cluster (128 x Xeon
-Broadwell, 18 ppn, Intel OPA: 100 Gb/s, 97 M msg/s). No such cluster exists
-here, so the benchmark harness reproduces the paper's figures through this
-analytical model, instantiated with (a) the paper's cluster constants and
-(b) TPU v5e pod constants for the TPU-native adaptation.
+Broadwell, 18 ppn, Intel OPA: 100 Gb/s, 97 M msg/s). The model is
+instantiated with (a) the paper's cluster constants, (b) the reference's
+TPU v5e and host presets and (c) the port's own ``h100_grid``: the preset
+``topology.derive_link`` gives every CUDA grid, fitted by :func:`fit_net`
+from calibration rows taken on an H100 (a CPU grid takes ``host_cpu``).
 
 Model: a collective is a sequence of rounds. An inter-node round costs
     alpha_inter + (msgs_per_nic - 1)/msg_rate + bytes_per_nic * beta_inter
@@ -116,6 +117,26 @@ def host_ipc() -> NetParams:
                      alpha_intra=2.0e-7, beta_intra=1 / 5.0e10, msg_rate=2e7)
 
 
+def h100_grid() -> NetParams:
+    """Ranks as rows of one H100's memory (``RankGrid`` on CUDA), where
+    every "transfer" is a device copy that the host queues. Fitted by
+    :func:`fit_net` to the 232 lossless rows of the calibration in
+    ``chip_smoke.py`` phase 7 (the 2x4 grid and its ``("node",)``,
+    ``("local",)`` and ``("node", "local")`` groups at 8 B and 4 MiB per
+    rank; host clock around a device synchronize, median of 10) of run A
+    in the slice-11 Findings of PERF.md (§5 lists the constants and
+    residuals), on an NVIDIA H100 80GB HBM3 at a 700.00 W power limit. The times are host-bound, so the per-call and per-round terms
+    hold the host's dispatch. ``copy_factor`` is 1 by structure (one
+    address space, the PiP premise); ``flop_rate`` is the model's default
+    (it prices codec passes only, outside the fit)."""
+    return NetParams("h100_grid", alpha_inter=7.982011259591635e-06,
+                     beta_inter=2.9427982903096653e-12,
+                     alpha_intra=1.184563558386481e-06,
+                     beta_intra=1.6389123702408176e-12,
+                     msg_rate=97774.70672865363, copy_factor=1.0,
+                     sync_overhead=0.00010593640868191727)
+
+
 # name -> factory; the string side of Topology.node_link / local_link.
 NET_PRESETS = {
     "pip": paper_cluster_pip,
@@ -127,6 +148,7 @@ NET_PRESETS = {
     "tpu_v5e_dcn": tpu_v5e_multipod,
     "host_cpu": host_cpu,
     "host_ipc": host_ipc,
+    "h100_grid": h100_grid,
 }
 
 _DEFAULT_PRESET = "tpu_v5e_dcn"
@@ -823,3 +845,110 @@ def sweep(collective: str, topo: Topology, sizes: List[int], net_by_algo:
         name = algo.split(":")[-1]
         out[algo] = [fn(name, topo, s, net).us() for s in sizes]
     return out
+
+
+# ---------------------------------------------------------------------------
+# fitting a preset from calibration rows
+# ---------------------------------------------------------------------------
+
+#: the constants :func:`fit_net` fits, in its design matrix's column order
+#: (``inv_msg_rate`` is ``1 / msg_rate``). Not fitted: ``copy_factor``, 1
+#: by structure (ranks share one address space, the PiP premise), and
+#: ``flop_rate``, the model's default (it prices codec passes only, and
+#: the fit takes lossless plans only).
+FIT_PARAMS = ("sync_overhead", "alpha_inter", "inv_msg_rate", "beta_inter",
+              "alpha_intra", "beta_intra")
+
+#: the most non-negative least-squares solves :func:`fit_net` takes
+FIT_SOLVES = 20
+
+
+def _fit_net(name: str, values) -> NetParams:
+    v = dict(zip(FIT_PARAMS, (float(x) for x in values)))
+    inv = v.pop("inv_msg_rate")
+    return NetParams(name, msg_rate=1.0 / inv if inv > 0 else math.inf,
+                     copy_factor=1.0, **v)
+
+
+def _fit_rows(samples, x, scale):
+    """Each sample's cost coefficients at constants ``x``: the gradient of
+    its modeled time. Every cost function is linear in the constants on
+    each side of its ``max()`` terms (ring and vendor allgather take the
+    slower of a node and a local round), so a forward difference inside the
+    active side (a step of 1e-3 of ``max(x, scale)``) is exact up to
+    rounding."""
+    import numpy as np
+
+    rows = []
+    for c, a, t, nb, ch, _ in samples:
+        base = plan_cost(c, a, t, int(nb), _fit_net("x", x), chunks=ch).time
+        row = []
+        for j in range(len(FIT_PARAMS)):
+            h = 1e-3 * max(x[j], scale[j])
+            xh = np.array(x, dtype=float)
+            xh[j] += h
+            row.append((plan_cost(c, a, t, int(nb), _fit_net("x", xh),
+                                  chunks=ch).time - base) / h)
+        rows.append(row)
+    return np.array(rows)
+
+
+def fit_net(samples, name: str):
+    """Fit a preset's constants to measured plans.
+
+    ``samples`` yields ``(collective, algo, topo, nbytes, chunks,
+    seconds)`` of lossless plans. A plan's modeled time is linear in the
+    :data:`FIT_PARAMS` on each side of its cost function's ``max()`` terms
+    (:func:`_fit_rows`), so the fit is a non-negative least-squares solve
+    on the relative error ``(model - measured) / measured``, repeated with
+    the sides the last solve makes active, from ``host_cpu``'s constants,
+    until a solve repeats earlier constants (they settled, or alternate
+    between the sides of a ``max()`` term) or after ``FIT_SOLVES`` solves;
+    the solve whose constants give the least squared relative error under
+    the full model is kept. Returns ``(NetParams, report)``; ``report``
+    holds the fitted values, the solves taken and, per sample in order,
+    ``rel_err``: ``(model - measured) / measured`` under the fit."""
+    import numpy as np
+    from scipy.optimize import nnls
+
+    samples = list(samples)
+    if not samples:
+        raise ValueError("fit_net needs at least one sample")
+    s0 = host_cpu()
+    x = np.array([s0.sync_overhead, s0.alpha_inter, 1.0 / s0.msg_rate,
+                  s0.beta_inter, s0.alpha_intra, s0.beta_intra])
+    # difference steps: 1e-3 of each constant, or of host_cpu's where the
+    # constant is 0 (its intra-level latency for the per-call cost)
+    scale = np.where(x > 0, x, s0.alpha_intra)
+    meas = np.array([float(s[-1]) for s in samples])
+
+    def modeled(x):
+        net = _fit_net(name, x)
+        return net, np.array([plan_cost(c, a, t, int(nb), net,
+                                        chunks=ch).time
+                              for c, a, t, nb, ch, _ in samples])
+
+    rows = _fit_rows(samples, x, scale)
+    best, seen = None, [x]
+    for solves in range(1, FIT_SOLVES + 1):
+        x = nnls(rows / meas[:, None], np.ones(len(samples)))[0]
+        net, model = modeled(x)
+        rows = _fit_rows(samples, x, scale)
+        # linear on each side: a step that straddles a max() kink mixes
+        # the two sides' coefficients by at most the step's 1e-3
+        if not np.allclose(model, rows @ x, rtol=1e-3, atol=0.0):
+            raise AssertionError("the cost model is not linear in the "
+                                 "fitted constants for these plans")
+        cost = float(np.sum((model / meas - 1.0) ** 2))
+        if best is None or cost < best[0]:
+            best = (cost, x, net, model)
+        if any(np.allclose(x, y, rtol=1e-6, atol=0.0) for y in seen):
+            break  # settled, or cycling between sides of a max() term
+        seen.append(x)
+    _, x, net, model = best
+    rel = model / meas - 1.0
+    return net, {"params": dict(zip(FIT_PARAMS, x.tolist())),
+                 "solves": solves, "samples": len(samples),
+                 "rel_err": rel.tolist(),
+                 "rms_rel_err": float(np.sqrt(np.mean(rel ** 2))),
+                 "median_abs_rel_err": float(np.median(np.abs(rel)))}

@@ -17,6 +17,12 @@ the build/exec caches behind the Communicator.
     same cached path and records the medians in the selector's tuning
     table, so ``algo="auto"`` then resolves from measurement.
 
+With telemetry on (``core.telemetry``), builds, persistent binds, cache
+hits, every call and every calibrated plan leave spans tagged with the
+resolved plan; calls add dispatch-only plan observations and calibration
+samples synced ones. Each entry point reads ``telemetry.enabled()`` once;
+with telemetry off that read is all the hooks cost.
+
 Operands and results follow the reference's global conventions per
 collective (:data:`_WIRING`, the reference's ``runtime.build`` table); the
 algorithms themselves take and give *stacked* rows, dim 0 the flat rank:
@@ -56,6 +62,7 @@ import torch
 from repro_torch.core import autotune
 from repro_torch.core import compress as _codecs
 from repro_torch.core import mcoll as _mcoll
+from repro_torch.core import telemetry as _tm
 from repro_torch.core.topology import Topology
 
 AUTO = "auto"
@@ -238,17 +245,28 @@ def _kw_key(kw: Dict[str, Any]) -> tuple:
 
 
 def _cached(cache: "OrderedDict", which: str, key: tuple,
-            make: Callable[[], Callable]) -> Callable:
+            make: Callable[[], Callable]) -> Tuple[Callable, bool]:
+    """The cached entry for ``key`` (made and inserted on a miss) and
+    whether it was a hit."""
     hit = cache.get(key)
     if hit is not None:
         setattr(_STATS, f"{which}_hits", getattr(_STATS, f"{which}_hits") + 1)
         cache.move_to_end(key)
-        return hit
+        return hit, True
     setattr(_STATS, f"{which}_misses",
             getattr(_STATS, f"{which}_misses") + 1)
     made = cache[key] = make()
     _evict(cache, which)
-    return made
+    return made, False
+
+
+def _span_tags(topo: Topology, collective: str, algo: str,
+               kw: Dict[str, Any], nbytes: Optional[int] = None
+               ) -> Dict[str, Any]:
+    """Telemetry tag dict for one resolved plan at a runtime boundary."""
+    return _tm.plan_tags(collective, algo, int(kw.get("chunks", 1)),
+                         str(kw.get("codec", "none")), topo.group or "",
+                         nbytes=nbytes)
 
 
 # ---------------------------------------------------------------------------
@@ -442,8 +460,14 @@ def build(grid, topo: Topology, collective: str, algo: str, *,
                          "Communicator methods (or resolve_algo first)")
     key = (grid, topo, collective, algo, stacked, carry, _kw_key(kw),
            _codecs.fused_enabled())
-    return _cached(_BUILD_CACHE, "build", key, lambda: _construct(
-        grid, topo, collective, algo, stacked, carry, **kw))
+
+    def make():
+        with _tm.span(f"build/{collective}", cat="build",
+                      **(_span_tags(topo, collective, algo, kw)
+                         if _tm.enabled() else {})):
+            return _construct(grid, topo, collective, algo, stacked, carry,
+                              **kw)
+    return _cached(_BUILD_CACHE, "build", key, make)[0]
 
 
 def _check_device(grid, x) -> None:
@@ -468,9 +492,24 @@ def run_resolved(grid, topo: Topology, name: str, algo: str, x, *,
     _check_device(grid, x)
     key = (grid, topo, name, algo, stacked, _kw_key(kw),
            (tuple(x.shape), dtype_name(x.dtype)), _codecs.fused_enabled())
-    fn = _cached(_EXEC_CACHE, "exec", key, lambda: build(
+    tm_on = _tm.enabled()  # one global read; the disabled path adds nothing
+    t0 = time.perf_counter() if tm_on else 0.0
+    fn, hit = _cached(_EXEC_CACHE, "exec", key, lambda: build(
         grid, topo, name, algo, stacked=stacked, **kw))
-    return fn(x)
+    out = fn(x)
+    if tm_on:
+        # dispatch host time only: the card may still be running
+        dt = time.perf_counter() - t0
+        nb = _message_bytes(name, topo, x)
+        _tm.emit(name, t0, dt, cat="collective",
+                 cache="hit" if hit else "miss",
+                 **_span_tags(topo, name, algo, kw, nbytes=nb))
+        _tm.observe_plan(topo, name, dtype_name(x.dtype), nb,
+                         autotune.encode_plan(algo,
+                                              int(kw.get("chunks", 1)),
+                                              str(kw.get("codec", "none"))),
+                         dt, synced=False)
+    return out
 
 
 def compile_persistent(grid, topo: Topology, name: str, algo: str,
@@ -487,8 +526,18 @@ def compile_persistent(grid, topo: Topology, name: str, algo: str,
     key = (grid, topo, name, algo, stacked, _kw_key(kw),
            (tuple(shape), dtype_name(dtype)), ("persistent", carry),
            _codecs.fused_enabled())
-    return _cached(_EXEC_CACHE, "exec", key, lambda: build(
-        grid, topo, name, algo, stacked=stacked, carry=carry, **kw))
+    tm_on = _tm.enabled()
+
+    def make():
+        with _tm.span(f"persistent_compile/{name}", cat="compile",
+                      **(_span_tags(topo, name, algo, kw) if tm_on else {})):
+            return build(grid, topo, name, algo, stacked=stacked,
+                         carry=carry, **kw)
+    fn, hit = _cached(_EXEC_CACHE, "exec", key, make)
+    if hit and tm_on:
+        _tm.instant(f"persistent_cache_hit/{name}", cat="cache",
+                    **_span_tags(topo, name, algo, kw))
+    return fn
 
 
 # ---------------------------------------------------------------------------
@@ -572,7 +621,9 @@ def calibrate(grid, topo: Topology,
     row is the median of ``iters`` samples after one warm call. Afterwards
     ``algo="auto"`` on this (topology, collective, dtype, size bucket)
     resolves from measurement, codec plans still gated by the caller's
-    ``error_budget``."""
+    ``error_budget``. With telemetry on, each plan's warm call and samples
+    lie in one ``calibrate/<collective>/<plan>`` span and every sample is a
+    synced plan observation."""
     sel = selector if selector is not None else autotune.default_selector()
     dt = dtype_name(dtype)
     rows: List[CalibrationRow] = []
@@ -587,18 +638,28 @@ def calibrate(grid, topo: Topology,
                     kw["chunks"] = chunks
                 if codec != _codecs.NONE:
                     kw["codec"] = codec
-                run(grid, topo, name, algo, x, **kw)  # warm: build, caches
-                _synchronize(grid)
-                samples = []
-                for _ in range(max(1, int(iters))):
-                    t0 = time.perf_counter()
-                    run(grid, topo, name, algo, x, **kw)
+                plan = autotune.encode_plan(algo, chunks, codec)
+                tm_on = _tm.enabled()
+                with _tm.span(f"calibrate/{name}/{plan}", cat="calibrate",
+                              **(_span_tags(topo, name, algo, kw,
+                                            nbytes=int(nb))
+                                 if tm_on else {})):
+                    run(grid, topo, name, algo, x, **kw)  # warm: build
                     _synchronize(grid)
-                    samples.append(time.perf_counter() - t0)
+                    samples = []
+                    for _ in range(max(1, int(iters))):
+                        t0 = time.perf_counter()
+                        run(grid, topo, name, algo, x, **kw)
+                        _synchronize(grid)
+                        samples.append(time.perf_counter() - t0)
+                if tm_on:
+                    # a window that ends in a device synchronize: the
+                    # drift detector's best evidence
+                    for sample in samples:
+                        _tm.observe_plan(topo, name, dt, int(nb), plan,
+                                         sample, synced=True)
                 sec = float(statistics.median(samples))
-                sel.table.record(topo, name, dt, int(nb),
-                                 autotune.encode_plan(algo, chunks, codec),
-                                 sec)
+                sel.table.record(topo, name, dt, int(nb), plan, sec)
                 rows.append(CalibrationRow(name, algo, int(nb), dt, sec,
                                            chunks, codec,
                                            group=topo.group or ""))

@@ -1,25 +1,63 @@
-"""Host-side tracing and metrics (the part of ``repro.core.telemetry`` the
-serving engine uses).
+"""Collective telemetry: structured tracing, a metrics registry, and
+cost-model drift detection for the Communicator stack (port of
+``repro.core.telemetry``: the same names, signatures and semantics).
 
-  1. **Tracer** — a bounded ring buffer of spans, off by default. Every
-     recording site guards on one module-global bool, so a disabled tracer
-     costs a function call and a branch.
+Three pieces, all **zero-overhead when disabled** (every recording site in
+runtime/comm/train/serve guards on :func:`enabled`, a single module-global
+read):
+
+  1. **Tracer** — a bounded span ring buffer recording per-collective
+     lifecycle events (plan resolution, build/exec cache hit-or-miss,
+     persistent-op init/compile/start/wait/release, per-bucket windows of
+     the gradient sync, serving ticks), tagged with the resolved plan
+     ``(collective, algo, chunks, codec, group tag, size bucket)``
+     (:func:`plan_tags`). :func:`export_chrome_trace` emits Chrome/Perfetto
+     trace-event JSON (load it at ``ui.perfetto.dev`` or
+     ``chrome://tracing``): compute and dispatch spans ride the ``main``
+     track, each persistent op's start->wait window its own ``comm:*``
+     track and each gradient bucket's window its own ``bucket:<i>`` track.
+     Spans are host-clock windows (``time.perf_counter``); a window closed
+     by a blocking wait ends after the device result is ready.
   2. **Metrics registry** — process-wide counters and fixed-bucket
-     histograms, always live (host-side increments only; nothing here
-     synchronises a device).
+     histograms (host-side only; recording never inserts a device sync).
+     :func:`snapshot` unifies ``runtime.cache_stats()``,
+     ``runtime.selection_stats()`` and ``comm.live_persistent_ops()`` with
+     the registry and the per-plan observations in one dict.
+  3. **Drift detector** — :func:`observe_plan` accumulates per-plan
+     wall-clock samples keyed on ``(topology, collective, dtype, size
+     bucket, plan)``; :func:`drift_report` compares the observed medians
+     with the Selector's measured tuning table and the
+     ``costmodel.plan_cost`` prior, flagging plans whose observation
+     diverges beyond a threshold. ``Selector.ingest(telemetry)``
+     (``core.autotune``) closes the loop by folding observed medians back
+     into the table as measured evidence.
 
-Plan observations, the drift report and the Chrome-trace export come with
-the telemetry slice (ROADMAP.md, queue 1 item 4). Imports only the
-standard library.
+Observation kinds: ``synced=True`` samples cover a full
+dispatch-to-ready window (a persistent ``wait(block=True)``, calibration
+loops that end in a device synchronize) and feed drift and ingest;
+``synced=False`` samples are dispatch-only host time (a blocking method's
+call under asynchronous CUDA execution) and are kept apart — they land in
+the histograms but never in drift verdicts.
+
+The module imports only the standard library; runtime/comm/autotune (and
+``torch.distributed`` for the process rank) are imported lazily inside
+:func:`snapshot` / :func:`drift_report`, so every core module may import
+this one without cycles.
 """
 from __future__ import annotations
 
 import dataclasses
+import json
 import math
+import pathlib
 import threading
 import time
 from collections import deque
 from typing import Any, Dict, List, Optional, Tuple
+
+# ---------------------------------------------------------------------------
+# enablement: one module-global bool, read by every instrumentation site
+# ---------------------------------------------------------------------------
 
 _ENABLED = False
 _DEFAULT_CAPACITY = 65536
@@ -28,13 +66,13 @@ _LOCK = threading.Lock()
 
 
 def enabled() -> bool:
-    """Whether recording sites record (the hot-path guard)."""
+    """Whether instrumentation sites record (the hot-path guard)."""
     return _ENABLED
 
 
 def enable(capacity: Optional[int] = None) -> None:
-    """Turn the tracer on. ``capacity`` resizes the span ring buffer
-    (existing spans are kept up to the new bound)."""
+    """Turn the tracer + plan observation on. ``capacity`` resizes the span
+    ring buffer (existing spans are kept up to the new bound)."""
     global _ENABLED, _SPANS
     with _LOCK:
         if capacity is not None and int(capacity) != _SPANS.maxlen:
@@ -43,29 +81,36 @@ def enable(capacity: Optional[int] = None) -> None:
 
 
 def disable() -> None:
-    """Turn recording off (recorded spans and metrics are kept until
+    """Turn instrumentation off (recorded spans/metrics are kept until
     :func:`reset`)."""
     global _ENABLED
     _ENABLED = False
 
 
 def reset() -> None:
-    """Drop every recorded span and metric (enablement is unchanged)."""
+    """Drop every recorded span, metric, and plan observation (enablement
+    is unchanged) — per-phase assertions start from zero after this."""
+    global _DROPPED
     with _LOCK:
         _SPANS.clear()
+        _DROPPED = 0
         _REGISTRY.reset()
+        _PLAN_OBS.clear()
+        _SAMPLE_COUNTERS.clear()
 
 
 # ---------------------------------------------------------------------------
-# tracer: span ring buffer
+# tracer: span ring buffer -> Chrome/Perfetto trace JSON
 # ---------------------------------------------------------------------------
 
 
 @dataclasses.dataclass(frozen=True)
 class Span:
-    """One completed window. ``start`` is ``time.perf_counter`` seconds;
-    ``track`` is the logical timeline lane (``"main"`` for compute and
-    dispatch, ``"comm:*"`` for in-flight collective windows)."""
+    """One completed lifecycle window. ``start`` is ``time.perf_counter``
+    seconds (exported relative to the earliest span); ``track`` is the
+    logical timeline lane (``"main"`` for compute/dispatch, ``"comm:*"``
+    for in-flight collective windows so concurrent buckets never overlap
+    on one lane)."""
 
     name: str
     cat: str
@@ -80,10 +125,14 @@ class Span:
 
 
 _SPANS: "deque[Span]" = deque(maxlen=_DEFAULT_CAPACITY)
+_DROPPED = 0
 
 
 def _emit(span: Span) -> None:
+    global _DROPPED
     with _LOCK:
+        if len(_SPANS) == _SPANS.maxlen:
+            _DROPPED += 1
         _SPANS.append(span)
 
 
@@ -125,11 +174,30 @@ _NULL_CTX = _NullCtx()
 
 
 def span(name: str, cat: str = "", track: str = "main", **args):
-    """``with telemetry.span("serve/prefill", slot=3):`` records a complete
-    span on exit. Disabled: returns a shared no-op context."""
+    """``with telemetry.span("compile/allreduce", plan=...):`` — records a
+    complete span on exit. Disabled: returns a shared no-op context (no
+    allocation beyond the call itself)."""
     if not _ENABLED:
         return _NULL_CTX
     return _SpanCtx(name, cat, track, args)
+
+
+def begin(name: str, cat: str = "", track: str = "main", **args
+          ) -> Optional[tuple]:
+    """Open a window that closes in a *different* call frame (persistent-op
+    ``start`` -> ``wait``). Returns an opaque token for :func:`end`, or
+    ``None`` when disabled (``end(None)`` is a no-op)."""
+    if not _ENABLED:
+        return None
+    return (name, cat, track, _freeze_args(args), time.perf_counter())
+
+
+def end(token: Optional[tuple]) -> None:
+    """Close a :func:`begin` window and record its span."""
+    if token is None:
+        return
+    name, cat, track, args, t0 = token
+    _emit(Span(name, cat, t0, time.perf_counter() - t0, track, args))
 
 
 def emit(name: str, start: float, duration: float, cat: str = "",
@@ -142,10 +210,65 @@ def emit(name: str, start: float, duration: float, cat: str = "",
                _freeze_args(args)))
 
 
+def instant(name: str, cat: str = "", track: str = "main", **args) -> None:
+    """A zero-duration marker (cache hit, release, rebind)."""
+    if not _ENABLED:
+        return
+    _emit(Span(name, cat, time.perf_counter(), 0.0, track,
+               _freeze_args(args)))
+
+
 def spans() -> List[Span]:
     """Snapshot of the recorded spans, oldest first."""
     with _LOCK:
         return list(_SPANS)
+
+
+def spans_dropped() -> int:
+    """Spans evicted from the ring buffer since the last :func:`reset`."""
+    return _DROPPED
+
+
+def plan_tags(collective: str, algo: str, chunks: int = 1,
+              codec: str = "none", group: str = "",
+              nbytes: Optional[int] = None) -> Dict[str, Any]:
+    """The canonical span tag dict for one resolved plan — every layer tags
+    its spans through this so trace queries see one schema."""
+    tags: Dict[str, Any] = {"collective": collective, "algo": algo,
+                            "chunks": int(chunks), "codec": codec or "none",
+                            "group": group or ""}
+    if nbytes is not None:
+        tags["size_bucket"] = _bucket(int(nbytes))
+    return tags
+
+
+def export_chrome_trace(path=None) -> dict:
+    """Render the span buffer as Chrome trace-event JSON (the format
+    Perfetto and ``chrome://tracing`` load). Tracks become named threads of
+    one process; spans are complete events (``ph="X"``) with microsecond
+    timestamps relative to the earliest recorded span. Returns the dict;
+    writes it to ``path`` when given."""
+    recorded = spans()
+    tracks: Dict[str, int] = {"main": 0}
+    for s in recorded:
+        tracks.setdefault(s.track, len(tracks))
+    epoch = min((s.start for s in recorded), default=0.0)
+    events: List[dict] = [
+        {"ph": "M", "pid": 0, "tid": tid, "name": "thread_name",
+         "args": {"name": track}}
+        for track, tid in tracks.items()]
+    for s in recorded:
+        events.append({
+            "name": s.name, "cat": s.cat or "repro", "ph": "X",
+            "ts": (s.start - epoch) * 1e6, "dur": s.duration * 1e6,
+            "pid": 0, "tid": tracks[s.track], "args": dict(s.args)})
+    trace = {"traceEvents": events, "displayTimeUnit": "ms",
+             "otherData": {"spans_dropped": _DROPPED}}
+    if path is not None:
+        p = pathlib.Path(path)
+        p.parent.mkdir(parents=True, exist_ok=True)
+        p.write_text(json.dumps(trace))
+    return trace
 
 
 # ---------------------------------------------------------------------------
@@ -164,7 +287,7 @@ class Counter:
         self.value += n
 
 
-#: default histogram bounds: geometric 1 us .. ~134 s (latencies in
+#: default histogram bounds: geometric 1 µs .. ~134 s (latencies in
 #: seconds); values beyond the last bound land in the overflow bucket
 LATENCY_BUCKETS = tuple(1e-6 * 2.0 ** i for i in range(28))
 
@@ -221,9 +344,16 @@ class Histogram:
             seen += c
         return self.vmax
 
+    def summary(self) -> Dict[str, float]:
+        if not self.count:
+            return {"count": 0}
+        return {"count": self.count, "mean": self.mean,
+                "min": self.vmin, "max": self.vmax,
+                "p50": self.quantile(0.50), "p99": self.quantile(0.99)}
+
 
 class MetricsRegistry:
-    """Named counters and histograms, created on first touch."""
+    """Named counters + histograms, created on first touch."""
 
     def __init__(self):
         self.counters: Dict[str, Counter] = {}
@@ -246,8 +376,21 @@ class MetricsRegistry:
         self.counters.clear()
         self.histograms.clear()
 
+    def to_dict(self) -> dict:
+        return {"counters": {n: c.value
+                             for n, c in sorted(self.counters.items())},
+                "histograms": {n: h.summary()
+                               for n, h in sorted(self.histograms.items())}}
+
 
 _REGISTRY = MetricsRegistry()
+
+
+def registry() -> MetricsRegistry:
+    """The process-wide registry (always live: registry writes are cheap
+    host-side increments; only *tracing + plan observation* gate on
+    :func:`enabled`)."""
+    return _REGISTRY
 
 
 def counter(name: str) -> Counter:
@@ -257,3 +400,255 @@ def counter(name: str) -> Counter:
 def histogram(name: str,
               bounds: Tuple[float, ...] = LATENCY_BUCKETS) -> Histogram:
     return _REGISTRY.histogram(name, bounds)
+
+
+# ---------------------------------------------------------------------------
+# per-plan latency observations (the drift detector's evidence)
+# ---------------------------------------------------------------------------
+
+_MAX_SAMPLES = 64
+
+
+def _bucket(nbytes: int) -> int:
+    # power-of-two ceiling, kept in lockstep with autotune.size_bucket
+    # (this module stays stdlib-only at import time)
+    return 1 << max(0, int(nbytes - 1).bit_length())
+
+
+@dataclasses.dataclass
+class PlanObservation:
+    """Bounded wall-clock samples for one resolved plan on one topology.
+    ``topo`` is the live (hashable, frozen) Topology so drift/ingest can
+    re-enter ``plan_cost`` / ``table.record`` with the exact key."""
+
+    topo: Any
+    collective: str
+    dtype: str
+    nbytes: int
+    plan: str
+    samples: "deque[float]" = dataclasses.field(
+        default_factory=lambda: deque(maxlen=_MAX_SAMPLES))
+    dispatch_samples: "deque[float]" = dataclasses.field(
+        default_factory=lambda: deque(maxlen=_MAX_SAMPLES))
+
+    def median(self, synced: bool = True) -> Optional[float]:
+        buf = self.samples if synced else self.dispatch_samples
+        if not buf:
+            return None
+        vals = sorted(buf)
+        n = len(vals)
+        mid = vals[n // 2] if n % 2 else (vals[n // 2 - 1]
+                                          + vals[n // 2]) / 2.0
+        return float(mid)
+
+
+_PLAN_OBS: Dict[tuple, PlanObservation] = {}
+
+
+def observe_plan(topo, collective: str, dtype: str, nbytes: int, plan: str,
+                 seconds: float, synced: bool = True) -> None:
+    """Record one wall-clock sample for a resolved plan (no-op when
+    disabled). Called only at boundaries that already exist — calibration
+    timing loops and blocking persistent waits (``synced=True``), blocking
+    method dispatch windows (``synced=False``) — never by inserting a new
+    device sync."""
+    if not _ENABLED:
+        return
+    dtype = str(dtype)
+    key = (topo, collective, dtype, _bucket(int(nbytes)), plan)
+    with _LOCK:
+        obs = _PLAN_OBS.get(key)
+        if obs is None:
+            obs = _PLAN_OBS[key] = PlanObservation(
+                topo, collective, dtype, int(nbytes), plan)
+        (obs.samples if synced else obs.dispatch_samples).append(
+            float(seconds))
+    kind = "sync" if synced else "dispatch"
+    _REGISTRY.histogram(
+        f"plan.{collective}.{plan}.{kind}_seconds").observe(float(seconds))
+
+
+def plan_observations() -> List[PlanObservation]:
+    """Snapshot of the accumulated per-plan observations."""
+    with _LOCK:
+        return list(_PLAN_OBS.values())
+
+
+# -- sampled codec-quality observations (EF carry / achieved ratio) ---------
+
+_SAMPLE_COUNTERS: Dict[str, int] = {}
+SAMPLE_EVERY = 16
+
+
+def should_sample(key: str, every: int = SAMPLE_EVERY) -> bool:
+    """Deterministic 1-in-``every`` sampler per key — the gate for
+    observations that DO materialize device values (error-feedback carry
+    inspection), so the sync cost is paid rarely and only when telemetry
+    is on."""
+    if not _ENABLED:
+        return False
+    with _LOCK:
+        n = _SAMPLE_COUNTERS.get(key, 0)
+        _SAMPLE_COUNTERS[key] = n + 1
+    return n % max(1, int(every)) == 0
+
+
+def observe_ef_error(codec: str, rel_error: float, bound: float) -> None:
+    """Record one sampled achieved-vs-bound relative error from an
+    error-feedback carry: the residual magnitude relative to the reduced
+    payload, next to the codec's stated bound."""
+    _REGISTRY.histogram(f"codec.{codec}.ef_rel_error",
+                        bounds=tuple(10.0 ** e for e in
+                                     range(-12, 3))).observe(rel_error)
+    if bound > 0.0 and rel_error > bound:
+        _REGISTRY.counter(f"codec.{codec}.ef_bound_exceeded").inc()
+
+
+def observe_codec_ratio(codec: str, ratio: float) -> None:
+    """Record one achieved compression ratio (payload bytes / wire
+    bytes)."""
+    _REGISTRY.histogram(f"codec.{codec}.achieved_ratio",
+                        bounds=tuple(float(2 ** i) / 4.0
+                                     for i in range(10))).observe(ratio)
+
+
+# ---------------------------------------------------------------------------
+# snapshot: one dict for the scattered observables
+# ---------------------------------------------------------------------------
+
+
+def _process_rank() -> Tuple[int, int]:
+    """(rank, world size) of the live ``torch.distributed`` process group —
+    (0, 1) when none is initialized, so telemetry works in one process."""
+    import torch.distributed as dist  # lazy: the module stays stdlib-only
+    if dist.is_available() and dist.is_initialized():
+        return int(dist.get_rank()), int(dist.get_world_size())
+    return 0, 1
+
+
+def snapshot() -> dict:
+    """Unified observability snapshot: cache stats, selection stats, live
+    persistent ops, tracer occupancy, registry counters/histograms, and the
+    per-plan observation medians.
+
+    Observations are process-local; rows carry this process's rank (and the
+    top level a ``process`` block) so rank-0 merges of multi-controller
+    snapshots don't alias per-process plan latencies."""
+    from repro_torch.core import autotune, comm, runtime  # lazy: no cycle
+    cs = runtime.cache_stats()
+    ss = runtime.selection_stats()
+    rank, nprocs = _process_rank()
+    with _LOCK:
+        n_spans = len(_SPANS)
+        obs = list(_PLAN_OBS.values())
+    out = {
+        "enabled": _ENABLED,
+        "process": {"index": rank, "count": nprocs},
+        "tracer": {"spans": n_spans, "dropped": _DROPPED,
+                   "capacity": _SPANS.maxlen},
+        "cache": {**dataclasses.asdict(cs),
+                  "exec_hit_rate": cs.exec_hit_rate},
+        "selection": {"prior": ss.prior, "measured": ss.measured,
+                      "total": ss.total,
+                      "measured_fraction": ss.measured_fraction,
+                      "by_choice": {f"{c}/{a}": n for (c, a), n
+                                    in sorted(ss.by_choice.items())}},
+        "live_persistent_ops": comm.live_persistent_ops(),
+        "plans": [{
+            "topology": autotune.topo_key(o.topo),
+            "collective": o.collective, "dtype": o.dtype,
+            "size_bucket": _bucket(o.nbytes), "plan": o.plan,
+            "samples": len(o.samples),
+            "observed_median_s": o.median(synced=True),
+            "dispatch_samples": len(o.dispatch_samples),
+            "dispatch_median_s": o.median(synced=False),
+            "rank": rank,
+        } for o in obs],
+    }
+    out.update(_REGISTRY.to_dict())
+    return out
+
+
+# ---------------------------------------------------------------------------
+# drift detection: observed medians vs table entries vs cost-model priors
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class DriftRow:
+    """One plan's observation vs its two references. Signed relative
+    drifts are ``(observed - reference) / reference``; ``flagged`` means
+    the *measured-table* entry diverges beyond the threshold (the table is
+    a promise about this machine — the model is only a prior, reported but
+    flagged separately via ``model_flagged`` at its looser threshold)."""
+
+    collective: str
+    plan: str
+    topology: str
+    dtype: str
+    size_bucket: int
+    samples: int
+    observed_s: float
+    table_s: Optional[float]
+    model_s: Optional[float]
+    drift_vs_table: Optional[float]
+    drift_vs_model: Optional[float]
+    flagged: bool
+    model_flagged: bool
+    #: process rank the observations were taken on (0 single-process);
+    #: merged multi-controller reports keep per-rank rows distinct
+    rank: int = 0
+
+
+def drift_report(selector=None, threshold: float = 0.5,
+                 model_threshold: float = 10.0,
+                 min_samples: int = 1) -> List[DriftRow]:
+    """Compare observed per-plan medians (synced samples only) against the
+    selector's measured table and the cost-model prior.
+
+    ``threshold=0.5`` flags a plan whose observed median and table entry
+    disagree by more than 1.5x in either direction; ``model_threshold``
+    applies the same rule against ``plan_cost`` (much looser: the analytic
+    model is not a promise about host-CPU wall clock). Rows come back
+    sorted worst-first by table drift magnitude."""
+    from repro_torch.core import autotune  # lazy: no import cycle
+    sel = selector if selector is not None else autotune.default_selector()
+    rank, _ = _process_rank()
+    rows: List[DriftRow] = []
+    for o in plan_observations():
+        if len(o.samples) < max(1, int(min_samples)):
+            continue
+        observed = o.median(synced=True)
+        if not observed or observed <= 0.0:
+            continue
+        entry = sel.table.lookup(o.topo, o.collective, o.dtype,
+                                 o.nbytes) or {}
+        table_s = entry.get(o.plan)
+        model_s = autotune.predicted_seconds(o.collective, o.plan, o.topo,
+                                             o.nbytes)
+        drift_t = ((observed - table_s) / table_s
+                   if table_s and table_s > 0.0 else None)
+        drift_m = ((observed - model_s) / model_s
+                   if model_s and model_s > 0.0 else None)
+
+        def _diverged(drift, thresh):
+            if drift is None:
+                return False
+            ratio = 1.0 + drift
+            return max(ratio, 1.0 / ratio) > 1.0 + thresh
+        rows.append(DriftRow(
+            o.collective, o.plan, autotune.topo_key(o.topo), o.dtype,
+            _bucket(o.nbytes), len(o.samples), observed, table_s, model_s,
+            drift_t, drift_m,
+            flagged=_diverged(drift_t, float(threshold)),
+            model_flagged=_diverged(drift_m, float(model_threshold)),
+            rank=rank))
+    rows.sort(key=lambda r: abs(r.drift_vs_table or 0.0), reverse=True)
+    return rows
+
+
+def drifted_plans(selector=None, threshold: float = 0.5,
+                  min_samples: int = 1) -> List[DriftRow]:
+    """Just the flagged rows of :func:`drift_report`."""
+    return [r for r in drift_report(selector, threshold=threshold,
+                                    min_samples=min_samples) if r.flagged]

@@ -8,10 +8,11 @@ instance) that the selector composes via ``costmodel.net_for(topo)``.
 
 Links come from :func:`derive_link` on a :class:`repro_torch.core.grid.
 RankGrid`. A grid's ranks are rows of tensors in one process, so no axis
-crosses a process boundary: on the CPU both levels are ``host_cpu``; a
-platform without a measured preset (CUDA included) warns once and borrows
-the ``host_cpu`` constants, exactly as the reference does for an unknown
-platform. No device constants are invented here.
+crosses a process boundary: on the CPU both levels are ``host_cpu``; on
+CUDA both are ``h100_grid``, the preset fitted from calibration on an H100
+(``costmodel.h100_grid``), as the reference maps its TPU onto its
+``tpu_v5e_ici`` preset. Any other platform warns once and borrows the
+``host_cpu`` constants, as the reference does for an unknown platform.
 """
 from __future__ import annotations
 
@@ -43,12 +44,14 @@ def derive_link(grid, axis: str, level: str) -> str:
     lives in one process, so both levels are in-process links:
 
       * cpu: ``"host_cpu"``;
-      * anything else (cuda): ``"host_cpu"`` with a once-per-platform
-        warning, so calibration tables record which rows rest on folklore
-        constants.
+      * cuda: ``"h100_grid"`` (ranks as rows of one card's memory);
+      * anything else: ``"host_cpu"`` with a once-per-platform warning, so
+        calibration tables record which rows rest on folklore constants.
     """
     del axis, level  # no process boundary inside a grid
     platform = grid.device.type
+    if platform == "cuda":
+        return "h100_grid"
     if platform != "cpu":
         _warn_fallback(platform, "host_cpu")
     return "host_cpu"

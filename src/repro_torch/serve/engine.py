@@ -17,9 +17,9 @@ Token-level sync across DP replicas is a small-message collective, the
 paper's regime. Given a ``RankGrid`` (``mesh=``), the engine binds a
 ``Communicator`` and syncs each tick's sampled tokens through a
 **persistent broadcast op**: the payload is always ``(max_batch,)`` int32,
-so the plan is resolved once on the first tick
-(``comm.broadcast_init``) and every later tick is a bare
-``op.start(x).wait()``. The op is rebound when the selector's tuning table
+so the plan (``sync_algo`` under ``sync_error_budget``) is resolved once,
+on the first tick (``comm.broadcast_init``), and every later tick is a
+bare ``op.start(x).wait()``. The op is rebound when the selector's tuning table
 changes generation, with a warning past ``REBIND_WARN_THRESHOLD`` rebinds.
 ``sync_axes=`` scopes the sync to a group of the grid
 (``comm.split(axes=...)``). A world-1 grid or group skips the sync
@@ -37,6 +37,7 @@ import torch
 
 from repro_torch.core import telemetry
 from repro_torch.core.comm import Communicator, PersistentOp
+from repro_torch.core.topology import Topology
 from repro_torch.models.decoder import RunFlags
 
 #: sync-plan rebinds (tuning-table generation changes) tolerated silently;
@@ -57,16 +58,22 @@ class Engine:
     (argmax).
 
     ``mesh`` is a ``RankGrid`` on the same device whose ranks are the DP
-    replicas the tick tokens are synced across; the selector picks the
-    broadcast algorithm, lossless for integer tokens. ``sync_axes`` (one
-    grid axis or a ``(node, local)`` pair; ignored without a mesh) scopes
-    the sync to the sub-communicator ``comm.split(axes=sync_axes)``: each
-    group broadcasts from its own first rank, and calibration for the sync
-    plan belongs on ``self.sync_comm`` (its tuning rows carry the group
-    tag)."""
+    replicas the tick tokens are synced across, with the topology ``topo``
+    (default ``Topology.from_grid(mesh)``). ``sync_algo`` pins the tick
+    sync's broadcast algorithm or, ``"auto"`` (the default), lets the
+    selector pick it; ``sync_error_budget`` is the accuracy knob on that
+    plan, passed to the selector's codec gating (integer tokens resolve
+    lossless for any budget: lossy codecs are inadmissible on integers).
+    ``sync_axes`` (one grid axis or a ``(node, local)`` pair; ignored
+    without a mesh) scopes the sync to the sub-communicator
+    ``comm.split(axes=sync_axes)``: each group broadcasts from its own
+    first rank, and calibration for the sync plan belongs on
+    ``self.sync_comm`` (its tuning rows carry the group tag)."""
 
     def __init__(self, model, cfg, max_batch: int = 8, max_len: int = 256,
-                 flags: RunFlags = RunFlags(), mesh=None, sync_axes=None):
+                 flags: RunFlags = RunFlags(), mesh=None,
+                 topo: Optional[Topology] = None, sync_axes=None,
+                 sync_algo: str = "auto", sync_error_budget: float = 0.0):
         self.model = model
         self.cfg = cfg
         self.max_batch = max_batch
@@ -77,10 +84,13 @@ class Engine:
         if mesh is not None and mesh.device != self.device:
             raise ValueError(f"sync grid on {mesh.device}, model on "
                              f"{self.device}")
-        self.comm = Communicator(mesh) if mesh is not None else None
+        self.comm = Communicator(mesh, topo) if mesh is not None else None
+        self.topo = self.comm.topo if self.comm is not None else topo
         self.sync_comm = (self.comm.split(axes=sync_axes)
                           if mesh is not None and sync_axes is not None
                           else self.comm)
+        self.sync_algo = sync_algo
+        self.sync_error_budget = float(sync_error_budget)
         # bound on the first real sync (a world-1 engine never resolves a
         # plan), rebound when the selector's tuning table mutates
         self._sync_op: Optional[PersistentOp] = None
@@ -122,7 +132,9 @@ class Engine:
                         f"releases and re-inits the persistent sync op. "
                         f"See Engine.metrics()['plan_rebinds'].",
                         RuntimeWarning, stacklevel=3)
-            self._sync_op = self.sync_comm.broadcast_init(nxt)
+            self._sync_op = self.sync_comm.broadcast_init(
+                nxt, algo=self.sync_algo,
+                error_budget=self.sync_error_budget)
             self._sync_gen = gen
         return self._sync_op.start(nxt).wait(block=False)[0]
 

@@ -18,6 +18,13 @@ Plans resolve through the selection subsystem (``algo="auto"``) or are
 pinned (``algo=``, ``chunks=``, ``codec=``); ``error_budget`` (a float or a
 schedule ``callable(step)``) admits error-bounded codecs. Metrics always
 sync lossless.
+
+Telemetry (``core.telemetry``, on only when enabled): each bucket's
+start->wait window on its own ``bucket:<i>`` track, a ``bucket_rebuild``
+instant and the ``train.bucket_rebuilds`` counter when a plan change
+rebuilds the ops, and, one wait in ``telemetry.SAMPLE_EVERY`` per bucket,
+the error-feedback probe (:meth:`OverlappedGradSync._observe_ef`), the only
+hook that reads device values.
 """
 from __future__ import annotations
 
@@ -27,6 +34,7 @@ import torch
 
 from repro_torch.core import autotune, costmodel, mcoll, runtime
 from repro_torch.core import compress as codecs
+from repro_torch.core import telemetry as _tm
 from repro_torch.core.topology import Topology
 
 #: default gradient bucket size — large enough that the pipelined allreduce
@@ -177,6 +185,7 @@ class OverlappedGradSync:
         self._ops: List = []
         self.errs: List = []
         self._metric_op = None
+        self._btokens: List = []  # open per-bucket telemetry windows
 
     def budget_at(self, step: int) -> float:
         if callable(self.error_budget):
@@ -224,8 +233,14 @@ class OverlappedGradSync:
             self._metric_op = self.comm.allreduce_init(
                 shape=(world, self.metric_len), dtype=torch.float32,
                 algo=mname, chunks=mkw.get("chunks"))
+        self._btokens = [None] * len(self._ops)
         if self._plans is not None:
             self.rebuilds += 1
+            _tm.counter("train.bucket_rebuilds").inc()
+            if _tm.enabled():
+                _tm.instant("bucket_rebuild", cat="train", step=int(step),
+                            budget=budget,
+                            plans=",".join(op.plan for op in self._ops))
         self._plans = plans
 
     def release(self) -> None:
@@ -236,12 +251,18 @@ class OverlappedGradSync:
             if op is not None:
                 op.release()
         self._ops, self.errs, self._metric_op = [], [], None
+        self._btokens = []
         self._plans = self._last_budget = None
 
     def start(self, i: int, payload):
         """Start bucket ``i``'s persistent allreduce (threading its EF
         carry when the plan compresses); returns the handle."""
         op = self._ops[i]
+        if _tm.enabled():
+            # the bucket's start->wait window, one track per bucket
+            self._btokens[i] = _tm.begin(
+                f"bucket{i}[{op.plan}]", cat="bucket", track=f"bucket:{i}",
+                bucket=i, **op._tags())
         if op.carry:
             return op.start(payload, carry=self.errs[i])
         return op.start(payload)
@@ -249,10 +270,35 @@ class OverlappedGradSync:
     def wait(self, i: int, handle, block: bool = False):
         """Complete bucket ``i``: returns the reduced payload and absorbs
         the new error-feedback state for carry buckets."""
-        if self._ops[i].carry:
+        op = self._ops[i]
+        if op.carry:
             y, self.errs[i] = handle.wait(block=block)
+            self._close_bucket(i)
+            if _tm.should_sample(f"ef:{id(self)}:{i}"):
+                self._observe_ef(op, y, self.errs[i])
             return y
-        return handle.wait(block=block)
+        y = handle.wait(block=block)
+        self._close_bucket(i)
+        return y
+
+    def _close_bucket(self, i: int) -> None:
+        if self._btokens and self._btokens[i] is not None:
+            _tm.end(self._btokens[i])
+            self._btokens[i] = None
+
+    @staticmethod
+    def _observe_ef(op, y, new_err) -> None:
+        """Sampled codec-quality probe (telemetry on, one wait in
+        ``telemetry.SAMPLE_EVERY``): the carry's max-abs over the result's,
+        beside the codec's stated bound, and the achieved wire ratio on the
+        reduced payload. The only telemetry site that reads device values
+        to the host, which is why it hides behind ``should_sample``."""
+        amax_y = float(y.abs().max())
+        amax_e = float(new_err.abs().max())
+        _tm.observe_ef_error(op.codec, amax_e / (amax_y + 1e-30),
+                             codecs.meta(op.codec).error_bound)
+        _tm.observe_codec_ratio(
+            op.codec, codecs.codec(op.codec).achieved_ratio(y))
 
     def run(self, i: int, payload):
         """Barrier-style bucket ``i``: start and block out the wait."""

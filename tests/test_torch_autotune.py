@@ -6,8 +6,14 @@ count, codec) and its modeled seconds equal the reference's; so they do
 for the other five collectives on the 2x4 grid, with their plan lists. A
 ``TuningTable`` written by either package loads in the other and resolves
 to the same measured plan.
+
+The port's own preset: ``derive_link`` gives a CUDA grid ``h100_grid``
+(no warning; another platform still warns once), the preset is registered
+with non-negative constants and its structural values, and ``fit_net``
+recovers known constants from rows timed by a known preset.
 """
 import numpy as np
+import torch
 import pytest
 
 from repro_torch.core import autotune as ta
@@ -129,3 +135,121 @@ def test_topology_from_grid_and_subset():
               group="nodexlocal"))
     with pytest.raises(ValueError):
         TTopo.subset(grid, ("node", "node"))
+
+
+class _StubGrid:
+    """A stand-in exposing only the grid's device (nothing allocated)."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self.axis_names = ("node", "local")
+        self.shape = {"node": 2, "local": 4}
+
+
+def test_derive_link_on_cuda_is_the_h100_preset_without_warning():
+    import warnings
+
+    from repro_torch.core import topology
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        assert topology.derive_link(_StubGrid("cuda:0"), "node",
+                                    "inter") == "h100_grid"
+        root = TTopo.from_grid(_StubGrid("cuda:0"))
+    assert root.link_names == ("h100_grid", "h100_grid")
+    assert tcm.net_for(root) == tcm.h100_grid()
+    # the link is part of the tuning-table key: a CUDA grid's rows are not
+    # a CPU grid's
+    assert ta.topo_key(root) == "2x4/h100_grid/h100_grid"
+    assert ta.topo_key(root) != ta.topo_key(
+        TTopo.from_grid(_StubGrid("cpu")))
+
+
+def test_derive_link_warns_once_on_another_platform(monkeypatch):
+    from repro_torch.core import topology
+    monkeypatch.setattr(topology, "_FALLBACK_WARNED", set())
+    with pytest.warns(RuntimeWarning, match="'meta'"):
+        assert topology.derive_link(_StubGrid("meta"), "node",
+                                    "inter") == "host_cpu"
+    import warnings
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")  # once per platform
+        assert topology.derive_link(_StubGrid("meta"), "local",
+                                    "intra") == "host_cpu"
+        assert topology.derive_link(_StubGrid("cpu"), "node",
+                                    "inter") == "host_cpu"
+
+
+def test_h100_preset_is_registered_and_structural():
+    net = tcm.resolve_net("h100_grid")
+    assert "h100_grid" in tcm.NET_PRESETS and net.name == "h100_grid"
+    assert "h100_grid" not in jcm.NET_PRESETS  # the port's own preset
+    for field in tcm.FIT_PARAMS:
+        value = (1.0 / net.msg_rate if field == "inv_msg_rate"
+                 else getattr(net, field))
+        assert value >= 0.0, field
+    # structural values: one address space (PiP), the model's flop rate
+    assert net.copy_factor == 1.0
+    assert net.flop_rate == tcm.NetParams("x", 0, 0, 0, 0, 1).flop_rate
+    # the reference's presets are unchanged beside it
+    for name in jcm.NET_PRESETS:
+        assert tcm.resolve_net(name).__dict__ == \
+            jcm.resolve_net(name).__dict__
+
+
+def _lattice_samples(net, seed=None):
+    """Lossless plans of the 2x4 grid and its axis groups at 8 B and 4 MiB
+    per rank, timed by ``net`` (times ``1 + noise`` from a seeded draw)."""
+    from repro_torch.core.grid import RankGrid
+    grid = RankGrid(2, 4, device="cpu")
+    root = TTopo.from_grid(grid)
+    topos = [root] + [TTopo.subset(grid, a, parent=root)
+                      for a in (("node",), ("local",), ("node", "local"))]
+    rng = np.random.default_rng(seed)
+    out = []
+    for t in topos:
+        for coll in ("allgather", "allreduce", "alltoall", "broadcast",
+                     "reduce_scatter", "scatter"):
+            for nb in (8, 4 << 20):
+                for algo, ch, _ in ta.plans(coll, t, nb, codecs=()):
+                    sec = tcm.plan_cost(coll, algo, t, nb, net,
+                                        chunks=ch).time
+                    if seed is not None:
+                        sec *= 1.0 + rng.uniform(-0.05, 0.05)
+                    out.append((coll, algo, t, nb, ch, sec))
+    return out
+
+
+def test_fit_net_recovers_known_constants():
+    """Rows timed by a known preset (max() branches of the ring and vendor
+    allgathers included) give its constants back; with 5% seeded noise
+    each constant stays within 10% and every relative error under 7%."""
+    true = tcm.NetParams("t", alpha_inter=3e-5, beta_inter=1 / 3e11,
+                         alpha_intra=1e-5, beta_intra=1 / 1e12,
+                         msg_rate=2e5, sync_overhead=4e-5)
+    want = dict(zip(tcm.FIT_PARAMS, (4e-5, 3e-5, 5e-6, 1 / 3e11, 1e-5,
+                                     1 / 1e12)))
+    samples = _lattice_samples(true)
+    net, rep = tcm.fit_net(samples, "fit")
+    assert net.name == "fit" and net.copy_factor == 1.0
+    assert rep["samples"] == len(samples) > 200
+    for k, v in want.items():
+        assert rep["params"][k] == pytest.approx(v, rel=1e-6), k
+    assert rep["rms_rel_err"] < 1e-6
+    net, rep = tcm.fit_net(_lattice_samples(true, seed=0), "fit")
+    for k, v in want.items():
+        assert rep["params"][k] == pytest.approx(v, rel=0.1), k
+    assert max(abs(e) for e in rep["rel_err"]) < 0.07
+
+
+def test_fit_net_keeps_constants_non_negative():
+    """Rows no non-negative preset explains exactly (every plan at one
+    time): the fit stays non-negative, and a constant the rows do not need
+    is 0 (a per-message cost of 0 is an infinite message rate)."""
+    flat = [s[:-1] + (1e-4,) for s in _lattice_samples(tcm.host_cpu())]
+    net, rep = tcm.fit_net(flat, "flat")
+    assert all(v >= 0.0 for v in rep["params"].values())
+    assert rep["params"]["sync_overhead"] > 0.0
+    if rep["params"]["inv_msg_rate"] == 0.0:
+        assert net.msg_rate == float("inf")
+    with pytest.raises(ValueError):
+        tcm.fit_net([], "none")

@@ -204,6 +204,78 @@ def test_engine_token_sync_on_a_2x4_grid(model, cfg):
     assert m["plan_rebinds"] == 0
 
 
+def test_engine_sync_knobs_default_and_topo_is_honoured(model, cfg):
+    """The reference's knobs (``tests/test_serve.py``): ``sync_algo``
+    defaults to ``"auto"`` and the budget to 0; a given ``topo`` reaches
+    the Communicator, and the tick sync resolves on it (here with host_ipc
+    links between nodes) to the selector's plan for that topology."""
+    from repro_torch.core import autotune
+    from repro_torch.core.topology import Topology
+
+    grid = RankGrid(2, 4, device="cpu")
+    eng = Engine(model, cfg, max_batch=MAX_BATCH, max_len=MAX_LEN,
+                 mesh=grid)
+    assert eng.sync_algo == "auto" and eng.sync_error_budget == 0.0
+    assert eng.topo == Topology.from_grid(grid)
+    topo = Topology.from_grid(grid, node_link="host_ipc")
+    eng = Engine(model, cfg, max_batch=MAX_BATCH, max_len=MAX_LEN,
+                 mesh=grid, topo=topo)
+    assert eng.topo is topo and eng.comm.topo is topo
+    eng.run([Request(prompt=np.arange(5, dtype=np.int32) + 2,
+                     max_new_tokens=3)])
+    assert eng._sync_op.comm.topo is topo
+    want = autotune.Selector().choose("broadcast", topo, MAX_BATCH * 4,
+                                      dtype="int32")
+    assert eng._sync_op.plan == autotune.encode_plan(want.algo, want.chunks,
+                                                     want.codec)
+    assert Engine(model, cfg, topo=topo).topo is topo  # no mesh: kept
+
+
+@pytest.mark.parametrize("algo", ["pip_mcoll", "binomial", "xla"])
+def test_engine_pinned_sync_algo_gives_the_sync_free_tokens(model, cfg,
+                                                             algo):
+    """A pinned ``sync_algo`` is the tick sync's plan, and every pinned
+    plan gives the sync-free engine's tokens."""
+    prompts = [r.prompt for r in _requests()]
+    want = _outputs(model, cfg, prompts, MAX_BATCH)
+    eng = Engine(model, cfg, max_batch=MAX_BATCH, max_len=MAX_LEN,
+                 mesh=RankGrid(2, 4, device="cpu"), sync_algo=algo)
+    done = eng.run([Request(prompt=p.copy(), max_new_tokens=NEW)
+                    for p in prompts])
+    assert {tuple(r.prompt.tolist()): r.out_tokens for r in done} == want
+    assert eng._sync_op.algo == algo
+
+
+def test_engine_sync_error_budget_reaches_the_plan_and_stays_lossless(
+        model, cfg, monkeypatch):
+    """``sync_error_budget`` reaches ``broadcast_init`` with ``sync_algo``;
+    integer tokens resolve to a lossless plan for any budget, so the
+    tokens are the sync-free engine's."""
+    from repro_torch.core import compress
+    from repro_torch.core.comm import Communicator
+
+    calls = []
+    init = Communicator.broadcast_init
+
+    def spy(self, x=None, **knobs):
+        calls.append(knobs)
+        return init(self, x, **knobs)
+
+    monkeypatch.setattr(Communicator, "broadcast_init", spy)
+    prompts = [r.prompt for r in _requests()]
+    want = _outputs(model, cfg, prompts, MAX_BATCH)
+    for budget in (0.1, 1.0):
+        eng = Engine(model, cfg, max_batch=MAX_BATCH, max_len=MAX_LEN,
+                     mesh=RankGrid(2, 4, device="cpu"),
+                     sync_error_budget=budget)
+        done = eng.run([Request(prompt=p.copy(), max_new_tokens=NEW)
+                        for p in prompts])
+        assert calls[-1] == {"algo": "auto", "error_budget": budget}
+        assert compress.meta(eng._sync_op.codec).error_bound == 0.0
+        assert {tuple(r.prompt.tolist()): r.out_tokens
+                for r in done} == want
+
+
 def test_engine_metrics_and_rebind_on_generation_bump(model, cfg):
     prompt = np.arange(5, dtype=np.int32) + 2
     eng = Engine(model, cfg, max_batch=1, max_len=32,
@@ -254,8 +326,9 @@ def test_telemetry_histogram_matches_reference():
 
 def test_engine_records_tick_spans_and_rebind_counter(model, cfg):
     """Enabled, the tracer holds one ``serve/tick`` span per tick with the
-    active-slot count; disabled, it records nothing; the rebind counter is
-    always live."""
+    active-slot count, and the tick sync's plan resolution, init and
+    windows; disabled, it records nothing; the rebind counter is always
+    live."""
     prompt = np.arange(5, dtype=np.int32) + 2
     telemetry.reset()
     try:
@@ -268,14 +341,21 @@ def test_engine_records_tick_spans_and_rebind_counter(model, cfg):
         assert dict(ticks[0].args) == {"active": 1}
         assert dict(ticks[1].args) == {"active": 0}
         assert all(s.duration > 0 for s in ticks)
+        # the tick sync's own spans: its plan resolution, the op's init and
+        # one start->wait window per tick
+        names = [s.name for s in telemetry.spans()]
+        assert names.count("plan_resolve/broadcast") == 1
+        assert names.count("persistent_init/broadcast") == 1
+        assert len([s for s in telemetry.spans() if s.cat == "comm"]) == 2
+        recorded = len(telemetry.spans())
         telemetry.disable()
         eng.comm.selector.table.generation += 1
         eng.run([Request(prompt=prompt.copy(), max_new_tokens=3)])
-        assert len(telemetry.spans()) == 2
+        assert len(telemetry.spans()) == recorded
         assert telemetry.counter("serve.plan_rebinds").value == 1
         with telemetry.span("x"):
             pass
-        assert len(telemetry.spans()) == 2
+        assert len(telemetry.spans()) == recorded
     finally:
         telemetry.disable()
         telemetry.reset()
