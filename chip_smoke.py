@@ -3,7 +3,7 @@
 
 Usage: ``python3 chip_smoke.py`` from the repository root, on a machine
 with an NVIDIA Hopper card and the CUDA toolkit. It imports nothing of JAX
-or of the JAX package. Eight phases; any failure exits non-zero:
+or of the JAX package. Nine phases; any failure exits non-zero:
 
 1. **Kernels.** Builds ``kernels/csrc/codec_{int8,int4,fp8}.cu``,
    ``flash_decode.cu``, ``rwkv6_wkv.cu``, ``mamba_scan.cu`` and
@@ -202,13 +202,39 @@ or of the JAX package. Eight phases; any failure exits non-zero:
    waits, ``drift_report`` must flag it (``drift_vs_table > 0.5``), and
    after ``Selector.ingest`` ``choose`` must give the measured argmin
    again.
-8. **Report.** The slice, collectives, serving and calibration summaries,
+8. **Two processes on the card.** The ``torch.distributed`` transport:
+   the card's compute mode is printed (``Exclusive_Process`` fails the
+   phase). The parent's ``RankGrid(2, 4)`` runs every (collective,
+   algorithm) pair at 8 B and 4 MiB per rank on numpy-seeded float32
+   (a -0.0 on rank 0) and int32, each codec-capable pair under the three
+   codecs and each compressed allreduce also with an error-feedback carry
+   (148 cases), keeping a sha256 of every result row, and one full-width
+   smollm-360m ``int8_block`` sync step with error feedback (each rank's
+   gradient from a generator seeded by its global rank), keeping an int64
+   digest of each bucket's output and new-error rows and holding every
+   bucket within its tolerance; then it frees the card's memory. Two
+   workers (``distributed.launch.run``, the kernels already built) each
+   hold four ranks of ``launch.mesh.make_process_grid()`` on the card, the
+   node axis over gloo: every held row's digest must equal the parent's,
+   the key must be ``2x4/host_ipc/h100_grid``, staging launches more than
+   0 exactly where ``oracles.moves_rows`` says, codec launches the
+   parent's per call, the sync step's launches 2 encodes and 1
+   decode-reduce per bucket. A short calibration on both workers must
+   write one merged table (``build/two_process_table.json``, rank 0) and
+   resolve ``auto`` alike on both. One ``{"two_process": ...}`` line: the
+   card, each lossless plan's median host ms per call over
+   ``TP_ITERS`` calls at both sizes in one process and in each worker,
+   with the bytes each worker sent per call, the sync step's times and
+   bytes, the launches.
+9. **Report.** The slice, collectives, serving and calibration summaries,
    the card's name and power limit (as nvidia-smi gives them), the
    ``{"kernels": [...]}`` line (the 14 TPU kernels of the repository, each
    codec's feedback encode apart from its residual encode and the WKV6
    recurrence's chunked prefill kernel apart from its tick kernel, with the
    feedback launches the slice phase counted apart: 0, since its
-   compressed allreduce encodes without the carried error), and last
+   compressed allreduce encodes without the carried error; the staging
+   and codec kernels' ``launches_by_path`` include ``two_process``, both
+   workers' launches), and last
    ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -2611,6 +2637,410 @@ def drift_leg(torch, comm):
 
 
 #: line of each codec's feedback encode in ``src/repro/kernels/codec.py``
+# ---------------------------------------------------------------------------
+# phase 8: two processes on the card (the torch.distributed transport)
+# ---------------------------------------------------------------------------
+
+TP_PROCS, TP_RANKS = 2, 4
+TP_SIZES = (COLL_SIZES[0], COLL_SIZES[-1])
+#: timed calls per plan and size (median)
+TP_ITERS = 5
+#: a spawn's deadline, seconds
+TP_TIMEOUT = 600
+TP_CAL = ("allreduce", "broadcast")
+TP_CAL_ITERS = 3
+TP_TABLE = "two_process_table.json"
+#: the workers' topology key: the node axis crosses processes (gloo), the
+#: local axis stays on the card
+TP_KEY = "2x4/host_ipc/h100_grid"
+#: the full-width sync step: codec and budget, as phase 2's int8 run
+TP_CODEC, TP_BUDGET = SYNC_CODECS[0]
+
+
+def tp_cases():
+    """Every (collective, algorithm) pair at 8 B and 4 MiB per rank,
+    float32 (a -0.0 on rank 0) and int32, each codec-capable one under the
+    three codecs, and the compressed allreduces with an error-feedback
+    carry: ``(collective, algo, nbytes, dtype, codec, carry)``."""
+    from repro_torch.core import mcoll, runtime
+    cases = []
+    for coll in runtime.collectives():
+        for algo in mcoll.algorithms(coll):
+            for nb in TP_SIZES:
+                cases += [(coll, algo, nb, "float32", "none", False),
+                          (coll, algo, nb, "int32", "none", False)]
+                if mcoll.supports_codec(coll, algo):
+                    for codec, _ in SYNC_CODECS:
+                        cases.append((coll, algo, nb, "float32", codec,
+                                      False))
+                        if runtime.supports_carry(coll, algo):
+                            cases.append((coll, algo, nb, "float32", codec,
+                                          True))
+    return cases
+
+
+def tp_operand(np, coll, nbytes, dtype, world=TP_PROCS * TP_RANKS):
+    """The global operand of one case (``_operand``'s shapes), numpy-seeded
+    from the case so every process draws the same; float32 holds a -0.0
+    on rank 0."""
+    elems = max(1, nbytes // 4)
+    s = max(1, elems // world)
+    shape = {"allgather": (world * elems,), "scatter": (world * elems,),
+             "broadcast": (elems,), "allreduce": (world, elems),
+             "reduce_scatter": (world, world * s),
+             "alltoall": (world, world, s)}[coll]
+    rng = np.random.default_rng([SEED, len(coll), nbytes, len(dtype)])
+    if dtype == "int32":
+        return rng.integers(-1000, 1000, shape).astype(np.int32)
+    x = rng.standard_normal(shape).astype(np.float32)
+    x.reshape(-1)[0] = -0.0
+    return x
+
+
+def _tp_inputs(torch, np, case, dev, rows, cache):
+    """``(x, err)`` of one case on ``dev``: this process's ``rows`` of a
+    carry case's gradient and error (a held operand), else the full
+    operand and no error. Operands are drawn once per (collective, size,
+    dtype) and kept in ``cache``."""
+    coll, _, nb, dtype, _, carry = case
+    key = (coll, nb, dtype)
+    if key not in cache:
+        cache[key] = torch.from_numpy(tp_operand(np, coll, nb, dtype)).to(
+            dev)
+    x = cache[key]
+    if not carry:
+        return x, None
+    if nb not in cache:
+        rng = np.random.default_rng([SEED, 7, nb])
+        cache[nb] = torch.from_numpy((rng.standard_normal(tuple(x.shape))
+                                      * 1e-3).astype(np.float32)).to(dev)
+    return x[rows].clone(), cache[nb][rows].clone()
+
+
+def _tp_run(comm, case, x, err):
+    """One call of a case: ``(result, new error or None)``."""
+    coll, algo, _, _, codec, carry = case
+    knobs = {} if codec == "none" else {"codec": codec}
+    if not carry:
+        return comm.invoke(coll, x, algo=algo, **knobs), None
+    op = comm.allreduce_init(x, algo=algo, carry=True, **knobs)
+    y, e = op.start(x, carry=err).wait()
+    y, e = y.clone(), e.clone()
+    op.release()
+    return y, e
+
+
+def _row_sha(torch, y, rows: int):
+    """sha256 of each of the ``rows`` rows of a result (dim 0 split into
+    ``rows`` equal parts), from its bytes on the host."""
+    import hashlib
+    b = y.detach().contiguous().reshape(rows, -1).view(torch.uint8).cpu()
+    return [hashlib.sha256(r.numpy().tobytes()).hexdigest() for r in b]
+
+
+def _digest(torch, y):
+    """A bitwise digest of each row of a float32 ``(rows, n)`` tensor on the
+    card: the int64 sum of its bit patterns times a fixed odd weight per
+    column (wrapping, so independent of the sum's order)."""
+    w = y.contiguous().view(torch.int32).to(torch.int64)
+    k = torch.arange(w.shape[1], dtype=torch.int64, device=w.device)
+    return (w * (k * 2654435761 + 1)).sum(1).tolist()
+
+
+def tp_sync_step(torch, comm, total):
+    """One bucketed ``TP_CODEC`` sync step with error feedback of a
+    full-width gradient on the ranks ``comm.grid`` holds, each rank's row
+    drawn from a generator seeded by its global rank (so any layout of
+    ranks over processes draws the same numbers). Returns per bucket and
+    held rank the digests of the output and the new error, the step's
+    host seconds and, on a grid that holds every rank, the worst bucket
+    error over its tolerance against the float64 sum."""
+    from repro_torch.core import compress
+    from repro_torch.train import manual_step as ms
+
+    grid = comm.grid
+    dev = grid.device
+    slices = ms.bucket_slices(total, ms.DEFAULT_BUCKET_BYTES // 4)
+    grads = torch.empty((grid.rows, total), dtype=torch.float32, device=dev)
+    for i in range(grid.rows):
+        gen = torch.Generator(device=dev).manual_seed(
+            SEED + 1000 + grid.offset + i)
+        grads[i].normal_(0.0, 1e-2, generator=gen)
+    buckets = [grads[:, s:s + n] for s, n in slices]
+    gs = ms.OverlappedGradSync(comm, slices, metric_len=4, algo="pip_mcoll",
+                               codec=TP_CODEC, error_budget=TP_BUDGET)
+    mvec = torch.arange(grid.offset * 4, (grid.offset + grid.rows) * 4,
+                        dtype=torch.float32, device=dev).reshape(-1, 4)
+    gs.ensure_ops(0)
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    synced, _ = gs.sync(buckets, mvec)
+    torch.cuda.synchronize(dev)
+    seconds = time.perf_counter() - t0
+    out = {"buckets": len(slices), "seconds": seconds,
+           "out": [_digest(torch, y) for y in synced],
+           "err": [_digest(torch, e) for e in gs.errs]}
+    if grid.rows == grid.world:
+        worst = 0.0
+        for b, y in zip(buckets, synced):
+            tol = compress.collective_tolerance(TP_CODEC, "allreduce",
+                                                grid.world,
+                                                float(b.abs().max()))
+            got = float((y.double() - b.double().sum(0)).abs().max())
+            if not torch.isfinite(y).all() or got > tol:
+                raise AssertionError(f"two-process sync: bucket error "
+                                     f"{got} > tolerance {tol}")
+            worst = max(worst, got / tol)
+        out["worst_err_over_tol"] = worst
+    gs.release()
+    del synced, buckets, grads
+    return out
+
+
+def tp_collectives(torch, np, comm, kcodec, kstaging):
+    """Every case of :func:`tp_cases` on ``comm``: per case the sha256 of
+    each held result row (and new-error row), the staging and codec
+    launches of the call; per lossless float32 pair and size the median
+    host ms per call over ``TP_ITERS`` calls (each ended by a synchronize)
+    and, on a ``ProcessGrid``, the bytes it sent over gloo per call. Staging launches must be more than 0 exactly where
+    ``oracles.moves_rows`` says, codec launches exactly for the compressed
+    reductions."""
+    from repro_torch.core import compress, oracles
+    grid = comm.grid
+    rows = slice(grid.offset, grid.offset + grid.rows)
+    digests, launched, times, cache = {}, {}, {}, {}
+    for case in tp_cases():
+        coll, algo, nb, dtype, codec, carry = case
+        key = f"{coll}/{algo}/{nb}/{dtype}/{codec}" + ("/carry" * carry)
+        x, err = _tp_inputs(torch, np, case, grid.device, rows, cache)
+        torch.cuda.synchronize()
+        kcodec.reset_launches()
+        kstaging.reset_launches()
+        y, e = _tp_run(comm, case, x, err)
+        torch.cuda.synchronize()
+        launched[key] = {k: n for k, n in {**kcodec.launches,
+                                           **kstaging.launches}.items()
+                         if n}
+        staged = sum(kstaging.launches.values())
+        if (staged > 0) != oracles.moves_rows(coll, algo, codec):
+            raise AssertionError(f"{key}: staging launches "
+                                 f"{kstaging.launches}")
+        # the fused codec kernels serve the compressed reductions; the
+        # compressed gathers, exchanges and trees encode and decode plain
+        fused = codec != "none" and coll in compress.REDUCING
+        if (sum(kcodec.launches.values()) > 0) != fused:
+            raise AssertionError(f"{key}: codec launches "
+                                 f"{kcodec.launches}")
+        digests[key] = _row_sha(torch, y, grid.rows) + (
+            _row_sha(torch, e, grid.rows) if e is not None else [])
+        if codec == "none" and dtype == "float32":
+            sent = getattr(grid, "bytes_sent", 0)
+            ms_call = _host_ms(torch, lambda: comm.invoke(coll, x,
+                                                          algo=algo),
+                               n=TP_ITERS)
+            times[key] = {"ms": ms_call,
+                          "bytes_sent_per_call": (getattr(
+                              grid, "bytes_sent", 0) - sent)
+                          / (TP_ITERS + 1)}
+        del x, err, y, e
+    return digests, launched, times
+
+
+def two_process_worker(total, table_path, device="cuda"):
+    """A phase-8 worker (``distributed.launch.run``): this process's four
+    ranks of the ``make_process_grid(device)`` grid run every case of
+    :func:`tp_cases`, the full-width sync step and a short calibration.
+    Kernel counts are zeroed just before each leg and read just after."""
+    import numpy as np
+    import torch
+    from repro_torch.core import autotune
+    from repro_torch.core.comm import Communicator
+    from repro_torch.distributed import backend
+    from repro_torch.kernels import codec as kcodec
+    from repro_torch.kernels import staging as kstaging
+    from repro_torch.launch.mesh import make_process_grid
+
+    grid = make_process_grid(device)
+    if grid.device.type == "cuda":
+        torch.cuda.set_device(grid.device)
+    comm = Communicator(grid)
+    res = {"rank": grid.rank, "device": str(grid.device),
+           "backend": backend.current_backend().name,
+           "topo_key": autotune.topo_key(comm.topo), "rows": grid.rows,
+           "offset": grid.offset}
+    t0 = time.perf_counter()
+    res["digests"], res["launched"], res["times"] = tp_collectives(
+        torch, np, comm, kcodec, kstaging)
+    res["collectives_s"] = time.perf_counter() - t0
+    res["collective_launches"] = _sum_launches(res["launched"])
+    torch.cuda.empty_cache()
+    kcodec.reset_launches()
+    kstaging.reset_launches()
+    sent = grid.bytes_sent
+    res["sync"] = tp_sync_step(torch, comm, total)
+    res["sync"]["bytes_sent"] = grid.bytes_sent - sent
+    res["sync"]["launches"] = {k: n for k, n in {
+        **kcodec.launches, **kstaging.launches}.items() if n}
+    torch.cuda.empty_cache()
+    ccomm = Communicator(grid, selector=autotune.Selector())
+    t0 = time.perf_counter()
+    cal = ccomm.calibrate(names=TP_CAL, sizes=TP_SIZES, iters=TP_CAL_ITERS,
+                          codecs=(), path=table_path)
+    res["calibrate"] = {
+        "rows": len(cal), "seconds": time.perf_counter() - t0,
+        "table": ccomm.selector.table.to_json(),
+        "auto": {f"{c}/{nb}": autotune.encode_plan(*(lambda s: (
+            s.algo, s.chunks, s.codec))(ccomm.plan(c, nb)))
+            for c in TP_CAL for nb in TP_SIZES}}
+    return res
+
+
+def tp_model_vs_measured(plans):
+    """The cost model under the workers' topology (``TP_KEY``'s links: the
+    reference's ``host_ipc`` constants on the node axis) against each
+    lossless plan's measured two-process time (the slower worker's): each
+    plan's ``model_ms``, and per (collective, size) cell whether the
+    model's argmin is the measured one, with the median |(measured -
+    model) / model|."""
+    from repro_torch.core import autotune
+    from repro_torch.core.topology import Topology
+    _, node_link, local_link = TP_KEY.split("/")
+    topo = Topology(TP_PROCS, TP_RANKS, node_link=node_link,
+                    local_link=local_link)
+    cells, errs = {}, []
+    for p in plans:
+        coll, algo, nb = p["plan"].split("/")[:3]
+        model = autotune.predicted_seconds(coll, algo, topo, int(nb))
+        p["model_ms"] = model * 1e3 if model else None
+        if p["model_ms"]:
+            got = max(p["two_process_ms"])
+            errs.append(abs(got - p["model_ms"]) / p["model_ms"])
+            cells.setdefault((coll, nb), []).append(
+                (got, p["model_ms"], algo))
+    agree = sum(min(c)[2] == min(c, key=lambda r: r[1])[2]
+                for c in cells.values())
+    return {"link": TP_KEY, "cells": len(cells), "agree_algo": agree,
+            "median_abs_rel_err": statistics.median(errs),
+            "plans": len(errs)}
+
+
+def _sum_launches(launched):
+    total = {}
+    for counts in launched.values():
+        for k, n in counts.items():
+            total[k] = total.get(k, 0) + n
+    return total
+
+
+def two_process_phase(torch, dev, cfg, kcodec, kstaging):
+    """Phase 8: the parent's ``RankGrid(2, 4)`` runs every case and the
+    full-width sync step, keeps the digests and frees the card; then two
+    workers of four ranks each (``distributed.launch.run``) run the same on
+    ``make_process_grid()``, and every held row must be bitwise the
+    parent's. Returns the record of the ``{"two_process": ...}`` line."""
+    import numpy as np
+    from repro_torch.core.comm import Communicator
+    from repro_torch.core.grid import RankGrid
+    from repro_torch.core.autotune import TuningTable
+    from repro_torch.distributed import launch
+    from repro_torch.models.params import param_shapes
+
+    mode = _smi("compute_mode")
+    print(f"two-process phase: compute mode {mode}")
+    if "exclusive_process" in mode.lower().replace(" ", "_"):
+        raise AssertionError(f"the card's compute mode is {mode}: two "
+                             f"processes cannot share it")
+    total = sum(int(torch.Size(s).numel()) for _, s in param_shapes(cfg))
+    comm = Communicator(RankGrid(TP_PROCS, TP_RANKS, dev))
+    t0 = time.perf_counter()
+    digests, launched, times = tp_collectives(torch, np, comm, kcodec,
+                                              kstaging)
+    parent_s = time.perf_counter() - t0
+    sync = tp_sync_step(torch, comm, total)
+    del comm
+    gc.collect()
+    torch.cuda.empty_cache()
+    table_path = ROOT / "build" / TP_TABLE
+    table_path.unlink(missing_ok=True)
+    t0 = time.perf_counter()
+    workers = launch.run(two_process_worker, total, str(table_path),
+                         str(dev), processes=TP_PROCS,
+                         ranks_per_process=TP_RANKS, timeout=TP_TIMEOUT)
+    spawn_s = time.perf_counter() - t0
+    world = TP_PROCS * TP_RANKS
+    for w in workers:
+        rows = slice(w["offset"], w["offset"] + w["rows"])
+        if w["topo_key"] != TP_KEY:
+            raise AssertionError(f"rank {w['rank']}: key {w['topo_key']}")
+        if torch.device(w["device"]).type != dev.type:
+            raise AssertionError(f"rank {w['rank']} on {w['device']}")
+        for key, want in digests.items():
+            got = w["digests"][key]
+            # per-row digests: the result's rows, then the new error's
+            n = len(want) // world
+            mine = [d for i in range(n) for d in want[i * world:(i + 1)
+                                                      * world][rows]]
+            if got != mine:
+                raise AssertionError(f"rank {w['rank']}: {key} not bitwise "
+                                     f"the one-process grid's")
+            # the same codec launches per call as the one-process grid's
+            # (one per call, whatever the rows); staging as moves_rows says
+            codecs = [{k: n for k, n in c.items()
+                       if k not in kstaging.launches}
+                      for c in (launched[key], w["launched"][key])]
+            if codecs[0] != codecs[1]:
+                raise AssertionError(f"rank {w['rank']}: {key} codec "
+                                     f"launches {codecs[1]}, one process "
+                                     f"{codecs[0]}")
+        for part in ("out", "err"):
+            want = [[d[i] for i in range(rows.start, rows.stop)]
+                    for d in sync[part]]
+            if w["sync"][part] != want:
+                raise AssertionError(f"rank {w['rank']}: sync {part} not "
+                                     f"bitwise the one-process step's")
+        encodes, decode = CODEC_KERNELS[TP_CODEC]
+        want = {**{k: 2 * sync["buckets"] for k in encodes},
+                decode: sync["buckets"]}
+        if w["sync"]["launches"] != want:
+            raise AssertionError(f"rank {w['rank']}: sync step launches "
+                                 f"{w['sync']['launches']}, expected "
+                                 f"{want}")
+    table = TuningTable.load(table_path)
+    if list(table.entries) != [TP_KEY] or any(
+            w["calibrate"]["table"] != table.to_json() for w in workers):
+        raise AssertionError(f"merged table: {list(table.entries)}")
+    if workers[0]["calibrate"]["auto"] != workers[1]["calibrate"]["auto"]:
+        raise AssertionError("auto resolves differently on the two ranks")
+    rec = {"card": _smi("name,power.limit"), "processes": TP_PROCS,
+           "ranks_per_process": TP_RANKS, "compute_mode": mode, "topo_key": workers[0]["topo_key"],
+           "cases": len(digests), "parent_s": parent_s, "spawn_s": spawn_s,
+           "plans": [{"plan": key, "one_process_ms": t["ms"],
+                      "two_process_ms": [w["times"][key]["ms"]
+                                         for w in workers],
+                      "bytes_sent_per_call": [
+                          w["times"][key]["bytes_sent_per_call"]
+                          for w in workers],
+                      "launches": [w["launched"][key] for w in workers]}
+                     for key, t in times.items()],
+           "sync": {"buckets": sync["buckets"],
+                    "one_process_s": sync["seconds"],
+                    "worst_err_over_tol": sync["worst_err_over_tol"],
+                    "two_process_s": [w["sync"]["seconds"] for w in workers],
+                    "bytes_sent": [w["sync"]["bytes_sent"]
+                                   for w in workers],
+                    "launches": [w["sync"]["launches"] for w in workers]},
+           "calibrate": {"rows": [w["calibrate"]["rows"] for w in workers],
+                         "seconds": [w["calibrate"]["seconds"]
+                                     for w in workers],
+                         "auto": workers[0]["calibrate"]["auto"],
+                         "table": str(table_path.relative_to(ROOT))},
+           "worker_collectives_s": [w["collectives_s"] for w in workers],
+           "model_vs_measured": None,
+           "launches": [w["collective_launches"] for w in workers]}
+    rec["model_vs_measured"] = tp_model_vs_measured(rec["plans"])
+    return rec
+
+
 FEEDBACK_LINES = {"int8": 123, "int4": 204, "fp8": 294}
 
 
@@ -2806,6 +3236,28 @@ def main() -> int:
         kernels[name]["tick_path_ms"] = {
             path: launches["tick_path_ms"][kname]
             for path, launches in staged.items() if path != "collectives"}
+    gc.collect()
+    torch.cuda.empty_cache()
+    two = two_process_phase(torch, dev, smollm, kcodec, kstaging)
+    print(json.dumps({"two_process": two}))
+    print(f"two-process phase done ({time.perf_counter() - t0:.3f} s in "
+          f"all)")
+    on_two = {}  # each kernel's launches on both workers, all legs
+    for counts in two["launches"] + two["sync"]["launches"]:
+        for k, n in counts.items():
+            on_two[k] = on_two.get(k, 0) + n
+    for name in STAGING_NAMES:
+        kernels[name]["launches_by_path"]["two_process"] = on_two.get(name,
+                                                                      0)
+    for codec, _ in SYNC_CODECS:
+        encodes, decode = CODEC_KERNELS[codec]
+        for key, counted in ((encodes[-1], encodes[-1]), (decode, decode)):
+            rec = kernels[key]
+            rec["launches_by_path"] = {"slice": rec["launches"],
+                                       "two_process": on_two.get(counted, 0)}
+            if not on_two.get(counted):
+                raise AssertionError(f"{counted}: no launch on the "
+                                     f"two-process path")
 
     print(_smi("name,power.limit"))
     print(json.dumps({"kernels": kernel_lines(kernels)}))

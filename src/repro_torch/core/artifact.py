@@ -141,7 +141,10 @@ def validate_file(path, sections: Optional[Tuple[str, ...]] = None) -> dict:
 def calibration_sections(comm, rows, link=None) -> dict:
     """The calibrate sections of the artifact from ``comm.calibrate`` rows
     (``include_splits=True`` rows too): ``topology``, ``sizes``,
-    ``backend`` ("single": one process), ``process_count`` (1), ``table``
+    ``backend`` and ``process_count`` (from
+    ``distributed.backend.stamp_artifact``: ``"single"`` and 1 in one
+    process, ``"multiprocess"`` and the process count under a launched
+    process group), ``table``
     (``comm.selector``'s), ``latency_rows`` and ``model_vs_measured``.
 
     One ``model_vs_measured`` row per (group, collective, size) cell, as the
@@ -156,6 +159,7 @@ def calibration_sections(comm, rows, link=None) -> dict:
     import dataclasses
 
     from repro_torch.core import autotune  # lazy: the schema is stdlib-only
+    from repro_torch.distributed import backend as _backend
 
     topos = {c.topo.group: c.topo
              for c in (comm,) + tuple(comm.split_lattice())}
@@ -193,9 +197,9 @@ def calibration_sections(comm, rows, link=None) -> dict:
             "prior_us": prior.seconds * 1e6,
             "agree": autotune.decode_plan(best)[0] == prior.algo,
             "per_plan": per_plan})
-    return {"topology": autotune.topo_key(comm.topo),
-            "sizes": sorted({int(r.nbytes) for r in rows}),
-            "backend": "single", "process_count": 1,
-            "table": comm.selector.table.to_json(),
-            "latency_rows": [dataclasses.asdict(r) for r in rows],
-            "model_vs_measured": comparison}
+    return _backend.stamp_artifact({
+        "topology": autotune.topo_key(comm.topo),
+        "sizes": sorted({int(r.nbytes) for r in rows}),
+        "table": comm.selector.table.to_json(),
+        "latency_rows": [dataclasses.asdict(r) for r in rows],
+        "model_vs_measured": comparison})

@@ -36,7 +36,6 @@ observation (the window ends after the card's work is done).
 from __future__ import annotations
 
 import dataclasses
-import math
 import time
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -46,6 +45,7 @@ from repro_torch.core import autotune, runtime
 from repro_torch.core import telemetry as _tm
 from repro_torch.core.grid import RankGrid
 from repro_torch.core.topology import Topology
+from repro_torch.distributed import backend as _dist
 
 # ---------------------------------------------------------------------------
 # plan spec: one normalization point for every call path
@@ -101,20 +101,6 @@ class PlanSpec:
         if self.codec is not None:
             kw["codec"] = str(self.codec)
         return kw
-
-
-class _Proto:
-    """Shape/dtype stand-in for plan resolution without a live tensor."""
-
-    __slots__ = ("shape", "dtype")
-
-    def __init__(self, shape, dtype):
-        self.shape = tuple(int(s) for s in shape)
-        self.dtype = dtype
-
-    @property
-    def nbytes(self) -> int:
-        return int(math.prod(self.shape)) * self.dtype.itemsize
 
 
 # ---------------------------------------------------------------------------
@@ -215,11 +201,11 @@ class PersistentOp:
         self.starts = 0
         self._inflight = 0
         self._released = False
-        total = int(math.prod(self.shape)) * dtype.itemsize
-        # per-rank message bytes in the cost model's convention (as
-        # runtime._message_bytes): the drift detector's size key
-        self._msg_nbytes = (max(1, total) if collective == "broadcast"
-                            else max(1, total // comm.topo.world))
+        # per-rank message bytes in the cost model's convention: the drift
+        # detector's size key
+        self._msg_nbytes = runtime._message_bytes(
+            collective, comm.topo, runtime.logical(
+                comm.grid, collective, runtime.Proto(self.shape, dtype)))
         global _LIVE_OPS, _OP_SEQ
         _OP_SEQ += 1
         # each op its own trace track, so concurrent windows render as
@@ -231,7 +217,8 @@ class PersistentOp:
             comm.grid, comm.topo, collective, algo, self.shape, dtype,
             stacked=self.stacked, carry=self.carry, **self.kw)
         out_shape = runtime.wiring(collective).result_shape(
-            self.shape, comm.grid.world, self.stacked, comm.topo.world)
+            self.shape, comm.grid.world, self.stacked, comm.topo.world,
+            rows=comm.grid.rows)
         self._out = [torch.empty(out_shape, dtype=dtype,
                                  device=comm.grid.device)
                      for _ in range(self.depth)]
@@ -415,7 +402,13 @@ class Communicator:
         rank). Returns ``{color: Communicator}``, each on its own
         ``RankGrid(1, size, device)`` and tagged ``color<c>`` unless
         ``group`` is given; its operand is the caller's choice of the
-        group's rows, in that order (the child's ``ranks``)."""
+        group's rows, in that order (the child's ``ranks``).
+
+        On a ``ProcessGrid`` an axes child shares the grid (and its
+        process group). A color group must lie inside one process, where
+        it runs on a ``RankGrid`` of its own; one that spans processes
+        would need a process group of its own and raises
+        ``NotImplementedError`` (ROADMAP queue 1 item 5b)."""
         if (axes is None) == (color is None):
             raise ValueError("split() takes exactly one of axes= or color=")
         if axes is not None:
@@ -453,6 +446,12 @@ class Communicator:
             for c in sorted(set(color)):
                 ranks = sorted((r for r in range(world) if color[r] == c),
                                key=lambda r: (key[r], r))
+                procs = {r // self.grid.rows for r in ranks}
+                if len(procs) > 1:
+                    raise NotImplementedError(
+                        f"color group {c} spans processes {sorted(procs)}: "
+                        f"a group across processes needs a process group "
+                        f"of its own (ROADMAP queue 1 item 5b)")
                 grid = RankGrid(1, len(ranks), self.grid.device)
                 tag = group if group is not None else f"color{c}"
                 topo = dataclasses.replace(Topology.from_grid(grid),
@@ -516,7 +515,8 @@ class Communicator:
               stacked: bool = True, **kw):
         spec = PlanSpec(name, algo, chunks, chunk_bytes, codec,
                         error_budget, stacked)
-        algo_r, kw_r = self._resolve(spec, x, kw)
+        algo_r, kw_r = self._resolve(spec, runtime.logical(self.grid, name, x),
+                                     kw)
         return runtime.run_resolved(self.grid, self.topo, name, algo_r, x,
                                     stacked=stacked, **kw_r)
 
@@ -581,8 +581,9 @@ class Communicator:
                              "explicit shape= and dtype=")
         spec = PlanSpec(name, algo, chunks, chunk_bytes, codec,
                         error_budget, stacked, carry)
-        proto = _Proto(shape, dtype)
-        algo_r, kw_r = self._resolve(spec, proto, kw)
+        proto = runtime.Proto(shape, dtype)
+        algo_r, kw_r = self._resolve(spec, runtime.logical(self.grid, name,
+                                                           proto), kw)
         return PersistentOp(self, name, proto.shape, dtype, algo_r, kw_r,
                             stacked=stacked, depth=depth, carry=carry)
 
@@ -617,15 +618,25 @@ class Communicator:
         ``/g:``-keyed rows before its first use: a fresh ``split(axes=...)``
         then resolves ``algo="auto"`` from measurement. Every row lands in
         the shared selector's table; ``path`` is written once, after the
-        whole lattice. (Merging the tables of several processes comes with
-        the ``torch.distributed`` transport.)"""
+        whole lattice.
+
+        Under a process group of several processes every process runs the
+        same sweeps (the timed plans cross processes), then every process
+        folds all processes' tables in with ``max``
+        (``distributed.backend.merge_tuning_table``), so ``algo="auto"``
+        resolves to the same plan everywhere, and rank 0 alone writes
+        ``path``; a barrier follows. (The reference folds on rank 0 only.)
+        """
         kw.setdefault("selector", self.selector)
         rows = list(runtime.calibrate(self.grid, self.topo, **kw))
         if include_splits:
             for child in self.split_lattice():
                 rows.extend(runtime.calibrate(child.grid, child.topo, **kw))
-        if path is not None:
-            kw["selector"].table.save(path)
+        table = kw["selector"].table
+        _dist.merge_tuning_table(table)
+        if path is not None and _dist.process_rank() == 0:
+            table.save(path)
+        _dist.barrier("comm.calibrate/saved")
         return rows
 
     def cache_stats(self) -> "runtime.CacheStats":

@@ -109,10 +109,11 @@ def host_cpu() -> NetParams:
 
 
 def host_ipc() -> NetParams:
-    """Cross-process boundary between local jax.distributed controllers
-    (gloo over loopback/shared memory): far higher latency and lower
-    bandwidth than in-process memcpy, which is exactly the intra/inter
-    asymmetry the multi-leader algorithms exploit."""
+    """Cross-process boundary between local ``torch.distributed`` processes
+    (gloo over loopback, ``core.grid.ProcessGrid``'s node axis): far higher
+    latency and lower bandwidth than in-process memcpy, which is exactly
+    the intra/inter asymmetry the multi-leader algorithms exploit. The
+    reference's constants, not fitted to the port's transport."""
     return NetParams("host_ipc", alpha_inter=6.0e-6, beta_inter=1 / 8.0e9,
                      alpha_intra=2.0e-7, beta_intra=1 / 5.0e10, msg_rate=2e7)
 

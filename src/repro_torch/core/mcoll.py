@@ -11,7 +11,10 @@ row-major ``(node, local)`` order and row ``d`` is rank ``d``'s payload.
 Every ``lax.axis_index`` step of the reference becomes per-rank index
 arithmetic on those rows (``grid.take``/``roll``/``dynamic_slice``/
 ``where``), and a masked ``psum`` stays a rank-ordered ``grid.psum``, so
-signed zeros come out as the reference's do.
+signed zeros come out as the reference's do. ``topo.world`` is always a
+group size and ``x.shape[0]`` the rows the grid holds: all ranks on a
+``RankGrid``, one node's on a ``ProcessGrid``, whose primitives carry the
+other nodes' rows across processes, so every algorithm runs on either.
 
 Algorithms (selectable, ``algo=`` everywhere):
   allgather : pip_mcoll | bruck | recursive_doubling | ring | ring_pipeline

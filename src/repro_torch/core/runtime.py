@@ -46,11 +46,25 @@ is computed within its own group, and the allgather without ``stacked``
 is group 0's gather. A replicated operand becomes rows by ``expand``, a
 view, not a copy. Operands must already live on the grid's device:
 nothing is moved implicitly.
+
+On a :class:`~repro_torch.core.grid.ProcessGrid` over several processes
+every process passes the same full logical operand, as the reference's
+``global_operand`` has it; the plan wires it to the D rows as above and
+keeps the process's own (``grid.rows`` from flat rank ``grid.offset``).
+A row-mode operand (allreduce, reduce_scatter, alltoall) may instead hold
+only those rows, ``(rows, ...)``: a process then never holds the other
+processes' payloads (:func:`logical` sizes it as the whole). The result
+is the process's part: its rows of a stacked result, its shards of a
+sharded one, concatenated in flat rank order;
+``distributed.backend.to_host(y, grid)`` gives the full result on every
+process. ``stacked=False`` returns held row 0, since every row of that
+gather is the same.
 """
 from __future__ import annotations
 
 import dataclasses
 import inspect
+import math
 import statistics
 import time
 from collections import OrderedDict
@@ -114,9 +128,12 @@ class Wiring:
         return y
 
     def result_shape(self, shape, world: int, stacked: bool = True,
-                     group: Optional[int] = None) -> Tuple[int, ...]:
+                     group: Optional[int] = None,
+                     rows: Optional[int] = None) -> Tuple[int, ...]:
         """The global result's shape for an operand of ``shape`` on
-        ``world`` (D) ranks in groups of ``group`` (G, default D)."""
+        ``world`` (D) ranks in groups of ``group`` (G, default D); with
+        ``rows``, the part of it that a process holding ``rows`` ranks
+        holds (``ProcessGrid``)."""
         D = int(world)
         G = D if group is None else int(group)
         shape = tuple(int(s) for s in shape)
@@ -129,9 +146,10 @@ class Wiring:
             mine = (mine[0] // G,) + mine[1:]
         if self.stackable and not stacked:
             return mine
+        lead = D if rows is None else int(rows)
         if self.out_mode == "stack":
-            return (D,) + mine
-        return (D * mine[0],) + mine[1:]
+            return (lead,) + mine
+        return (lead * mine[0],) + mine[1:]
 
 
 _WIRING: Dict[str, Wiring] = {
@@ -166,6 +184,30 @@ def dtype_name(dtype) -> str:
 def nbytes(x) -> int:
     return int(x.numel()) * int(x.element_size()) if torch.is_tensor(x) \
         else int(x.nbytes)
+
+
+class Proto:
+    """Shape/dtype stand-in for plan resolution without a live tensor."""
+
+    __slots__ = ("shape", "dtype")
+
+    def __init__(self, shape, dtype):
+        self.shape = tuple(int(s) for s in shape)
+        self.dtype = dtype
+
+    @property
+    def nbytes(self) -> int:
+        return int(math.prod(self.shape)) * self.dtype.itemsize
+
+
+def logical(grid, collective: str, x):
+    """``x`` as plan resolution and message sizes see it: a row-mode
+    operand that holds only a process's rows of a ``ProcessGrid`` stands
+    for the ``(world, ...)`` operand; anything else is itself."""
+    if grid.rows != grid.world and _WIRING[collective].in_mode == "row" \
+            and x.shape[0] == grid.rows:
+        return Proto((grid.world,) + tuple(x.shape[1:]), x.dtype)
+    return x
 
 
 # ---------------------------------------------------------------------------
@@ -432,9 +474,13 @@ def _construct(grid, topo: Topology, collective: str, algo: str,
     wire = _WIRING[collective]
     fn = partial(_mcoll.algorithm(collective, algo), topo=topo, grid=grid,
                  **kw)
-    world = grid.world
+    world, lo, hi = grid.world, grid.offset, grid.offset + grid.rows
+
+    def held(x):  # this process's rows of the wired operand
+        rows = wire.to_rows(x, world)
+        return rows if rows.shape[0] == grid.rows else rows[lo:hi]
     if not carry:
-        return lambda x: wire.from_rows(fn(wire.to_rows(x, world)), stacked)
+        return lambda x: wire.from_rows(fn(held(x)), stacked)
     if (wire.in_mode, wire.out_mode) != ("row", "stack"):
         raise ValueError(
             f"carry operand needs row-in/stack-out wiring; {collective} is "
@@ -480,7 +526,7 @@ def run(grid, topo: Topology, name: str, algo: str, x, *,
         stacked: bool = True, error_budget: float = 0.0, **kw):
     """Resolve the plan for ``x`` and execute it through the caches."""
     wiring(name)  # raises on an unknown collective
-    algo, kw = resolve_algo(topo, name, algo, x, kw,
+    algo, kw = resolve_algo(topo, name, algo, logical(grid, name, x), kw,
                             error_budget=error_budget)
     return run_resolved(grid, topo, name, algo, x, stacked=stacked, **kw)
 
@@ -500,7 +546,7 @@ def run_resolved(grid, topo: Topology, name: str, algo: str, x, *,
     if tm_on:
         # dispatch host time only: the card may still be running
         dt = time.perf_counter() - t0
-        nb = _message_bytes(name, topo, x)
+        nb = _message_bytes(name, topo, logical(grid, name, x))
         _tm.emit(name, t0, dt, cat="collective",
                  cache="hit" if hit else "miss",
                  **_span_tags(topo, name, algo, kw, nbytes=nb))

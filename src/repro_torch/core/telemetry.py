@@ -245,23 +245,26 @@ def plan_tags(collective: str, algo: str, chunks: int = 1,
 def export_chrome_trace(path=None) -> dict:
     """Render the span buffer as Chrome trace-event JSON (the format
     Perfetto and ``chrome://tracing`` load). Tracks become named threads of
-    one process; spans are complete events (``ph="X"``) with microsecond
-    timestamps relative to the earliest recorded span. Returns the dict;
-    writes it to ``path`` when given."""
+    one process, whose ``pid`` is this process's rank in the
+    ``torch.distributed`` process group (0 alone), so the traces of a
+    launched run's processes load side by side; spans are complete events
+    (``ph="X"``) with microsecond timestamps relative to the earliest
+    recorded span. Returns the dict; writes it to ``path`` when given."""
     recorded = spans()
+    pid, _ = _process_rank()
     tracks: Dict[str, int] = {"main": 0}
     for s in recorded:
         tracks.setdefault(s.track, len(tracks))
     epoch = min((s.start for s in recorded), default=0.0)
     events: List[dict] = [
-        {"ph": "M", "pid": 0, "tid": tid, "name": "thread_name",
+        {"ph": "M", "pid": pid, "tid": tid, "name": "thread_name",
          "args": {"name": track}}
         for track, tid in tracks.items()]
     for s in recorded:
         events.append({
             "name": s.name, "cat": s.cat or "repro", "ph": "X",
             "ts": (s.start - epoch) * 1e6, "dur": s.duration * 1e6,
-            "pid": 0, "tid": tracks[s.track], "args": dict(s.args)})
+            "pid": pid, "tid": tracks[s.track], "args": dict(s.args)})
     trace = {"traceEvents": events, "displayTimeUnit": "ms",
              "otherData": {"spans_dropped": _DROPPED}}
     if path is not None:

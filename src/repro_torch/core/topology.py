@@ -6,12 +6,15 @@ the collective algorithms operate over, their sizes, and per-level link
 metadata (a :class:`repro_torch.core.costmodel.NetParams` preset name or
 instance) that the selector composes via ``costmodel.net_for(topo)``.
 
-Links come from :func:`derive_link` on a :class:`repro_torch.core.grid.
-RankGrid`. A grid's ranks are rows of tensors in one process, so no axis
+Links come from :func:`derive_link` on a grid. A :class:`repro_torch.core
+.grid.RankGrid`'s ranks are rows of tensors in one process, so no axis
 crosses a process boundary: on the CPU both levels are ``host_cpu``; on
 CUDA both are ``h100_grid``, the preset fitted from calibration on an H100
 (``costmodel.h100_grid``), as the reference maps its TPU onto its
-``tpu_v5e_ici`` preset. Any other platform warns once and borrows the
+``tpu_v5e_ici`` preset. On a :class:`~repro_torch.core.grid.ProcessGrid`
+of several processes the node axis crosses the process boundary and is
+``host_ipc``, the reference's link between host processes; its local axis
+keeps the in-process link. Any other platform warns once and borrows the
 ``host_cpu`` constants, as the reference does for an unknown platform.
 """
 from __future__ import annotations
@@ -40,15 +43,20 @@ def derive_link(grid, axis: str, level: str) -> str:
     """Link-class name for one rank-grid axis.
 
     The reference classifies an axis by the process boundaries it crosses,
-    then maps the platform onto a preset. Every rank of a ``RankGrid``
-    lives in one process, so both levels are in-process links:
+    then maps the platform onto a preset. Process boundaries classify
+    first: the node axis of a grid over more than one process
+    (``grid.process_count``, a ``ProcessGrid``'s) crosses them and is
+    ``"host_ipc"`` on any platform (gloo between host processes). Every
+    other axis is an in-process link:
 
       * cpu: ``"host_cpu"``;
       * cuda: ``"h100_grid"`` (ranks as rows of one card's memory);
       * anything else: ``"host_cpu"`` with a once-per-platform warning, so
         calibration tables record which rows rest on folklore constants.
     """
-    del axis, level  # no process boundary inside a grid
+    del level  # the process boundary distinguishes levels, not the caller
+    if axis == "node" and getattr(grid, "process_count", 1) > 1:
+        return "host_ipc"
     platform = grid.device.type
     if platform == "cuda":
         return "h100_grid"

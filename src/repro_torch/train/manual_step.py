@@ -5,7 +5,8 @@ A gradient is held STACKED and FLAT: one ``(world, n_params)`` buffer whose
 row ``d`` is rank ``d``'s gradient and whose columns are the leaves in the
 reference's flatten order (``models.params.param_shapes``; leaves are views
 into the buffer). A bucket is then a column window of that buffer, so the
-bucket flatten copies nothing.
+bucket flatten copies nothing. On a ``ProcessGrid`` each process holds
+only its own ranks' rows, ``(grid.rows, n_params)``.
 
   * :func:`sync_tree_bucketed` runs ``sync_fn(bucket, err) -> (synced,
     new_err)`` once per ``bucket_bytes`` window;
@@ -146,7 +147,7 @@ def init_error_state(n_params: int, comm, error_budget: float = 0.0,
 
 def _error_views(comm, slices) -> Tuple[torch.Tensor, ...]:
     total = sum(n for _, n in slices)
-    buf = torch.zeros((comm.topo.world, total), dtype=torch.float32,
+    buf = torch.zeros((comm.grid.rows, total), dtype=torch.float32,
                       device=comm.grid.device)
     views, off = [], 0
     for _, n in slices:
@@ -215,7 +216,7 @@ class OverlappedGradSync:
         for op in self._ops:
             op.release()
         self._ops, self.errs = [], []  # free the old buffers first
-        world = self.comm.topo.world
+        world = self.comm.grid.rows  # a ProcessGrid: this process's ranks
         self._ops = [
             self.comm.allreduce_init(
                 shape=(world, n), dtype=torch.float32, algo=name,
