@@ -3,7 +3,7 @@
 
 Usage: ``python3 chip_smoke.py`` from the repository root, on a machine
 with an NVIDIA Hopper card and the CUDA toolkit. It imports nothing of JAX
-or of the JAX package. Nine phases; any failure exits non-zero:
+or of the JAX package. Ten phases; any failure exits non-zero:
 
 1. **Kernels.** Builds ``kernels/csrc/codec_{int8,int4,fp8}.cu``,
    ``flash_decode.cu``, ``rwkv6_wkv.cu``, ``mamba_scan.cu`` and
@@ -226,7 +226,41 @@ or of the JAX package. Nine phases; any failure exits non-zero:
    ``TP_ITERS`` calls at both sizes in one process and in each worker,
    with the bytes each worker sent per call, the sync step's times and
    bytes, the launches.
-9. **Report.** The slice, collectives, serving and calibration summaries,
+9. **Train.** The train step at full width: smollm-360m (32 layers, d
+   960, 409,007,040 bf16 weights from a seeded ``torch.Generator``) on
+   ``RankGrid(2, 4)``, one 2048-token sequence a rank (the step-0 batch of
+   ``data.pipeline.SyntheticLM(vocab, 2048, 8, seed=0)``, every step, so
+   the loss must fall), ``remat="dots"``, AdamW at a constant 1e-4 with no
+   warmup, the earlier phases' memory freed first; every kernel count is
+   zeroed just before each leg and read just after. (a) The fused int8
+   error-feedback step (``make_manual_train_step(algo="pip_mcoll",
+   error_budget=0.5/127)``), 3 steps: the loss falls at every step and
+   stays finite; a step launches 782 ``int8_block_encode`` and 391
+   ``int8_decode_reduce``, the staging kernels as the sync calls do alone
+   (more than 0 exactly where ``oracles.moves_rows`` says), every other
+   kernel 0; then one profiled step. (d) ``compress_tree`` on rank 0's
+   gradient (12 leaves) with a carried error: 12 ``int8_encode_feedback``
+   launches, wire forms and new error bitwise the plain versions' on the
+   same operands, the decoded tree within the int8 bound; counted on a
+   path of its own, ``compress_tree``, since no train step calls it. (b)
+   The lossless fused step (``algo="auto"``) against ``train_step`` over
+   8 microbatches of the global batch, two steps each from the same
+   weights: both losses within ``rtol=1e-5``, the weights after the first
+   within 5e-2 and AdamW's ``m`` after the first (the applied gradient
+   times 1 - b1) within 1e-4 of each leaf's largest |m|; two steps timed,
+   one profiled. (c) ``make_overlapped_train_step(segmented=True)`` with
+   ``overlap=True`` and its barrier twin, 2 steps each from the same
+   start: the sha256 of the weights, ``m`` and ``v`` and the losses
+   equal; the segmented and the monolithic decomposition, two steps each,
+   against (b)'s ``train_step`` at (b)'s bars; one profiled step and one
+   traced one (every stage a span nested in
+   ``train/step``, a ``bucket:<i>`` window per bucket; the Chrome trace
+   in ``build/train_trace.json``). Peak device memory under 70 GB. One
+   ``{"train": ...}`` line: each leg's step times (host clock around a
+   synchronize; the median of the steps after the first), tokens per
+   second, profiled step (device busy, idle share, top kernels) and
+   launches, the peak.
+10. **Report.** The slice, collectives, serving and calibration summaries,
    the card's name and power limit (as nvidia-smi gives them), the
    ``{"kernels": [...]}`` line (the 14 TPU kernels of the repository, each
    codec's feedback encode apart from its residual encode and the WKV6
@@ -234,7 +268,10 @@ or of the JAX package. Nine phases; any failure exits non-zero:
    feedback launches the slice phase counted apart: 0, since its
    compressed allreduce encodes without the carried error; the staging
    and codec kernels' ``launches_by_path`` include ``two_process``, both
-   workers' launches), and last
+   workers' launches; every entry's ``launches_by_path`` has ``train``,
+   the train steps' launches; the feedback encodes' also have
+   ``compress_tree``, leg (d)'s, which their launches include),
+   and last
    ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -3041,39 +3078,533 @@ def two_process_phase(torch, dev, cfg, kcodec, kstaging):
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the train step
+# ---------------------------------------------------------------------------
+
+#: the train phase: one sequence a rank, AdamW at a constant rate, the
+#: legs' step counts, the peak device memory allowed, and the error budget
+#: of leg (a) (admits int8_block only)
+TRAIN_SEQ, TRAIN_LR = 2048, 1e-4
+TRAIN_STEPS_A, TRAIN_STEPS_C = 3, 2
+TRAIN_PEAK_LIMIT_BYTES = 70e9
+TRAIN_BUDGET = 0.5 / 127
+TRAIN_TRACE = "train_trace.json"
+#: kernels named in the train profiles' per-launch times
+TRAIN_NAMES = ("int8_block_encode", "int8_decode_reduce") + STAGING_KERNELS
+
+
+def _launches(kmods):
+    return {k: n for km in kmods for k, n in km.launches.items()}
+
+
+def profile_device(torch, fn, names, top: int = 12):
+    """:func:`profile_call`'s record for a call of tens of thousands of
+    launches (a train step): only the device's activity is recorded and
+    read straight from the profiler's own events, without building its
+    tables (which take minutes at that size)."""
+    from torch.profiler import ProfilerActivity, profile
+    prof = profile(activities=[ProfilerActivity.CUDA])
+    torch.cuda.synchronize()
+    try:
+        prof.start()
+    except RuntimeError as e:
+        prof, reason = None, repr(e)
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    if prof is None:
+        return {"device_busy_ms": "not measured", "step_ms": wall_ms,
+                "reason": reason}
+    try:
+        prof.stop()
+        events = [(e.name(), e.duration_ns() / 1e6)
+                  for e in prof.profiler.kineto_results.events()
+                  if e.device_type() == torch.autograd.DeviceType.CUDA]
+    except (RuntimeError, AttributeError) as e:
+        return {"device_busy_ms": "not measured", "step_ms": wall_ms,
+                "reason": repr(e)}
+    rows = {}
+    for name, ms in events:
+        tot, n = rows.get(name, (0.0, 0))
+        rows[name] = (tot + ms, n + 1)
+    busy = sum(ms for ms, _ in rows.values())
+    if not busy:
+        return {"device_busy_ms": "not measured", "step_ms": wall_ms,
+                "reason": "profiler recorded no device time"}
+    if busy > wall_ms:
+        raise AssertionError(f"profiled call: device busy {busy} ms exceeds "
+                             f"its wall time {wall_ms} ms")
+    per_launch = {}
+    for want in names:
+        hits = [v for k, v in rows.items() if want in k]
+        n = sum(c for _, c in hits)
+        per_launch[want] = (sum(ms for ms, _ in hits) / n if n
+                            else "not measured")
+    order = sorted(rows.items(), key=lambda kv: -kv[1][0])
+    return {"device_busy_ms": busy, "step_ms": wall_ms,
+            "idle_share": 1.0 - busy / wall_ms, "per_launch_ms": per_launch,
+            "gemm_ms": sum(ms for k, (ms, _) in rows.items()
+                           if _is_gemm(k)),
+            "launches": sum(n for _, n in rows.values()),
+            "kernels": [{"name": k[:90], "ms": ms, "count": n}
+                        for k, (ms, n) in order[:top]]}
+
+
+def _reset(kmods):
+    for km in kmods:
+        km.reset_launches()
+
+
+def _sha(torch, tensors) -> str:
+    """sha256 of the tensors' bytes, one after another."""
+    import hashlib
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().view(-1).view(torch.uint8)
+                 .cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _timed_steps(torch, dev, fn, n):
+    """``n`` calls of ``fn``, each timed on the host clock around a device
+    synchronize; returns (times in s, results)."""
+    times, outs = [], []
+    for _ in range(n):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        outs.append(fn())
+        torch.cuda.synchronize(dev)
+        times.append(time.perf_counter() - t0)
+    return times, outs
+
+
+def _leg_record(times, tokens, profile, launches):
+    """A leg's step times (the median of the steps after the first),
+    tokens per second, its profiled step and launches."""
+    later = times[1:] or times
+    med = statistics.median(later)
+    prof = {k: profile.get(k) for k in ("device_busy_ms", "step_ms",
+                                         "idle_share", "gemm_ms",
+                                         "per_launch_ms", "launches",
+                                         "kernels", "reason")
+            if k in profile}
+    return {"step_s": times, "median_step_s": med,
+            "tokens_per_s": tokens / med, "profile": prof,
+            "launches": {k: n for k, n in launches.items() if n}}
+
+
+def _sync_alone(torch, dev, kmods, fn):
+    """The kernel launches of one call of ``fn`` alone."""
+    torch.cuda.synchronize(dev)
+    _reset(kmods)
+    fn()
+    torch.cuda.synchronize(dev)
+    return _launches(kmods)
+
+
+def _m_rel_err(torch, m, want, spans) -> float:
+    """AdamW's first moment after one step against another's: the largest,
+    over the leaves, of max |m - want| over the leaf's max |want|."""
+    worst = 0.0
+    for _, s, e, _ in spans:
+        scale = float(want[s:e].abs().max())
+        d = float((m[s:e] - want[s:e]).abs().max())
+        worst = max(worst, d / scale if scale else (0.0 if d == 0.0
+                                                    else float("inf")))
+    return worst
+
+
+def _spans_nested(spans, bounds, n_buckets):
+    """The traced segmented step's stages as spans on the main track
+    inside ``train/step``, each bucket's window on its own track inside
+    it; returns the outer span."""
+    by_name = {}
+    for s in spans:
+        by_name.setdefault(s.name, []).append(s)
+    (outer,) = by_name["train/step"]
+    stages = (["train/fwd", "train/head_bwd"]
+              + [f"train/chunk_bwd[{k}]" for k in range(len(bounds))]
+              + ["train/embed_bwd", "train/apply"])
+    for name in stages:
+        (s,) = by_name[name]
+        if s.track != "main" or not (outer.start <= s.start
+                                     and s.end <= outer.end + 1e-9):
+            raise AssertionError(f"{name} not nested in train/step")
+    buckets = [s for s in spans if s.track.startswith("bucket:")]
+    if sorted(s.track for s in buckets) != sorted(
+            f"bucket:{i}" for i in range(n_buckets)):
+        raise AssertionError(f"{len(buckets)} bucket windows, expected "
+                             f"one on each of {n_buckets} tracks")
+    for s in buckets:
+        if not (outer.start <= s.start and s.end <= outer.end + 1e-9):
+            raise AssertionError(f"{s.track} not nested in train/step")
+    return outer
+
+
+def train_phase(torch, dev, cfg, kmods):
+    """The train step at full width (see the module docstring, phase 9).
+    Returns the ``{"train": ...}`` record, each kernel counter's launches
+    over the train steps of legs (a), (b) and (c), and over leg (d)'s
+    ``compress_tree`` call (its own path: no step calls it)."""
+    import numpy as np
+
+    from repro_torch.core import compress, oracles, telemetry
+    from repro_torch.core.autotune import encode_plan
+    from repro_torch.core.comm import Communicator
+    from repro_torch.core.grid import RankGrid
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models.decoder import DecoderLM, RunFlags
+    from repro_torch.models.params import FlatParams
+    from repro_torch.optim import adamw
+    from repro_torch.train import manual_step as ms
+    from repro_torch.train.step import TrainConfig, train_step, value_and_grad
+
+    kcodec, kstaging = kmods[0], kmods[-1]
+    torch.cuda.reset_peak_memory_stats(dev)
+    t_phase = time.perf_counter()
+    grid = RankGrid(2, 4)
+    world = grid.world
+    comm = Communicator(grid)
+    model = DecoderLM(cfg, torch.Generator(dev).manual_seed(SEED))
+    flat = FlatParams.of(model)
+    init = [t.detach().clone() for t in flat.tensors]
+    data = SyntheticLM(cfg.vocab, TRAIN_SEQ, world, seed=0).batch(0)
+    batch = {k: torch.from_numpy(np.ascontiguousarray(v)).long().to(dev)
+             for k, v in data.items()}
+    tokens = int(batch["tokens"].numel())
+    ocfg = adamw.AdamWConfig(lr=TRAIN_LR, warmup_steps=0,
+                             schedule="constant")
+    tcfg = TrainConfig(optimizer=ocfg, flags=RunFlags(remat="dots"))
+
+    def restart():
+        with torch.no_grad():
+            for t, t0 in zip(flat.tensors, init):
+                t.copy_(t0)
+        return adamw.init(flat, ocfg)
+
+    rec = {"model": cfg.name, "n_params": flat.n, "ranks": world,
+           "tokens_per_step": tokens, "remat": "dots", "lr": TRAIN_LR,
+           "card": _smi("name,power.limit")}
+    path_launches = {}
+
+    def count(leg, launches, path=path_launches):
+        rec.setdefault("launches", {})[leg] = {k: n for k, n in
+                                               launches.items() if n}
+        for k, n in launches.items():
+            path[k] = path.get(k, 0) + n
+
+    legs_s = {"setup": time.perf_counter() - t_phase}
+    # (a) fused int8 error feedback, 3 steps on the step-0 batch
+    slices = ms.bucket_slices(flat.n, ms.DEFAULT_BUCKET_BYTES // 4)
+    err = ms.init_error_state(flat.n, comm, TRAIN_BUDGET)
+    bucket_sync = ms._make_grad_sync(comm, "pip_mcoll", None, None,
+                                     TRAIN_BUDGET)
+    metric_sync = ms._make_grad_sync(comm, "pip_mcoll", None, None, 0.0)
+    probe = torch.zeros((world, slices[0][1]), device=dev)
+    alone_bucket = _sync_alone(torch, dev, kmods, lambda: bucket_sync(
+        probe, torch.zeros_like(probe)))
+    alone_metric = _sync_alone(torch, dev, kmods, lambda: metric_sync(
+        torch.zeros((world, 1), device=dev), None))
+    del probe
+    plan = ms._resolve_plan(comm.topo, slices[0][1] * 4, torch.float32,
+                            "pip_mcoll", None, None, TRAIN_BUDGET)
+    mplan = ms._resolve_plan(comm.topo, 4, torch.float32, "pip_mcoll", None,
+                             None, 0.0)
+    for what, alone, (algo, kw) in (("bucket", alone_bucket, plan),
+                                    ("metric", alone_metric, mplan)):
+        staged = sum(alone.get(k, 0) for k in STAGING_NAMES)
+        if bool(staged) != oracles.moves_rows("allreduce", algo,
+                                              kw.get("codec", "none")):
+            raise AssertionError(f"train {what} sync {algo} {kw}: {staged} "
+                                 f"staging launches alone")
+    opt = restart()
+    step_a = ms.make_manual_train_step(cfg, tcfg, grid, algo="pip_mcoll",
+                                       error_budget=TRAIN_BUDGET)
+    torch.cuda.synchronize(dev)
+    _reset(kmods)
+    times, outs = _timed_steps(torch, dev, lambda: step_a(
+        model, opt, err, batch)[1], TRAIN_STEPS_A)
+    launches = _launches(kmods)
+    losses = [float(m["loss"]) for m in outs]
+    if not all(np.isfinite(losses)) or \
+            not all(b < a for a, b in zip(losses, losses[1:])):
+        raise AssertionError(f"train leg (a): losses {losses} do not fall "
+                             f"(step times {times} s)")
+    metric_calls = 7  # the loss, then loss, aux, ce, tokens, grad norm, lr
+    want = {k: TRAIN_STEPS_A * (len(slices) * alone_bucket.get(k, 0)
+                                + metric_calls * alone_metric.get(k, 0))
+            for k in launches}
+    if launches["int8_block_encode"] != 2 * len(slices) * TRAIN_STEPS_A or \
+            launches["int8_decode_reduce"] != len(slices) * TRAIN_STEPS_A:
+        raise AssertionError(f"train leg (a): codec launches {launches}")
+    _check_launches("train leg (a)", launches, want)
+    count("a", launches)
+    _reset(kmods)
+    prof = profile_device(torch, lambda: step_a(model, opt, err, batch),
+                          TRAIN_NAMES)
+    count("a_profiled", _launches(kmods))
+    rec["a"] = dict(_leg_record(times, tokens, prof, launches),
+                    losses=losses, plan=encode_plan(
+                        plan[0], plan[1].get("chunks", 1),
+                        plan[1].get("codec", "none")),
+                    buckets=len(slices),
+                    per_step={k: n // TRAIN_STEPS_A
+                              for k, n in launches.items() if n})
+
+    legs_s["a"] = time.perf_counter() - t_phase - sum(legs_s.values())
+    # (d) compress_tree on rank 0's gradient (after (a)) with a carried
+    # error: one feedback encode per leaf, bitwise its plain version
+    del step_a, err
+    gc.collect()
+    torch.cuda.empty_cache()
+    shard = {k: v[:1] for k, v in batch.items()}
+    _, _, grads = value_and_grad(model, flat, shard, tcfg)
+    g0 = flat.gather(grads)
+    del grads
+    tree = {p: g0[s:e] for p, s, e, _ in flat.spans}
+    gen = torch.Generator(dev).manual_seed(SEED + 1)
+    e0 = {p: torch.randn(e - s, generator=gen, device=dev) * 1e-6
+          for p, s, e, _ in flat.spans}
+    torch.cuda.synchronize(dev)
+    _reset(kmods)
+    comp, new_err = compress.compress_tree(tree, e0)
+    torch.cuda.synchronize(dev)
+    d_launches = _launches(kmods)
+    with compress.reference_paths():
+        plain, plain_err = compress.compress_tree(tree, e0)
+    same = all(same_bits(torch, a, b) for a, b in zip(
+        comp[0] + comp[1] + [new_err[p] for p in tree],
+        plain[0] + plain[1] + [plain_err[p] for p in tree]))
+    if d_launches.get("int8_block_encode_feedback") != len(tree) or \
+            not same:
+        raise AssertionError(f"train leg (d): {d_launches}, bitwise {same}")
+    dec = compress.decompress_tree(comp, tree)
+    dec_err = max(float((dec[p] - (tree[p] + e0[p])).abs().max())
+                  / max(float((tree[p] + e0[p]).abs().max()), 1e-30)
+                  for p in tree)
+    if dec_err > compress.meta("int8_block").error_bound:
+        raise AssertionError(f"train leg (d): decoded within {dec_err} of "
+                             f"the leaf max, bound "
+                             f"{compress.meta('int8_block').error_bound}")
+    tree_launches = {}
+    count("d", d_launches, tree_launches)
+    rec["d"] = {"leaves": len(tree), "bitwise": same,
+                "decode_rel_err": dec_err,
+                "wire_bytes": compress.wire_bytes(comp)}
+    del g0, tree, e0, comp, new_err, plain, plain_err, dec
+
+    legs_s["d"] = time.perf_counter() - t_phase - sum(legs_s.values())
+    # (b) the lossless fused step (auto) against train_step over 8
+    # microbatches of the global batch, two steps from the same start: the
+    # losses, the weights and, leaf by leaf, AdamW's m after the first
+    # step ((1 - b1) times the mean gradient: a weight moves about lr,
+    # only m tells a gradient routed to the wrong leaf)
+    opt = restart()
+    _reset(kmods)
+    tcfg_ts = TrainConfig(optimizer=ocfg, microbatches=world,
+                          flags=tcfg.flags)
+    run_ts = lambda: train_step(model, opt, batch, tcfg_ts, flat)
+    times_ts, outs_ts = _timed_steps(torch, dev, run_ts, 1)
+    want_params = [t.detach().clone() for t in flat.tensors]
+    want_m = opt["m"].clone()
+    outs_ts += _timed_steps(torch, dev, run_ts, 1)[1]
+    count("b_train_step", _launches(kmods))
+    loss_ts = [float(m["loss"]) for m in outs_ts]
+
+    def against_train_step(leg, losses, m, diff):
+        m_err = _m_rel_err(torch, m, want_m, flat.spans)
+        if any(abs(a - b) > 1e-5 * abs(b) for a, b in zip(losses, loss_ts)) \
+                or diff >= 5e-2 or m_err > 1e-4:
+            raise AssertionError(f"train leg ({leg}): losses {losses} vs "
+                                 f"{loss_ts}, weights {diff}, m {m_err}")
+        return m_err
+
+    opt = restart()
+    step_b = ms.make_manual_train_step(cfg, tcfg, grid)
+    _reset(kmods)
+    run_b = lambda: step_b(model, opt, (), batch)[1]
+    times, outs = _timed_steps(torch, dev, run_b, 1)
+    diff_b = max(max_diff(torch, t.detach(), w)
+                 for t, w in zip(flat.tensors, want_params))
+    m_b = opt["m"].clone()
+    more, outs2 = _timed_steps(torch, dev, run_b, 1)
+    b_launches = _launches(kmods)
+    loss_b = [float(outs[0]["loss"]), float(outs2[0]["loss"])]
+    m_err_b = against_train_step("b", loss_b, m_b, diff_b)
+    del m_b
+    count("b", b_launches)
+    _reset(kmods)
+    prof = profile_device(torch, run_b, TRAIN_NAMES)
+    count("b_profiled", _launches(kmods))
+    rec["b"] = dict(_leg_record(times + more, tokens, prof, b_launches),
+                    losses=loss_b, train_step_losses=loss_ts,
+                    train_step_s=times_ts[0], max_weight_diff=diff_b,
+                    m_rel_err=m_err_b)
+    del step_b
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    legs_s["b"] = time.perf_counter() - t_phase - sum(legs_s.values())
+    # (c) the overlapped segmented step and its barrier twin, 2 steps
+    # each, bitwise; the monolithic decomposition's first step within the
+    # bars of (b); one profiled and one traced step
+    twins = {}
+    for overlap in (True, False):
+        opt = restart()
+        step_c = ms.make_overlapped_train_step(cfg, tcfg, grid,
+                                               overlap=overlap,
+                                               segmented=True)
+        _reset(kmods)
+        times, outs = _timed_steps(torch, dev, lambda: step_c(
+            model, opt, batch), TRAIN_STEPS_C)
+        c_launches = _launches(kmods)
+        count(f"c_overlap{int(overlap)}", c_launches)
+        twins[overlap] = {
+            "step_s": times, "losses": [float(m["loss"]) for m in outs],
+            "sha256": {"params": _sha(torch, flat.tensors),
+                       "m": _sha(torch, [opt["m"]]),
+                       "v": _sha(torch, [opt["v"]])},
+            "launches": {k: n for k, n in c_launches.items() if n}}
+        if overlap:
+            mode, bounds = step_c.mode, list(step_c.bounds)
+            n_buckets = len(step_c.grad_sync.plans())
+            _reset(kmods)
+            prof = profile_device(torch, lambda: step_c(model, opt, batch),
+                                  TRAIN_NAMES)
+            count("c_profiled", _launches(kmods))
+            telemetry.enable()
+            try:
+                telemetry.reset()
+                step_c(model, opt, batch)
+                torch.cuda.synchronize(dev)
+                spans = telemetry.spans()
+                out_path = ROOT / "build" / TRAIN_TRACE
+                out_path.parent.mkdir(exist_ok=True)
+                telemetry.export_chrome_trace(out_path)
+            finally:
+                telemetry.disable()
+            outer = _spans_nested(spans, bounds, n_buckets)
+            traced = {"spans": len(spans),
+                      "step_s": outer.end - outer.start,
+                      "trace": str(out_path.relative_to(ROOT))}
+        step_c.release()
+        del step_c
+        gc.collect()
+        torch.cuda.empty_cache()
+    if twins[True]["sha256"] != twins[False]["sha256"] or \
+            twins[True]["losses"] != twins[False]["losses"]:
+        raise AssertionError(f"train leg (c): the twins differ: {twins}")
+    # segmented and monolithic against train_step (leg (b)'s bars: both
+    # losses, the weights and m after the first step) and each other
+    firsts = {}
+    for seg in (True, False):
+        opt = restart()
+        step_c = ms.make_overlapped_train_step(cfg, tcfg, grid,
+                                               segmented=seg)
+        losses = [float(step_c(model, opt, batch)["loss"])]
+        params = [t.detach().clone() for t in flat.tensors]
+        diff = max(max_diff(torch, t, w)
+                   for t, w in zip(params, want_params))
+        m_c = opt["m"].clone()
+        losses.append(float(step_c(model, opt, batch)["loss"]))
+        m_err = against_train_step(f"c, segmented={seg}", losses, m_c, diff)
+        firsts[seg] = (losses, params, {"losses": losses,
+                                        "max_weight_diff": diff,
+                                        "m_rel_err": m_err})
+        step_c.release()
+        del step_c, m_c
+    diff_c = max(max_diff(torch, a, b)
+                 for a, b in zip(firsts[True][1], firsts[False][1]))
+    if abs(firsts[True][0][0] - firsts[False][0][0]) > 1e-5 * abs(
+            firsts[False][0][0]) or diff_c >= 5e-2:
+        raise AssertionError(f"train leg (c): segmented {firsts[True][0]} "
+                             f"vs monolithic {firsts[False][0]}, weights "
+                             f"{diff_c}")
+    rec["c"] = dict(_leg_record(twins[True]["step_s"], tokens, prof,
+                                twins[True]["launches"]),
+                    mode=mode, segments=len(bounds), buckets=n_buckets,
+                    twins=twins, barrier_median_step_s=statistics.median(
+                        twins[False]["step_s"][1:]
+                        or twins[False]["step_s"]),
+                    segmented_vs_monolithic={
+                        "loss": [firsts[True][0][0], firsts[False][0][0]],
+                        "max_weight_diff": diff_c},
+                    vs_train_step={"segmented": firsts[True][2],
+                                   "monolithic": firsts[False][2]},
+                    traced=traced)
+    del firsts, init, want_params, want_m
+    peak = torch.cuda.max_memory_allocated(dev)
+    if peak > TRAIN_PEAK_LIMIT_BYTES:
+        raise AssertionError(f"train phase: peak {peak} B over "
+                             f"{TRAIN_PEAK_LIMIT_BYTES} B")
+    rec["peak_mem_bytes"] = peak
+    rec["path_launches"] = {k: n for k, n in path_launches.items() if n}
+    rec["compress_tree_launches"] = {k: n for k, n in tree_launches.items()
+                                     if n}
+    legs_s["c"] = time.perf_counter() - t_phase - sum(legs_s.values())
+    rec["legs_s"] = legs_s
+    rec["phase_s"] = time.perf_counter() - t_phase
+    del model, flat, opt, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec, path_launches, tree_launches
+
+
 FEEDBACK_LINES = {"int8": 123, "int4": 204, "fp8": 294}
 
 
-def kernel_lines(kernels):
+def kernel_lines(kernels, on_train, on_tree):
     """The ``{"kernels": [...]}`` entries, one per TPU kernel of the
     repository, in the order of PERF.md's table: each codec's feedback
     encode (the HAS_ERR variant of its encode kernel, timed in phase 1;
     its launches counted apart in the slice phase, where the compressed
-    allreduce encodes without feedback), its residual encode and its
-    decode-reduce, then the staging, flash-decode, scan and WKV6 kernels
-    (the tick kernel for the tick, the chunked one for the prefill)."""
+    allreduce encodes without feedback; the int8 one launched by the train
+    phase's direct ``compress_tree`` call, which no train step makes), its
+    residual encode and its decode-reduce, then the staging, flash-decode,
+    scan and WKV6 kernels (the tick kernel for the tick, the chunked one
+    for the prefill). ``on_train``: each counter's launches over the train
+    steps (``launches_by_path["train"]`` of every entry); ``on_tree``: over
+    the ``compress_tree`` call (the feedback encodes'
+    ``launches_by_path["compress_tree"]``)."""
     out = []
     for c, encode in (("int8", "int8_block_encode"),
                       ("int4", "int4_block_encode"), ("fp8", "fp8_encode")):
         rec = kernels[encode]
+        fb_train = on_train.get(encode + "_feedback", 0)
+        fb_tree = on_tree.get(encode + "_feedback", 0)
         out.append({
             "name": f"{c}_encode_feedback", "route": "cuda",
             "cuda_kernel": encode + " (HAS_ERR)", "source": rec["source"],
             "replaces": f"src/repro/kernels/codec.py:{FEEDBACK_LINES[c]}",
-            "launches": rec["feedback_launches"],
-            "launches_by_cuda_kernel":
-                rec["feedback_launches_by_cuda_kernel"],
+            "launches": rec["feedback_launches"] + fb_train + fb_tree,
+            "launches_by_cuda_kernel": {
+                k: n + on_train.get(k, 0) + on_tree.get(k, 0)
+                for k, n in rec["feedback_launches_by_cuda_kernel"].items()},
+            "launches_by_path": {"slice": rec["feedback_launches"],
+                                 "compress_tree": fb_tree,
+                                 "train": fb_train},
             "max_abs_err": rec["max_abs_err"], "ms": rec["feedback_ms"],
             "plain_ms": rec["feedback_plain_ms"],
             "bound_ms": rec["feedback_bound_ms"], "bound_by": "bytes",
             "library_ms": None, "shape": rec["shape"]})
-        out.append({**{k: v for k, v in rec.items()
-                       if not k.startswith("feedback_")},
-                    "name": f"{c}_encode_residual", "cuda_kernel": encode})
+        residual = {k: v for k, v in rec.items()
+                    if not k.startswith("feedback_")}
+        residual["launches_by_path"] = dict(
+            rec.get("launches_by_path", {}), train=on_train.get(encode, 0))
+        out.append({**residual, "name": f"{c}_encode_residual",
+                    "cuda_kernel": encode})
         out.append(kernels[f"{c}_decode_reduce"])
-    out += [kernels[k] for k in ("shift_blocks", "pack_blocks",
-                                 "flash_decode", "mamba_scan", "rwkv6_wkv",
-                                 "rwkv6_wkv_chunked")]
+        out[-1]["launches_by_path"] = dict(
+            out[-1].get("launches_by_path", {}),
+            train=on_train.get(f"{c}_decode_reduce", 0))
+    for k in ("shift_blocks", "pack_blocks", "flash_decode", "mamba_scan",
+              "rwkv6_wkv", "rwkv6_wkv_chunked"):
+        rec = kernels[k]
+        rec["launches_by_path"] = dict(rec.get("launches_by_path", {}),
+                                       train=on_train.get(k, 0))
+        out.append(rec)
     return out
 
 
@@ -3259,8 +3790,19 @@ def main() -> int:
                 raise AssertionError(f"{counted}: no launch on the "
                                      f"two-process path")
 
+    gc.collect()
+    torch.cuda.empty_cache()
+    train, on_train, on_tree = train_phase(torch, dev, smollm, kmods)
+    print(json.dumps({"train": train}))
+    print(f"train phase done ({time.perf_counter() - t0:.3f} s in all)")
+    for name in ("flash_decode", "mamba_scan", "rwkv6_wkv",
+                 "rwkv6_wkv_recurrent", "rwkv6_wkv_chunked",
+                 "int8_block_encode_feedback"):
+        if on_train.get(name):
+            raise AssertionError(f"{name}: launched on the train path")
+
     print(_smi("name,power.limit"))
-    print(json.dumps({"kernels": kernel_lines(kernels)}))
+    print(json.dumps({"kernels": kernel_lines(kernels, on_train, on_tree)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

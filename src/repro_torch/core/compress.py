@@ -6,7 +6,9 @@ each with ``encode``/``decode`` over ``(S, L)`` slice batches, error
 feedback (:meth:`Codec.encode_with_feedback`), the residual-producing
 encode and the fused decode+reduce of the compressed-collective hot path,
 and :class:`CodecMeta` — wire ratio, flop cost and the stated
-relative-error bound the selector checks against ``error_budget``.
+relative-error bound the selector checks against ``error_budget``. At the
+end, the int8 tree codecs (``quantize``, ``compress_tree``, ...) that
+``optim/compress.py`` re-exports.
 
   ===========  =========  ============  =====================================
   name         ratio      error bound   mechanism
@@ -535,3 +537,98 @@ def collective_tolerance(name: str, collective: str, world: int,
     if factor is None:
         raise ValueError(f"no compressed execution for {collective!r}")
     return eps * factor * float(max_abs)
+
+
+# ---------------------------------------------------------------------------
+# int8 tree-level helpers (the reference's ``optim.compress`` API, adapters
+# over the registered int8 codec: one error-feedback code path)
+# ---------------------------------------------------------------------------
+
+
+def _flatten(tree):
+    """``(leaves, spec)`` of a tree of tensors: dicts (keys in sorted
+    order, as ``jax.tree_util`` visits them), lists and tuples."""
+    if isinstance(tree, dict):
+        keys = sorted(tree)
+        leaves, specs = [], []
+        for k in keys:
+            ls, sp = _flatten(tree[k])
+            leaves += ls
+            specs.append(sp)
+        return leaves, ("dict", keys, specs)
+    if isinstance(tree, (list, tuple)):
+        leaves, specs = [], []
+        for t in tree:
+            ls, sp = _flatten(t)
+            leaves += ls
+            specs.append(sp)
+        return leaves, (type(tree).__name__, None, specs)
+    return [tree], None
+
+
+def _unflatten(spec, leaves):
+    it = iter(leaves)
+
+    def build(sp):
+        if sp is None:
+            return next(it)
+        kind, keys, specs = sp
+        vals = [build(s) for s in specs]
+        if kind == "dict":
+            return dict(zip(keys, vals))
+        return tuple(vals) if kind == "tuple" else vals
+    return build(spec)
+
+
+def quantize(x):
+    """x: float tensor -> (int8 blocks ``(nb, BLOCK)``, float32 per-block
+    scales ``(nb,)``): the flat face of the int8 codec."""
+    comp = codec("int8_block").encode(torch.as_tensor(x).reshape(1, -1))
+    return comp["q"][0], comp["scale"][0]
+
+
+def dequantize(q, scale, shape):
+    n = math.prod(shape)
+    return codec("int8_block").decode(
+        {"q": q[None], "scale": scale[None]}, n)[0].reshape(shape)
+
+
+def init_error_state(grads):
+    """Zero float32 error-feedback state matching a gradient tree."""
+    leaves, spec = _flatten(grads)
+    return _unflatten(spec, [torch.zeros(g.shape, dtype=torch.float32,
+                                         device=g.device) for g in leaves])
+
+
+def compress_tree(grads, error_state):
+    """Quantize every leaf after adding its carried error feedback.
+
+    Returns ``((qs, scales, spec), new_error_state)``. Each leaf rides
+    :meth:`Codec.encode_with_feedback` of the int8 codec as one ``(1, n)``
+    row: on the card the ``int8_encode_feedback`` kernel, one launch per
+    leaf."""
+    leaves, spec = _flatten(grads)
+    errs, _ = _flatten(error_state)
+    qs, scales, new_err = [], [], []
+    cd = codec("int8_block")
+    for g, e in zip(leaves, errs):
+        comp, resid = cd.encode_with_feedback(g.reshape(1, -1),
+                                              e.reshape(1, -1))
+        qs.append(comp["q"][0])
+        scales.append(comp["scale"][0])
+        new_err.append(resid[0].reshape(g.shape))
+    return (qs, scales, spec), _unflatten(spec, new_err)
+
+
+def decompress_tree(compressed, shapes_like):
+    qs, scales, spec = compressed
+    shapes = [tuple(t.shape) for t in _flatten(shapes_like)[0]]
+    return _unflatten(spec, [dequantize(q, s, shp)
+                             for q, s, shp in zip(qs, scales, shapes)])
+
+
+def wire_bytes(compressed) -> int:
+    qs, scales, _ = compressed
+    cd = codec("int8_block")
+    return sum(cd.wire_bytes({"q": q, "scale": s})
+               for q, s in zip(qs, scales))

@@ -9,7 +9,10 @@
     into the port's layout: views into one flat buffer;
   * :func:`params_from_reference` turns the reference decoder's parameter
     tree (``jax.device_get`` of ``decoder.init``) into the port's
-    ``DecoderLM``, unstacking the pattern cycles into layers.
+    ``DecoderLM``, unstacking the pattern cycles into layers;
+  * :func:`opt_state_from_reference` turns the reference's AdamW state
+    (``step``, ``m``, ``v`` and ``master``) into the port's flat float32
+    buffers (``optim.adamw``), so a run resumes from the reference's state.
 
 Tuning tables need nothing here: ``TuningTable`` writes the same JSON in
 both packages.
@@ -104,3 +107,21 @@ def params_from_reference(tree, cfg, device="cuda"):
     for p in model.parameters():
         p.requires_grad_(False)
     return model
+
+
+def opt_state_from_reference(state, cfg, device="cuda") -> dict:
+    """The port's AdamW state (``optim.adamw.init``'s layout) holding the
+    reference's: ``step`` as an int, ``m``, ``v`` (and ``master`` when the
+    reference keeps one) as float32 ``(n,)`` buffers in the flatten order
+    of ``models.params.param_shapes(cfg)``."""
+    from repro_torch.models.params import n_params
+
+    out = {"step": int(np.asarray(state["step"]))}
+    for key in ("m", "v", "master"):
+        if key in state:
+            flat = from_reference(state[key], device, ranked=False)[0]
+            if flat.numel() != n_params(cfg):
+                raise ValueError(f"{key}: {flat.numel()} elements, {cfg.name} "
+                                 f"has {n_params(cfg)}")
+            out[key] = flat
+    return out

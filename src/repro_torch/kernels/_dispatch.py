@@ -1,6 +1,11 @@
 """Device dispatch shared by the kernel wrappers: a CUDA operand launches
 the hand-written kernel, a CPU operand runs the plain version, anything
-else raises. Nothing here falls back."""
+else raises. Nothing here falls back.
+
+The model kernels have no backward (nor have the reference's Pallas
+kernels), so their wrappers refuse, on every device, an operand that
+would need one (:func:`refuse_grad`): a kernel's output has no ``grad_fn``,
+and a gradient through it would be zero without a word."""
 from __future__ import annotations
 
 from typing import Tuple
@@ -22,6 +27,19 @@ def on_card(*tensors: torch.Tensor) -> bool:
     if dev.type == "cpu":
         return False
     raise ValueError(f"no kernel for device {dev}")
+
+
+def refuse_grad(kernel: str, *tensors) -> None:
+    """Raise if grad mode is on and an operand requires grad: the kernel
+    would cut the autograd graph. Train with the kernel flags off (the
+    plain versions are differentiable) or call it under ``torch.no_grad``.
+    """
+    if torch.is_grad_enabled() and any(
+            t is not None and torch.is_tensor(t) and t.requires_grad
+            for t in tensors):
+        raise RuntimeError(f"{kernel} has no backward: an operand requires "
+                           f"grad under grad mode (train with the kernel "
+                           f"flags off, or call it under torch.no_grad)")
 
 
 def check(t: torch.Tensor, dtype: torch.dtype, what: str) -> None:

@@ -25,7 +25,8 @@ from typing import Dict, Tuple, Union
 import torch
 
 from repro_torch.kernels import _build, ref
-from repro_torch.kernels._dispatch import check, on_card, raise_on, stream
+from repro_torch.kernels._dispatch import (check, on_card, raise_on,
+                                          refuse_grad, stream)
 
 #: launches of the CUDA kernel
 launches: Dict[str, int] = {"flash_decode": 0}
@@ -79,7 +80,9 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """One-token GQA attention. q: ``(B, 1, H, hd)``; k, v: ``(B, S, KV,
     hd)``, all bfloat16 or all float32; positions below ``lengths`` (a
     scalar or a ``(B,)`` integer tensor on the operands' device) are valid.
-    Returns ``(B, 1, H*hd)`` float32."""
+    Returns ``(B, 1, H*hd)`` float32. Raises under grad mode when an
+    operand requires grad (the kernel has no backward)."""
+    refuse_grad("flash_decode", q, k, v)
     B, T, H, hd = q.shape
     S, KV = k.shape[1], k.shape[2]
     if T != 1 or tuple(k.shape) != (B, S, KV, hd) or k.shape != v.shape \

@@ -24,7 +24,7 @@ import torch
 
 from repro_torch.kernels import _build, ref
 from repro_torch.kernels._dispatch import (check, on_card, overlaps_partly,
-                                           raise_on, stream)
+                                           raise_on, refuse_grad, stream)
 
 #: launches of the CUDA kernel
 launches: Dict[str, int] = {"mamba_scan": 0}
@@ -82,7 +82,9 @@ def mamba_scan(dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
     unchanged). ``state_out`` (float32, ``(B, Di, N)``; may be ``h0``
     itself, but may not partly overlap it) receives the final state;
     without it a new tensor does. Returns ``(y (B, T, Di) float32, final
-    state)``."""
+    state)``. Raises under grad mode when an operand requires grad (the
+    kernel has no backward)."""
+    refuse_grad("mamba_scan", dt, A, Bm, Cm, x, h0)
     _check_operands(dt, A, Bm, Cm, x, h0, state_out)
     extra = tuple(t for t in (h0, state_out) if t is not None)
     if not on_card(dt, A, Bm, Cm, x, *extra):

@@ -33,7 +33,7 @@ import torch
 
 from repro_torch.kernels import _build, ref
 from repro_torch.kernels._dispatch import (check, on_card, overlaps_partly,
-                                          raise_on, stream)
+                                          raise_on, refuse_grad, stream)
 
 #: calls of each CUDA kernel: ``rwkv6_wkv`` the tick kernel's (through
 #: :func:`rwkv6_wkv`), ``rwkv6_wkv_recurrent`` the recurrent kernel's, and
@@ -123,7 +123,9 @@ def rwkv6_wkv_chunked(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def _run(r, k, v, w, u, s0, state_out, chunked):
-    """``chunked``: True or False picks a kernel, None picks by ``T``."""
+    """``chunked``: True or False picks a kernel, None picks by ``T``.
+    Raises under grad mode when an operand requires grad (no backward)."""
+    refuse_grad("rwkv6_wkv", r, k, v, w, u, s0)
     _check_operands(r, k, v, w, u, s0, state_out)
     outs = () if state_out is None else (state_out,)
     if not on_card(r, k, v, w, u, s0, *outs):

@@ -12,8 +12,7 @@ same dict is returned as the new cache: the serving engine holds one KV
 buffer per layer for its whole life.
 
 Not ported yet: ``"cross"``/``"bidir"`` modes (with enc-dec), M-RoPE (with
-the VLM family), ``cache_pspec``/``logical_axes`` (with sharding) and the
-backward of :func:`attend_streaming` (with the training slice).
+the VLM family) and ``cache_pspec``/``logical_axes`` (with sharding).
 """
 from __future__ import annotations
 
@@ -21,6 +20,7 @@ from typing import Dict, Optional, Union
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import attention as kattn
 from repro_torch.layers import common
@@ -75,22 +75,16 @@ def attend_full(q, k, v, causal: bool, q_offset: int = 0) -> torch.Tensor:
     return _gqa_out(torch.softmax(s, dim=-1), v)
 
 
-def attend_streaming(q, k, v, causal: bool, q_chunk: int = 512,
-                     kv_chunk: int = 1024, q_offset: int = 0
-                     ) -> torch.Tensor:
-    """Online-softmax attention over query and KV chunks, so the score
-    matrix never materializes (forward only). q: (B,T,H,hd); k, v:
-    (B,S,KV,hd). Falls back to :func:`attend_full` when the chunks do not
-    divide T and S, as the reference does."""
+def _streaming_fwd(q, k, v, causal: bool, q_chunk: int, kv_chunk: int,
+                   q_offset: int):
+    """The online-softmax forward: ``(out (B, T, H*hd) fp32, lse (B, KV, G,
+    T) fp32)``, the log-sum-exp the backward recomputes the tiles from."""
     B, T, H, hd = q.shape
     S, KV = k.shape[1], k.shape[2]
     G = H // KV
-    q_chunk, kv_chunk = min(q_chunk, T), min(kv_chunk, S)
-    if T % q_chunk or S % kv_chunk:
-        return attend_full(q, k, v, causal, q_offset)
     scale = 1.0 / (hd ** 0.5)
     dev = q.device
-    outs = []
+    outs, lses = [], []
     for qi in range(T // q_chunk):
         qb = q[:, qi * q_chunk:(qi + 1) * q_chunk].reshape(
             B, q_chunk, KV, G, hd).to(Accum)
@@ -102,11 +96,8 @@ def attend_streaming(q, k, v, causal: bool, q_chunk: int = 512,
             vb = v[:, ki * kv_chunk:(ki + 1) * kv_chunk]
             s = torch.einsum("bqkgd,bskd->bkgqs", qb, kb.to(Accum)) * scale
             if causal:
-                qpos = (qi * q_chunk + torch.arange(q_chunk, device=dev)
-                        [:, None] + q_offset)
-                kpos = ki * kv_chunk + torch.arange(kv_chunk,
-                                                    device=dev)[None, :]
-                s = s.masked_fill(kpos > qpos, float("-inf"))
+                s = s.masked_fill(_future(qi, q_chunk, ki, kv_chunk,
+                                          q_offset, dev), float("-inf"))
             m_new = torch.maximum(m, s.amax(-1))
             # guard fully-masked rows (m_new = -inf)
             m_safe = torch.where(torch.isfinite(m_new), m_new, 0.0)
@@ -119,8 +110,95 @@ def attend_streaming(q, k, v, causal: bool, q_chunk: int = 512,
                 vb.to(Accum))
             m = m_new
         outs.append(acc / l.clamp_min(1e-30)[..., None])  # (B,KV,G,qc,hd)
+        lses.append(torch.where(torch.isfinite(m), m, 0.0)
+                    + torch.log(l.clamp_min(1e-30)))      # (B,KV,G,qc)
     out = torch.stack(outs, dim=0)                         # (nq,B,KV,G,qc,hd)
-    return out.permute(1, 0, 4, 2, 3, 5).reshape(B, T, H * hd)
+    return (out.permute(1, 0, 4, 2, 3, 5).reshape(B, T, H * hd),
+            torch.cat(lses, dim=-1))
+
+
+def _future(qi: int, qc: int, ki: int, kc: int, q_offset: int, dev
+            ) -> torch.Tensor:
+    """(qc, kc) mask of the tile's key positions after its query's."""
+    qpos = qi * qc + torch.arange(qc, device=dev)[:, None] + q_offset
+    kpos = ki * kc + torch.arange(kc, device=dev)[None, :]
+    return kpos > qpos
+
+
+class _Streaming(torch.autograd.Function):
+    """Online-softmax attention with the Dao backward (the reference's
+    ``custom_vjp``): the forward saves only q, k, v, out and the
+    log-sum-exp; the backward recomputes the probability tiles from them."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, q_chunk, kv_chunk, q_offset):
+        out, lse = _streaming_fwd(q, k, v, causal, q_chunk, kv_chunk,
+                                  q_offset)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = (causal, q_chunk, kv_chunk, q_offset)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        causal, qc, kc, q_offset = ctx.args
+        B, T, H, hd = q.shape
+        S, KV = k.shape[1], k.shape[2]
+        G = H // KV
+        scale = 1.0 / (hd ** 0.5)
+        dev = q.device
+        do = dout.reshape(B, T, KV, G, hd).to(Accum)
+        # delta[t] = sum_d do * out  (B, KV, G, T)
+        delta = torch.einsum("btkgd,btkgd->bkgt", do,
+                             out.reshape(B, T, KV, G, hd).to(Accum))
+        dq = torch.zeros((B, T, KV, G, hd), dtype=Accum, device=dev)
+        dks, dvs = [], []
+        for ki in range(S // kc):
+            # outer loop over KV chunks carries dq; the inner one over Q
+            # chunks gives this chunk's dk and dv
+            kb = k[:, ki * kc:(ki + 1) * kc]
+            vb = v[:, ki * kc:(ki + 1) * kc]
+            kb32, vb32 = kb.to(Accum), vb.to(Accum)
+            dk = torch.zeros((B, kc, KV, hd), dtype=Accum, device=dev)
+            dv = torch.zeros((B, kc, KV, hd), dtype=Accum, device=dev)
+            for qi in range(T // qc):
+                rows = slice(qi * qc, (qi + 1) * qc)
+                qb = q[:, rows].reshape(B, qc, KV, G, hd).to(Accum)
+                dob = do[:, rows]
+                s = torch.einsum("bqkgd,bskd->bkgqs", qb, kb32) * scale
+                if causal:
+                    s = s.masked_fill(_future(qi, qc, ki, kc, q_offset, dev),
+                                      float("-inf"))
+                p = torch.exp(s - lse[..., rows, None])
+                p = torch.where(torch.isfinite(s), p, 0.0)  # (B,KV,G,qc,kc)
+                dv = dv + torch.einsum("bkgqs,bqkgd->bskd",
+                                       p.to(v.dtype).to(Accum), dob)
+                dp = torch.einsum("bqkgd,bskd->bkgqs", dob, vb32)
+                ds = p * (dp - delta[..., rows, None]) * scale
+                dsb = ds.to(k.dtype).to(Accum)
+                dq[:, rows] += torch.einsum("bkgqs,bskd->bqkgd", dsb, kb32)
+                dk = dk + torch.einsum("bkgqs,bqkgd->bskd", dsb, qb)
+            dks.append(dk)
+            dvs.append(dv)
+        return (dq.reshape(B, T, H, hd).to(q.dtype),
+                torch.cat(dks, 1).to(k.dtype), torch.cat(dvs, 1).to(v.dtype),
+                None, None, None, None)
+
+
+def attend_streaming(q, k, v, causal: bool, q_chunk: int = 512,
+                     kv_chunk: int = 1024, q_offset: int = 0
+                     ) -> torch.Tensor:
+    """Online-softmax attention over query and KV chunks, so the score
+    matrix never materializes, forward and backward (the backward
+    recomputes the probability tiles from the saved log-sum-exp: only q,
+    k, v, out and the log-sum-exp are kept). q: (B,T,H,hd); k, v:
+    (B,S,KV,hd). Falls back to :func:`attend_full` under plain autograd
+    when the chunks do not divide T and S, as the reference does."""
+    T, S = q.shape[1], k.shape[1]
+    q_chunk, kv_chunk = min(q_chunk, T), min(kv_chunk, S)
+    if T % q_chunk or S % kv_chunk:
+        return attend_full(q, k, v, causal, q_offset)
+    return _Streaming.apply(q, k, v, causal, q_chunk, kv_chunk, q_offset)
 
 
 def attend_decode(q, cache_k, cache_v, cur_index: Index,
@@ -189,13 +267,15 @@ class Attention(nn.Module):
                 cache: Optional[Dict[str, torch.Tensor]] = None,
                 cache_index: Optional[Index] = None,
                 use_flash_decode: bool = False, q_chunk: int = 512,
-                kv_chunk: int = 1024):
+                kv_chunk: int = 1024, remat: bool = False):
         """Modes: ``"causal"`` (train/prefill; with a cache, prefill writes
         its first ``T`` positions) and ``"decode"`` (cache and
         ``cache_index`` required: a scalar or ``(B,)`` per-row write
         offsets, clamped into the cache as ``dynamic_update_slice``
-        clamps). Returns ``(y, new_cache)``; ``new_cache`` is ``cache``
-        itself, updated in place, or None without a cache."""
+        clamps). ``remat`` recomputes the causal attention (its batched
+        products and softmax) in the backward instead of keeping it.
+        Returns ``(y, new_cache)``; ``new_cache`` is ``cache`` itself,
+        updated in place, or None without a cache."""
         cfg = self.cfg
         B, T, _ = x.shape
         H, KV, hd = cfg.padded_heads, cfg.n_kv_heads, cfg.head_dim
@@ -245,10 +325,14 @@ class Attention(nn.Module):
                 cache["k"][:, :T] = k
                 cache["v"][:, :T] = v
             if T * T > STREAMING_THRESHOLD ** 2:
-                o = attend_streaming(q, k, v, causal=True, q_chunk=q_chunk,
-                                     kv_chunk=kv_chunk)
+                core = lambda q_, k_, v_: attend_streaming(
+                    q_, k_, v_, causal=True, q_chunk=q_chunk,
+                    kv_chunk=kv_chunk)
             else:
-                o = attend_full(q, k, v, causal=True)
+                core = lambda q_, k_, v_: attend_full(q_, k_, v_,
+                                                      causal=True)
+            o = (checkpoint(core, q, k, v, use_reentrant=False) if remat
+                 else core(q, k, v))
         else:
             raise NotImplementedError(
                 f"attention mode {mode!r} comes with the enc-dec family "

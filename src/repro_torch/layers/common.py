@@ -31,8 +31,9 @@ def weights_device(generator: Optional[torch.Generator], device
 
 def param(generator: Optional[torch.Generator], shape, device, init,
           dtype=Compute) -> nn.Parameter:
-    """A frozen weight drawn by ``init()`` with a generator, else left
-    uninitialised (``dtype`` on ``device``) for loading."""
+    """A frozen weight (``DecoderLM.trainable`` thaws it) drawn by
+    ``init()`` with a generator, else left uninitialised (``dtype`` on
+    ``device``) for loading."""
     t = (init() if generator is not None
          else torch.empty(shape, dtype=dtype, device=device))
     return nn.Parameter(t, requires_grad=False)

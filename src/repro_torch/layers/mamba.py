@@ -25,6 +25,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import mamba as kmamba
 from repro_torch.kernels import ref
@@ -90,10 +91,12 @@ class Mamba(nn.Module):
         dense("out_proj", Di, D)
 
     def forward(self, u: torch.Tensor, state: Optional[State] = None,
-                use_kernel: bool = False) -> torch.Tensor:
+                use_kernel: bool = False, remat: bool = False
+                ) -> torch.Tensor:
         """u: (B, T, D). With ``state`` the conv starts from its ``conv``
         history and the scan from its ``ssm``, and both are written in
-        place; without one both start from zeros."""
+        place; without one both start from zeros. ``remat`` recomputes the
+        plain scan in the backward instead of keeping its steps."""
         B, T, _ = u.shape
         Di, R, N, K = dims(self.cfg)
         x, z = (u @ self.in_proj).split(Di, dim=-1)
@@ -116,7 +119,9 @@ class Mamba(nn.Module):
         if use_kernel:
             y, _ = kmamba.mamba_scan(dt, A, Bm, Cm, x, h0, state_out=h0)
         else:
-            y, hT = ref.mamba_scan(dt, A, Bm, Cm, x, h0)
+            y, hT = (checkpoint(ref.mamba_scan, dt, A, Bm, Cm, x, h0,
+                                use_reentrant=False) if remat
+                     else ref.mamba_scan(dt, A, Bm, Cm, x, h0))
             if h0 is not None:
                 h0.copy_(hT)
         y = y + x.to(Accum) * self.D_skip

@@ -23,6 +23,7 @@ from typing import Dict, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ref
 from repro_torch.kernels import rwkv as krwkv
@@ -94,10 +95,13 @@ class TimeMix(nn.Module):
         self.ln_x = common.RMSNorm(D, dev)
 
     def forward(self, x: torch.Tensor, state: Optional[State] = None,
-                use_kernel: bool = False) -> torch.Tensor:
+                use_kernel: bool = False, remat: bool = False
+                ) -> torch.Tensor:
         """x: (B, T, D). With ``state`` the token shift starts from its
         ``tm_shift`` and the recurrence from its ``wkv``, and both are
-        written in place; without one both start from zeros."""
+        written in place; without one both start from zeros. ``remat``
+        recomputes the plain recurrence in the backward instead of keeping
+        its steps."""
         B, T, D = x.shape
         H, hd = n_heads(self.cfg), self.cfg.rwkv_head_dim
         if x.is_cuda and torch.backends.cuda.matmul.allow_tf32:
@@ -121,7 +125,9 @@ class TimeMix(nn.Module):
         if use_kernel:
             y, _ = krwkv.rwkv6_wkv(r, k, v, w, self.u, s0, state_out=out)
         else:
-            y, sT = ref.rwkv6_wkv(r, k, v, w, self.u, s0)
+            y, sT = (checkpoint(ref.rwkv6_wkv, r, k, v, w, self.u, s0,
+                                use_reentrant=False) if remat
+                     else ref.rwkv6_wkv(r, k, v, w, self.u, s0))
             if out is not None:
                 out.copy_(sT)
         if state is not None:

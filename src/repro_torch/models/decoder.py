@@ -6,8 +6,25 @@ attention-free rwkv family (rwkv6).
 The reference scans its layers over stacked pattern cycles; here one block
 module per layer sits in a ``ModuleList`` and runs in a Python loop (layer
 ``c * len(pattern) + j`` is the reference's cycle ``c``, block ``j``).
-Parameters are not trainable yet (serving only; the training slice turns
-``requires_grad`` on).
+The weights are made frozen, as serving wants them; :meth:`DecoderLM.
+trainable` turns ``requires_grad`` on for training (the train steps of
+``train/`` call it). Without caches, under grad mode, each block runs
+under the remat policy of ``RunFlags.remat`` (the reference's
+``_remat_wrap``, there per pattern cycle): ``"none"`` keeps every
+activation; ``"full"`` recomputes the whole block in the backward
+(``torch.utils.checkpoint``, the reference's ``nothing_saveable``);
+``"dots"`` keeps the outputs of the 2-D matrix products and recomputes
+each block's mixer core, the part without them: attention's batched
+products, masks and softmax, the WKV6 recurrence, the selective scan.
+The reference's ``checkpoint_dots_with_no_batch_dims`` also recomputes
+the elementwise work between the 2-D products (norms, SwiGLU); here that
+is kept, which holds a few MB a layer more and spares a selective
+checkpoint's Python dispatch of every operation (0.5 against 0.2 s a
+rank's backward at full smollm width on an H100, PERF.md §6).
+Every policy gives the same values, bit for bit.
+:meth:`DecoderLM.embed_apply`, :meth:`DecoderLM.segment_apply` and
+:meth:`DecoderLM.head_apply` are the forward's stages, the segments the
+backward-segmented train step differentiates one by one.
 
 Caches are a list with one dict per layer, written in place by
 :meth:`DecoderLM.forward`: ``{"k", "v"}`` for an attention layer (see
@@ -22,6 +39,7 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.layers import attention, common, mamba, rwkv
 from repro_torch.layers.common import RMSNorm
@@ -44,6 +62,14 @@ class RunFlags:
     logits_dtype: str = "bfloat16"
     q_chunk: int = 512             # streaming-attention tile
     kv_chunk: int = 1024
+
+
+REMATS = ("none", "full", "dots")
+
+
+def _remat_core(flags: RunFlags) -> bool:
+    """Whether a block recomputes its mixer core in the backward."""
+    return flags.remat == "dots" and torch.is_grad_enabled()
 
 
 def _vocab_padded(cfg) -> int:
@@ -94,7 +120,8 @@ class AttnBlock(_MixerBlock):
         a, _ = self.attn(
             self.ln1(h, self.eps), mode=mode, cache=cache,
             cache_index=cache_index, use_flash_decode=flags.use_flash_decode,
-            q_chunk=flags.q_chunk, kv_chunk=flags.kv_chunk)
+            q_chunk=flags.q_chunk, kv_chunk=flags.kv_chunk,
+            remat=_remat_core(flags))
         return self._ffn(h + a)
 
 
@@ -109,7 +136,8 @@ class MambaBlock(_MixerBlock):
         """``cache`` (the layer's state, or None) is advanced in place;
         ``cache_index`` is not read: the state holds the whole context."""
         h = h + self.mamba(self.ln1(h, self.eps), cache,
-                           use_kernel=flags.use_mamba_kernel)
+                           use_kernel=flags.use_mamba_kernel,
+                           remat=_remat_core(flags))
         return self._ffn(h)
 
 
@@ -131,7 +159,8 @@ class RwkvBlock(nn.Module):
         """``cache`` (the layer's state, or None) is advanced in place;
         ``cache_index`` is not read: the state holds the whole context."""
         h = h + self.tm_cm["tm"](self.ln1(h, self.eps), cache,
-                                 use_kernel=flags.use_rwkv_kernel)
+                                 use_kernel=flags.use_rwkv_kernel,
+                                 remat=_remat_core(flags))
         h = h + self.tm_cm["cm"](self.ln2(h, self.eps), cache)
         return h, None
 
@@ -206,9 +235,43 @@ class DecoderLM(nn.Module):
                 for t in cache.values():
                     t.zero_()
 
+    def trainable(self, on: bool = True) -> "DecoderLM":
+        """Turn ``requires_grad`` on (or off) for every weight; returns the
+        model."""
+        for p in self.parameters():
+            p.requires_grad_(on)
+        return self
+
     def embed_apply(self, tokens: torch.Tensor) -> torch.Tensor:
         """Token lookup: (B, T) int -> (B, T, D)."""
         return self.embed[tokens]
+
+    def _block(self, i: int, h: torch.Tensor, flags: RunFlags) -> BlockOut:
+        """Layer ``i`` without a cache, under ``flags.remat`` when grad
+        mode is on (``"dots"`` is the blocks' own: they recompute their
+        mixer cores)."""
+        blk = self.blocks[i]
+        if flags.remat not in REMATS:
+            raise ValueError(f"remat {flags.remat!r} is none of {REMATS}")
+        if flags.remat == "full" and torch.is_grad_enabled():
+            return checkpoint(blk, h, None, None, flags, use_reentrant=False)
+        return blk(h, None, None, flags)
+
+    def segment_apply(self, h: torch.Tensor, lo: int, hi: int,
+                      flags: RunFlags = RunFlags()
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Pattern cycles ``[lo, hi)`` (layers ``lo * len(pattern)`` up to
+        ``hi * len(pattern)``) on the hidden state ``h``, without caches.
+        Returns ``(h, aux)``, ``aux`` the float32 sum of their MoE
+        load-balance losses. ``segment_apply(h, 0, n_cycles(cfg))`` is the
+        whole trunk, as :meth:`forward` runs it."""
+        n = len(self.cfg.block_pattern)
+        aux = torch.zeros((), dtype=common.Accum, device=h.device)
+        for i in range(lo * n, hi * n):
+            h, blk_aux = self._block(i, h, flags)
+            if blk_aux is not None:
+                aux = aux + blk_aux
+        return h, aux
 
     def head_apply(self, h: torch.Tensor, flags: RunFlags = RunFlags()
                    ) -> torch.Tensor:
@@ -228,10 +291,12 @@ class DecoderLM(nn.Module):
         MoE), ``new_caches`` the given list, updated in place (None without
         caches)."""
         h = self.embed_apply(tokens)
+        if caches is None:
+            h, aux = self.segment_apply(h, 0, n_cycles(self.cfg), flags)
+            return self.head_apply(h, flags), aux, None
         aux = torch.zeros((), dtype=common.Accum, device=h.device)
         for i, blk in enumerate(self.blocks):
-            h, blk_aux = blk(h, None if caches is None else caches[i],
-                             cache_index, flags)
+            h, blk_aux = blk(h, caches[i], cache_index, flags)
             if blk_aux is not None:
                 aux = aux + blk_aux
         return self.head_apply(h, flags), aux, caches

@@ -142,3 +142,123 @@ def leaf_views(flat: torch.Tensor, shapes: List[Leaf]):
     if off != flat.shape[1]:
         raise ValueError(f"layout covers {off} of {flat.shape[1]} columns")
     return views
+
+
+def module_names(cfg) -> List[Tuple[str, Tuple[int, ...], List[str]]]:
+    """``(path, shape, names)`` for every leaf of :func:`param_shapes`:
+    ``names`` are the ``DecoderLM`` parameters holding it, one per pattern
+    cycle for a ``groups/blk<j>/...`` leaf (cycle ``c`` is layer ``c *
+    len(pattern) + j``), else the one top-level weight."""
+    n_pat = len(cfg.block_pattern)
+    out = []
+    for path, shape in param_shapes(cfg):
+        top, *rest = path.split("/")
+        if top != "groups":
+            out.append((path, shape, [".".join([top] + rest)]))
+            continue
+        blk, *leaf = rest
+        j = int(blk[len("blk"):])
+        out.append((path, shape, [".".join(["blocks", str(c * n_pat + j)]
+                                           + leaf)
+                                  for c in range(shape[0])]))
+    return out
+
+
+class FlatParams:
+    """Weights in the reference's flat layout (:func:`param_shapes`): the
+    leaves in flatten order, each leaf's tensors one after another (layer
+    ``c`` of a stacked leaf is its contiguous slab ``c``). Moves values
+    between the weights and flat float32 buffers of :attr:`n` elements.
+
+    ``leaves`` is ``[(path, [tensor, ...]), ...]`` in flatten order:
+    :meth:`of` builds it for a ``DecoderLM``; a reference tree carried as
+    one tensor per leaf works as well."""
+
+    def __init__(self, leaves):
+        self.tensors: List[torch.Tensor] = []
+        self.offsets: List[int] = []
+        #: ``(path, start, end, first tensor index)`` per leaf
+        self.spans: List[Tuple[str, int, int, int]] = []
+        off = 0
+        for path, ts in leaves:
+            start, first = off, len(self.tensors)
+            for t in ts:
+                self.tensors.append(t)
+                self.offsets.append(off)
+                off += t.numel()
+            self.spans.append((path, start, off, first))
+        self.n = off
+
+    @classmethod
+    def of(cls, model) -> "FlatParams":
+        leaves = []
+        for path, shape, names in module_names(model.cfg):
+            ts = [model.get_parameter(n) for n in names]
+            want = shape[1:] if path.startswith("groups/") else shape
+            if any(tuple(t.shape) != tuple(want) for t in ts):
+                raise ValueError(f"{path}: the model's weights are not "
+                                 f"{want}")
+            leaves.append((path, ts))
+        return cls(leaves)
+
+    @property
+    def device(self) -> torch.device:
+        return self.tensors[0].device
+
+    def read(self, out: torch.Tensor = None) -> torch.Tensor:
+        """The weights as one float32 ``(n,)`` buffer (``out`` if given)."""
+        return self.gather(self.tensors, out)
+
+    def gather(self, tensors, out: torch.Tensor = None) -> torch.Tensor:
+        """``tensors`` (one per weight, in :attr:`tensors`' order; None for
+        zeros) written as float32 into ``out`` (a new ``(n,)`` buffer
+        without one), each cast where it lands."""
+        if out is None:
+            out = torch.empty(self.n, dtype=torch.float32,
+                              device=self.device)
+        with torch.no_grad():
+            for t, off, w in zip(tensors, self.offsets, self.tensors):
+                seg = out[off:off + w.numel()]
+                if t is None:
+                    seg.zero_()
+                else:
+                    seg.copy_(t.reshape(-1))
+        return out
+
+    def accumulate(self, tensors, acc: torch.Tensor, div: int) -> None:
+        """``acc += t.float() / div`` for each of ``tensors`` (None adds
+        nothing), in place: microbatch gradient accumulation."""
+        with torch.no_grad():
+            for t, off in zip(tensors, self.offsets):
+                if t is not None:
+                    acc[off:off + t.numel()].add_(
+                        t.reshape(-1).float() / div)
+
+    def assign(self, flat: torch.Tensor) -> None:
+        """Write a float32 ``(n,)`` buffer into the weights, each cast to
+        its own dtype."""
+        with torch.no_grad():
+            for w, off in zip(self.tensors, self.offsets):
+                w.copy_(flat[off:off + w.numel()].view(w.shape))
+
+    def leaf(self, path: str) -> Tuple[int, int]:
+        """``(start, end)`` of a leaf in the flat layout."""
+        for p, start, end, _ in self.spans:
+            if p == path:
+                return start, end
+        raise KeyError(path)
+
+    def cycles(self, lo: int, hi: int):
+        """The stacked (``groups/...``) leaves restricted to cycles ``[lo,
+        hi)``: ``(tensors, [(start, end), ...])``, the tensors in flatten
+        order and the flat ranges they fill, one per leaf (contiguous: a
+        leaf's cycles are consecutive slabs)."""
+        tensors, ranges = [], []
+        for path, start, end, first in self.spans:
+            if not path.startswith("groups/"):
+                continue
+            ts = self.tensors[first + lo:first + hi]
+            tensors += ts
+            a = self.offsets[first + lo]
+            ranges.append((a, a + sum(t.numel() for t in ts)))
+        return tensors, ranges

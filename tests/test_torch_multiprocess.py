@@ -18,6 +18,13 @@ Three spawns per module, each under its own deadline (``launch.run``'s
     equal ``RankGrid(2, 4, "cpu")``'s bitwise, which
     ``tests/test_torch_collectives.py`` holds against the reference.
 
+A fourth spawn, two workers of 2 ranks, runs the train steps of
+``train/manual_step.py`` on the ``ProcessGrid`` (each process computes and
+holds only its own ranks' gradient rows): the fused step lossless and with
+int8 error feedback, and the overlapped step's segmented decomposition,
+two steps each; every process's losses, weights and AdamW moments must be
+bitwise those of the same steps on ``RankGrid(2, 2, "cpu")``.
+
 The 2x4 workers also run a persistent op, ``split(axes=...)`` children, a
 color split inside each process (and one across processes, which must
 raise), the calibrate-merge leg (one table, written by rank 0 under
@@ -54,6 +61,11 @@ N, P = 2, 4
 WORLD = N * P
 CALIBRATED = ("allreduce", "broadcast")
 DATA = dict(vocab=64, seq_len=32, seed=3)
+
+
+#: the train legs: reduced smollm, a global batch of 2 sequences a rank
+TRAIN_BATCH, TRAIN_T = 4, 16
+TRAIN_BUCKET = 256 << 10
 
 
 def _plans(topo):
@@ -171,9 +183,66 @@ def _color_results(comm, color, ops):
     return out
 
 
+def _train_legs(grid):
+    """Two steps of each train leg on ``grid`` from the same seeded weights
+    and batch (plans pinned: ``auto`` resolves by the grid's links, which
+    differ between one process and two): ``{leg: {"losses", "params",
+    "m", "v"}}`` (the flat buffers as numpy), read on this process."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.models.decoder import DecoderLM, RunFlags
+    from repro_torch.models.params import FlatParams
+    from repro_torch.optim import adamw
+    from repro_torch.train import manual_step as ms
+    from repro_torch.train.step import TrainConfig
+
+    torch.set_num_threads(1)  # the same arithmetic in every process
+    cfg = reduced_config("smollm-360m")
+    ocfg = adamw.AdamWConfig(lr=1e-3, warmup_steps=0, total_steps=10,
+                             schedule="constant")
+    tcfg = TrainConfig(optimizer=ocfg, flags=RunFlags(remat="none"))
+    rng = np.random.default_rng(11)
+    batch = {k: torch.from_numpy(rng.integers(
+        0, cfg.vocab, (TRAIN_BATCH, TRAIN_T))).long()
+        for k in ("tokens", "labels")}
+    comm = Communicator(grid)
+    ef = dict(algo="pip_mcoll", error_budget=0.004, codec="int8_block",
+              bucket_bytes=TRAIN_BUCKET)
+    out = {}
+    for leg in ("fused", "fused_int8_ef", "segmented"):
+        model = DecoderLM(cfg, torch.Generator().manual_seed(0),
+                          device="cpu")
+        flat = FlatParams.of(model)
+        opt = adamw.init(flat, ocfg)
+        if leg == "segmented":
+            step = ms.make_overlapped_train_step(
+                cfg, tcfg, grid, algo="pip_pipeline",
+                bucket_bytes=TRAIN_BUCKET, segmented=True)
+            run = lambda: step(model, opt, batch)
+        else:
+            kw = (ef if leg == "fused_int8_ef"
+                  else dict(algo="pip_pipeline", bucket_bytes=TRAIN_BUCKET))
+            step = ms.make_manual_train_step(cfg, tcfg, grid, **kw)
+            err = ms.init_error_state(flat.n, comm, kw.get("error_budget",
+                                                           0.0),
+                                      TRAIN_BUCKET)
+            run = lambda: step(model, opt, err, batch)[1]
+        losses = [float(run()["loss"]) for _ in range(2)]
+        out[leg] = {"losses": losses, "params": flat.read().numpy(),
+                    "m": opt["m"].numpy().copy(),
+                    "v": opt["v"].numpy().copy()}
+    return out
+
+
 # ---------------------------------------------------------------------------
 # the workers (module-level: the launcher imports them by name)
 # ---------------------------------------------------------------------------
+
+
+def _worker_train():
+    from repro_torch.launch.mesh import make_process_grid
+    grid = make_process_grid(device="cpu")
+    return {"rank": grid.rank, "rows": grid.rows,
+            "legs": _train_legs(grid)}
 
 
 def _worker_2x2(ref_path):
@@ -351,6 +420,14 @@ def spawned_2x4(worker_path, tmp_path_factory):
 
 
 @pytest.fixture(scope="module")
+def spawned_train(worker_path):
+    res = launch.run(_worker_train, processes=2, ranks_per_process=2,
+                     timeout=SPAWN_TIMEOUT)
+    assert [r["rank"] for r in res] == [0, 1]
+    return res
+
+
+@pytest.fixture(scope="module")
 def comm_2x4():
     return Communicator(RankGrid(N, P, "cpu"))
 
@@ -388,6 +465,39 @@ def test_2x2_lists_the_reference_plans(spawned_2x2, reference):
     for r in spawned_2x2:
         assert set(r["out"]) == listed
         assert r["topo_key"] == "2x2/host_ipc/host_cpu"
+
+
+# ---------------------------------------------------------------------------
+# 2x2: the train steps on the process grid against the one-process grid
+# ---------------------------------------------------------------------------
+
+TRAIN_LEGS = ("fused", "fused_int8_ef", "segmented")
+
+
+@pytest.fixture(scope="module")
+def train_one_process():
+    n = torch.get_num_threads()
+    try:
+        return _train_legs(RankGrid(2, 2, "cpu"))
+    finally:
+        torch.set_num_threads(n)
+
+
+@pytest.mark.parametrize("leg", TRAIN_LEGS)
+def test_2x2_train_step_matches_rank_grid(spawned_train, train_one_process,
+                                          leg):
+    """Each process shards the batch to its own 2 ranks, computes their
+    gradients, syncs over gloo and updates its weights from its first
+    held row: losses, weights, m and v bitwise the one-process step's."""
+    want = train_one_process[leg]
+    assert all(b < a for a, b in zip(want["losses"], want["losses"][1:]))
+    assert float(np.abs(want["m"]).max()) > 0
+    for r in spawned_train:
+        assert r["rows"] == 2
+        got = r["legs"][leg]
+        assert got["losses"] == want["losses"]
+        for k in ("params", "m", "v"):
+            _bitwise(got[k], want[k])
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,9 @@
 """Helpers shared by the port's model-family parity tests
-(``test_torch_rwkv.py``, ``test_torch_jamba.py``): the reference side run
-in a subprocess, its serving recorder, the parameter tree read back from
-its ``.npz``, and the comparisons."""
+(``test_torch_rwkv.py``, ``test_torch_jamba.py``, the train tests): the
+reference side run in a subprocess, its serving recorder, its weights
+drawn from numpy and its quick compiles, the parameter tree read back
+from its ``.npz``, and the comparisons. Imports no torch at module level,
+so a reference subprocess that imports it does not pay for torch."""
 import os
 import pathlib
 import subprocess
@@ -9,22 +11,66 @@ import sys
 
 import numpy as np
 import pytest
-import torch
 
 
-def reference_npz(test_file: str, tmp_path_factory, name: str) -> dict:
+def reference_npz(test_file: str, tmp_path_factory, name: str,
+                  devices: int = 0) -> dict:
     """Run ``test_file``'s ``__main__`` (the reference side) in a
-    subprocess on the CPU and load the ``.npz`` it writes."""
+    subprocess on the CPU (with ``devices`` forced host devices when
+    given) and load the ``.npz`` it writes."""
     pytest.importorskip("jax")
     out = tmp_path_factory.mktemp(name) / "ref.npz"
     repo = pathlib.Path(__file__).resolve().parent.parent
     env = dict(os.environ, JAX_PLATFORMS="cpu",
                PYTHONPATH=f"{repo / 'src'}:{os.environ.get('PYTHONPATH', '')}")
+    if devices:
+        env["XLA_FLAGS"] = \
+            f"--xla_force_host_platform_device_count={devices}"
     proc = subprocess.run([sys.executable, test_file, str(out)], env=env,
                           capture_output=True, text=True, timeout=600)
     assert proc.returncode == 0, proc.stderr[-4000:]
     with np.load(out) as z:
         return dict(z)
+
+
+def flatten(tree, prefix: str = ""):
+    """``(path, array)`` leaves of a nested dict in sorted key order (the
+    reference's flatten order), paths joined by ``/``."""
+    if isinstance(tree, dict):
+        out = []
+        for k in sorted(tree):
+            out += flatten(tree[k], f"{prefix}/{k}" if prefix else str(k))
+        return out
+    return [(prefix, np.asarray(tree))]
+
+
+def draw_params(shapes) -> dict:
+    """A parameter tree of ``shapes`` (the reference's ``jax.eval_shape``
+    of its ``init``) drawn from numpy seed 0, leaf by leaf in sorted key
+    order, in ``ml_dtypes`` bfloat16: the norms' scales near 1, the rest
+    small. Cheaper than compiling the reference's ``init``."""
+    import ml_dtypes
+    rng = np.random.default_rng(0)
+
+    def draw(tree, name=""):
+        if isinstance(tree, dict):
+            return {k: draw(tree[k], k) for k in sorted(tree)}
+        a = rng.standard_normal(tree.shape)
+        a = 1.0 + 0.1 * a if name == "scale" else 0.05 * a
+        return a.astype(ml_dtypes.bfloat16)
+    return draw(shapes)
+
+
+def fast_compile(fn, *args):
+    """``fn`` (jitted, or a function to jit) compiled for ``args`` at XLA's
+    lowest backend optimisation level: a few times quicker to compile on
+    one core. Not for bitwise codec oracles: at that level XLA fuses no
+    multiply-adds."""
+    import jax
+    jitted = fn if hasattr(fn, "lower") else jax.jit(fn)
+    return jitted.lower(*args).compile(
+        {"xla_backend_optimization_level": 0,
+         "xla_llvm_disable_expensive_passes": True})
 
 
 def top2(row):
@@ -86,6 +132,7 @@ def tree(reference: dict, dtype: str, f32_leaves) -> dict:
 
 
 def close(got, want, tol, what):
+    import torch
     got = got.float().numpy() if torch.is_tensor(got) else got
     np.testing.assert_allclose(got, want, rtol=tol, atol=tol, err_msg=what)
 
