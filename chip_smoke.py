@@ -3,7 +3,7 @@
 
 Usage: ``python3 chip_smoke.py`` from the repository root, on a machine
 with an NVIDIA Hopper card and the CUDA toolkit. It imports nothing of JAX
-or of the JAX package. Ten phases; any failure exits non-zero:
+or of the JAX package. Eleven phases; any failure exits non-zero:
 
 1. **Kernels.** Builds ``kernels/csrc/codec_{int8,int4,fp8}.cu``,
    ``flash_decode.cu``, ``rwkv6_wkv.cu``, ``mamba_scan.cu`` and
@@ -260,7 +260,43 @@ or of the JAX package. Ten phases; any failure exits non-zero:
    synchronize; the median of the steps after the first), tokens per
    second, profiled step (device busy, idle share, top kernels) and
    launches, the peak.
-10. **Report.** The slice, collectives, serving and calibration summaries,
+10. **The MoE family.** (a) The flash-decode kernel past 8 query heads a
+   kv group, held as in phase 1 at qwen3-moe's serving shape (B 8, S
+   2048, 64 heads of 64 over 4 KV heads: G 16) and at G 9, 11, 12 and 16 at
+   reduced sizes, bf16 and fp32, then the split grid's edges at
+   qwen3-moe's shape (its split count counts the head groups), the
+   tickets back at zero; timed there (events and CUPTI) beside its bound
+   and one SDPA call. (b) qwen3-moe's MoE layer at full width (d 4096,
+   128 experts top-8 of d_ff 1536) expert parallel on ``RankGrid(2,
+   4)``, the experts over the local axis (32 a rank), the batch over the
+   nodes, on seeded bf16 tokens (8, 512): each of ``pip_mcoll``,
+   ``pip_pipeline`` at 2 and 4 chunks and ``xla`` forced through
+   ``Communicator.plan``, and ``auto``; at capacity 4 no routing dropped
+   and the output within the reference check's 6e-2 of the local path's,
+   at the default 1.25 the drops counted; at both the lossless plans
+   bitwise equal; under ``error_budget=0.07`` the combine's own plan
+   (its codec recorded) within ``6e-2 + 0.07 * max|y|`` of the lossless
+   output; no kernel launched (the all-to-alls move no rows through the
+   staging primitives, ``oracles.moves_rows``; the compressed combine
+   uses the codecs' plain encode and decode); each plan's median host
+   time per call and one profiled call split into all-to-alls and expert
+   products. Then arctic-480b's MoE layer (d 7168, 128 experts top-2 of
+   d_ff 4864) under ``auto`` and the compressed combine, the same
+   checks. (c, d) qwen3-moe cut to its first 4 layers (every width the
+   published one) served as phase 4 serves smollm (the local MoE, as the
+   reference's engine runs it; flash-decode launches ticks x 4, three
+   teacher-forced ticks with every layer's flash call held to the plain
+   version), then ``DecoderLM.forward(tokens, rules=..., grid=RankGrid(2,
+   4))`` on (8, 512) seeded tokens at capacity 4 against the local path:
+   each MoE layer teacher-forced (the local forward's input) routes every
+   token alike and lies within 6e-2, and the logits of every sequence up
+   to its first token routed otherwise in some layer (a bf16 near tie)
+   within ``TEACHER_TOL`` times the largest logit. (e) arctic cut to 1
+   layer (the MoE and its dense residual MLP, 64 padded heads over 8 KV
+   heads: G 8) served the same way. One ``{"moe": ...}`` and one
+   ``{"serve_moe": ...}`` line per model, each with its peak memory;
+   each leg frees the card before the next.
+11. **Report.** The slice, collectives, serving and calibration summaries,
    the card's name and power limit (as nvidia-smi gives them), the
    ``{"kernels": [...]}`` line (the 14 TPU kernels of the repository, each
    codec's feedback encode apart from its residual encode and the WKV6
@@ -268,7 +304,10 @@ or of the JAX package. Ten phases; any failure exits non-zero:
    feedback launches the slice phase counted apart: 0, since its
    compressed allreduce encodes without the carried error; the staging
    and codec kernels' ``launches_by_path`` include ``two_process``, both
-   workers' launches; every entry's ``launches_by_path`` has ``train``,
+   workers' launches; flash decode's and the staging kernels' include
+   ``serve_qwen3_moe`` and ``serve_arctic``, the staging kernels' also
+   ``moe_ep``, the expert-parallel layer's (0: no plan of it moves
+   rows); every entry's ``launches_by_path`` has ``train``,
    the train steps' launches; the feedback encodes' also have
    ``compress_tree``, leg (d)'s, which their launches include),
    and last
@@ -383,8 +422,32 @@ GEMM_NAMES = ("gemm", "gemv", "nvjet", "xmma", "cutlass", "splitk")
 #: launch each per call, and the tick and recurrent kernels' names
 CHUNKED_PASSES = ("wkv_chunk_intra", "wkv_chunk_state")
 TICK_KERNEL, RECURRENT_KERNEL = "rwkv6_wkv_tick_kernel", "rwkv6_wkv_kernel"
-#: the profiler range put around the MoE's expert products
-EXPERT_RANGE = "moe_experts"
+#: the profiler range put around the MoE's expert products, and the one
+#: put around its all-to-alls (phase 10)
+EXPERT_RANGE, A2A_RANGE = "moe_experts", "moe_alltoall"
+#: phase 10, the MoE family: qwen3-moe cut to its first 4 layers and
+#: arctic to 1 for serving, every width the published one; the
+#: expert-parallel layer's tokens, one (4, 512) batch shard a node
+MOE_Q_ARCH, MOE_Q_LAYERS = "qwen3-moe-235b-a22b", 4
+MOE_A_ARCH, MOE_A_LAYERS = "arctic-480b", 1
+MOE_TOKENS = (8, 512)
+#: the expert-parallel layer's forced lossless plans (algo, chunks), the
+#: compressed combine's budget, the reference check's bar against the
+#: local path (tests/checks/moe_ep_check.py) and the timed calls a plan
+MOE_PLANS = (("pip_mcoll", 1), ("pip_pipeline", 2), ("pip_pipeline", 4),
+             ("xla", 1))
+MOE_BUDGET, MOE_TOL, MOE_ITERS = 0.07, 6e-2, 5
+#: compressed combines forced under MOE_BUDGET besides ``auto``'s own
+#: (algo, chunks, codec; the dispatch stays lossless on the same algo)
+MOE_CODEC_PLANS = (("pip_mcoll", 1, "int8_block"),
+                   ("pip_pipeline", 2, "fp8_sim"))
+#: flash_decode past 8 heads a kv group: qwen3-moe's serving shape (G 16,
+#: hd 64), then G 9, 11, 12 and 16 at reduced sizes
+FLASH_GROUPS = ((SERVE_BATCH, SERVE_LEN, 64, 4, 64),
+                (SERVE_BATCH, 1000, 18, 2, 32),
+                (SERVE_BATCH, 1000, 22, 2, 64),
+                (SERVE_BATCH, 1000, 24, 2, 64),
+                (SERVE_BATCH, 1000, 32, 2, 128))
 #: the staging kernels' names in a profile (``csrc/staging.cu``) and in
 #: their wrapper's launch counts
 STAGING_KERNELS = ("shift_blocks_kernel", "pack_blocks_kernel")
@@ -2372,11 +2435,11 @@ def _mamba_held(torch, kmamba, ref, errs):
     return held
 
 
-def _profile_jamba(torch, fn):
+def _profile_experts(torch, fn, names=("mamba_scan", "flash_decode")):
     """:func:`profile_call` of ``fn`` with the MoE's expert products inside
     an ``EXPERT_RANGE`` profiler range, and the device-time shares of the
-    expert products, the other matrix products, ``mamba_scan`` and
-    ``flash_decode``."""
+    expert products, the other matrix products and each kernel of
+    ``names``."""
     from repro_torch.layers import moe as tmoe
 
     experts = tmoe.MoE._experts
@@ -2387,8 +2450,7 @@ def _profile_jamba(torch, fn):
 
     tmoe.MoE._experts = ranged
     try:
-        prof = profile_call(torch, fn, ("mamba_scan", "flash_decode")
-                            + STAGING_KERNELS,
+        prof = profile_call(torch, fn, tuple(names) + STAGING_KERNELS,
                             ranges=(EXPERT_RANGE,))
     finally:
         tmoe.MoE._experts = experts
@@ -2399,8 +2461,7 @@ def _profile_jamba(torch, fn):
         prof["shares"] = {
             "expert_gemms": expert_gemm / busy,
             "other_gemms": (prof["gemm_ms"] - expert_gemm) / busy,
-            "mamba_scan": prof["name_ms"]["mamba_scan"] / busy,
-            "flash_decode": prof["name_ms"]["flash_decode"] / busy}
+            **{name: prof["name_ms"][name] / busy for name in names}}
     return prof
 
 
@@ -2438,8 +2499,8 @@ def jamba_serve_phase(torch, dev, cfg, kattn, kmamba, ref, kmods):
         _check_held("mamba_scan", errs, n_mamba)
         prefill_err = max(errs)
         # one profiled prefill of the same prompt into the same slot
-        prefill_profile = _profile_jamba(torch,
-                                         lambda: eng._admit(longest, 0))
+        prefill_profile = _profile_experts(torch,
+                                           lambda: eng._admit(longest, 0))
         for slot, req in enumerate(requests()[:SERVE_BATCH - 1]):
             eng._admit(req, slot + 1)
         # the kernels, then their plain versions (the plain scan and the
@@ -2458,7 +2519,7 @@ def jamba_serve_phase(torch, dev, cfg, kattn, kmamba, ref, kmods):
             raise AssertionError(f"teacher-forced logits: kernel path "
                                  f"{worst} from the plain-version path, "
                                  f"over {TEACHER_TOL} * {top}")
-        profile = _profile_jamba(torch, eng._decode_tick)
+        profile = _profile_experts(torch, eng._decode_tick)
     Di, N = 2 * cfg.d_model, cfg.mamba_d_state
     record.update({
         "layers": kinds, "moe_layers": sum(hasattr(b, "moe")
@@ -3552,6 +3613,576 @@ def train_phase(torch, dev, cfg, kmods):
     return rec, path_launches, tree_launches
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the MoE family
+# ---------------------------------------------------------------------------
+
+
+def flash_group_leg(torch, kattn, ref, dev):
+    """``flash_decode`` past 8 query heads a kv group: qwen3-moe's serving
+    shape (G 16) and G 9, 11, 12 and 16 at reduced sizes, bf16 and fp32, for
+    (B,) lengths (full, 1, mixed) and scalar lengths (1, S // 3, S, 0),
+    within ``FLASH_TOL * (1 + |plain|)`` of the plain version; then the
+    split grid's edges at qwen3-moe's shape, B 8 and B 1 (every boundary
+    of the kernel's own split count, which counts the head groups, +-1,
+    and lengths 0 and -3); the combine tickets back at zero. Then the
+    kernel's time (events and CUPTI), the plain version's and one SDPA
+    call's at qwen3-moe's shape, every row at SERVE_LEN, with the bound."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 10)
+    worst, checked = 0.0, 0
+    for B, S, H, KV, hd in FLASH_GROUPS:
+        mixed = torch.randint(1, S + 1, (B,), generator=gen, device=dev,
+                              dtype=torch.int32)
+        mixed[0], mixed[1] = S, 1
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v = _flash_inputs(torch, B, S, H, KV, hd, dtype, gen, dev)
+            for lengths in (torch.full((B,), S, dtype=torch.int32,
+                                       device=dev),
+                            torch.ones((B,), dtype=torch.int32, device=dev),
+                            mixed, 1, S // 3, S, 0):
+                worst = max(worst, _check_flash(
+                    torch, kattn, ref, q, k, v, lengths,
+                    f"B={B} S={S} H={H} KV={KV} hd={hd} {dtype}"))
+                checked += 1
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    _, S, H, KV, hd = FLASH_GROUPS[0]
+    splits = {}
+    for B in (SERVE_BATCH, 1):
+        q, k, v = _flash_inputs(torch, B, S, H, KV, hd, torch.bfloat16, gen,
+                                dev)
+        n = kattn.split_count(B, KV, S, hd, 2, n_sm, H // KV)
+        span = -(-S // n)
+        splits[f"B={B} H={H} KV={KV} hd={hd}"] = {
+            "n_split": n, "span": span,
+            "head_groups": kattn.head_groups(H // KV)}
+        edges = [e + d for e in range(span, S, span) for d in (-1, 0, 1)]
+        for lengths in (*edges, 0, -3):
+            worst = max(worst, _check_flash(
+                torch, kattn, ref, q, k, v, lengths,
+                f"B={B} S={S} H={H} KV={KV} hd={hd} {n} splits"))
+            checked += 1
+    if any(bool(t.any()) for t in kattn._tickets.values()):
+        raise AssertionError("flash_decode left a combine ticket non-zero")
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    timed = _flash_timed(torch, kattn, ref, dev, gen, flush, H, KV, hd)
+    q, k, v = _flash_inputs(torch, SERVE_BATCH, S, H, KV, hd,
+                            torch.bfloat16, gen, dev)
+    full = torch.full((SERVE_BATCH,), S, dtype=torch.int32, device=dev)
+    timed["kernel_cupti_ms"] = cupti_ms(
+        torch, lambda: kattn.flash_decode(q, k, v, full), flush,
+        "flash_decode")
+    timed["n_split"] = kattn.split_count(SERVE_BATCH, KV, S, hd, 2, n_sm,
+                                         H // KV)
+    return {"cases_checked": checked, "max_abs_err": worst,
+            "tolerance": f"{FLASH_TOL} * (1 + |plain|)", "splits": splits,
+            "shapes": [list(s) for s in FLASH_GROUPS],
+            "qwen3_moe_shape": timed}
+
+
+def _forced(autotune, algo, chunks, codec="none"):
+    """A stand-in for ``Communicator.plan`` resolving every request to
+    ``(algo, chunks)``, lossless, and one under an error budget to
+    ``(algo, chunks, codec)``."""
+    def plan(self, collective, nbytes, dtype="float32", error_budget=0.0):
+        return autotune.Selection(collective, algo, 0.0, "forced", "",
+                                  chunks=chunks,
+                                  codec=codec if error_budget > 0 else "none")
+    return plan
+
+
+def _with_plan(fn, plan):
+    """``fn()`` with ``Communicator.plan`` replaced by ``plan`` (None:
+    the selector's own) for the call."""
+    from repro_torch.core import comm as tcomm
+
+    def call():
+        if plan is None:
+            return fn()
+        kept = tcomm.Communicator.plan
+        tcomm.Communicator.plan = plan
+        try:
+            return fn()
+        finally:
+            tcomm.Communicator.plan = kept
+    return call
+
+
+def _combine_input_max(torch, fn):
+    """``fn()`` (one expert-parallel call) with the largest |value| of the
+    combine all-to-all's operand (the expert outputs, the call's last
+    all-to-all), which a codec's error bound is relative to."""
+    from repro_torch.core import mcoll
+
+    algos, seen = dict(mcoll.ALLTOALL), []
+
+    def recording(f):
+        def call(x, *args, **kw):
+            seen.append(x)
+            return f(x, *args, **kw)
+        return call
+
+    mcoll.ALLTOALL.update({k: recording(f) for k, f in algos.items()})
+    try:
+        out = fn()
+    finally:
+        mcoll.ALLTOALL.update(algos)
+    return out, float(seen[-1].float().abs().max())
+
+
+def _host_timed(torch, fn, n: int = MOE_ITERS):
+    """``fn()``'s last result and its median host-clock seconds over ``n``
+    calls after a first one (:func:`_timed_steps`)."""
+    times, outs = _timed_steps(torch, None, fn, n + 1)
+    return outs[-1], statistics.median(times[1:])
+
+
+def _profile_ep(torch, fn):
+    """:func:`profile_call` of one expert-parallel call with its expert
+    products inside ``EXPERT_RANGE`` and its all-to-alls inside
+    ``A2A_RANGE``: their device time and their shares of the busy time."""
+    from repro_torch.core import mcoll
+    from repro_torch.layers import moe as tmoe
+
+    experts, algos = tmoe.MoE._experts, dict(mcoll.ALLTOALL)
+
+    def ranged(label, f):
+        def call(*args, **kw):
+            with torch.profiler.record_function(label):
+                return f(*args, **kw)
+        return call
+
+    tmoe.MoE._experts = ranged(EXPERT_RANGE, experts)
+    mcoll.ALLTOALL.update({k: ranged(A2A_RANGE, f) for k, f in algos.items()})
+    try:
+        prof = profile_call(torch, fn, STAGING_KERNELS,
+                            ranges=(EXPERT_RANGE, A2A_RANGE))
+    finally:
+        tmoe.MoE._experts = experts
+        mcoll.ALLTOALL.update(algos)
+    busy = prof["device_busy_ms"]
+    if isinstance(busy, float) and all(
+            isinstance(prof["ranges"][r]["ms"], float)
+            for r in (EXPERT_RANGE, A2A_RANGE)):
+        expert_ms = prof["ranges"][EXPERT_RANGE]["ms"]
+        a2a_ms = prof["ranges"][A2A_RANGE]["ms"]
+        prof["split_ms"] = {"alltoalls": a2a_ms, "expert_products":
+                            prof["ranges"][EXPERT_RANGE]["gemm_ms"],
+                            "experts_all": expert_ms,
+                            "rest": busy - expert_ms - a2a_ms}
+        prof["shares"] = {k: v / busy for k, v in prof["split_ms"].items()}
+    return prof
+
+
+def moe_layer_leg(torch, dev, cfg, kmods, plans):
+    """One MoE layer of ``cfg`` at full width (bf16 experts from a seeded
+    generator) expert parallel on ``RankGrid(2, 4)``, the experts over the
+    local axis and the batch over the nodes, on seeded bf16 tokens of
+    ``MOE_TOKENS``. For each capacity (``tp``: nothing can drop; the
+    config's default) every plan of ``plans`` (``(name, algo, chunks)``,
+    forced through ``Communicator.plan``; algo None: ``comm.plan``'s own
+    resolution) runs ``MOE_ITERS + 1`` times with every kernel count
+    zeroed before and read after: no kernel launches (the all-to-alls and
+    the all-gather move no rows through the staging primitives:
+    ``oracles.moves_rows``; the compressed combine uses the codecs' plain
+    encode and decode), the lossless plans' outputs equal bitwise, no
+    routing dropped at capacity tp, where the output must lie within the
+    reference check's ``MOE_TOL`` of the local path's. Under
+    ``error_budget=MOE_BUDGET`` at the default capacity the combine runs
+    the plan the selector resolves (its codec recorded) and each of
+    ``MOE_CODEC_PLANS``, each output within ``MOE_TOL`` plus the codec's
+    stated bound times the largest expert output (the combine's operand)
+    of the lossless one (and whether it also meets the reference check's
+    ``MOE_TOL + MOE_BUDGET * max|y|``). Records each plan's median host
+    time per call, the drop counts, one profiled call's split into
+    all-to-alls and expert products, the peak memory."""
+    from repro_torch.core import autotune, compress, oracles
+    from repro_torch.core.comm import communicator
+    from repro_torch.core.grid import RankGrid
+    from repro_torch.layers import moe as tmoe
+    from repro_torch.sharding.rules import Rules
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    layer = tmoe.MoE(cfg, torch.Generator("cuda").manual_seed(SEED + 11))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    B, S = MOE_TOKENS
+    x = torch.randn((B, S, cfg.d_model), device=dev,
+                    generator=torch.Generator("cuda").manual_seed(SEED + 12)
+                    ).to(torch.bfloat16)
+    grid, rules = RankGrid(2, 4), Rules(batch=("node",), tp="local")
+    tp, bshard = grid.n_local, grid.n_nodes
+    comm = communicator(grid).split(axes="local")
+    moe0 = cfg.moe
+    record = {"model": cfg.name, "d_model": cfg.d_model,
+              "experts": moe0.n_experts, "top_k": moe0.top_k,
+              "d_ff_expert": moe0.d_ff_expert,
+              "expert_params": sum(p.numel() for n, p in
+                                   layer.named_parameters() if n != "router"),
+              "tokens": [B, S], "grid": [2, 4], "batch_axes": ["node"],
+              "tp_axis": "local", "experts_per_rank": moe0.n_experts // tp,
+              "init_s": init_s, "capacities": {}}
+    staged = dict.fromkeys(STAGING_NAMES, 0)
+
+    def run(name, fn):
+        for km in kmods:
+            km.reset_launches()
+        out, secs = _host_timed(torch, fn)
+        launches = {k: n for km in kmods for k, n in km.launches.items()}
+        for k in STAGING_NAMES:
+            staged[k] += launches.get(k, 0)
+        _check_launches(f"{cfg.name} expert-parallel MoE, {name}", launches,
+                        {})
+        return out, secs
+
+    for cap, factor in (("tp", float(tp)), ("default", moe0.capacity_factor)):
+        ccfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            moe0, capacity_factor=factor))
+        layer.cfg = ccfg
+        capacity = tmoe.ep_capacity(B // bshard * S, tp, ccfg.moe)
+        nbytes = tp * capacity * cfg.d_model * 2
+        rec = {"capacity_factor": factor, "capacity": capacity,
+               "dispatch_bytes_all_ranks": grid.world * nbytes,
+               "plans": {}}
+        ys = {}
+        for name, algo, chunks in plans:
+            if algo is None:
+                sel = comm.plan("alltoall", nbytes, dtype="bfloat16")
+                algo_r, chunks_r = sel.algo, sel.chunks
+            else:
+                algo_r, chunks_r = algo, chunks
+            fn = _with_plan(lambda: layer(x, rules=rules, grid=grid),
+                            None if algo is None
+                            else _forced(autotune, algo, chunks))
+            (y, aux), secs = run(name, fn)
+            if oracles.moves_rows("alltoall", algo_r):
+                raise AssertionError(f"{algo_r}: an all-to-all that moves "
+                                     f"rows")
+            dropped = int((~layer.ep_routing["kept"]).sum())
+            if not bool(torch.isfinite(y).all()) or y.shape != x.shape:
+                raise AssertionError(f"{cfg.name} {name}: y {tuple(y.shape)}"
+                                     f" or not finite")
+            ys[name] = y
+            rec["plans"][name] = {"algo": algo_r, "chunks": chunks_r,
+                                  "host_ms": secs * 1e3, "dropped": dropped,
+                                  "aux": float(aux)}
+        names = list(ys)
+        for name in names[1:]:
+            if not torch.equal(ys[name], ys[names[0]]):
+                raise AssertionError(f"{cfg.name} capacity {cap}: plan "
+                                     f"{name} differs from {names[0]}")
+        drops = {p["dropped"] for p in rec["plans"].values()}
+        if len(drops) != 1:
+            raise AssertionError(f"drop counts differ across plans: {drops}")
+        rec["dropped"] = drops.pop()
+        rec["routings"] = grid.world * -(-(B // bshard * S) // tp) \
+            * moe0.top_k
+        rec["lossless_bitwise"] = names
+        y0 = ys[names[0]]
+        if cap == "tp":
+            if rec["dropped"]:
+                raise AssertionError(f"{rec['dropped']} routings dropped at "
+                                     f"capacity tp")
+            (y_local, _), local_s = _host_timed(torch, lambda: layer(x), 1)
+            err = (y0.float() - y_local.float()).abs()
+            if not bool((err <= MOE_TOL + MOE_TOL
+                         * y_local.float().abs()).all()):
+                raise AssertionError(f"{cfg.name}: expert-parallel y "
+                                     f"{float(err.max())} from the local "
+                                     f"path's, outside {MOE_TOL}")
+            rec["local_path"] = {"host_ms": local_s * 1e3,
+                                 "max_abs_err": float(err.max()),
+                                 "tolerance": f"{MOE_TOL} + {MOE_TOL} * "
+                                              f"|local|"}
+            del y_local, err
+        else:
+            # the combine under an error budget: the selector's own plan,
+            # then each forced codec; within the codec's stated bound of
+            # the largest expert output (the combine's operand) beyond the
+            # reference check's MOE_TOL, and, the reference's own bar,
+            # MOE_TOL + MOE_BUDGET * max|y|
+            scale = float(y0.float().abs().max())
+            rec["compressed_combine"] = {}
+            for algo, chunks, codec in ((None, None, None),) \
+                    + MOE_CODEC_PLANS:
+                plan = None if algo is None else _forced(autotune, algo,
+                                                         chunks, codec)
+                if algo is None:
+                    sel = comm.plan("alltoall", nbytes, dtype="bfloat16",
+                                    error_budget=MOE_BUDGET)
+                    algo, chunks, codec = sel.algo, sel.chunks, sel.codec
+                (_, out_max) = _combine_input_max(torch, _with_plan(
+                    lambda: layer(x, rules=rules, grid=grid), plan))
+                (y_c, _), secs = run(f"combine {codec}", _with_plan(
+                    lambda: layer(x, rules=rules, grid=grid,
+                                  error_budget=MOE_BUDGET), plan))
+                err = float((y_c.float() - y0.float()).abs().max())
+                bound = compress.codec(codec).meta.error_bound
+                if err > MOE_TOL + bound * out_max:
+                    raise AssertionError(
+                        f"{cfg.name}: combine {algo}#c{chunks}@{codec} "
+                        f"{err} from the lossless y, over {MOE_TOL} + "
+                        f"{bound} * {out_max}")
+                key = "auto" if plan is None else f"{algo}#c{chunks}@{codec}"
+                rec["compressed_combine"][key] = {
+                    "error_budget": MOE_BUDGET, "algo": algo,
+                    "chunks": chunks, "codec": codec, "host_ms": secs * 1e3,
+                    "max_abs_err": err, "max_abs_y": scale,
+                    "max_abs_expert_output": out_max,
+                    "tolerance": f"{MOE_TOL} + {bound} * "
+                                 f"max|expert output|",
+                    "within_reference_bar": err <= MOE_TOL
+                    + MOE_BUDGET * scale}
+                del y_c
+            layer(x, rules=rules, grid=grid)  # warm the profiled plan
+            rec["profile"] = _profile_ep(
+                torch, lambda: layer(x, rules=rules, grid=grid))
+        record["capacities"][cap] = rec
+        del ys, y0
+    record["staging_launches"] = staged
+    record["peak_mem_bytes"] = torch.cuda.max_memory_allocated(dev)
+    del layer
+    return record
+
+
+def _moe_recorder(cls, calls):
+    """A stand-in for ``cls.forward`` (the MoE layer's) appending ``(layer,
+    x, y, ids)`` of every call to ``calls`` (``ids``: the expert-parallel
+    call's routing, ``(world, t, k)``; None for a local call)."""
+    forward = cls.forward
+
+    def recording(self, x, rules=None, grid=None, error_budget=0.0):
+        y, aux = forward(self, x, rules, grid, error_budget)
+        ep = grid is not None
+        calls.append((self, x, y, self.ep_routing["ids"] if ep else None))
+        return y, aux
+    return forward, recording
+
+
+def moe_decoder_leg(torch, dev, model, cfg):
+    """``model`` (``cfg`` at full width) through ``DecoderLM.forward(tokens,
+    rules=..., grid=RankGrid(2, 4))`` at capacity tp on seeded tokens of
+    ``MOE_TOKENS`` (one batch shard a node, the experts over the local
+    axis: rank ``(n, l)`` routes tokens ``n * 2048 + l * 512 ..``, so the
+    ranks' routings in flat order are the tokens' in order), against the
+    local path. No routing dropped. Each MoE layer, teacher-forced: the
+    expert-parallel layer on the local forward's own input routes every
+    token as the local layer does and lies within the reference check's
+    ``MOE_TOL`` of its output. The whole forward: the logits of every
+    sequence with no routing difference from the local forward in any
+    layer, up to its last token, within ``TEACHER_TOL`` times the largest
+    logit (in bf16 the two paths' expert products round alike only up to
+    cuBLAS's choice of kernel by row count, and a token whose top-k sits
+    on a near tie may then route differently in a later layer, which
+    moves it and, through attention, the tokens after it); the
+    differences counted. Records both forwards' host times."""
+    from repro_torch.core.grid import RankGrid
+    from repro_torch.layers import moe as tmoe
+    from repro_torch.sharding.rules import Rules
+
+    grid, rules = RankGrid(2, 4), Rules(batch=("node",), tp="local")
+    B, S = MOE_TOKENS
+    k = cfg.moe.top_k
+    tokens = torch.randint(0, cfg.vocab, MOE_TOKENS, device=dev,
+                           generator=torch.Generator("cuda").manual_seed(
+                               SEED + 13))
+    ep_cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=float(grid.n_local)))
+    for blk in model.blocks:
+        blk.moe.cfg = ep_cfg
+    calls, cls = [], type(model.blocks[0].moe)
+    forward, recording = _moe_recorder(cls, calls)
+    try:
+        with torch.inference_mode():
+            _, ep_s = _host_timed(
+                torch, lambda: model(tokens, rules=rules, grid=grid), 2)
+            _, local_s = _host_timed(torch, lambda: model(tokens), 2)
+            cls.forward = recording
+            try:
+                logits, aux, _ = model(tokens, rules=rules, grid=grid)
+                ep_calls, calls[:] = list(calls), []
+                local, aux_local, _ = model(tokens)
+                local_calls = list(calls)
+            finally:
+                cls.forward = forward
+            dropped = sum(int((~blk.moe.ep_routing["kept"]).sum())
+                          for blk in model.blocks)
+            layers, moved = [], torch.zeros(B, S, dtype=torch.bool,
+                                            device=dev)
+            for (layer, x_ep, _, ids_ep), (_, x_loc, y_loc, _) in zip(
+                    ep_calls, local_calls):
+                ids_loc = tmoe._route(layer.router, x_loc.reshape(-1,
+                                      cfg.d_model), k)[1]
+                y_tf, _ = layer(x_loc, rules=rules, grid=grid)
+                same = torch.equal(layer.ep_routing["ids"].reshape(-1, k),
+                                   ids_loc)
+                err = (y_tf.float() - y_loc.float()).abs()
+                if not same or not bool((err <= MOE_TOL + MOE_TOL
+                                         * y_loc.float().abs()).all()):
+                    raise AssertionError(
+                        f"teacher-forced expert-parallel layer: routing "
+                        f"equal {same}, max error {float(err.max())} over "
+                        f"{MOE_TOL} + {MOE_TOL} * |local|")
+                differ = (ids_ep.reshape(-1, k).sort(-1).values
+                          != ids_loc.sort(-1).values).any(-1).reshape(B, S)
+                moved |= differ
+                layers.append({"teacher_forced_max_abs_err":
+                               float(err.max()),
+                               "tokens_routed_differently":
+                               int(differ.sum())})
+                del y_tf, err
+    finally:
+        for blk in model.blocks:
+            blk.moe.cfg = cfg
+    if dropped:
+        raise AssertionError(f"{dropped} routings dropped at capacity tp")
+    if not bool(torch.isfinite(logits).all()) or logits.shape != local.shape:
+        raise AssertionError(f"expert-parallel logits {tuple(logits.shape)} "
+                             f"or not finite")
+    top = float(local.float().abs().max())
+    row_err = (logits.float() - local.float()).abs().amax(-1)  # (B, S)
+    after = moved.cummax(-1).values  # a moved token and those after it
+    clean = ~after
+    err_clean = float(row_err[clean].max()) if bool(clean.any()) else 0.0
+    if not bool(clean.any()) or err_clean > TEACHER_TOL * top:
+        raise AssertionError(f"expert-parallel logits {err_clean} from the "
+                             f"local path's where no routing moved, over "
+                             f"{TEACHER_TOL} * {top} (or no such token)")
+    return {"tokens": list(MOE_TOKENS), "capacity_factor": ep_cfg.moe
+            .capacity_factor, "dropped": dropped, "layers": layers,
+            "tokens_with_a_moved_routing": int(moved.sum()),
+            "tokens_held": int(clean.sum()),
+            "max_abs_err_held": err_clean,
+            "max_abs_err_all": float(row_err.max()),
+            "tokens_over_tolerance": int((row_err > TEACHER_TOL
+                                          * top).sum()),
+            "max_abs_logit": top, "tolerance": f"{TEACHER_TOL} * max|logit|",
+            "aux": float(aux), "aux_local": float(aux_local),
+            "ep_forward_s": ep_s, "local_forward_s": local_s}
+
+
+def moe_serve_leg(torch, dev, cfg, kattn, ref, kmods, decoder=False):
+    """``cfg`` (an MoE model cut in depth, every width the published one)
+    served as phase 4 serves smollm, with the flash-decode kernel on every
+    tick and the local MoE (the reference's ``Engine`` passes no mesh to
+    the model): the tokens equal a sync-free engine's, flash launches
+    ticks x layers, the tick sync's staging launches; three
+    teacher-forced ticks hold every layer's flash-decode call to the plain
+    version and the logits to the plain-version path's; one profiled tick
+    with the expert products' share. ``decoder``: then
+    :func:`moe_decoder_leg` on the same weights."""
+    import numpy as np
+    from repro_torch.core.grid import RankGrid
+    from repro_torch.models.decoder import RunFlags
+
+    flags = RunFlags(use_flash_decode=True)
+    model, engine, requests, record = serve_main(torch, dev, cfg, flags,
+                                                 kmods)
+    m, launches = record["metrics"], record["launches"]
+    _check_launches(f"{cfg.name} serving", launches, _with_sync(
+        record, {"flash_decode": m["ticks"] * cfg.n_layers}))
+    eng = engine(RankGrid(2, 4))
+    with torch.inference_mode():
+        for slot, req in enumerate(requests()[:SERVE_BATCH]):
+            eng._admit(req, slot)
+        errs = []
+        worst, top = teacher_forced(
+            torch, eng, model,
+            [("kernel", flags,
+              {(kattn, "flash_decode"): _flash_held(torch, kattn, ref,
+                                                    errs)}),
+             ("plain-version", flags,
+              {(kattn, "flash_decode"): ref.flash_decode})], TEACHER_TICKS)
+        _check_held("flash_decode", errs, TEACHER_TICKS * cfg.n_layers)
+        worst = worst["plain-version"]
+        if worst > TEACHER_TOL * top:
+            raise AssertionError(f"teacher-forced logits: kernel path "
+                                 f"{worst} from the plain-version path, "
+                                 f"over {TEACHER_TOL} * {top}")
+        valid = int(np.minimum(eng.lengths.astype(np.int64) + 1,
+                               SERVE_LEN).sum())
+        profile = _profile_experts(torch, eng._decode_tick,
+                                   ("flash_decode",))
+    del eng
+    tick_bytes, tick_ops = _flash_bytes_ops(
+        SERVE_BATCH, cfg.padded_heads, cfg.n_kv_heads, cfg.head_dim, 2,
+        valid)
+    record.update({
+        "layers": cfg.n_layers, "heads": [cfg.n_heads, cfg.padded_heads,
+                                          cfg.n_kv_heads, cfg.head_dim],
+        "group": cfg.padded_heads // cfg.n_kv_heads,
+        "flash_launches": launches["flash_decode"],
+        "teacher_forced": {"ticks": TEACHER_TICKS, "max_abs_err": worst,
+                           "max_abs_logit": top,
+                           "tolerance": f"{TEACHER_TOL} * max|logit|",
+                           "kernel_calls_held_to_plain": len(errs),
+                           "kernel_max_abs_err": max(errs),
+                           "kernel_tolerance":
+                               f"{FLASH_TOL} * (1 + |plain|)"},
+        "profile": profile,
+        "flash_path_bound_ms": bound_ms(tick_bytes, tick_ops)[0],
+        "flash_path_bytes": tick_bytes})
+    if decoder:
+        record["decoder_ep"] = moe_decoder_leg(torch, dev, model, cfg)
+    record["peak_mem_bytes"] = torch.cuda.max_memory_allocated(dev)
+    del model
+    return record
+
+
+def moe_phase(torch, dev, kattn, ref, kmods):
+    """Phase 10, the MoE family at full width: (a) ``flash_decode`` past 8
+    heads a group (:func:`flash_group_leg`); (b) qwen3-moe's MoE layer
+    expert parallel under every plan, then arctic-480b's under ``auto``
+    and the compressed combine (:func:`moe_layer_leg`); (c, d) qwen3-moe
+    cut to its first ``MOE_Q_LAYERS`` layers served, then through the
+    expert-parallel decoder; (e) arctic cut to ``MOE_A_LAYERS`` served
+    (:func:`moe_serve_leg`). Each leg frees the card before the next.
+    Prints one ``{"moe": ...}`` and one ``{"serve_moe": ...}`` line per
+    model; returns the flash leg, the staging launches on the EP path and
+    both serving records' flash launches and paths."""
+    from repro_torch.configs import first_layers, get_config
+
+    qwen, arctic = get_config(MOE_Q_ARCH), get_config(MOE_A_ARCH)
+    t0 = time.perf_counter()
+    flash = flash_group_leg(torch, kattn, ref, dev)
+    print(f"moe phase: flash_decode at G 9-16 within {FLASH_TOL} * (1 + "
+          f"|plain|) in {flash['cases_checked']} cases "
+          f"({time.perf_counter() - t0:.3f} s)")
+    plans = tuple((f"{a}#c{c}" if c > 1 else a, a, c) for a, c in MOE_PLANS)
+    staged = dict.fromkeys(STAGING_NAMES, 0)
+    for cfg, legs in ((qwen, plans + (("auto", None, None),)),
+                      (arctic, (("auto", None, None),))):
+        rec = moe_layer_leg(torch, dev, cfg, kmods, legs)
+        for k in STAGING_NAMES:
+            staged[k] += rec["staging_launches"][k]
+        print(json.dumps({"moe": rec}))
+        print(f"moe phase: {cfg.name} expert-parallel layer done "
+              f"({time.perf_counter() - t0:.3f} s)")
+        del rec
+    serve = {}
+    for cfg, n, key, decoder in ((qwen, MOE_Q_LAYERS, "serve_qwen3_moe",
+                                  True),
+                                 (arctic, MOE_A_LAYERS, "serve_arctic",
+                                  False)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        rec = moe_serve_leg(torch, dev, first_layers(cfg, n), kattn, ref,
+                            kmods, decoder=decoder)
+        print(json.dumps({"serve_moe": rec}))
+        print(f"moe phase: {cfg.name} served ({time.perf_counter() - t0:.3f}"
+              f" s)")
+        serve[key] = {"flash_launches": rec["flash_launches"],
+                      "path_ms": rec["profile"].get("per_launch_ms", {}).get(
+                          "flash_decode", "not measured"),
+                      "staged": _staged(rec)}
+        del rec
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"flash": flash, "ep_staging": staged, "serve": serve}
+
+
 FEEDBACK_LINES = {"int8": 123, "int4": 204, "fp8": 294}
 
 
@@ -3800,6 +4431,32 @@ def main() -> int:
                  "int8_block_encode_feedback"):
         if on_train.get(name):
             raise AssertionError(f"{name}: launched on the train path")
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe = moe_phase(torch, dev, kattn, ref, kmods)
+    print(f"moe phase done ({time.perf_counter() - t0:.3f} s in all)")
+    flash = kernels["flash_decode"]
+    flash["max_abs_err"] = max(flash["max_abs_err"],
+                               moe["flash"]["max_abs_err"])
+    flash["cases_checked"] += moe["flash"]["cases_checked"]
+    flash["wide_groups"] = {k: v for k, v in moe["flash"].items()
+                            if k != "qwen3_moe_shape"}
+    flash["qwen3_moe_shape"] = dict(
+        moe["flash"]["qwen3_moe_shape"],
+        path_ms=moe["serve"]["serve_qwen3_moe"]["path_ms"])
+    flash["arctic_path_ms"] = moe["serve"]["serve_arctic"]["path_ms"]
+    for key, rec in moe["serve"].items():
+        flash["launches_by_path"][key] = rec["flash_launches"]
+        if not rec["flash_launches"]:
+            raise AssertionError(f"flash_decode: no launch on {key}")
+    for name, kname in zip(STAGING_NAMES, STAGING_KERNELS):
+        paths = kernels[name]["launches_by_path"]
+        paths["moe_ep"] = moe["ep_staging"][name]
+        for key, rec in moe["serve"].items():
+            paths[key] = rec["staged"][name]
+            kernels[name]["tick_path_ms"][key] = \
+                rec["staged"]["tick_path_ms"][kname]
 
     print(_smi("name,power.limit"))
     print(json.dumps({"kernels": kernel_lines(kernels, on_train, on_tree)}))

@@ -1,6 +1,7 @@
 """Architecture configs ported from the JAX package: only those whose
 model the port runs are registered (smollm-360m, rwkv6-1.6b,
-jamba-1.5-large-398b)."""
+jamba-1.5-large-398b, and the MoE family: qwen3-moe-235b-a22b and
+arctic-480b)."""
 import dataclasses
 import importlib
 
@@ -15,6 +16,8 @@ _MODULES = {
     "smollm-360m": "smollm_360m",
     "rwkv6-1.6b": "rwkv6_1_6b",
     "jamba-1.5-large-398b": "jamba_1_5_large_398b",
+    "qwen3-moe-235b-a22b": "qwen3_moe_235b_a22b",
+    "arctic-480b": "arctic_480b",
 }
 
 ARCH_IDS = tuple(_MODULES)
@@ -46,12 +49,18 @@ def reduced_config(arch: str) -> ModelConfig:
 
 
 def first_layers(cfg: ModelConfig, n: int) -> ModelConfig:
-    """``cfg`` cut in depth to its first ``n`` layers (at most one pattern
-    cycle), as one cycle of those ``n`` kinds; every width stays the
-    published one (full jamba's first five: mamba+FFN, mamba+MoE twice,
-    then attention+FFN)."""
-    if not 1 <= n <= len(cfg.block_pattern):
+    """``cfg`` cut in depth to its first ``n`` layers; every width stays the
+    published one. Within one pattern cycle the cut is one cycle of those
+    ``n`` kinds (full jamba's first five: mamba+FFN, mamba+MoE twice, then
+    attention+FFN); past it, ``n`` must be a whole number of cycles, up to
+    ``n_layers`` (qwen3-moe's and arctic's ``("attn",)`` cut to 4 or 1
+    layers)."""
+    pat = len(cfg.block_pattern)
+    if 1 <= n <= pat:
+        return dataclasses.replace(cfg, n_layers=n,
+                                   block_pattern=cfg.block_pattern[:n])
+    if n < 1 or n % pat or n > cfg.n_layers:
         raise ValueError(f"{cfg.name}: cut to {n} layers, not within one "
-                         f"cycle of {len(cfg.block_pattern)}")
-    return dataclasses.replace(cfg, n_layers=n,
-                               block_pattern=cfg.block_pattern[:n])
+                         f"cycle of {pat} nor a whole number of cycles up "
+                         f"to {cfg.n_layers}")
+    return dataclasses.replace(cfg, n_layers=n)

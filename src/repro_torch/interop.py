@@ -85,7 +85,10 @@ def params_from_reference(tree, cfg, device="cuda"):
     ``lm_head`` and ``groups/blk<j>/...`` stacked over pattern cycles) of
     numpy arrays. Cycle ``c``, block ``j`` becomes layer
     ``c * len(cfg.block_pattern) + j``; dtypes are kept (a tree cast to
-    float32 gives a float32 model)."""
+    float32 gives a float32 model). Every leaf maps by name, so an MoE
+    block with a dense residual (arctic: ``moe`` and ``ffn`` both) and
+    padded heads (``head_pad``: ``wq``/``wo`` at the padded width, the pad
+    heads' columns and rows zero in the tree) carry across as they are."""
     from repro_torch.models.decoder import DecoderLM, n_cycles
 
     model = DecoderLM(cfg, device="meta")

@@ -14,7 +14,11 @@ row with a scalar) and ``S`` need not be a multiple of any chunk.
 
 The kernel cuts each row's cache into :func:`split_count` spans, one CTA
 each, and merges their partials in the same launch (``ref.flash_decode_split``
-is its algorithm in plain PyTorch). ``launches`` counts kernel launches (the
+is its algorithm in plain PyTorch). It takes any group size ``G = H / KV``,
+as the reference's kernel does: a CTA holds at most :data:`HEADS_PER_CTA`
+query heads, so a larger group is cut into :func:`head_groups` equal
+groups, each a CTA over the same K/V rows (each head's arithmetic is the
+same whichever CTA holds it). ``launches`` counts kernel launches (the
 CPU path counts nothing), so a run can show that its decode ticks went
 through the kernel.
 """
@@ -31,15 +35,17 @@ from repro_torch.kernels._dispatch import (check, on_card, raise_on,
 #: launches of the CUDA kernel
 launches: Dict[str, int] = {"flash_decode": 0}
 
-#: limits of the kernel (``csrc/flash_decode.cu``)
-MAX_GROUP, MAX_HEAD_DIM = 8, 128
+#: the most query heads one CTA holds, and the largest head dim
+#: (``csrc/flash_decode.cu``)
+HEADS_PER_CTA, MAX_HEAD_DIM = 8, 128
 #: the kernel's CTA width and staged tile (``csrc/flash_decode.cu``)
 _WARPS, _TILE_BYTES, _MAX_ROWS = 4, 9216, 128
 #: CTAs per SM the split rule aims for
 CTAS_PER_SM = 2
 
-#: the combine tickets per (device, stream): one int32 per (b, kv) pair,
-#: zero between launches (the kernel's last split of a pair resets its own)
+#: the combine tickets per (device, stream): one int32 per (b, kv, head
+#: group) triple, zero between launches (the kernel's last split of a
+#: triple resets its own)
 _tickets: Dict[Tuple[torch.device, int], torch.Tensor] = {}
 
 
@@ -59,11 +65,22 @@ def tile_rows(hd: int, esize: int) -> int:
     return max(per_pass, rows // per_pass * per_pass)
 
 
+def head_groups(G: int) -> int:
+    """CTAs per ``(b, kv)`` pair: the least count from ``ceil(G /
+    HEADS_PER_CTA)`` that cuts a group of ``G`` query heads into equal
+    groups (``launch`` in ``csrc/flash_decode.cu`` computes the same)."""
+    n = -(-G // HEADS_PER_CTA)
+    while G % n:
+        n += 1
+    return n
+
+
 def split_count(B: int, KV: int, S: int, hd: int, esize: int,
-                n_sm: int) -> int:
-    """The kernel's splits per row: enough CTAs for ``CTAS_PER_SM`` on each
-    of ``n_sm`` SMs, but no span shorter than one staged tile."""
-    want = -(-CTAS_PER_SM * n_sm // (B * KV))
+                n_sm: int, G: int = 1) -> int:
+    """The kernel's splits per row: enough CTAs (``B * KV *
+    head_groups(G)`` per split) for ``CTAS_PER_SM`` on each of ``n_sm``
+    SMs, but no span shorter than one staged tile."""
+    want = -(-CTAS_PER_SM * n_sm // (B * KV * head_groups(G)))
     return max(1, min(want, S // tile_rows(hd, esize), 65535))
 
 
@@ -107,11 +124,11 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     for t, what in ((q, "q"), (k, "k"), (v, "v")):
         check(t, q.dtype, what)
     G, esize = H // KV, q.element_size()
-    if G > MAX_GROUP or hd > MAX_HEAD_DIM or (hd * esize) % 16 \
+    if hd > MAX_HEAD_DIM or (hd * esize) % 16 \
             or k.data_ptr() % 16 or v.data_ptr() % 16:
-        raise ValueError(f"flash_decode kernel takes G <= {MAX_GROUP}, hd <= "
-                         f"{MAX_HEAD_DIM}, 16-byte rows and 16-byte aligned "
-                         f"k, v; got G={G}, hd={hd}, {q.dtype}")
+        raise ValueError(f"flash_decode kernel takes hd <= {MAX_HEAD_DIM}, "
+                         f"16-byte rows and 16-byte aligned k, v; got "
+                         f"hd={hd}, {q.dtype}")
     if B == 0:
         return torch.empty((0, 1, H * hd), dtype=torch.float32,
                            device=q.device)
@@ -119,12 +136,12 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             else torch.full((B,), int(lengths), dtype=torch.int32,
                             device=q.device))
     n_sm = torch.cuda.get_device_properties(q.device).multi_processor_count
-    n_split = split_count(B, KV, S, hd, esize, n_sm)
+    n_split = split_count(B, KV, S, hd, esize, n_sm, G)
     out = torch.empty((B, 1, H * hd), dtype=torch.float32, device=q.device)
     part = torch.empty(B * KV * n_split * G * (hd + 2), dtype=torch.float32,
                        device=q.device)
     st = stream(q)
-    tickets = _tickets_for(q.device, st, B * KV)
+    tickets = _tickets_for(q.device, st, B * KV * head_groups(G))
     rc = _build.load("flash_decode").flash_decode(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(),
         out.data_ptr(), part.data_ptr(), tickets.data_ptr(), B, S, KV, G, hd,

@@ -17,8 +17,18 @@
 // bounds it: at the serving shapes (B 8, S 2048) 0.0063 ms for smollm (KV 5,
 // hd 64) and 0.020 ms for jamba (KV 8, hd 128) at 3.35 TB/s.
 //
-// Design: a split-S (flash-decoding) grid, (KV, B, n_split). One (b, kv)
-// pair owns B*KV = 40 (smollm) or 64 (jamba) CTAs' worth of work, too few
+// Design: a split-S (flash-decoding) grid, (KV * NG, B, n_split). A CTA
+// holds the query heads of one head group: the G heads of a kv head are
+// cut into NG equal groups of G / NG <= MAX_G = 8 heads (NG the least
+// count from ceil(G / 8) that divides G: qwen3-moe's G 16 is 2 groups of
+// 8, G 12 2 of 6, G 9 3 of 3), so the per-lane registers (q's slice and
+// the accumulators of at most 8 heads) stay those of G <= 8 whatever G
+// is, and a head group is a kv head of its own to everything below but
+// the K/V rows it reads: the NG CTAs of one (b, kv) read the same rows,
+// the later reads mostly from L2 (qwen3-moe's cache, B 8, S 2048, KV 4,
+// hd 64 in bf16, is 16.8 MB). For G <= 8, NG = 1: the grid of one head
+// group per kv head. One (b, head group) pair owns B*KV*NG = 40
+// (smollm), 64 (jamba) or 64 (qwen3-moe) CTAs' worth of work, too few
 // for 132 SMs, so its row is cut into n_split spans of ceil(S / n_split)
 // positions and each span is one CTA. The wrapper picks n_split by one rule
 // (kernels/attention.py split_count): about two CTAs per SM, and no span
@@ -26,9 +36,10 @@
 // (s+1)*span) cut at the row's visited length (min(len, S) for len > 0, S
 // for len <= 0), read on the device and never synced to the host: a split
 // wholly past it keeps m = NEG_INF, l = 0, acc = 0. Each split writes its
-// partial (m[G], l[G], acc[G*hd]) to an fp32 workspace the wrapper
-// allocates; the last split of a (b, kv) pair to finish (an atomic ticket
-// per pair, in a buffer the wrapper keeps zeroed per device and stream;
+// partial (m[G], l[G], acc[G*hd], G the head group's heads) to an fp32
+// workspace the wrapper allocates; the last split of a (b, head group)
+// pair to finish (an atomic ticket per pair, in a buffer the wrapper keeps
+// zeroed per device and stream;
 // the last split sets its ticket back to 0) merges the partials in split
 // order: M = max m_s, l = sum l_s e^(m_s - M), acc = sum acc_s e^(m_s - M),
 // out = acc / max(l, 1e-30). One launch per call.
@@ -162,16 +173,19 @@ __device__ __forceinline__ void stage_tile(
   }
 }
 
-// grid (KV, B, n_split), THREADS threads: one CTA per (kv head, batch row,
-// span of positions). GM >= G heads are held per lane; LPR lanes per row.
-// part holds n_split partials of (2*G + G*hd) floats per (b, kv) pair;
-// tickets one counter per pair, zero on entry and on exit.
+// grid (KV * NG, B, n_split), THREADS threads: one CTA per (head group,
+// batch row, span of positions); head group x holds the G heads x*G ..
+// x*G + G - 1 of kv head x / NG (G here is a group's head count). GM >= G
+// heads are held per lane; LPR lanes per row. part holds n_split partials
+// of (2*G + G*hd) floats per (b, head group) pair; tickets one counter
+// per pair, zero on entry and on exit.
 template <typename T, int GM, int LPR>
 __global__ void __launch_bounds__(THREADS)
 flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const int* __restrict__ lengths,
                     float* __restrict__ out, float* part, int* tickets, int S,
-                    int KV, int G, int hd, int rows, int span, float scale) {
+                    int KV, int NG, int G, int hd, int rows, int span,
+                    float scale) {
   constexpr int VEC = Elem<T>::VEC;
   constexpr int RPW = 32 / LPR;          // rows per warp and pass
   constexpr int RPP = RPW * WARPS;       // rows per CTA and pass
@@ -184,7 +198,7 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   __shared__ float m_s[MAX_G], l_s[MAX_G], corr_s[MAX_G];
   __shared__ int last_s;
 
-  const int kvh = blockIdx.x;
+  const int kvh = blockIdx.x / NG;      // the kv head of this head group
   const long long b = blockIdx.y;
   const int split = blockIdx.z;
   const int n_split = gridDim.z;
@@ -193,7 +207,7 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int warp = tid >> 5;
   const int slot = lane / LPR;           // row slot within the warp
   const int c = lane % LPR;              // 16-byte chunk of the row
-  const int H = KV * G;
+  const int H = KV * NG * G;
   const int GH = G * hd;
   const int cpr = hd * static_cast<int>(sizeof(T)) / 16;
   const bool has_chunk = c < cpr;
@@ -207,7 +221,7 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const long long row_stride = static_cast<long long>(KV) * hd;
   const T* kb = k + (b * S * KV + kvh) * hd;
   const T* vb = v + (b * S * KV + kvh) * hd;
-  const long long head0 = b * H + static_cast<long long>(kvh) * G;
+  const long long head0 = b * H + static_cast<long long>(blockIdx.x) * G;
 
   // this lane's slice of q for every head
   float qr[GM][VEC];
@@ -372,7 +386,7 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   // this split's partial: m[G], l[G], acc[G*hd]
   const int stride = 2 * G + GH;
-  const long long pair = b * KV + kvh;
+  const long long pair = b * gridDim.x + blockIdx.x;
   float* mine = part + (pair * n_split + split) * stride;
   if (warp == 0 && slot == 0 && has_chunk) {
 #pragma unroll
@@ -420,39 +434,40 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T, int GM, int LPR>
 void launch_one(const void* q, const void* k, const void* v,
                 const int* lengths, float* out, float* part, int* tickets,
-                int B, int S, int KV, int G, int hd, int n_split, int rows,
-                float scale, cudaStream_t st) {
+                int B, int S, int KV, int NG, int G, int hd, int n_split,
+                int rows, float scale, cudaStream_t st) {
   const int span = (S + n_split - 1) / n_split;
-  flash_decode_kernel<T, GM, LPR><<<dim3(KV, B, n_split), THREADS, 0, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), lengths, out, part, tickets, S, KV, G, hd,
-      rows, span, scale);
+  flash_decode_kernel<T, GM, LPR>
+      <<<dim3(KV * NG, B, n_split), THREADS, 0, st>>>(
+          static_cast<const T*>(q), static_cast<const T*>(k),
+          static_cast<const T*>(v), lengths, out, part, tickets, S, KV, NG,
+          G, hd, rows, span, scale);
 }
 
 template <typename T, int GM>
 void launch_g(const void* q, const void* k, const void* v, const int* lengths,
               float* out, float* part, int* tickets, int B, int S, int KV,
-              int G, int hd, int n_split, int rows, int lpr, float scale,
-              cudaStream_t st) {
+              int NG, int G, int hd, int n_split, int rows, int lpr,
+              float scale, cudaStream_t st) {
   switch (lpr) {
     case 1: return launch_one<T, GM, 1>(q, k, v, lengths, out, part, tickets,
-                                        B, S, KV, G, hd, n_split, rows, scale,
-                                        st);
+                                        B, S, KV, NG, G, hd, n_split, rows,
+                                        scale, st);
     case 2: return launch_one<T, GM, 2>(q, k, v, lengths, out, part, tickets,
-                                        B, S, KV, G, hd, n_split, rows, scale,
-                                        st);
+                                        B, S, KV, NG, G, hd, n_split, rows,
+                                        scale, st);
     case 4: return launch_one<T, GM, 4>(q, k, v, lengths, out, part, tickets,
-                                        B, S, KV, G, hd, n_split, rows, scale,
-                                        st);
+                                        B, S, KV, NG, G, hd, n_split, rows,
+                                        scale, st);
     case 8: return launch_one<T, GM, 8>(q, k, v, lengths, out, part, tickets,
-                                        B, S, KV, G, hd, n_split, rows, scale,
-                                        st);
+                                        B, S, KV, NG, G, hd, n_split, rows,
+                                        scale, st);
     case 16: return launch_one<T, GM, 16>(q, k, v, lengths, out, part,
-                                          tickets, B, S, KV, G, hd, n_split,
-                                          rows, scale, st);
+                                          tickets, B, S, KV, NG, G, hd,
+                                          n_split, rows, scale, st);
     default: return launch_one<T, GM, 32>(q, k, v, lengths, out, part,
-                                          tickets, B, S, KV, G, hd, n_split,
-                                          rows, scale, st);
+                                          tickets, B, S, KV, NG, G, hd,
+                                          n_split, rows, scale, st);
   }
 }
 
@@ -471,15 +486,20 @@ int launch(const void* q, const void* k, const void* v, const int* lengths,
   int rows = TILE_BYTES / pitch < MAX_ROWS ? TILE_BYTES / pitch : MAX_ROWS;
   rows = rows / rpp * rpp;
   if (rows < rpp) rows = rpp;
-  if (G <= 2)
-    launch_g<T, 2>(q, k, v, lengths, out, part, tickets, B, S, KV, G, hd,
-                   n_split, rows, lpr, scale, st);
-  else if (G <= 4)
-    launch_g<T, 4>(q, k, v, lengths, out, part, tickets, B, S, KV, G, hd,
-                   n_split, rows, lpr, scale, st);
+  // NG equal head groups of GC <= MAX_G heads (head_groups in
+  // kernels/attention.py computes the same)
+  int NG = (G + MAX_G - 1) / MAX_G;
+  while (G % NG != 0) ++NG;
+  const int GC = G / NG;
+  if (GC <= 2)
+    launch_g<T, 2>(q, k, v, lengths, out, part, tickets, B, S, KV, NG, GC,
+                   hd, n_split, rows, lpr, scale, st);
+  else if (GC <= 4)
+    launch_g<T, 4>(q, k, v, lengths, out, part, tickets, B, S, KV, NG, GC,
+                   hd, n_split, rows, lpr, scale, st);
   else
-    launch_g<T, 8>(q, k, v, lengths, out, part, tickets, B, S, KV, G, hd,
-                   n_split, rows, lpr, scale, st);
+    launch_g<T, 8>(q, k, v, lengths, out, part, tickets, B, S, KV, NG, GC,
+                   hd, n_split, rows, lpr, scale, st);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -490,7 +510,8 @@ extern "C" {
 // Launch flash_decode on `stream`. q (B, 1, KV*G, hd), k and v (B, S, KV,
 // hd), contiguous, bf16 (bf16 != 0) or fp32; lengths (B,) int32 on the
 // device; out (B, 1, KV*G*hd) fp32; part (B*KV*n_split*(2*G + G*hd)) fp32
-// scratch; tickets (B*KV) int32, all zero (left zero). Takes 1 <= G <= 8,
+// scratch; tickets (B*KV*NG) int32 (NG head groups a kv head, as launch
+// counts them), all zero (left zero). Takes any G >= 1 with G*KV < 2^31,
 // hd <= 128 with 16-byte rows (hd a multiple of 8 in bf16, of 4 in fp32),
 // 16-byte aligned k and v, and 1 <= n_split <= 65535. Returns the CUDA
 // error code of the launch (0 = success).
@@ -499,8 +520,8 @@ int flash_decode(const void* q, const void* k, const void* v,
                  int B, int S, int KV, int G, int hd, int n_split, int bf16,
                  float scale, void* stream) {
   const int esize = bf16 ? 2 : 4;
-  if (B <= 0 || S <= 0 || KV <= 0 || B > 65535 || KV > 65535 || G < 1 ||
-      G > MAX_G || hd < 1 || hd > MAX_HD || (hd * esize) % 16 != 0 ||
+  if (B <= 0 || S <= 0 || KV <= 0 || B > 65535 || G < 1 ||
+      static_cast<long long>(KV) * G > 2147483647LL || hd < 1 || hd > MAX_HD || (hd * esize) % 16 != 0 ||
       n_split < 1 || n_split > 65535 ||
       reinterpret_cast<uintptr_t>(k) % 16 != 0 ||
       reinterpret_cast<uintptr_t>(v) % 16 != 0)

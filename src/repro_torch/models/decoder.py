@@ -1,7 +1,15 @@
 """The decoder LM (port of ``repro.models.decoder``) for the attention,
 mamba and rwkv block kinds: the dense decoder (smollm), the hybrid family
-(jamba: mamba and attention blocks, MoE on every other block) and the
-attention-free rwkv family (rwkv6).
+(jamba: mamba and attention blocks, MoE on every other block), the MoE
+family (qwen3-moe: MoE on every block; arctic: MoE plus a dense residual
+MLP on the same normed input) and the attention-free rwkv family (rwkv6).
+
+``rules`` and ``grid`` (:meth:`DecoderLM.forward`, :meth:`DecoderLM.
+segment_apply`) reach the MoE blocks, as the reference's ``rules=`` and
+``mesh=`` do: with a grid whose TP axis splits the experts, an MoE block
+runs expert parallel (``layers/moe.py``); every other layer ignores them
+(on a grid held by one device the reference's sharding constraints change
+no value).
 
 The reference scans its layers over stacked pattern cycles; here one block
 module per layer sits in a ``ModuleList`` and runs in a Python loop (layer
@@ -45,7 +53,7 @@ from repro_torch.layers import attention, common, mamba, rwkv
 from repro_torch.layers.common import RMSNorm
 from repro_torch.layers.mlp import MLP
 from repro_torch.layers.moe import MoE
-from repro_torch.models.params import FAMILIES, block_is_moe
+from repro_torch.models.params import block_is_moe, unported
 
 Caches = List[Dict[str, torch.Tensor]]
 #: a block's output: the hidden state and its MoE's load-balance loss (None
@@ -86,7 +94,9 @@ def n_cycles(cfg) -> int:
 class _MixerBlock(nn.Module):
     """Pre-norm block: a mixer (attention or mamba, set by the subclass),
     then a SwiGLU MLP, or an MoE on the pattern's MoE blocks (block ``j``
-    of the pattern), each with a residual."""
+    of the pattern), each with a residual. With ``moe.dense_residual``
+    (arctic) an MoE block keeps its MLP too, run on the same normed input
+    and added to the MoE's output."""
 
     def __init__(self, cfg, j: int, generator=None, device="cuda"):
         super().__init__()
@@ -96,13 +106,15 @@ class _MixerBlock(nn.Module):
         self.ln2 = RMSNorm(cfg.d_model, dev)
         if block_is_moe(cfg, j):
             self.moe = MoE(cfg, generator, dev)
-        else:
+        if not block_is_moe(cfg, j) or cfg.moe.dense_residual:
             self.ffn = MLP(cfg, generator, dev)
 
-    def _ffn(self, h: torch.Tensor) -> BlockOut:
+    def _ffn(self, h: torch.Tensor, rules, grid) -> BlockOut:
         x = self.ln2(h, self.eps)
         if hasattr(self, "moe"):
-            f, aux = self.moe(x)
+            f, aux = self.moe(x, rules=rules, grid=grid)
+            if hasattr(self, "ffn"):  # arctic's dense residual
+                f = f + self.ffn(x)
             return h + f, aux
         return h + self.ffn(x), None
 
@@ -114,7 +126,8 @@ class AttnBlock(_MixerBlock):
         super().__init__(cfg, j, generator, device)
         self.attn = attention.Attention(cfg, generator, device)
 
-    def forward(self, h, cache, cache_index, flags: RunFlags) -> BlockOut:
+    def forward(self, h, cache, cache_index, flags: RunFlags, rules=None,
+                grid=None) -> BlockOut:
         mode = "decode" if cache is not None and cache_index is not None \
             else "causal"
         a, _ = self.attn(
@@ -122,7 +135,7 @@ class AttnBlock(_MixerBlock):
             cache_index=cache_index, use_flash_decode=flags.use_flash_decode,
             q_chunk=flags.q_chunk, kv_chunk=flags.kv_chunk,
             remat=_remat_core(flags))
-        return self._ffn(h + a)
+        return self._ffn(h + a, rules, grid)
 
 
 class MambaBlock(_MixerBlock):
@@ -132,13 +145,14 @@ class MambaBlock(_MixerBlock):
         super().__init__(cfg, j, generator, device)
         self.mamba = mamba.Mamba(cfg, generator, device)
 
-    def forward(self, h, cache, cache_index, flags: RunFlags) -> BlockOut:
+    def forward(self, h, cache, cache_index, flags: RunFlags, rules=None,
+                grid=None) -> BlockOut:
         """``cache`` (the layer's state, or None) is advanced in place;
         ``cache_index`` is not read: the state holds the whole context."""
         h = h + self.mamba(self.ln1(h, self.eps), cache,
                            use_kernel=flags.use_mamba_kernel,
                            remat=_remat_core(flags))
-        return self._ffn(h)
+        return self._ffn(h, rules, grid)
 
 
 class RwkvBlock(nn.Module):
@@ -155,9 +169,11 @@ class RwkvBlock(nn.Module):
                                                           dev)})
         self.ln2 = RMSNorm(cfg.d_model, dev)
 
-    def forward(self, h, cache, cache_index, flags: RunFlags) -> BlockOut:
+    def forward(self, h, cache, cache_index, flags: RunFlags, rules=None,
+                grid=None) -> BlockOut:
         """``cache`` (the layer's state, or None) is advanced in place;
-        ``cache_index`` is not read: the state holds the whole context."""
+        ``cache_index`` is not read: the state holds the whole context.
+        ``rules`` and ``grid`` are not read: the block has no MoE."""
         h = h + self.tm_cm["tm"](self.ln1(h, self.eps), cache,
                                  use_kernel=flags.use_rwkv_kernel,
                                  remat=_remat_core(flags))
@@ -181,14 +197,10 @@ class DecoderLM(nn.Module):
     def __init__(self, cfg, generator: Optional[torch.Generator] = None,
                  device="cuda"):
         super().__init__()
-        if cfg.family not in FAMILIES:
-            raise NotImplementedError(f"{cfg.name}: the {cfg.family} family "
-                                      f"is not ported yet (ROADMAP.md, "
-                                      f"queue 1 item 7)")
-        if cfg.moe is not None and cfg.moe.dense_residual:
-            raise NotImplementedError(f"{cfg.name}: MoE with a dense "
-                                      f"residual (arctic) comes later "
-                                      f"(ROADMAP.md, queue 1 item 7)")
+        missing = unported(cfg)
+        if missing:
+            raise NotImplementedError(f"{cfg.name}: {missing} is not ported "
+                                      f"yet (ROADMAP.md, queue 1 item 7)")
         for kind in cfg.block_pattern:
             if kind not in _BLOCKS:
                 raise ValueError(f"{cfg.name}: unknown block kind {kind!r}")
@@ -246,7 +258,8 @@ class DecoderLM(nn.Module):
         """Token lookup: (B, T) int -> (B, T, D)."""
         return self.embed[tokens]
 
-    def _block(self, i: int, h: torch.Tensor, flags: RunFlags) -> BlockOut:
+    def _block(self, i: int, h: torch.Tensor, flags: RunFlags, rules=None,
+               grid=None) -> BlockOut:
         """Layer ``i`` without a cache, under ``flags.remat`` when grad
         mode is on (``"dots"`` is the blocks' own: they recompute their
         mixer cores)."""
@@ -254,21 +267,23 @@ class DecoderLM(nn.Module):
         if flags.remat not in REMATS:
             raise ValueError(f"remat {flags.remat!r} is none of {REMATS}")
         if flags.remat == "full" and torch.is_grad_enabled():
-            return checkpoint(blk, h, None, None, flags, use_reentrant=False)
-        return blk(h, None, None, flags)
+            return checkpoint(blk, h, None, None, flags, rules, grid,
+                              use_reentrant=False)
+        return blk(h, None, None, flags, rules, grid)
 
     def segment_apply(self, h: torch.Tensor, lo: int, hi: int,
-                      flags: RunFlags = RunFlags()
+                      flags: RunFlags = RunFlags(), rules=None, grid=None
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Pattern cycles ``[lo, hi)`` (layers ``lo * len(pattern)`` up to
         ``hi * len(pattern)``) on the hidden state ``h``, without caches.
         Returns ``(h, aux)``, ``aux`` the float32 sum of their MoE
         load-balance losses. ``segment_apply(h, 0, n_cycles(cfg))`` is the
-        whole trunk, as :meth:`forward` runs it."""
+        whole trunk, as :meth:`forward` runs it. ``rules`` and ``grid``
+        reach the MoE blocks."""
         n = len(self.cfg.block_pattern)
         aux = torch.zeros((), dtype=common.Accum, device=h.device)
         for i in range(lo * n, hi * n):
-            h, blk_aux = self._block(i, h, flags)
+            h, blk_aux = self._block(i, h, flags, rules, grid)
             if blk_aux is not None:
                 aux = aux + blk_aux
         return h, aux
@@ -280,7 +295,8 @@ class DecoderLM(nn.Module):
         return (h @ self.lm_head).to(getattr(torch, flags.logits_dtype))
 
     def forward(self, tokens: torch.Tensor, caches: Optional[Caches] = None,
-                cache_index=None, flags: RunFlags = RunFlags()):
+                cache_index=None, flags: RunFlags = RunFlags(), rules=None,
+                grid=None):
         """tokens: (B, T) int. With ``caches`` and no ``cache_index`` the
         pass is a prefill that fills each layer's first ``T`` positions;
         with both it is a decode step at ``cache_index`` (a scalar or a
@@ -289,14 +305,17 @@ class DecoderLM(nn.Module):
         Returns ``(logits (B, T, vocab_padded), aux, new_caches)``: ``aux``
         is the float32 sum of the MoE blocks' load-balance losses (0 without
         MoE), ``new_caches`` the given list, updated in place (None without
-        caches)."""
+        caches). ``rules`` (``sharding.rules.Rules``) and ``grid`` (a
+        ``RankGrid`` or a ``Communicator``) reach the MoE blocks: the
+        reference's ``rules=`` and ``mesh=``."""
         h = self.embed_apply(tokens)
         if caches is None:
-            h, aux = self.segment_apply(h, 0, n_cycles(self.cfg), flags)
+            h, aux = self.segment_apply(h, 0, n_cycles(self.cfg), flags,
+                                        rules, grid)
             return self.head_apply(h, flags), aux, None
         aux = torch.zeros((), dtype=common.Accum, device=h.device)
         for i, blk in enumerate(self.blocks):
-            h, blk_aux = blk(h, caches[i], cache_index, flags)
+            h, blk_aux = blk(h, caches[i], cache_index, flags, rules, grid)
             if blk_aux is not None:
                 aux = aux + blk_aux
         return self.head_apply(h, flags), aux, caches

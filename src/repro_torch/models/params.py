@@ -1,6 +1,6 @@
 """Parameter layout of the decoder (attention, mamba and rwkv blocks, each
-attention or mamba block with an FFN or an MoE), in the reference's
-flatten order.
+attention or mamba block with an FFN, an MoE, or both: arctic's MoE with
+a dense residual), in the reference's flatten order.
 
 The reference initialises its decoder as a nested dict (``repro/models/
 decoder.py`` ``init``) with the blocks of one pattern cycle stacked over
@@ -61,7 +61,7 @@ def _mixer_block(cfg, kind: str, j: int) -> dict:
         E, F = cfg.moe.n_experts, cfg.moe.d_ff_expert
         p["moe"] = {"router": (D, E), "w_gate": (E, D, F),
                     "w_up": (E, D, F), "w_down": (E, F, D)}
-    else:
+    if not block_is_moe(cfg, j) or cfg.moe.dense_residual:
         p["ffn"] = {"w_gate": (D, cfg.d_ff), "w_up": (D, cfg.d_ff),
                     "w_down": (cfg.d_ff, D)}
     return p
@@ -80,8 +80,21 @@ def _rwkv_block(cfg) -> dict:
 #: the block kinds the port lays out (``models/decoder.py`` reads it too)
 KINDS = ("attn", "mamba", "rwkv")
 
-#: the model families the port builds (``models/decoder.py`` reads it too)
+#: the model families the port builds
 FAMILIES = ("decoder", "rwkv")
+
+
+def unported(cfg) -> str:
+    """What of ``cfg`` the port does not build yet ("" when nothing): the
+    encoder-decoder family, M-RoPE, an input mode other than tokens (the
+    VLM and audio frontends)."""
+    if cfg.family not in FAMILIES:
+        return f"the {cfg.family} family"
+    if cfg.rope == "mrope":
+        return "M-RoPE"
+    if cfg.input_mode != "tokens":
+        return f"the {cfg.input_mode!r} input mode"
+    return ""
 
 
 def _flatten(tree, prefix: str = "") -> List[Leaf]:
@@ -98,12 +111,10 @@ def param_shapes(cfg) -> List[Leaf]:
     """``(path, shape)`` of every parameter leaf of the decoder, in the
     reference's flatten order; paths join dict keys with ``/``."""
     if cfg.family not in FAMILIES or \
-            any(k not in KINDS for k in cfg.block_pattern) or \
-            (cfg.moe is not None and cfg.moe.dense_residual):
+            any(k not in KINDS for k in cfg.block_pattern):
         raise NotImplementedError(
-            f"{cfg.name}: only the attention, mamba and rwkv blocks and MoE "
-            f"without a dense residual are laid out so far (ROADMAP.md, "
-            f"queue 1: the model stack)")
+            f"{cfg.name}: only the attention, mamba and rwkv blocks are "
+            f"laid out so far (ROADMAP.md, queue 1: the model stack)")
     if cfg.n_layers % len(cfg.block_pattern):
         raise ValueError(f"{cfg.n_layers} layers do not cycle "
                          f"{cfg.block_pattern}")

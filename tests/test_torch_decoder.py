@@ -239,8 +239,7 @@ def test_configs_register_only_ported_architectures():
 
 
 @pytest.mark.parametrize("change,item", [
-    (dict(moe=MoEConfig(n_experts=8, top_k=2, d_ff_expert=64,
-                        dense_residual=True)), "queue 1 item 7"),
+    (dict(rope="mrope", input_mode="vl"), "queue 1 item 7"),
     (dict(family="encdec"), "queue 1 item 7"),
 ])
 def test_unported_blocks_raise(change, item):

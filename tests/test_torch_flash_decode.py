@@ -31,6 +31,10 @@ from repro_torch.kernels import ref
 #: the reference's flash-decode test grid (tests/test_kernels.py)
 GRID = [(1, 64, 4, 2, 16), (2, 128, 8, 8, 32), (3, 256, 6, 2, 64),
         (2, 512, 16, 4, 8)]
+#: groups past the kernel's 8 heads a CTA: G 9 (3 groups of 3), 11 (11 of
+#: 1), 12 (2 of 6) and 16 (2 of 8: qwen3-moe's group, at its head dim 64)
+WIDE_GROUPS = [(2, 128, 18, 2, 16), (1, 128, 22, 2, 32),
+               (1, 256, 24, 2, 32), (2, 128, 64, 4, 64)]
 DTYPES = ("float32", "bfloat16")
 CHUNK = 64
 #: plain version against the Pallas body, both in fp32: sum order only
@@ -89,7 +93,7 @@ def _reference(out_path: str) -> None:
     from repro.kernels.flash_decode import flash_decode
 
     res = {}
-    for B, S, H, KV, hd in GRID:
+    for B, S, H, KV, hd in GRID + WIDE_GROUPS:
         q, k, v = _inputs(B, S, H, KV, hd, B * S + hd)
         for dt in DTYPES:
             jq, jk, jv = (jnp.asarray(a, getattr(jnp, dt)) for a in (q, k, v))
@@ -134,7 +138,7 @@ def _torch(arrays, dtype, device="cpu"):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("B,S,H,KV,hd", GRID)
+@pytest.mark.parametrize("B,S,H,KV,hd", GRID + WIDE_GROUPS)
 def test_plain_matches_pallas(reference, B, S, H, KV, hd, dtype):
     """Scalar lengths 0 (every position masked), 1, S/3 and S."""
     q, k, v = _torch(_inputs(B, S, H, KV, hd, B * S + hd), dtype)
@@ -147,7 +151,7 @@ def test_plain_matches_pallas(reference, B, S, H, KV, hd, dtype):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("B,S,H,KV,hd", GRID)
+@pytest.mark.parametrize("B,S,H,KV,hd", GRID + WIDE_GROUPS)
 def test_vector_lengths_match_per_row_pallas(reference, B, S, H, KV, hd,
                                              dtype):
     q, k, v = _torch(_inputs(B, S, H, KV, hd, B * S + hd), dtype)
@@ -211,6 +215,13 @@ def test_split_count_fills_the_card_at_the_serving_shapes():
         assert -(-2048 // n) >= kattn.tile_rows(hd, 2)
     assert kattn.split_count(1, 5, 2048, 64, 2, 132) == 2048 // 64
     assert kattn.split_count(8, 5, 40, 64, 2, 132) == 1
+    # qwen3-moe's G 16: two head groups of 8 a (b, kv) pair, counted;
+    # groups are equal, of at most 8 heads
+    assert [kattn.head_groups(g) for g in (1, 8, 9, 11, 12, 16, 17, 24)] \
+        == [1, 1, 3, 11, 2, 2, 17, 3]
+    n = kattn.split_count(8, 4, 2048, 64, 2, 132, G=16)
+    assert 8 * 4 * 2 * n >= 2 * 132 > 8 * 4 * 2 * (n - 1)
+    assert n == kattn.split_count(8, 8, 2048, 64, 2, 132, G=8)
     assert [kattn.tile_rows(hd, e) for hd, e in ((64, 2), (128, 2), (128, 4),
                                                 (20, 4), (8, 2))] \
         == [64, 32, 16, 96, 128]
@@ -255,10 +266,12 @@ def cuda():
 
 
 #: full width (smollm-360m serving: B=max_batch, S=max_len), jamba's (G 8,
-#: hd 128), one row (the most splits), the reduced config (G 2, hd 32) at
-#: an S no chunk divides, and the reference's grid
+#: hd 128), qwen3-moe's (G 16, hd 64), one row (the most splits), the
+#: reduced config (G 2, hd 32) at an S no chunk divides, the reference's
+#: grid and the groups past 8 heads
 CUDA_SHAPES = [(8, 2048, 15, 5, 64), (8, 2048, 64, 8, 128),
-               (1, 2048, 15, 5, 64), (8, 1000, 4, 2, 32)] + GRID
+               (8, 2048, 64, 4, 64), (1, 2048, 15, 5, 64),
+               (8, 1000, 4, 2, 32)] + GRID + WIDE_GROUPS
 
 
 @pytest.mark.cuda
@@ -272,7 +285,7 @@ def test_cuda_kernel_matches_plain(cuda, B, S, H, KV, hd, dtype):
     lens = torch.from_numpy(_lengths(B, S, S)).to(cuda)
     n = kattn.split_count(B, KV, S, hd, q.element_size(),
                           torch.cuda.get_device_properties(
-                              cuda).multi_processor_count)
+                              cuda).multi_processor_count, H // KV)
     span = -(-S // n)
     edges = [e + d for e in range(span, S, span) for d in (-1, 0, 1)]
     for lengths in (lens, 1, S, S // 3, 0, -3, S + 5, lens.to(torch.int64),
@@ -288,8 +301,8 @@ def test_cuda_kernel_matches_plain(cuda, B, S, H, KV, hd, dtype):
 
 @pytest.mark.cuda
 def test_cuda_kernel_refuses_what_it_does_not_take(cuda):
-    q, k, v = _torch(_inputs(1, 64, 18, 2, 16, 0), "float32", cuda)
-    with pytest.raises(ValueError, match="G <= 8"):
+    q, k, v = _torch(_inputs(1, 64, 4, 2, 136, 0), "float32", cuda)
+    with pytest.raises(ValueError, match="hd <= 128"):
         kattn.flash_decode(q, k, v, 3)
     q, k, v = _torch(_inputs(1, 64, 4, 2, 6, 0), "bfloat16", cuda)
     with pytest.raises(ValueError, match="16-byte rows"):

@@ -26,6 +26,8 @@ next request in the same slot; the port's zeroes it on admission. A
 request's correct answer is its run alone on a fresh engine, so the port
 is held against the reference's solo runs.
 """
+import copy
+import dataclasses
 import sys
 
 import numpy as np
@@ -43,6 +45,7 @@ from repro_torch.layers import moe as tmoe
 from repro_torch.models import params as tparams
 from repro_torch.models.decoder import DecoderLM, MambaBlock, RunFlags
 from repro_torch.serve.engine import Engine, Request
+from repro_torch.sharding.rules import Rules
 
 ARCH = "jamba-1.5-large-398b"
 B, T, STEPS, LAYER_STEPS = 2, 8, 6, 3
@@ -228,10 +231,21 @@ def test_moe_matches_reference(reference, models):
     tf.close(aux, reference["moe/aux"].mean(), F32_TOL, "aux")
 
 
-def test_moe_refuses_the_expert_parallel_path(models):
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        models["float32"].blocks[1].moe(torch.zeros((1, 2, 128)),
-                                        grid=RankGrid(2, 4, device="cpu"))
+def test_moe_refuses_the_expert_parallel_path(models, cfg):
+    """The expert-parallel path (it used to be refused) on a 2x4 grid, the
+    experts split over the local axis and the batch over the nodes: at
+    capacity tp nothing drops, and each routing is computed as the local
+    path computes it."""
+    layer = copy.copy(models["float32"].blocks[1].moe)
+    layer.cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=4.0))
+    x = torch.from_numpy(_layer_inputs()[0])
+    y, aux = layer(x, rules=Rules(batch=("node",), tp="local"),
+                   grid=RankGrid(2, 4, device="cpu"))
+    assert not bool((~layer.ep_routing["kept"]).any())
+    want, _ = layer(x)
+    torch.testing.assert_close(y, want, rtol=F32_TOL, atol=F32_TOL)
+    assert aux.dtype == torch.float32 and aux.dim() == 0
 
 
 def test_moe_draws_its_experts_one_by_one(cfg):
