@@ -3,7 +3,7 @@
 
 Usage: ``python3 chip_smoke.py`` from the repository root, on a machine
 with an NVIDIA Hopper card and the CUDA toolkit. It imports nothing of JAX
-or of the JAX package. Eleven phases; any failure exits non-zero:
+or of the JAX package. Twelve phases; any failure exits non-zero:
 
 1. **Kernels.** Builds ``kernels/csrc/codec_{int8,int4,fp8}.cu``,
    ``flash_decode.cu``, ``rwkv6_wkv.cu``, ``mamba_scan.cu`` and
@@ -296,7 +296,45 @@ or of the JAX package. Eleven phases; any failure exits non-zero:
    heads: G 8) served the same way. One ``{"moe": ...}`` and one
    ``{"serve_moe": ...}`` line per model, each with its peak memory;
    each leg frees the card before the next.
-11. **Report.** The slice, collectives, serving and calibration summaries,
+11. **The model families left.** (a) The flash-decode kernel at the new
+   serving shapes, held as in phase 10: seamless's self-attention (B 8,
+   S 2048, 16 heads of 64 over 16 KV heads: G 1), qwen1.5-4b's (20 over
+   20 of 128: G 1) and phi3-medium-14b's (40 over 10 of 128: G 4), bf16
+   and fp32, vector and scalar lengths (0 included), the split edges
+   +-1, the tickets back at zero; each timed (events and CUPTI) beside
+   its plain version, one SDPA call and its bytes bound. (b)
+   seamless-m4t-large-v2 at full depth (24 + 24 layers, d 1024, vocab
+   256,206; 2,034,886,656 seeded bf16 parameters): ``EncDecLM.encode``
+   on frames (8, 1024, 1024) and (1, 4096, 1024) (the second past the
+   streaming threshold: every encoder layer streams, and one layer's
+   non-causal ``attend_streaming`` is held to ``attend_full`` on its own
+   q, k and v within ``STREAM_TOL`` of the largest output), then
+   ``cross_cache`` and 32 greedy ticks from one start token at a scalar
+   index with the flash-decode kernel (launches 32 x 24, nothing else),
+   the tokens equal to a run without the kernel under the top-2 margin
+   guard, three teacher-forced ticks (every layer's flash call within
+   ``FLASH_TOL`` of the plain version, the logits within ``TEACHER_TOL``
+   of the plain-version path's), and one profiled tick split into the
+   flash kernel, the cross-attention (a profiler range around the
+   decoder's plain cross-attention decode) and the matrix products. (c)
+   seamless trained through ``train_step`` on one device: one sequence
+   of 2048 frames and 2048 tokens, remat on, AdamW at 1e-4, 3 steps, the
+   loss falling at every step, the peak under 70 GB. (d) qwen2-vl-72b
+   cut to its first 8 layers (9,512,820,736 parameters) served as phase
+   10 serves (the tick sync on ``RankGrid(2, 4)``, tokens equal to a
+   sync-free engine's, flash launches ticks x 8, staging as one sync
+   call's x ticks, three teacher-forced ticks), then its VL input:
+   ``DecoderLM.forward(tokens, caches=, embeds=, positions3=)`` on 256
+   seeded patch embeddings (8, 256, 8192) on a (1, 16, 16) grid before
+   256 text tokens, and 32 teacher-forced ticks at a per-row index (the
+   text positions from each row's own index), every flash call held. (e)
+   yi-34b's first 8 layers (5,497,805,824 parameters, 64 padded heads
+   over 8: G 8), qwen1.5-4b whole (40 layers, QKV biases, G 1) and
+   phi3-medium-14b whole (40 layers, G 4) served as (d). One
+   ``{"encdec": ...}`` line per seamless leg and one ``{"serve_<model>":
+   ...}`` line per served model, each with its peak memory; each leg
+   frees the card before the next.
+12. **Report.** The slice, collectives, serving and calibration summaries,
    the card's name and power limit (as nvidia-smi gives them), the
    ``{"kernels": [...]}`` line (the 14 TPU kernels of the repository, each
    codec's feedback encode apart from its residual encode and the WKV6
@@ -307,7 +345,10 @@ or of the JAX package. Eleven phases; any failure exits non-zero:
    workers' launches; flash decode's and the staging kernels' include
    ``serve_qwen3_moe`` and ``serve_arctic``, the staging kernels' also
    ``moe_ep``, the expert-parallel layer's (0: no plan of it moves
-   rows); every entry's ``launches_by_path`` has ``train``,
+   rows); flash decode's also ``serve_seamless``, ``vl_prefill``,
+   ``serve_qwen2_vl``, ``serve_yi``, ``serve_qwen15`` and ``serve_phi3``,
+   the staging kernels' the four phase-11 engine paths; every entry's
+   ``launches_by_path`` has ``train``,
    the train steps' launches; the feedback encodes' also have
    ``compress_tree``, leg (d)'s, which their launches include),
    and last
@@ -1977,48 +2018,48 @@ def _flash_held(torch, kattn, ref, errs):
         err = max_diff(torch, got, want)
         if not bool(torch.isfinite(got).all()) or not bool(
                 ((got - want).abs() <= FLASH_TOL * (1 + want.abs())).all()):
+            shown = lengths.tolist() if torch.is_tensor(lengths) \
+                else lengths
             raise AssertionError(
                 f"flash_decode on the serving path (layer call "
-                f"{len(errs)}, lengths {lengths.tolist()}): max error "
+                f"{len(errs)}, lengths {shown}): max error "
                 f"{err} outside {FLASH_TOL} * (1 + |plain|)")
         errs.append(err)
         return got
     return held
 
 
-def teacher_forced(torch, eng, model, runs, ticks):
-    """``ticks`` decode steps of the engine's admitted slots, each run once
-    per entry of ``runs``, ``(label, flags, swaps)``, every run from the
-    caches as the tick found them (all their tensors restored in between);
-    ``swaps`` maps ``(module, attribute)`` to a stand-in set for that run
-    only (a kernel wrapper held to its plain version, or the plain version
-    itself). The first run is the kernel path; the last is the
-    plain-version path, whose greedy tokens and caches feed the next step.
-    Returns the worst |logit| difference of the kernel path from each
-    other run (by label) and the largest |logit| of the plain-version
-    path."""
+def forced_ticks(torch, step, caches, toks, index, runs, ticks, width):
+    """``ticks`` decode steps ``step(toks, caches, index, flags) -> logits
+    (B, 1, width)`` from ``toks`` (B, 1) at ``index`` (an int or a (B,)
+    tensor), each run once per entry of ``runs``, ``(label, flags,
+    swaps)``, every run from the caches as the tick found them (all their
+    tensors restored in between); ``swaps`` maps ``(module, attribute)``
+    to a stand-in set for that run only (a kernel wrapper held to its
+    plain version, or the plain version itself). The first run is the
+    kernel path; the last is the plain-version path, whose greedy tokens
+    and caches feed the next step. Returns the worst |logit| difference of
+    the kernel path from each other run (by label) and the largest |logit|
+    of the plain-version path."""
     worst = {label: 0.0 for label, _, _ in runs[1:]}
     top = 0.0
-    toks = torch.tensor([[r.out_tokens[-1]] for r in eng.active],
-                        device=eng.device)
-    lengths = torch.tensor(eng.lengths, device=eng.device)
     for _ in range(ticks):
-        saved = [{n: t.clone() for n, t in c.items()} for c in eng.caches]
+        saved = [{n: t.clone() for n, t in c.items()} for c in caches]
         outs = []
         for i, (label, flags, swaps) in enumerate(runs):
             if i:
-                for c, sv in zip(eng.caches, saved):
+                for c, sv in zip(caches, saved):
                     for n in c:
                         c[n].copy_(sv[n])
             kept = {key: getattr(*key) for key in swaps}
             for (mod, attr), fn in swaps.items():
                 setattr(mod, attr, fn)
             try:
-                out, _, _ = model(toks, eng.caches, lengths, flags=flags)
+                out = step(toks, caches, index, flags)
             finally:
                 for (mod, attr), fn in kept.items():
                     setattr(mod, attr, fn)
-            if out.shape != (len(eng.active), 1, model.lm_head.shape[1]) \
+            if out.shape != (toks.shape[0], 1, width) \
                     or not bool(torch.isfinite(out).all()):
                 raise AssertionError(f"teacher-forced {label} logits: shape "
                                      f"{tuple(out.shape)} or not finite")
@@ -2027,9 +2068,20 @@ def teacher_forced(torch, eng, model, runs, ticks):
             worst[label] = max(worst[label], max_diff(torch, outs[0], out))
         top = max(top, float(outs[-1].float().abs().max()))
         toks = outs[-1][:, 0].argmax(-1, keepdim=True)
-        lengths += 1
+        index = index + 1
         del saved
     return worst, top
+
+
+def teacher_forced(torch, eng, model, runs, ticks):
+    """:func:`forced_ticks` of the engine's admitted slots, each at its own
+    length."""
+    toks = torch.tensor([[r.out_tokens[-1]] for r in eng.active],
+                        device=eng.device)
+    lengths = torch.tensor(eng.lengths, device=eng.device)
+    return forced_ticks(
+        torch, lambda t, c, i, f: model(t, c, i, flags=f)[0], eng.caches,
+        toks, lengths, runs, ticks, model.lm_head.shape[1])
 
 
 def _check_held(name, errs, want):
@@ -4063,16 +4115,18 @@ def moe_decoder_leg(torch, dev, model, cfg):
             "ep_forward_s": ep_s, "local_forward_s": local_s}
 
 
-def moe_serve_leg(torch, dev, cfg, kattn, ref, kmods, decoder=False):
-    """``cfg`` (an MoE model cut in depth, every width the published one)
-    served as phase 4 serves smollm, with the flash-decode kernel on every
-    tick and the local MoE (the reference's ``Engine`` passes no mesh to
-    the model): the tokens equal a sync-free engine's, flash launches
-    ticks x layers, the tick sync's staging launches; three
-    teacher-forced ticks hold every layer's flash-decode call to the plain
-    version and the logits to the plain-version path's; one profiled tick
-    with the expert products' share. ``decoder``: then
-    :func:`moe_decoder_leg` on the same weights."""
+def moe_serve_leg(torch, dev, cfg, kattn, ref, kmods, decoder=False,
+                  vl=False):
+    """``cfg`` (a decoder model, an MoE one among them, at most cut in
+    depth, every width the published one) served as phase 4 serves
+    smollm, with the flash-decode kernel on every tick and the local MoE
+    (the reference's ``Engine`` passes no mesh to the model): the tokens
+    equal a sync-free engine's, flash launches ticks x layers, the tick
+    sync's staging launches; three teacher-forced ticks hold every
+    layer's flash-decode call to the plain version and the logits to the
+    plain-version path's; one profiled tick with the expert products'
+    share. ``decoder``: then :func:`moe_decoder_leg` on the same weights;
+    ``vl``: then :func:`vl_leg`."""
     import numpy as np
     from repro_torch.core.grid import RankGrid
     from repro_torch.models.decoder import RunFlags
@@ -4126,6 +4180,8 @@ def moe_serve_leg(torch, dev, cfg, kattn, ref, kmods, decoder=False):
         "flash_path_bytes": tick_bytes})
     if decoder:
         record["decoder_ep"] = moe_decoder_leg(torch, dev, model, cfg)
+    if vl:
+        record["vl"] = vl_leg(torch, dev, model, cfg, kattn, ref, kmods)
     record["peak_mem_bytes"] = torch.cuda.max_memory_allocated(dev)
     del model
     return record
@@ -4181,6 +4237,511 @@ def moe_phase(torch, dev, kattn, ref, kmods):
     gc.collect()
     torch.cuda.empty_cache()
     return {"flash": flash, "ep_staging": staged, "serve": serve}
+
+
+#: phase 11, the model families left: seamless-m4t-large-v2 at full
+#: depth; qwen2-vl-72b and yi-34b cut to their first 8 layers (the whole
+#: of either does not fit one card beside its caches), qwen1.5-4b and
+#: phi3-medium-14b whole; every width the published one
+SEAMLESS_ARCH = "seamless-m4t-large-v2"
+#: seamless's encoder inputs (B, S_enc): attend_full, then past the
+#: streaming threshold (the non-causal streaming attention)
+ENCDEC_FRAMES = ((SERVE_BATCH, 1024), (1, 4096))
+#: seamless's greedy decode: ticks from one fixed start token, a scalar
+#: index, SERVE_LEN positions of self-attention cache
+ENCDEC_TICKS, ENCDEC_START = 32, 2
+#: seamless training on one device: one sequence of the reference's
+#: train_4k split (S // 2 frames and S // 2 tokens), remat on, 3 steps
+ENCDEC_TRAIN_LEN, ENCDEC_TRAIN_STEPS = 2048, 3
+#: attend_streaming against attend_full, non-causal, on one encoder
+#: layer's own bf16 q, k and v, relative to the largest |output|: both sum
+#: in float32, and each rounds its probabilities to bf16 before p.v,
+#: against other running maxima
+STREAM_TOL = 2.0 ** -7
+#: the profiler range put around the seamless decoder's cross-attention
+CROSS_RANGE = "cross_attention"
+#: qwen2-vl's VL leg: 256 patch embeddings on a (1, 16, 16) (t, h, w)
+#: grid, then 256 text tokens, then ticks at a per-row index
+VL_ARCH, VL_GRID_THW, VL_TEXT, VL_TICKS = "qwen2-vl-72b", (1, 16, 16), \
+    256, 32
+#: the decoder configs served in phase 11: (arch, layers kept (None:
+#: all), the path's name)
+FAMILY_SERVE = ((VL_ARCH, 8, "serve_qwen2_vl"), ("yi-34b", 8, "serve_yi"),
+                ("qwen1.5-4b", None, "serve_qwen15"),
+                ("phi3-medium-14b", None, "serve_phi3"))
+#: flash_decode at phase 11's new serving shapes (H, KV, hd):
+#: seamless's self-attention (G 1, hd 64), qwen1.5's (G 1, hd 128) and
+#: phi3's (G 4, hd 128), at (SERVE_BATCH, SERVE_LEN)
+FLASH_NEW = {"seamless": (16, 16, 64), "qwen15": (20, 20, 128),
+             "phi3": (40, 10, 128)}
+
+
+def flash_new_leg(torch, kattn, ref, dev):
+    """``flash_decode`` at phase 11's new shapes (G 1 and G 4), bf16 and
+    fp32, for (B,) lengths (full, 1, mixed) and scalar lengths (1, S // 3,
+    S, 0) within ``FLASH_TOL * (1 + |plain|)`` of the plain version, then
+    every split edge of the kernel's own split count +-1 and lengths 0 and
+    -3; the combine tickets back at zero. Each shape timed (events and
+    CUPTI) beside its plain version, one SDPA call and its bound, every row
+    at SERVE_LEN."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    B, S = SERVE_BATCH, SERVE_LEN
+    worst, checked, splits, timed = 0.0, 0, {}, {}
+    for name, (H, KV, hd) in FLASH_NEW.items():
+        what = f"{name}: B={B} S={S} H={H} KV={KV} hd={hd}"
+        mixed = torch.randint(1, S + 1, (B,), generator=gen, device=dev,
+                              dtype=torch.int32)
+        mixed[0], mixed[1] = S, 1
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v = _flash_inputs(torch, B, S, H, KV, hd, dtype, gen, dev)
+            for lengths in (torch.full((B,), S, dtype=torch.int32,
+                                       device=dev),
+                            torch.ones((B,), dtype=torch.int32, device=dev),
+                            mixed, 1, S // 3, S, 0):
+                worst = max(worst, _check_flash(torch, kattn, ref, q, k, v,
+                                                lengths, f"{what} {dtype}"))
+                checked += 1
+        q, k, v = _flash_inputs(torch, B, S, H, KV, hd, torch.bfloat16, gen,
+                                dev)
+        n = kattn.split_count(B, KV, S, hd, 2, n_sm, H // KV)
+        span = -(-S // n)
+        for lengths in [e + d for e in range(span, S, span)
+                        for d in (-1, 0, 1)] + [0, -3]:
+            worst = max(worst, _check_flash(torch, kattn, ref, q, k, v,
+                                            lengths, f"{what} {n} splits"))
+            checked += 1
+        splits[name] = {"n_split": n, "span": span,
+                        "head_groups": kattn.head_groups(H // KV)}
+        rec = _flash_timed(torch, kattn, ref, dev, gen, flush, H, KV, hd)
+        full = torch.full((B,), S, dtype=torch.int32, device=dev)
+        rec["kernel_cupti_ms"] = cupti_ms(
+            torch, lambda: kattn.flash_decode(q, k, v, full), flush,
+            "flash_decode")
+        rec["n_split"] = n
+        timed[name] = rec
+    if any(bool(t.any()) for t in kattn._tickets.values()):
+        raise AssertionError("flash_decode left a combine ticket non-zero")
+    return {"cases_checked": checked, "max_abs_err": worst,
+            "tolerance": f"{FLASH_TOL} * (1 + |plain|)", "splits": splits,
+            "shapes": timed}
+
+
+def _ranged_cross(torch, attention):
+    """A stand-in for ``attention.attend_decode`` that puts the calls
+    without the kernel (the encoder-decoder's cross-attention decode)
+    inside a ``CROSS_RANGE`` profiler range."""
+    plain = attention.attend_decode
+
+    def ranged(q, k, v, cur_index, use_kernel=False):
+        if use_kernel:
+            return plain(q, k, v, cur_index, use_kernel)
+        with torch.profiler.record_function(CROSS_RANGE):
+            return plain(q, k, v, cur_index, use_kernel)
+    return ranged
+
+
+def _greedy_decode(torch, model, xkv, flags, ticks, start, dev):
+    """``ticks`` greedy steps of the encoder-decoder from ``start`` at a
+    scalar index on fresh caches of SERVE_LEN positions, each timed on the
+    host clock around a synchronize. Returns the tokens (B, ticks), each
+    step's (top-2 margin, max |logit|) per row (B, ticks, 2), the times,
+    the caches and the last tokens."""
+    B = xkv[0]["k"].shape[0]
+    caches = model.init_cache(B, SERVE_LEN)
+    tok = torch.full((B, 1), start, dtype=torch.long, device=dev)
+    toks, margins, times = [], [], []
+    for i in range(ticks):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        logits, _ = model.decode_forward(tok, None, flags, caches, i, xkv)
+        row = logits[:, -1].float()
+        tok = row.argmax(-1, keepdim=True)
+        torch.cuda.synchronize(dev)
+        times.append(time.perf_counter() - t0)
+        top2 = row.topk(2, dim=-1).values
+        toks.append(tok[:, 0])
+        margins.append(torch.stack([top2[:, 0] - top2[:, 1],
+                                    row.abs().amax(-1)], -1))
+    return (torch.stack(toks, 1).cpu().tolist(),
+            torch.stack(margins, 1).cpu().tolist(), times, caches, tok)
+
+
+def _guarded(got, want, margins, tol, what):
+    """Each row's tokens equal, or first apart where the plain run's top-2
+    margin is within ``2 * tol`` of its largest |logit| (a bf16 near tie);
+    returns the rows that agree."""
+    same = 0
+    for r, (g, w) in enumerate(zip(got, want)):
+        diff = [j for j, (a, b) in enumerate(zip(g, w)) if a != b]
+        if not diff:
+            same += 1
+            continue
+        margin, top = margins[r][diff[0]]
+        if margin > 2 * tol * top:
+            raise AssertionError(f"{what} row {r} token {diff[0]}: {g} vs "
+                                 f"{w}, plain top-2 margin {margin} (max "
+                                 f"|logit| {top})")
+    return same
+
+
+def seamless_serve_leg(torch, dev, kattn, ref, kmods):
+    """seamless-m4t-large-v2 at full depth (24 + 24 layers, d 1024, vocab
+    256,206; seeded bf16): ``encode`` at ENCDEC_FRAMES (the second past the
+    streaming threshold: 24 streaming calls, one encoder layer's streaming
+    attention held to ``attend_full`` on its own q, k and v), then
+    ``cross_cache`` and ENCDEC_TICKS greedy ticks with the flash-decode
+    kernel (launches ticks x 24, every other kernel none), the tokens
+    against a run without it under the top-2 margin guard, three
+    teacher-forced ticks (every layer's flash call held to the plain
+    version, the logits within ``TEACHER_TOL`` of the plain-version
+    path's), one profiled tick split into the self-attention's flash
+    kernel, the cross-attention and the matrix products."""
+    from repro_torch.configs import get_config
+    from repro_torch.layers import attention
+    from repro_torch.models import params as tparams
+    from repro_torch.models.decoder import RunFlags
+    from repro_torch.models.encdec import EncDecLM
+
+    cfg = get_config(SEAMLESS_ARCH)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    model = EncDecLM(cfg, torch.Generator("cuda").manual_seed(SEED))
+    if model.device != dev:
+        raise AssertionError(f"model on {model.device}, expected {dev}")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    if n_params != tparams.n_params(cfg):
+        raise AssertionError(f"seamless has {n_params} params, the "
+                             f"reference's tree {tparams.n_params(cfg)}")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 12)
+    flags, plain = RunFlags(use_flash_decode=True), RunFlags()
+    D = cfg.d_model
+    rec = {"leg": "serve", "model": cfg.name, "params": n_params,
+           "layers": [cfg.enc_layers, cfg.n_layers], "dtype": "bfloat16",
+           "init_s": init_s, "encode": {}}
+    stream = attention.attend_streaming
+    streamed = []
+
+    def counted(*args, **kw):
+        streamed.append(args[0].shape[1])
+        return stream(*args, **kw)
+
+    with torch.inference_mode():
+        for B, S in ENCDEC_FRAMES:
+            frames = torch.randn((B, S, D), generator=gen,
+                                 device=dev).to(torch.bfloat16)
+            times = []
+            streamed.clear()
+            attention.attend_streaming = counted
+            try:
+                for _ in range(2):
+                    torch.cuda.synchronize(dev)
+                    t0 = time.perf_counter()
+                    out = model.encode(frames)
+                    torch.cuda.synchronize(dev)
+                    times.append(time.perf_counter() - t0)
+            finally:
+                attention.attend_streaming = stream
+            want = 2 * cfg.enc_layers if S * S > \
+                attention.STREAMING_THRESHOLD ** 2 else 0
+            if len(streamed) != want or out.shape != (B, S, D) or \
+                    not bool(torch.isfinite(out).all()):
+                raise AssertionError(f"encode ({B}, {S}): {len(streamed)} "
+                                     f"streaming calls (expected {want}), "
+                                     f"output {tuple(out.shape)}")
+            entry = {"s": times, "streaming_calls": len(streamed) // 2}
+            if want:
+                # one encoder layer: streaming against full attention on
+                # the layer's own q, k and v
+                layer = model.enc[0]
+                x = layer.ln1(frames, cfg.norm_eps)
+                q, k, v = (
+                    (x @ w).reshape(B, S, -1, cfg.head_dim)
+                    for w in (layer.attn.wq, layer.attn.wk, layer.attn.wv))
+                full = attention.attend_full(q, k, v, False)
+                err = max_diff(torch, stream(q, k, v, False), full)
+                top = float(full.abs().max())
+                if err > STREAM_TOL * top:
+                    raise AssertionError(f"attend_streaming (non-causal) "
+                                         f"{err} from attend_full, over "
+                                         f"{STREAM_TOL} * {top}")
+                entry["streaming_vs_full"] = {
+                    "max_abs_err": err, "max_abs_out": top,
+                    "tolerance": f"{STREAM_TOL} * max|full|"}
+                del q, k, v, full, x
+            else:
+                enc_out = out
+            rec["encode"][f"{B}x{S}"] = entry
+            del out, frames
+        t0 = time.perf_counter()
+        xkv = model.cross_cache(enc_out)
+        torch.cuda.synchronize(dev)
+        rec["cross_cache_s"] = time.perf_counter() - t0
+        # the decode: kernel counts zeroed just before, read just after
+        _reset(kmods)
+        toks, _, times, caches, _ = _greedy_decode(
+            torch, model, xkv, flags, ENCDEC_TICKS, ENCDEC_START, dev)
+        launches = _launches(kmods)
+        _check_launches("seamless decode", launches,
+                        {"flash_decode": ENCDEC_TICKS * cfg.n_layers})
+        del caches
+        want, margins, plain_times, caches, tok = _greedy_decode(
+            torch, model, xkv, plain, ENCDEC_TICKS, ENCDEC_START, dev)
+        same = _guarded(toks, want, margins, TEACHER_TOL,
+                        "seamless tokens against the plain attention")
+        # teacher-forced ticks from the plain run's state: the kernel held
+        # to its plain version, and the plain version in its place
+        errs = []
+        worst, top = forced_ticks(
+            torch, lambda t, c, i, f: model.decode_forward(
+                t, None, f, c, i, xkv)[0], caches, tok, ENCDEC_TICKS,
+            [("kernel", flags,
+              {(kattn, "flash_decode"): _flash_held(torch, kattn, ref,
+                                                    errs)}),
+             ("plain-version", flags,
+              {(kattn, "flash_decode"): ref.flash_decode})], TEACHER_TICKS,
+            model.lm_head.shape[1])
+        _check_held("flash_decode", errs, TEACHER_TICKS * cfg.n_layers)
+        worst = worst["plain-version"]
+        if worst > TEACHER_TOL * top:
+            raise AssertionError(f"seamless teacher-forced logits: kernel "
+                                 f"path {worst} from the plain-version "
+                                 f"path, over {TEACHER_TOL} * {top}")
+        index = ENCDEC_TICKS + TEACHER_TICKS
+        attend = attention.attend_decode
+        attention.attend_decode = _ranged_cross(torch, attention)
+        try:
+            profile = profile_call(
+                torch, lambda: model.decode_forward(tok, None, flags, caches,
+                                                    index, xkv),
+                ("flash_decode",), ranges=(CROSS_RANGE,))
+        finally:
+            attention.attend_decode = attend
+    busy = profile["device_busy_ms"]
+    if isinstance(busy, float):
+        cross = profile["ranges"][CROSS_RANGE]
+        profile["shares"] = {
+            "flash_decode": profile["name_ms"]["flash_decode"] / busy,
+            "cross_attention": cross["ms"] / busy
+            if isinstance(cross["ms"], float) else "not measured",
+            "gemms": profile["gemm_ms"] / busy}
+    B = SERVE_BATCH
+    valid = B * (index + 1)
+    tick_bytes, tick_ops = _flash_bytes_ops(B, cfg.n_heads, cfg.n_kv_heads,
+                                            cfg.head_dim, 2, valid)
+    rec.update({
+        "batch": B, "max_len": SERVE_LEN, "ticks": ENCDEC_TICKS,
+        "start_token": ENCDEC_START, "launches": launches,
+        "flash_launches": launches["flash_decode"],
+        "tokens_equal_plain_rows": same,
+        "decode_tick_s": {"p50": statistics.median(times),
+                          "p99": sorted(times)[int(0.99 * (len(times) - 1))],
+                          "n": len(times)},
+        "plain_tick_p50_s": statistics.median(plain_times),
+        "tokens_per_s": B * ENCDEC_TICKS / sum(times),
+        "teacher_forced": {"ticks": TEACHER_TICKS, "max_abs_err": worst,
+                           "max_abs_logit": top,
+                           "tolerance": f"{TEACHER_TOL} * max|logit|",
+                           "kernel_calls_held_to_plain": len(errs),
+                           "kernel_max_abs_err": max(errs),
+                           "kernel_tolerance":
+                               f"{FLASH_TOL} * (1 + |plain|)"},
+        "profile": profile,
+        "flash_path_bound_ms": bound_ms(tick_bytes, tick_ops)[0],
+        "peak_mem_bytes": torch.cuda.max_memory_allocated(dev)})
+    del model, xkv, caches, enc_out
+    return rec
+
+
+def seamless_train_leg(torch, dev, kmods):
+    """seamless-m4t-large-v2 at full depth through ``train_step`` on one
+    device: one sequence of ENCDEC_TRAIN_LEN seeded frames and tokens,
+    remat on, AdamW at TRAIN_LR, ENCDEC_TRAIN_STEPS steps on the same
+    batch: the loss falls at every step, no kernel launches, the peak under
+    TRAIN_PEAK_LIMIT_BYTES."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.decoder import RunFlags
+    from repro_torch.models.encdec import EncDecLM
+    from repro_torch.models.params import FlatParams
+    from repro_torch.optim import adamw
+    from repro_torch.train.step import TrainConfig, train_step
+
+    cfg = get_config(SEAMLESS_ARCH)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    model = EncDecLM(cfg, torch.Generator("cuda").manual_seed(SEED))
+    flat = FlatParams.of(model.trainable())
+    gen = torch.Generator(device=dev).manual_seed(SEED + 14)
+    S = ENCDEC_TRAIN_LEN
+    tokens = torch.randint(0, cfg.vocab, (1, S + 1), generator=gen,
+                           device=dev)
+    batch = {"frames": torch.randn((1, S, cfg.d_model), generator=gen,
+                                   device=dev).to(torch.bfloat16),
+             "tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
+    ocfg = adamw.AdamWConfig(lr=TRAIN_LR, warmup_steps=0,
+                             schedule="constant")
+    opt = adamw.init(flat, ocfg)
+    tcfg = TrainConfig(optimizer=ocfg, flags=RunFlags(remat="dots"))
+    _reset(kmods)
+    times, mets = _timed_steps(
+        torch, dev, lambda: train_step(model, opt, batch, tcfg, flat),
+        ENCDEC_TRAIN_STEPS)
+    _check_launches("seamless train", _launches(kmods), {})
+    losses = [float(m["loss"]) for m in mets]
+    peak = torch.cuda.max_memory_allocated(dev)
+    if not all(b < a for a, b in zip(losses, losses[1:])) or \
+            not all(l == l for l in losses):
+        raise AssertionError(f"seamless training: losses {losses} do not "
+                             f"fall at every step")
+    if peak >= TRAIN_PEAK_LIMIT_BYTES:
+        raise AssertionError(f"seamless training peak {peak} B, over "
+                             f"{TRAIN_PEAK_LIMIT_BYTES}")
+    rec = {"leg": "train", "model": cfg.name, "params": flat.n,
+           "frames": S, "tokens": S, "remat": "full (every layer)",
+           "lr": TRAIN_LR, "losses": losses, "step_s": times,
+           "median_step_s": statistics.median(times[1:]),
+           "grad_norm": [float(m["grad_norm"]) for m in mets],
+           "peak_mem_bytes": peak,
+           "peak_limit_bytes": TRAIN_PEAK_LIMIT_BYTES}
+    del model, flat, opt, batch, mets
+    return rec
+
+
+def vl_leg(torch, dev, model, cfg, kattn, ref, kmods):
+    """qwen2-vl's VL input at full width: ``DecoderLM.forward(tokens,
+    caches=, embeds=, positions3=)`` on SERVE_BATCH rows of seeded patch
+    embeddings on a VL_GRID_THW (t, h, w) grid before VL_TEXT text tokens
+    (their M-RoPE positions the patches' grid, then the text on all three
+    streams), then VL_TICKS teacher-forced ticks at a per-row index (the
+    text positions from each row's own index, as the reference's), every
+    layer's flash call held to the plain version and the logits within
+    ``TEACHER_TOL`` of the plain-version path's. Launches: ticks x layers
+    flash, nothing else."""
+    from repro_torch.models.decoder import RunFlags
+
+    nt, nh, nw = VL_GRID_THW
+    B, P = SERVE_BATCH, nt * nh * nw
+    gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+    embeds = torch.randn((B, P, cfg.d_model), generator=gen,
+                         device=dev).to(torch.bfloat16)
+    tokens = torch.randint(0, cfg.vocab, (B, VL_TEXT), generator=gen,
+                           device=dev)
+    grid = torch.stack(torch.meshgrid(
+        torch.arange(nt, device=dev), torch.arange(nh, device=dev),
+        torch.arange(nw, device=dev), indexing="ij")).reshape(3, P)
+    text = (grid.max() + 1 + torch.arange(VL_TEXT, device=dev)).expand(3, -1)
+    positions3 = torch.cat([grid, text], 1).expand(B, 3, P + VL_TEXT)
+    flags = RunFlags(use_flash_decode=True)
+    caches = model.init_cache(B, SERVE_LEN)
+    with torch.inference_mode():
+        _reset(kmods)
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        logits, _, _ = model(tokens, caches, flags=flags, embeds=embeds,
+                             positions3=positions3)
+        torch.cuda.synchronize(dev)
+        prefill_s = time.perf_counter() - t0
+        if logits.shape != (B, P + VL_TEXT, model.lm_head.shape[1]) or \
+                not bool(torch.isfinite(logits).all()):
+            raise AssertionError(f"VL prefill logits {tuple(logits.shape)} "
+                                 f"or not finite")
+        tok = logits[:, -1:].argmax(-1)
+        del logits
+        index = torch.full((B,), P + VL_TEXT, dtype=torch.long, device=dev)
+        errs = []
+        t0 = time.perf_counter()
+        worst, top = forced_ticks(
+            torch, lambda t, c, i, f: model(t, c, i, flags=f)[0], caches,
+            tok, index,
+            [("kernel", flags,
+              {(kattn, "flash_decode"): _flash_held(torch, kattn, ref,
+                                                    errs)}),
+             ("plain-version", flags,
+              {(kattn, "flash_decode"): ref.flash_decode})], VL_TICKS,
+            model.lm_head.shape[1])
+        ticks_s = time.perf_counter() - t0
+    launches = _launches(kmods)
+    _check_launches("qwen2-vl VL leg", launches,
+                    {"flash_decode": VL_TICKS * cfg.n_layers})
+    _check_held("flash_decode", errs, VL_TICKS * cfg.n_layers)
+    worst = worst["plain-version"]
+    if worst > TEACHER_TOL * top:
+        raise AssertionError(f"qwen2-vl teacher-forced logits: kernel path "
+                             f"{worst} from the plain-version path, over "
+                             f"{TEACHER_TOL} * {top}")
+    del caches, embeds
+    return {"patches": P, "grid_thw": list(VL_GRID_THW), "text": VL_TEXT,
+            "prefill_s": prefill_s, "ticks": VL_TICKS,
+            "forced_ticks_s": ticks_s, "launches": launches,
+            "flash_launches": launches["flash_decode"],
+            "teacher_forced": {"max_abs_err": worst, "max_abs_logit": top,
+                               "tolerance": f"{TEACHER_TOL} * max|logit|",
+                               "kernel_calls_held_to_plain": len(errs),
+                               "kernel_max_abs_err": max(errs),
+                               "kernel_tolerance":
+                                   f"{FLASH_TOL} * (1 + |plain|)"}}
+
+
+def families_phase(torch, dev, kattn, ref, kmods):
+    """Phase 11, the model families left, at full width: (a)
+    ``flash_decode`` at the new shapes (:func:`flash_new_leg`); (b)
+    seamless-m4t-large-v2 encoded and decoded (:func:`seamless_serve_leg`)
+    and (c) trained (:func:`seamless_train_leg`); (d) qwen2-vl-72b's first
+    8 layers served, then its VL input (:func:`vl_leg`); (e) yi-34b's
+    first 8 layers, qwen1.5-4b and phi3-medium-14b served (the serving
+    legs as phase 10's, :func:`moe_serve_leg`). Each leg frees the card
+    before the next. Prints one ``{"encdec": ...}`` line per seamless leg
+    and one ``{"serve_<model>": ...}`` line per served model; returns the
+    flash leg and each path's flash and staging launches."""
+    from repro_torch.configs import first_layers, get_config
+
+    t0 = time.perf_counter()
+    flash = flash_new_leg(torch, kattn, ref, dev)
+    print(f"families phase: flash_decode at G 1 and G 4 within {FLASH_TOL} "
+          f"* (1 + |plain|) in {flash['cases_checked']} cases "
+          f"({time.perf_counter() - t0:.3f} s)")
+    paths = {}
+    rec = seamless_serve_leg(torch, dev, kattn, ref, kmods)
+    paths["serve_seamless"] = {
+        "flash_launches": rec["flash_launches"],
+        "path_ms": rec["profile"].get("per_launch_ms", {}).get(
+            "flash_decode", "not measured")}
+    print(json.dumps({"encdec": rec}))
+    print(f"families phase: seamless served ({time.perf_counter() - t0:.3f}"
+          f" s)")
+    del rec
+    rec = seamless_train_leg(torch, dev, kmods)
+    print(json.dumps({"encdec": rec}))
+    print(f"families phase: seamless trained ({time.perf_counter() - t0:.3f}"
+          f" s)")
+    del rec
+    for arch, n, key in FAMILY_SERVE:
+        gc.collect()
+        torch.cuda.empty_cache()
+        cfg = get_config(arch)
+        cfg = first_layers(cfg, n) if n else cfg
+        rec = moe_serve_leg(torch, dev, cfg, kattn, ref, kmods,
+                            vl=arch == VL_ARCH)
+        print(json.dumps({key: rec}))
+        print(f"families phase: {arch} served ({time.perf_counter() - t0:.3f}"
+              f" s)")
+        paths[key] = {"flash_launches": rec["flash_launches"],
+                      "path_ms": rec["profile"].get("per_launch_ms", {}).get(
+                          "flash_decode", "not measured"),
+                      "staged": _staged(rec)}
+        if "vl" in rec:
+            paths["vl_prefill"] = {"flash_launches":
+                                   rec["vl"]["flash_launches"]}
+        del rec
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"flash": flash, "paths": paths}
 
 
 FEEDBACK_LINES = {"int8": 123, "int4": 204, "fp8": 294}
@@ -4457,6 +5018,30 @@ def main() -> int:
             paths[key] = rec["staged"][name]
             kernels[name]["tick_path_ms"][key] = \
                 rec["staged"]["tick_path_ms"][kname]
+    del moe
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    fam = families_phase(torch, dev, kattn, ref, kmods)
+    print(f"families phase done ({time.perf_counter() - t0:.3f} s in all)")
+    flash["max_abs_err"] = max(flash["max_abs_err"],
+                               fam["flash"]["max_abs_err"])
+    flash["cases_checked"] += fam["flash"]["cases_checked"]
+    flash["phase11_shapes"] = fam["flash"]["shapes"]
+    flash["phase11_splits"] = fam["flash"]["splits"]
+    flash["phase11_path_ms"] = {}
+    for key, rec in fam["paths"].items():
+        flash["launches_by_path"][key] = rec["flash_launches"]
+        if not rec["flash_launches"]:
+            raise AssertionError(f"flash_decode: no launch on {key}")
+        if "path_ms" in rec:
+            flash["phase11_path_ms"][key] = rec["path_ms"]
+        if "staged" in rec:
+            for name, kname in zip(STAGING_NAMES, STAGING_KERNELS):
+                kernels[name]["launches_by_path"][key] = \
+                    rec["staged"][name]
+                kernels[name]["tick_path_ms"][key] = \
+                    rec["staged"]["tick_path_ms"][kname]
 
     print(_smi("name,power.limit"))
     print(json.dumps({"kernels": kernel_lines(kernels, on_train, on_tree)}))

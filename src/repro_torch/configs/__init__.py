@@ -1,7 +1,9 @@
-"""Architecture configs ported from the JAX package: only those whose
-model the port runs are registered (smollm-360m, rwkv6-1.6b,
-jamba-1.5-large-398b, and the MoE family: qwen3-moe-235b-a22b and
-arctic-480b)."""
+"""Architecture configs ported from the JAX package, all ten of its
+assigned architectures: the dense decoders (smollm-360m, yi-34b,
+qwen1.5-4b, phi3-medium-14b), the VLM qwen2-vl-72b (M-RoPE, stub patch
+embeddings), rwkv6-1.6b, jamba-1.5-large-398b, the MoE family
+(qwen3-moe-235b-a22b, arctic-480b) and the encoder-decoder
+seamless-m4t-large-v2 (stub frame embeddings)."""
 import dataclasses
 import importlib
 
@@ -13,11 +15,16 @@ __all__ = ["ModelConfig", "MoEConfig", "ShapeConfig", "SHAPES",
            "first_layers"]
 
 _MODULES = {
-    "smollm-360m": "smollm_360m",
-    "rwkv6-1.6b": "rwkv6_1_6b",
-    "jamba-1.5-large-398b": "jamba_1_5_large_398b",
-    "qwen3-moe-235b-a22b": "qwen3_moe_235b_a22b",
+    "seamless-m4t-large-v2": "seamless_m4t_large_v2",
     "arctic-480b": "arctic_480b",
+    "qwen3-moe-235b-a22b": "qwen3_moe_235b_a22b",
+    "yi-34b": "yi_34b",
+    "qwen1.5-4b": "qwen1_5_4b",
+    "phi3-medium-14b": "phi3_medium_14b",
+    "smollm-360m": "smollm_360m",
+    "jamba-1.5-large-398b": "jamba_1_5_large_398b",
+    "rwkv6-1.6b": "rwkv6_1_6b",
+    "qwen2-vl-72b": "qwen2_vl_72b",
 }
 
 ARCH_IDS = tuple(_MODULES)

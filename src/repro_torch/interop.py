@@ -9,7 +9,9 @@
     into the port's layout: views into one flat buffer;
   * :func:`params_from_reference` turns the reference decoder's parameter
     tree (``jax.device_get`` of ``decoder.init``) into the port's
-    ``DecoderLM``, unstacking the pattern cycles into layers;
+    ``DecoderLM``, unstacking the pattern cycles into layers, and the
+    encoder-decoder's (``encdec.init``) into an ``EncDecLM``, unstacking
+    the encoder's and the decoder's layers;
   * :func:`opt_state_from_reference` turns the reference's AdamW state
     (``step``, ``m``, ``v`` and ``master``) into the port's flat float32
     buffers (``optim.adamw``), so a run resumes from the reference's state.
@@ -79,21 +81,41 @@ def _tensor_from_numpy(a: np.ndarray, device="cuda") -> torch.Tensor:
 
 
 def params_from_reference(tree, cfg, device="cuda"):
-    """The port's ``DecoderLM`` holding the reference decoder's parameters.
+    """The port's model holding the reference's parameters: a ``DecoderLM``,
+    or an ``EncDecLM`` for the encoder-decoder family.
 
-    ``tree`` is the reference's nested dict (``embed``, ``final_norm``,
-    ``lm_head`` and ``groups/blk<j>/...`` stacked over pattern cycles) of
-    numpy arrays. Cycle ``c``, block ``j`` becomes layer
-    ``c * len(cfg.block_pattern) + j``; dtypes are kept (a tree cast to
-    float32 gives a float32 model). Every leaf maps by name, so an MoE
-    block with a dense residual (arctic: ``moe`` and ``ffn`` both) and
-    padded heads (``head_pad``: ``wq``/``wo`` at the padded width, the pad
-    heads' columns and rows zero in the tree) carry across as they are."""
+    ``tree`` is the reference's nested dict of numpy arrays: the
+    decoder's ``embed``, ``final_norm``, ``lm_head`` and ``groups/blk<j>/
+    ...`` stacked over pattern cycles, or the encoder-decoder's ``embed``,
+    ``enc_norm``, ``final_norm``, ``lm_head`` and ``enc/...``, ``dec/...``
+    stacked over layers. Cycle ``c``, block ``j`` becomes layer
+    ``c * len(cfg.block_pattern) + j``; layer ``i`` of ``enc`` becomes
+    ``enc.<i>`` (``dec`` alike). Dtypes are kept (a tree cast to float32
+    gives a float32 model). Every leaf maps by name, so an MoE block with a
+    dense residual (arctic: ``moe`` and ``ffn`` both) and padded heads
+    (``head_pad``: ``wq``/``wo`` at the padded width, the pad heads'
+    columns and rows zero in the tree) carry across as they are."""
     from repro_torch.models.decoder import DecoderLM, n_cycles
+    from repro_torch.models.encdec import EncDecLM
 
+    state: Dict[str, torch.Tensor] = {}
+    if cfg.family == "encdec":
+        model = EncDecLM(cfg, device="meta")
+        depth = {"enc": cfg.enc_layers, "dec": cfg.n_layers}
+        for path, a in flatten_reference(tree):
+            top, *rest = path.split("/")
+            if top not in depth:
+                state[".".join([top] + rest)] = _tensor_from_numpy(a, device)
+                continue
+            if a.shape[0] != depth[top]:
+                raise ValueError(f"{path}: {a.shape[0]} layers, config has "
+                                 f"{depth[top]}")
+            for i in range(depth[top]):
+                state[".".join([top, str(i)] + rest)] = \
+                    _tensor_from_numpy(a[i], device)
+        return _loaded(model, state)
     model = DecoderLM(cfg, device="meta")
     nc, n_pat = n_cycles(cfg), len(cfg.block_pattern)
-    state: Dict[str, torch.Tensor] = {}
     for path, a in flatten_reference(tree):
         top, *rest = path.split("/")
         if top != "groups":
@@ -106,6 +128,11 @@ def params_from_reference(tree, cfg, device="cuda"):
         for c in range(nc):
             state[".".join(["blocks", str(c * n_pat + j)] + leaf)] = \
                 _tensor_from_numpy(a[c], device)
+    return _loaded(model, state)
+
+
+def _loaded(model, state: Dict[str, torch.Tensor]):
+    """``model`` (on ``meta``) holding ``state``, every weight frozen."""
     model.load_state_dict(state, strict=True, assign=True)
     for p in model.parameters():
         p.requires_grad_(False)

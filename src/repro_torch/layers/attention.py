@@ -1,5 +1,7 @@
-"""Grouped-query attention with RoPE and a KV cache, and the flash-decode
-path of the serving tick (port of ``repro.layers.attention``).
+"""Grouped-query attention with RoPE or M-RoPE, a KV cache, the
+encoder's bidirectional and the decoder's cross attention, and the
+flash-decode path of the serving tick (port of
+``repro.layers.attention``).
 
 Heads are laid out ``(kv-major, group-minor)``: query head ``h`` reads kv
 head ``h // G``. Scores and softmax are fp32 from bf16 operands, as the
@@ -11,8 +13,7 @@ Unlike the reference's immutable arrays, a cache passed to
 same dict is returned as the new cache: the serving engine holds one KV
 buffer per layer for its whole life.
 
-Not ported yet: ``"cross"``/``"bidir"`` modes (with enc-dec), M-RoPE (with
-the VLM family) and ``cache_pspec``/``logical_axes`` (with sharding).
+Not ported yet: ``cache_pspec``/``logical_axes`` (with sharding).
 """
 from __future__ import annotations
 
@@ -224,13 +225,14 @@ def attend_decode(q, cache_k, cache_v, cur_index: Index,
 
 class Attention(nn.Module):
     """Weights ``wq (D, Hp*hd)``, ``wk``/``wv (D, KV*hd)``, ``wo (Hp*hd,
-    D)`` (plus ``bq``/``bk``/``bv`` with ``qkv_bias``), stored as the
-    reference stores them, on ``device`` (the card unless the caller asks
-    for another). ``generator`` (on that device) draws them; without one
-    they are left uninitialised for loading."""
+    D)`` (plus ``bq``/``bk``/``bv`` with ``qkv_bias``, but never on a
+    ``cross`` attention), stored as the reference stores them, on
+    ``device`` (the card unless the caller asks for another).
+    ``generator`` (on that device) draws them; without one they are left
+    uninitialised for loading."""
 
     def __init__(self, cfg, generator: Optional[torch.Generator] = None,
-                 device="cuda"):
+                 device="cuda", cross: bool = False):
         super().__init__()
         dev = common.weights_device(generator, device)
         self.cfg = cfg
@@ -256,7 +258,7 @@ class Attention(nn.Module):
                 mask = (g_of < H // KV).to(Compute)
                 w["wq"] = w["wq"] * mask[None, :]
                 w["wo"] = w["wo"] * mask[:, None]
-        if cfg.qkv_bias:
+        if cfg.qkv_bias and not cross:
             w.update({n: torch.zeros((s[1],), dtype=Compute, device=dev)
                       for n, s in (("bq", shapes["wq"]), ("bk", shapes["wk"]),
                                    ("bv", shapes["wv"]))})
@@ -267,29 +269,34 @@ class Attention(nn.Module):
                 cache: Optional[Dict[str, torch.Tensor]] = None,
                 cache_index: Optional[Index] = None,
                 use_flash_decode: bool = False, q_chunk: int = 512,
-                kv_chunk: int = 1024, remat: bool = False):
+                kv_chunk: int = 1024, remat: bool = False,
+                kv_source: Optional[torch.Tensor] = None,
+                positions3: Optional[torch.Tensor] = None):
         """Modes: ``"causal"`` (train/prefill; with a cache, prefill writes
-        its first ``T`` positions) and ``"decode"`` (cache and
+        its first ``T`` positions), ``"bidir"`` (the encoder: no mask),
+        ``"cross"`` (K and V from ``kv_source``, the encoder output; no
+        mask, no rotary embedding) and ``"decode"`` (cache and
         ``cache_index`` required: a scalar or ``(B,)`` per-row write
         offsets, clamped into the cache as ``dynamic_update_slice``
-        clamps). ``remat`` recomputes the causal attention (its batched
-        products and softmax) in the backward instead of keeping it.
-        Returns ``(y, new_cache)``; ``new_cache`` is ``cache`` itself,
-        updated in place, or None without a cache."""
+        clamps). M-RoPE takes ``positions3`` ``(B, 3, T)`` when given, else
+        three equal text streams of the positions. A pass whose ``T * S``
+        exceeds ``STREAMING_THRESHOLD ** 2`` attends by streaming. ``remat``
+        recomputes the attention core (its batched products and softmax)
+        in the backward instead of keeping it. Returns ``(y, new_cache)``;
+        ``new_cache`` is ``cache`` itself, updated in place, or None
+        without a cache."""
         cfg = self.cfg
         B, T, _ = x.shape
         H, KV, hd = cfg.padded_heads, cfg.n_kv_heads, cfg.head_dim
-        q, k, v = x @ self.wq, x @ self.wk, x @ self.wv
-        if cfg.qkv_bias:
+        kv_in = kv_source if mode == "cross" else x
+        q, k, v = x @ self.wq, kv_in @ self.wk, kv_in @ self.wv
+        if hasattr(self, "bq"):
             q, k, v = q + self.bq, k + self.bk, v + self.bv
         q = q.reshape(B, T, H, hd)
-        k = k.reshape(B, T, KV, hd)
-        v = v.reshape(B, T, KV, hd)
+        k = k.reshape(B, kv_in.shape[1], KV, hd)
+        v = v.reshape(B, kv_in.shape[1], KV, hd)
 
-        if cfg.rope == "mrope":
-            raise NotImplementedError("M-RoPE comes with the VLM family "
-                                      "(ROADMAP.md, queue 1)")
-        if cfg.rope != "none":
+        if cfg.rope != "none" and mode != "cross":
             steps = torch.arange(T, device=x.device)
             base = cache_index if mode == "decode" else 0
             if _is_vector(base):
@@ -298,7 +305,13 @@ class Attention(nn.Module):
                 positions = steps[None, :] + base[:, None]
             else:
                 positions = (steps[None, :] + base).expand(B, T)
-            cos, sin = common.rope_cos_sin(positions, hd, cfg.rope_theta)
+            if cfg.rope == "mrope":
+                p3 = positions3 if positions3 is not None else \
+                    common.text_positions3(positions)
+                cos, sin = common.mrope_cos_sin(
+                    p3, hd, cfg.rope_theta, common.mrope_sections(hd))
+            else:
+                cos, sin = common.rope_cos_sin(positions, hd, cfg.rope_theta)
             q = common.apply_rope(q, cos, sin)
             k = common.apply_rope(k, cos, sin)
 
@@ -320,21 +333,21 @@ class Attention(nn.Module):
                 cache["v"][:, start:start + T] = v
             o = attend_decode(q, cache["k"], cache["v"], cache_index + 1,
                               use_kernel=use_flash_decode)
-        elif mode == "causal":
-            if cache is not None:  # prefill: fill the cache
+        elif mode in ("causal", "bidir", "cross"):
+            if cache is not None and mode == "causal":  # prefill: fill it
                 cache["k"][:, :T] = k
                 cache["v"][:, :T] = v
-            if T * T > STREAMING_THRESHOLD ** 2:
+            causal = mode == "causal"
+            # the reference's test: query length times key length
+            if T * k.shape[1] > STREAMING_THRESHOLD ** 2:
                 core = lambda q_, k_, v_: attend_streaming(
-                    q_, k_, v_, causal=True, q_chunk=q_chunk,
+                    q_, k_, v_, causal=causal, q_chunk=q_chunk,
                     kv_chunk=kv_chunk)
             else:
                 core = lambda q_, k_, v_: attend_full(q_, k_, v_,
-                                                      causal=True)
+                                                      causal=causal)
             o = (checkpoint(core, q, k, v, use_reentrant=False) if remat
                  else core(q, k, v))
         else:
-            raise NotImplementedError(
-                f"attention mode {mode!r} comes with the enc-dec family "
-                f"(ROADMAP.md, queue 1)")
+            raise ValueError(f"unknown attention mode {mode!r}")
         return o.to(x.dtype) @ self.wo, cache

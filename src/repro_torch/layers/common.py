@@ -1,10 +1,10 @@
-"""Shared building blocks: initializers, norms, rotary embeddings and the
-vocab padding (port of ``repro.layers.common``; M-RoPE comes with the VLM
-family)."""
+"""Shared building blocks: initializers, norms, rotary embeddings (RoPE
+and Qwen2-VL's M-RoPE) and the vocab padding (port of
+``repro.layers.common``)."""
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
@@ -99,3 +99,34 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
     c = cos[:, :, None, :]
     s = sin[:, :, None, :]
     return torch.cat([x1 * c - x2 * s, x1 * s + x2 * c], dim=-1).to(x.dtype)
+
+
+def mrope_sections(head_dim: int) -> Tuple[int, int, int]:
+    """M-RoPE's (temporal, height, width) frequency sections, which fill
+    ``head_dim // 2`` slots: (16, 24, 24) at head dim 128."""
+    half = head_dim // 2
+    return half // 4, half * 3 // 8, half * 3 // 8
+
+
+def mrope_cos_sin(positions3: torch.Tensor, head_dim: int, theta: float,
+                  sections: Tuple[int, int, int]):
+    """Qwen2-VL M-RoPE: three position streams (temporal, height, width)
+    fill disjoint frequency sections. positions3: (B, 3, T) int ->
+    cos/sin (B, T, head_dim//2) fp32; frequency slot ``f`` takes its angle
+    from the stream whose section holds ``f``."""
+    half = head_dim // 2
+    if sum(sections) != half:
+        raise ValueError(f"sections {sections} do not fill {half} slots")
+    freqs = rope_freqs(head_dim, theta, positions3.device)
+    ang_all = positions3[..., None].to(Accum) * freqs   # (B, 3, T, half)
+    sec_id = torch.repeat_interleave(
+        torch.arange(3, device=positions3.device),
+        torch.tensor(sections, device=positions3.device))  # (half,)
+    B, _, T, _ = ang_all.shape
+    ang = torch.gather(ang_all, 1, sec_id.expand(B, 1, T, half))[:, 0]
+    return torch.cos(ang), torch.sin(ang)
+
+
+def text_positions3(positions: torch.Tensor) -> torch.Tensor:
+    """Text-only M-RoPE: three equal streams, (B, T) -> (B, 3, T)."""
+    return torch.stack([positions] * 3, dim=1)

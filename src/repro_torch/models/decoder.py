@@ -1,8 +1,11 @@
 """The decoder LM (port of ``repro.models.decoder``) for the attention,
-mamba and rwkv block kinds: the dense decoder (smollm), the hybrid family
-(jamba: mamba and attention blocks, MoE on every other block), the MoE
-family (qwen3-moe: MoE on every block; arctic: MoE plus a dense residual
-MLP on the same normed input) and the attention-free rwkv family (rwkv6).
+mamba and rwkv block kinds: the dense decoders (smollm, yi with padded
+heads, qwen1.5 with QKV biases, phi3), the VLM (qwen2-vl: M-RoPE, stub
+patch embeddings put before the tokens), the hybrid family (jamba: mamba
+and attention blocks, MoE on every other block), the MoE family
+(qwen3-moe: MoE on every block; arctic: MoE plus a dense residual MLP on
+the same normed input) and the attention-free rwkv family (rwkv6). The
+encoder-decoder family is ``models/encdec.py``.
 
 ``rules`` and ``grid`` (:meth:`DecoderLM.forward`, :meth:`DecoderLM.
 segment_apply`) reach the MoE blocks, as the reference's ``rules=`` and
@@ -53,7 +56,7 @@ from repro_torch.layers import attention, common, mamba, rwkv
 from repro_torch.layers.common import RMSNorm
 from repro_torch.layers.mlp import MLP
 from repro_torch.layers.moe import MoE
-from repro_torch.models.params import block_is_moe, unported
+from repro_torch.models.params import block_is_moe
 
 Caches = List[Dict[str, torch.Tensor]]
 #: a block's output: the hidden state and its MoE's load-balance loss (None
@@ -127,14 +130,14 @@ class AttnBlock(_MixerBlock):
         self.attn = attention.Attention(cfg, generator, device)
 
     def forward(self, h, cache, cache_index, flags: RunFlags, rules=None,
-                grid=None) -> BlockOut:
+                grid=None, positions3=None) -> BlockOut:
         mode = "decode" if cache is not None and cache_index is not None \
             else "causal"
         a, _ = self.attn(
             self.ln1(h, self.eps), mode=mode, cache=cache,
             cache_index=cache_index, use_flash_decode=flags.use_flash_decode,
             q_chunk=flags.q_chunk, kv_chunk=flags.kv_chunk,
-            remat=_remat_core(flags))
+            remat=_remat_core(flags), positions3=positions3)
         return self._ffn(h + a, rules, grid)
 
 
@@ -146,9 +149,10 @@ class MambaBlock(_MixerBlock):
         self.mamba = mamba.Mamba(cfg, generator, device)
 
     def forward(self, h, cache, cache_index, flags: RunFlags, rules=None,
-                grid=None) -> BlockOut:
+                grid=None, positions3=None) -> BlockOut:
         """``cache`` (the layer's state, or None) is advanced in place;
-        ``cache_index`` is not read: the state holds the whole context."""
+        ``cache_index`` and ``positions3`` are not read: the state holds
+        the whole context."""
         h = h + self.mamba(self.ln1(h, self.eps), cache,
                            use_kernel=flags.use_mamba_kernel,
                            remat=_remat_core(flags))
@@ -170,10 +174,11 @@ class RwkvBlock(nn.Module):
         self.ln2 = RMSNorm(cfg.d_model, dev)
 
     def forward(self, h, cache, cache_index, flags: RunFlags, rules=None,
-                grid=None) -> BlockOut:
+                grid=None, positions3=None) -> BlockOut:
         """``cache`` (the layer's state, or None) is advanced in place;
-        ``cache_index`` is not read: the state holds the whole context.
-        ``rules`` and ``grid`` are not read: the block has no MoE."""
+        ``cache_index`` and ``positions3`` are not read: the state holds
+        the whole context. ``rules`` and ``grid`` are not read: the block
+        has no MoE."""
         h = h + self.tm_cm["tm"](self.ln1(h, self.eps), cache,
                                  use_kernel=flags.use_rwkv_kernel,
                                  remat=_remat_core(flags))
@@ -197,10 +202,9 @@ class DecoderLM(nn.Module):
     def __init__(self, cfg, generator: Optional[torch.Generator] = None,
                  device="cuda"):
         super().__init__()
-        missing = unported(cfg)
-        if missing:
-            raise NotImplementedError(f"{cfg.name}: {missing} is not ported "
-                                      f"yet (ROADMAP.md, queue 1 item 7)")
+        if cfg.family == "encdec":
+            raise ValueError(f"{cfg.name}: the encoder-decoder family is "
+                             f"models/encdec.EncDecLM, not DecoderLM")
         for kind in cfg.block_pattern:
             if kind not in _BLOCKS:
                 raise ValueError(f"{cfg.name}: unknown block kind {kind!r}")
@@ -254,12 +258,33 @@ class DecoderLM(nn.Module):
             p.requires_grad_(on)
         return self
 
-    def embed_apply(self, tokens: torch.Tensor) -> torch.Tensor:
-        """Token lookup: (B, T) int -> (B, T, D)."""
-        return self.embed[tokens]
+    def embed_apply(self, tokens: torch.Tensor,
+                    embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Token lookup: (B, T) int -> (B, T, D), with the frontend's stub
+        embeddings ``embeds`` (B, T_p, D) (VLM patches) put before the
+        tokens, cast to the embedding's dtype: (B, T_p + T, D)."""
+        h = self.embed[tokens]
+        if embeds is not None:
+            h = torch.cat([embeds.to(h.dtype), h], dim=1)
+        return h
+
+    def _positions3(self, B: int, T: int, cache_index,
+                    positions3: Optional[torch.Tensor]):
+        """M-RoPE's ``(B, 3, T)`` positions: ``positions3`` when given,
+        else three equal text streams from ``cache_index`` (0 without one;
+        a ``(B,)`` vector gives each row its own). None without M-RoPE."""
+        if self.cfg.rope != "mrope" or positions3 is not None:
+            return positions3
+        base = cache_index if cache_index is not None else 0
+        steps = torch.arange(T, device=self.device)
+        if torch.is_tensor(base) and base.dim() > 0:
+            pos = steps[None] + base.to(steps.device)[:, None]
+        else:
+            pos = (steps[None] + base).expand(B, T)
+        return common.text_positions3(pos)
 
     def _block(self, i: int, h: torch.Tensor, flags: RunFlags, rules=None,
-               grid=None) -> BlockOut:
+               grid=None, positions3=None) -> BlockOut:
         """Layer ``i`` without a cache, under ``flags.remat`` when grad
         mode is on (``"dots"`` is the blocks' own: they recompute their
         mixer cores)."""
@@ -268,22 +293,25 @@ class DecoderLM(nn.Module):
             raise ValueError(f"remat {flags.remat!r} is none of {REMATS}")
         if flags.remat == "full" and torch.is_grad_enabled():
             return checkpoint(blk, h, None, None, flags, rules, grid,
-                              use_reentrant=False)
-        return blk(h, None, None, flags, rules, grid)
+                              positions3, use_reentrant=False)
+        return blk(h, None, None, flags, rules, grid, positions3)
 
     def segment_apply(self, h: torch.Tensor, lo: int, hi: int,
-                      flags: RunFlags = RunFlags(), rules=None, grid=None
+                      flags: RunFlags = RunFlags(), rules=None, grid=None,
+                      positions3: Optional[torch.Tensor] = None
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Pattern cycles ``[lo, hi)`` (layers ``lo * len(pattern)`` up to
         ``hi * len(pattern)``) on the hidden state ``h``, without caches.
         Returns ``(h, aux)``, ``aux`` the float32 sum of their MoE
         load-balance losses. ``segment_apply(h, 0, n_cycles(cfg))`` is the
         whole trunk, as :meth:`forward` runs it. ``rules`` and ``grid``
-        reach the MoE blocks."""
+        reach the MoE blocks; ``positions3`` (M-RoPE) the attention."""
         n = len(self.cfg.block_pattern)
+        B, T, _ = h.shape
+        positions3 = self._positions3(B, T, None, positions3)
         aux = torch.zeros((), dtype=common.Accum, device=h.device)
         for i in range(lo * n, hi * n):
-            h, blk_aux = self._block(i, h, flags, rules, grid)
+            h, blk_aux = self._block(i, h, flags, rules, grid, positions3)
             if blk_aux is not None:
                 aux = aux + blk_aux
         return h, aux
@@ -296,11 +324,16 @@ class DecoderLM(nn.Module):
 
     def forward(self, tokens: torch.Tensor, caches: Optional[Caches] = None,
                 cache_index=None, flags: RunFlags = RunFlags(), rules=None,
-                grid=None):
-        """tokens: (B, T) int. With ``caches`` and no ``cache_index`` the
-        pass is a prefill that fills each layer's first ``T`` positions;
-        with both it is a decode step at ``cache_index`` (a scalar or a
-        ``(B,)`` vector of per-row offsets).
+                grid=None, embeds: Optional[torch.Tensor] = None,
+                positions3: Optional[torch.Tensor] = None):
+        """tokens: (B, T) int; ``embeds``: optional (B, T_p, D) stub
+        frontend embeddings (VLM patches) put before the tokens. With
+        ``caches`` and no ``cache_index`` the pass is a prefill that fills
+        each layer's first ``T_p + T`` positions; with both it is a decode
+        step at ``cache_index`` (a scalar or a ``(B,)`` vector of per-row
+        offsets). ``positions3`` (B, 3, T_p + T): M-RoPE's positions (the
+        default: text positions from ``cache_index``, as the reference
+        gives them).
 
         Returns ``(logits (B, T, vocab_padded), aux, new_caches)``: ``aux``
         is the float32 sum of the MoE blocks' load-balance losses (0 without
@@ -308,14 +341,17 @@ class DecoderLM(nn.Module):
         caches). ``rules`` (``sharding.rules.Rules``) and ``grid`` (a
         ``RankGrid`` or a ``Communicator``) reach the MoE blocks: the
         reference's ``rules=`` and ``mesh=``."""
-        h = self.embed_apply(tokens)
+        h = self.embed_apply(tokens, embeds)
+        B, T, _ = h.shape
+        positions3 = self._positions3(B, T, cache_index, positions3)
         if caches is None:
             h, aux = self.segment_apply(h, 0, n_cycles(self.cfg), flags,
-                                        rules, grid)
+                                        rules, grid, positions3)
             return self.head_apply(h, flags), aux, None
         aux = torch.zeros((), dtype=common.Accum, device=h.device)
         for i, blk in enumerate(self.blocks):
-            h, blk_aux = blk(h, caches[i], cache_index, flags, rules, grid)
+            h, blk_aux = blk(h, caches[i], cache_index, flags, rules, grid,
+                             positions3)
             if blk_aux is not None:
                 aux = aux + blk_aux
         return self.head_apply(h, flags), aux, caches

@@ -1,14 +1,18 @@
 """Parameter layout of the decoder (attention, mamba and rwkv blocks, each
 attention or mamba block with an FFN, an MoE, or both: arctic's MoE with
-a dense residual), in the reference's flatten order.
+a dense residual) and of the encoder-decoder, in the reference's flatten
+order.
 
 The reference initialises its decoder as a nested dict (``repro/models/
 decoder.py`` ``init``) with the blocks of one pattern cycle stacked over
-``n_cycles`` under ``groups``, and flattens it with ``jax.tree_util``,
+``n_cycles`` under ``groups``, and its encoder-decoder (``repro/models/
+encdec.py`` ``init``) with the encoder's layers stacked under ``enc`` and
+the decoder's under ``dec``; it flattens them with ``jax.tree_util``,
 which visits dict keys in sorted order. Gradient buckets are windows of
 that flattened order, so :func:`param_shapes` reproduces it exactly
-(``models/decoder.py`` holds the model; ``interop.params_from_reference``
-carries the reference's tree into it).
+(``models/decoder.py`` and ``models/encdec.py`` hold the models;
+``interop.params_from_reference`` carries the reference's tree into
+them).
 """
 from __future__ import annotations
 
@@ -33,12 +37,12 @@ def block_is_moe(cfg, j: int) -> bool:
     return m is not None and j % m.every == m.every - 1
 
 
-def _attn(cfg) -> dict:
+def _attn(cfg, cross: bool = False) -> dict:
     D, KV, hd = cfg.d_model, cfg.n_kv_heads, cfg.head_dim
     Hp = cfg.padded_heads
     p = {"wq": (D, Hp * hd), "wk": (D, KV * hd), "wv": (D, KV * hd),
          "wo": (Hp * hd, D)}
-    if cfg.qkv_bias:
+    if cfg.qkv_bias and not cross:
         p.update({"bq": (Hp * hd,), "bk": (KV * hd,), "bv": (KV * hd,)})
     return p
 
@@ -62,9 +66,23 @@ def _mixer_block(cfg, kind: str, j: int) -> dict:
         p["moe"] = {"router": (D, E), "w_gate": (E, D, F),
                     "w_up": (E, D, F), "w_down": (E, F, D)}
     if not block_is_moe(cfg, j) or cfg.moe.dense_residual:
-        p["ffn"] = {"w_gate": (D, cfg.d_ff), "w_up": (D, cfg.d_ff),
-                    "w_down": (cfg.d_ff, D)}
+        p["ffn"] = _ffn(cfg)
     return p
+
+
+def _ffn(cfg) -> dict:
+    return {"w_gate": (cfg.d_model, cfg.d_ff), "w_up": (cfg.d_model, cfg.d_ff),
+            "w_down": (cfg.d_ff, cfg.d_model)}
+
+
+def _encdec_layers(cfg) -> Tuple[dict, dict]:
+    """An encoder layer (self-attention and FFN) and a decoder layer (self-
+    and cross-attention, FFN), each with its norms."""
+    D = cfg.d_model
+    enc = {"ln1": {"scale": (D,)}, "attn": _attn(cfg),
+           "ln2": {"scale": (D,)}, "ffn": _ffn(cfg)}
+    dec = dict(enc, lnx={"scale": (D,)}, xattn=_attn(cfg, cross=True))
+    return enc, dec
 
 
 def _rwkv_block(cfg) -> dict:
@@ -81,20 +99,11 @@ def _rwkv_block(cfg) -> dict:
 KINDS = ("attn", "mamba", "rwkv")
 
 #: the model families the port builds
-FAMILIES = ("decoder", "rwkv")
+FAMILIES = ("decoder", "rwkv", "encdec")
 
-
-def unported(cfg) -> str:
-    """What of ``cfg`` the port does not build yet ("" when nothing): the
-    encoder-decoder family, M-RoPE, an input mode other than tokens (the
-    VLM and audio frontends)."""
-    if cfg.family not in FAMILIES:
-        return f"the {cfg.family} family"
-    if cfg.rope == "mrope":
-        return "M-RoPE"
-    if cfg.input_mode != "tokens":
-        return f"the {cfg.input_mode!r} input mode"
-    return ""
+#: the top-level keys whose leaves are stacked over layers (the decoder's
+#: pattern cycles; the encoder's and the decoder's layers)
+STACKED = ("groups", "enc", "dec")
 
 
 def _flatten(tree, prefix: str = "") -> List[Leaf]:
@@ -108,18 +117,27 @@ def _flatten(tree, prefix: str = "") -> List[Leaf]:
 
 
 def param_shapes(cfg) -> List[Leaf]:
-    """``(path, shape)`` of every parameter leaf of the decoder, in the
+    """``(path, shape)`` of every parameter leaf of the model, in the
     reference's flatten order; paths join dict keys with ``/``."""
-    if cfg.family not in FAMILIES or \
-            any(k not in KINDS for k in cfg.block_pattern):
-        raise NotImplementedError(
-            f"{cfg.name}: only the attention, mamba and rwkv blocks are "
-            f"laid out so far (ROADMAP.md, queue 1: the model stack)")
+    if cfg.family not in FAMILIES:
+        raise ValueError(f"{cfg.name}: unknown family {cfg.family!r}")
+    D, Vp = cfg.d_model, _pad_vocab(cfg.vocab)
+    if cfg.family == "encdec":
+        enc, dec = _encdec_layers(cfg)
+        return (
+            [(p, (cfg.n_layers,) + s) for p, s in _flatten(dec, "dec")]
+            + [("embed", (Vp, D))]
+            + [(p, (cfg.enc_layers,) + s) for p, s in _flatten(enc, "enc")]
+            + _flatten({"enc_norm": {"scale": (D,)},
+                        "final_norm": {"scale": (D,)},
+                        "lm_head": (D, Vp)}))
+    if any(k not in KINDS for k in cfg.block_pattern):
+        raise ValueError(f"{cfg.name}: a block kind of "
+                         f"{cfg.block_pattern} is none of {KINDS}")
     if cfg.n_layers % len(cfg.block_pattern):
         raise ValueError(f"{cfg.n_layers} layers do not cycle "
                          f"{cfg.block_pattern}")
     nc = cfg.n_layers // len(cfg.block_pattern)
-    D, Vp = cfg.d_model, _pad_vocab(cfg.vocab)
     cycle = {f"blk{j}": _rwkv_block(cfg) if kind == "rwkv"
              else _mixer_block(cfg, kind, j)
              for j, kind in enumerate(cfg.block_pattern)}
@@ -157,13 +175,19 @@ def leaf_views(flat: torch.Tensor, shapes: List[Leaf]):
 
 def module_names(cfg) -> List[Tuple[str, Tuple[int, ...], List[str]]]:
     """``(path, shape, names)`` for every leaf of :func:`param_shapes`:
-    ``names`` are the ``DecoderLM`` parameters holding it, one per pattern
-    cycle for a ``groups/blk<j>/...`` leaf (cycle ``c`` is layer ``c *
-    len(pattern) + j``), else the one top-level weight."""
+    ``names`` are the model's parameters holding it: one per pattern cycle
+    for a ``DecoderLM``'s ``groups/blk<j>/...`` leaf (cycle ``c`` is layer
+    ``c * len(pattern) + j``), one per layer for an ``EncDecLM``'s
+    ``enc/...`` and ``dec/...`` leaves (layer ``i`` is ``enc.<i>...``),
+    else the one top-level weight."""
     n_pat = len(cfg.block_pattern)
     out = []
     for path, shape in param_shapes(cfg):
         top, *rest = path.split("/")
+        if top in ("enc", "dec"):
+            out.append((path, shape, [".".join([top, str(i)] + rest)
+                                      for i in range(shape[0])]))
+            continue
         if top != "groups":
             out.append((path, shape, [".".join([top] + rest)]))
             continue
@@ -205,7 +229,7 @@ class FlatParams:
         leaves = []
         for path, shape, names in module_names(model.cfg):
             ts = [model.get_parameter(n) for n in names]
-            want = shape[1:] if path.startswith("groups/") else shape
+            want = shape[1:] if path.split("/")[0] in STACKED else shape
             if any(tuple(t.shape) != tuple(want) for t in ts):
                 raise ValueError(f"{path}: the model's weights are not "
                                  f"{want}")

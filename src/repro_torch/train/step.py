@@ -53,23 +53,23 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     return torch.where(mask, nll, 0.0).sum() / n, n
 
 
-def _check_batch(cfg, batch: Batch) -> None:
-    if cfg.family == "encdec":
-        raise NotImplementedError(f"{cfg.name}: the encdec family is not "
-                                  f"ported yet (ROADMAP.md, queue 1 item 7)")
-    if batch.get("embeds") is not None:
-        raise NotImplementedError("frontend embeds in the batch (the VLM "
-                                  "input) are not ported yet (ROADMAP.md, "
-                                  "queue 1 item 7)")
-
-
 def loss_fn(model, batch: Batch, tcfg: TrainConfig
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """``(ce + moe_weight * aux, {"ce", "aux", "tokens"})`` of the decoder
-    on ``batch`` (``tokens`` and ``labels``, ``(B, T)``)."""
+    """``(ce + moe_weight * aux, {"ce", "aux", "tokens"})`` of the model on
+    ``batch``: ``tokens`` and ``labels`` ``(B, T)``, plus ``frames`` (B,
+    S_enc, D) for the encoder-decoder, or optional ``embeds`` (B, T_p, D)
+    put before the decoder's tokens, whose positions the loss skips (they
+    are inputs)."""
     cfg = model.cfg
-    _check_batch(cfg, batch)
-    logits, aux, _ = model(batch["tokens"], flags=tcfg.flags)
+    flags = tcfg.flags
+    if cfg.family == "encdec":
+        logits, aux, _ = model.forward_train(batch["frames"],
+                                             batch["tokens"], flags)
+    else:
+        embeds = batch.get("embeds")
+        logits, aux, _ = model(batch["tokens"], flags=flags, embeds=embeds)
+        if embeds is not None:
+            logits = logits[:, embeds.shape[1]:]
     ce, n = cross_entropy(logits, batch["labels"], tcfg.z_loss)
     moe_w = cfg.moe.aux_loss_weight if cfg.moe else 0.0
     return ce + moe_w * aux, {"ce": ce, "aux": aux, "tokens": n}

@@ -26,7 +26,8 @@ import pytest
 import torch
 
 from repro_torch import interop
-from repro_torch.configs import MoEConfig, get_config, reduced_config
+from repro_torch.configs import (ARCH_IDS, MoEConfig, get_config,
+                                 reduced_config)
 from repro_torch.layers import attention
 from repro_torch.models import params as tparams
 from repro_torch.models.decoder import DecoderLM, RunFlags
@@ -230,21 +231,35 @@ def test_attend_streaming_matches_reference(reference, dtype):
 
 
 def test_configs_register_only_ported_architectures():
+    """Every architecture is ported now: the registry holds the
+    reference's ten, in its order; an unknown name still raises."""
+    from repro.configs import ARCH_IDS as REFERENCE_IDS
+    assert ARCH_IDS == REFERENCE_IDS and len(ARCH_IDS) == 10
     cfg = reduced_config("smollm-360m")
     assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
             cfg.head_dim, cfg.d_ff, cfg.vocab) == (2, 128, 4, 2, 32, 256, 512)
     assert get_config("smollm-360m").n_params() == 409_007_040
-    with pytest.raises(KeyError, match="unknown arch 'yi-34b'; known:"):
-        get_config("yi-34b")
+    with pytest.raises(KeyError, match="unknown arch 'gpt-2'; known:"):
+        get_config("gpt-2")
 
 
 @pytest.mark.parametrize("change,item", [
-    (dict(rope="mrope", input_mode="vl"), "queue 1 item 7"),
-    (dict(family="encdec"), "queue 1 item 7"),
+    # the ids the cases had while both raised "queue 1 item 7"
+    pytest.param(dict(rope="mrope", input_mode="vl"), None,
+                 id="change0-queue 1 item 7"),
+    pytest.param(dict(family="encdec"), "models/encdec.EncDecLM",
+                 id="change1-queue 1 item 7"),
 ])
 def test_unported_blocks_raise(change, item):
+    """What this test once saw refused: M-RoPE with the VL input now
+    builds; the encoder-decoder family is ``EncDecLM``'s, which
+    ``DecoderLM`` names when it refuses the config."""
     cfg = dataclasses.replace(reduced_config("smollm-360m"), **change)
-    with pytest.raises(NotImplementedError, match=item):
+    if item is None:
+        model = DecoderLM(cfg, device="meta")
+        assert model.cfg.rope == "mrope" and len(model.blocks) == 2
+        return
+    with pytest.raises(ValueError, match=item):
         DecoderLM(cfg, device="meta")
 
 

@@ -268,10 +268,13 @@ def cuda():
 #: full width (smollm-360m serving: B=max_batch, S=max_len), jamba's (G 8,
 #: hd 128), qwen3-moe's (G 16, hd 64), one row (the most splits), the
 #: reduced config (G 2, hd 32) at an S no chunk divides, the reference's
-#: grid and the groups past 8 heads
+#: grid and the groups past 8 heads; seamless's self-attention (G 1, hd
+#: 64), qwen1.5's (G 1, hd 128) and phi3's (G 4, hd 128)
 CUDA_SHAPES = [(8, 2048, 15, 5, 64), (8, 2048, 64, 8, 128),
                (8, 2048, 64, 4, 64), (1, 2048, 15, 5, 64),
-               (8, 1000, 4, 2, 32)] + GRID + WIDE_GROUPS
+               (8, 1000, 4, 2, 32)] + GRID + WIDE_GROUPS + [
+                   (8, 2048, 16, 16, 64), (8, 2048, 20, 20, 128),
+                   (8, 2048, 40, 10, 128)]
 
 
 @pytest.mark.cuda

@@ -78,9 +78,10 @@ def test_rank_grid_defaults_to_the_card():
 def _model_entry_points():
     from repro_torch import interop
     from repro_torch.layers import attention, common, mamba, mlp, moe, rwkv
-    from repro_torch.models import decoder
+    from repro_torch.models import decoder, encdec
     return [decoder.DecoderLM, decoder.AttnBlock, decoder.MambaBlock,
-            decoder.RwkvBlock, decoder.RMSNorm, attention.Attention,
+            decoder.RwkvBlock, decoder.RMSNorm, encdec.EncDecLM,
+            encdec.EncLayer, encdec.DecLayer, attention.Attention,
             attention.init_cache, mamba.Mamba, mamba.init_state, moe.MoE,
             mlp.MLP, rwkv.TimeMix, rwkv.ChannelMix, rwkv.init_state,
             common.init_rmsnorm, interop.params_from_reference]

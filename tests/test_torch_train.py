@@ -373,10 +373,16 @@ def _nest(flat_items):
 
 
 def test_loss_fn_refuses_what_is_not_ported(reference, cfg):
+    """Frontend embeds in the batch (the VLM input, once refused) go
+    before the tokens, and the loss runs over the token tail only, as
+    the reference's ``loss_fn`` takes it."""
     model = _model(reference, cfg, "float32")
-    batch = dict(_torch_batch(), embeds=torch.zeros(B, 2, 128))
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        loss_fn(model, batch, _tcfg("float32"))
+    batch = dict(_torch_batch(), embeds=torch.from_numpy(tr._embeds()))
+    with torch.no_grad():
+        loss, mets = loss_fn(model, batch, _tcfg("float32"))
+    np.testing.assert_allclose(float(loss), reference["embeds/loss"],
+                               rtol=1e-6)
+    assert int(mets["tokens"]) == int((batch["labels"] >= 0).sum())
 
 
 def _kernel_calls(dev):

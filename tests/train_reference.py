@@ -43,6 +43,12 @@ def _batch(step=0, n=B):
     return {"tokens": toks, "labels": labels}
 
 
+def _embeds(n=B, t_p=2, d=128):
+    """Stub frontend embeddings (VLM patches) put before the tokens."""
+    return np.random.default_rng(12).standard_normal((n, t_p, d)).astype(
+        np.float32)
+
+
 def _ce_inputs():
     rng = np.random.default_rng(3)
     logits = rng.standard_normal((2, 6, 50)).astype(np.float32) * 3
@@ -152,6 +158,11 @@ def reference(out_path: str) -> None:
     res.update(_flat_items(jax.device_get(p1), "mb2/param"))
     res.update(_flat_items(jax.device_get(o1["m"]), "mb2/m"))
     res.update(_flat_items(jax.device_get(o1["v"]), "mb2/v"))
+    # frontend embeds before the tokens: the loss over the token tail
+    eb = dict(batch, embeds=jnp.asarray(_embeds()))
+    res["embeds/loss"] = np.asarray(tf.fast_compile(
+        lambda p_, b_: jstep.loss_fn(p_, b_, cfg, tcfg_of("float32"))[0],
+        f32, eb)(f32, eb))
     # schedules
     for sched in ("cosine", "linear", "constant"):
         c = jadamw.AdamWConfig(lr=1.0, warmup_steps=2, total_steps=10,
