@@ -3,7 +3,8 @@
 
 Usage: ``python3 chip_smoke.py`` from the repository root, on a machine
 with an NVIDIA Hopper card and the CUDA toolkit. It imports nothing of JAX
-or of the JAX package. Twelve phases; any failure exits non-zero:
+or of the JAX package. Thirteen phases (phase 13 runs before the report,
+phase 12); any failure exits non-zero:
 
 1. **Kernels.** Builds ``kernels/csrc/codec_{int8,int4,fp8}.cu``,
    ``flash_decode.cu``, ``rwkv6_wkv.cu``, ``mamba_scan.cu`` and
@@ -350,15 +351,46 @@ or of the JAX package. Twelve phases; any failure exits non-zero:
    the staging kernels' the four phase-11 engine paths; every entry's
    ``launches_by_path`` has ``train``,
    the train steps' launches; the feedback encodes' also have
-   ``compress_tree``, leg (d)'s, which their launches include),
-   and last
+   ``compress_tree``, leg (d)'s, which their launches include; every
+   entry's also has phase 13's ``ep_backward``, ``sharded_train`` and
+   ``train_driver``, each 0, asserted), and last
    ``{"ok": true, "device": {...}}``.
+13. **Sharded training**, before the report, the earlier phases' memory
+   freed first, each leg freeing the card before the next. (a)
+   qwen3-moe's MoE layer at full width (d 4096, 128 experts top-8 of d_ff
+   1536) on ``RankGrid(2, 4)``, ``Rules(batch=("node",), tp="local")``,
+   seeded bf16 tokens (8, 512) that require grad:
+   ``torch.autograd.grad`` of ``sum(y * r)`` with respect to the router,
+   the three expert weights and x under each lossless plan forced through
+   ``Communicator.plan`` and ``auto``; at capacity 4 no drop, the plans'
+   gradients bitwise and each leaf's within ``SHARD_TOL`` times the local
+   path's largest entry of the local path's; at 1.25 the drops counted,
+   the gradients finite, the plans bitwise; under ``error_budget=0.07``
+   in grad mode each forced compressed combine raises and launches
+   nothing; each plan's forward-and-backward host ms, profiles of the
+   forward and of forward and backward split into all-to-alls and expert
+   products. (b) qwen3-moe cut to its first layer (3,696,766,976
+   parameters): at capacity 4 and aux weight 0 the sharded
+   ``value_and_grad`` against the single-device one (``ce`` within
+   ``rtol=2e-2``, every leaf's gradient within ``SHARD_TOL`` of its
+   largest local entry); then 3 sharded ``train_step`` calls at the
+   config's capacity and aux weight, AdamW at a constant 1e-4: the loss
+   finite and falling at every step, the peak under 75 GB, no kernel
+   launched; step times, tokens/s, a profiled step. (c) smollm-360m's
+   train state saved blocking and async and restored on the card (sha256
+   of the weights, ``m`` and ``v`` equal), then ``python -m
+   repro_torch.launch.train`` uninterrupted, killed at step 5 (exit 42)
+   and resumed from step 4, the printed losses at steps 6 and 7 equal,
+   the checkpoint directories removed. One ``{"ep_backward": ...}``, one
+   ``{"sharded_train": ...}`` and one ``{"train_driver": ...}`` line, each
+   with its peak memory.
 """
 from __future__ import annotations
 
 import dataclasses
 import gc
 import json
+import math
 import pathlib
 import statistics
 import subprocess
@@ -4744,10 +4776,503 @@ def families_phase(torch, dev, kattn, ref, kmods):
     return {"flash": flash, "paths": paths}
 
 
+#: phase 13, sharded training: qwen3-moe's MoE layer and the model cut to
+#: its first layer (every width the published one) on ``RankGrid(2, 4)``,
+#: then smollm-360m's checkpoints and the training driver
+SHARD_ARCH = "qwen3-moe-235b-a22b"
+SHARD_TOKENS = (8, 512)
+#: the comparisons' capacity factor (no routing drops), the reference
+#: check's bars (tests/checks/moe_ep_check.py, sharded_train_check.py):
+#: a leaf's gradient against the local path's, relative to its largest
+#: entry, and the loss
+SHARD_CAP, SHARD_TOL, SHARD_CE_RTOL = 4.0, 6e-2, 2e-2
+SHARD_STEPS, SHARD_LR = 3, 1e-4
+SHARD_PEAK_LIMIT_BYTES = 75e9
+#: fused forward-and-backward calls timed per plan after a first one
+SHARD_ITERS = 3
+DRIVER_ARCH = "smollm-360m"
+DRIVER_ARGS = ("--arch", DRIVER_ARCH, "--steps", "8", "--batch", "8",
+               "--seq", "512", "--ckpt-every", "4", "--ckpt-blocking",
+               "--log-every", "1", "--lr", "1e-4")
+#: the killed run's last step, the step it resumes from, the steps whose
+#: printed losses must equal the uninterrupted run's
+DRIVER_DIE, DRIVER_RESUME, DRIVER_HELD = 5, 4, (6, 7)
+DRIVER_TIMEOUT = 600
+#: ``python -m repro_torch.launch.train`` (the module run as ``-m`` runs
+#: it) that prints its kernel launches at a normal exit
+DRIVER_PRELUDE = (
+    "import atexit, json, runpy, sys\n"
+    "from repro_torch.kernels import attention, codec, mamba, rwkv, "
+    "staging\n"
+    "mods = (codec, attention, rwkv, mamba, staging)\n"
+    "atexit.register(lambda: print('LAUNCHES ' + json.dumps("
+    "{k: n for m in mods for k, n in m.launches.items()})))\n"
+    "runpy.run_module('repro_torch.launch.train', run_name='__main__', "
+    "alter_sys=True)\n")
+
+
+def _leaf_err(torch, got, want):
+    """``(max |got - want|, max |want|)`` in float32, a slab of dim 0 at a
+    time."""
+    err = top = 0.0
+    for a, b in zip(got.reshape(got.shape[0], -1) if got.dim() else [got],
+                    want.reshape(want.shape[0], -1) if want.dim()
+                    else [want]):
+        b = b.float()
+        err = max(err, float((a.float() - b).abs().max()))
+        top = max(top, float(b.abs().max()))
+    return err, top
+
+
+def _ep_grads(torch, layer, x, r, **kw):
+    """The gradients of ``sum(y * r)`` with respect to the router, the
+    three expert weights and ``x``, and the call's ``y``."""
+    y, _ = layer(x, **kw)
+    grads = torch.autograd.grad((y.float() * r).sum(),
+                                [layer.router, layer.w_gate, layer.w_up,
+                                 layer.w_down, x])
+    return dict(zip(("router", "w_gate", "w_up", "w_down", "x"), grads)), y
+
+
+def ep_backward_leg(torch, dev, cfg, kmods):
+    """Phase 13 (a): qwen3-moe's MoE layer at full width (seeded bf16
+    experts, made trainable) expert parallel on ``RankGrid(2, 4)``, the
+    experts over the local axis, on seeded bf16 tokens of ``SHARD_TOKENS``
+    that require grad: ``torch.autograd.grad`` of ``sum(y * r)`` (``r``
+    seeded) under each lossless plan forced through ``Communicator.plan``
+    and ``auto``. At capacity ``SHARD_CAP`` no routing drops, the plans'
+    gradients are equal bitwise, and each leaf's lies within ``SHARD_TOL``
+    times the local path's largest entry of the local path's; at the
+    config's capacity the drops are counted, the gradients finite and the
+    plans bitwise equal. Under ``error_budget=MOE_BUDGET`` in grad mode
+    each forced compressed combine raises and launches nothing. No kernel
+    launches anywhere. Records each plan's forward-and-backward host time
+    and the ``auto`` plan's profiles (forward alone, forward and
+    backward) split into all-to-alls and expert products."""
+    from repro_torch.core import autotune
+    from repro_torch.core.comm import communicator
+    from repro_torch.core.grid import RankGrid
+    from repro_torch.layers import moe as tmoe
+    from repro_torch.sharding.rules import Rules
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    layer = tmoe.MoE(cfg, torch.Generator("cuda").manual_seed(SEED + 31))
+    layer.requires_grad_(True)
+    B, S = SHARD_TOKENS
+    gen = torch.Generator("cuda").manual_seed(SEED + 32)
+    x = torch.randn((B, S, cfg.d_model), device=dev, generator=gen).to(
+        torch.bfloat16).requires_grad_()
+    r = torch.randn((B, S, cfg.d_model), device=dev, generator=gen)
+    grid, rules = RankGrid(2, 4), Rules(batch=("node",), tp="local")
+    comm = communicator(grid).split(axes="local")
+    moe0 = cfg.moe
+    plans = tuple((f"{a}#c{c}" if c > 1 else a, a, c) for a, c in MOE_PLANS) \
+        + (("auto", None, None),)
+    record = {"model": cfg.name, "experts": moe0.n_experts,
+              "top_k": moe0.top_k, "d_ff_expert": moe0.d_ff_expert,
+              "tokens": [B, S], "grid": [2, 4], "capacities": {},
+              "tolerance": f"{SHARD_TOL} * max|g_local| per leaf"}
+    _reset(kmods)
+    for cap, factor in (("4", SHARD_CAP), ("default", moe0.capacity_factor)):
+        layer.cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            moe0, capacity_factor=factor))
+        capacity = tmoe.ep_capacity(B // grid.n_nodes * S, grid.n_local,
+                                    layer.cfg.moe)
+        rec = {"capacity_factor": factor, "capacity": capacity,
+               "plans": {}}
+        first = None
+        for name, algo, chunks in plans:
+            plan = None if algo is None else _forced(autotune, algo, chunks)
+            if algo is None:
+                sel = comm.plan("alltoall", grid.n_local * capacity
+                                * cfg.d_model * 2, dtype="bfloat16")
+                algo, chunks = sel.algo, sel.chunks
+            fn = _with_plan(lambda: _ep_grads(torch, layer, x, r,
+                                              rules=rules, grid=grid), plan)
+            (grads, y), secs = _host_timed(torch, fn, SHARD_ITERS)
+            dropped = int((~layer.ep_routing["kept"]).sum())
+            finite = all(bool(torch.isfinite(g).all())
+                         for g in grads.values())
+            if not finite:
+                raise AssertionError(f"EP backward {name} at capacity "
+                                     f"{cap}: a gradient is not finite")
+            rec["plans"][name] = {"algo": algo, "chunks": chunks,
+                                  "fwd_bwd_host_ms": secs * 1e3,
+                                  "dropped": dropped}
+            if first is None:
+                first = (name, grads, dropped)
+                continue
+            for leaf, g in grads.items():
+                if not torch.equal(g, first[1][leaf]):
+                    raise AssertionError(f"EP backward capacity {cap}: "
+                                         f"{name}'s d{leaf} differs from "
+                                         f"{first[0]}'s")
+            if dropped != first[2]:
+                raise AssertionError(f"drop counts differ: {dropped} vs "
+                                     f"{first[2]}")
+            del grads, y
+        rec["dropped"] = first[2]
+        rec["lossless_bitwise"] = [p[0] for p in plans]
+        if cap == "4":
+            if first[2]:
+                raise AssertionError(f"{first[2]} routings dropped at "
+                                     f"capacity {SHARD_CAP}")
+            (local, _), local_s = _host_timed(
+                torch, lambda: _ep_grads(torch, layer, x, r), 1)
+            rec["local_fwd_bwd_host_ms"] = local_s * 1e3
+            rec["vs_local"] = {}
+            for leaf, g in first[1].items():
+                err, top = _leaf_err(torch, g, local[leaf])
+                if err > SHARD_TOL * top:
+                    raise AssertionError(f"EP d{leaf}: {err} from the local "
+                                         f"path's, over {SHARD_TOL} * {top}")
+                rec["vs_local"][leaf] = {"max_abs_err": err,
+                                         "max_abs_local": top,
+                                         "bitwise": err == 0.0}
+            del local
+            fwd = lambda: layer(x, rules=rules, grid=grid)
+            fwd()
+            rec["profile_forward"] = _profile_ep(torch, fwd)
+            rec["profile_forward_backward"] = _profile_ep(
+                torch, lambda: _ep_grads(torch, layer, x, r, rules=rules,
+                                         grid=grid))
+        record["capacities"][cap] = rec
+        del first
+    launches = _launches(kmods)
+    _check_launches("EP backward", launches, {})
+    refused = {}
+    for algo, chunks, codec in MOE_CODEC_PLANS:
+        _reset(kmods)
+        try:
+            _with_plan(lambda: layer(x, rules=rules, grid=grid,
+                                     error_budget=MOE_BUDGET),
+                       _forced(autotune, algo, chunks, codec))()
+        except ValueError as e:
+            refused[f"{algo}#c{chunks}@{codec}"] = str(e)[:80]
+        else:
+            raise AssertionError(f"the compressed combine {codec} ran under "
+                                 f"grad")
+        _check_launches(f"refused combine {codec}", _launches(kmods), {})
+    record["refused_under_grad"] = refused
+    record["launches"] = launches
+    record["peak_mem_bytes"] = torch.cuda.max_memory_allocated(dev)
+    del layer, x, r
+    return record
+
+
+def _leaf_paths(flat):
+    """Each weight tensor's leaf path, in ``flat.tensors``' order."""
+    firsts = [f for _, _, _, f in flat.spans] + [len(flat.tensors)]
+    return [p for (p, _, _, f), nxt in zip(flat.spans, firsts[1:])
+            for _ in range(nxt - f)]
+
+
+def sharded_train_leg(torch, dev, kmods):
+    """Phase 13 (b): qwen3-moe cut to its first layer (every width the
+    published one, seeded bf16 weights) on ``RankGrid(2, 4)`` under
+    ``Rules(batch=("node",), tp="local")``, on the step-0 batch of
+    ``SyntheticLM(vocab, 512, 8, seed=0)``. (b1) at capacity
+    ``SHARD_CAP`` and aux weight 0 (the aux is defined per slice on the
+    expert-parallel path): ``value_and_grad`` sharded against on one
+    device, ``ce`` within ``SHARD_CE_RTOL`` and every leaf's gradient
+    within ``SHARD_TOL`` times its largest local entry. (b2) at the
+    config's own capacity and aux weight, ``SHARD_STEPS`` sharded
+    ``train_step`` calls with AdamW at a constant ``SHARD_LR``: the loss
+    finite and falling at every step, the peak under
+    ``SHARD_PEAK_LIMIT_BYTES``, no kernel launched; then one profiled
+    step."""
+    from repro_torch.configs import first_layers, get_config
+    from repro_torch.core.grid import RankGrid
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models.decoder import DecoderLM, RunFlags
+    from repro_torch.models.params import FlatParams, n_params
+    from repro_torch.optim import adamw
+    from repro_torch.sharding.rules import Rules
+    from repro_torch.train.step import TrainConfig, train_step, \
+        value_and_grad
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = first_layers(get_config(SHARD_ARCH), 1)
+    cmp_cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=SHARD_CAP, aux_loss_weight=0.0))
+    t0 = time.perf_counter()
+    model = DecoderLM(cmp_cfg, torch.Generator("cuda").manual_seed(
+        SEED + 41)).trainable()
+    torch.cuda.synchronize(dev)
+    init_s = time.perf_counter() - t0
+    flat = FlatParams.of(model)
+    B, S = SHARD_TOKENS
+    host = SyntheticLM(cfg.vocab, S, B, seed=0).batch(0)
+    batch = {k: torch.from_numpy(v).to(dev).long() for k, v in host.items()}
+    grid, rules = RankGrid(2, 4), Rules(batch=("node",), tp="local")
+    ocfg = adamw.AdamWConfig(lr=SHARD_LR, schedule="constant",
+                             warmup_steps=0)
+    tcfg = TrainConfig(optimizer=ocfg, flags=RunFlags(remat="none"))
+    record = {"model": cfg.name, "layers": cfg.n_layers,
+              "params": n_params(cfg), "tokens": [B, S], "grid": [2, 4],
+              "init_s": init_s}
+    _reset(kmods)
+    _, m_local, g_local = value_and_grad(model, flat, batch, tcfg)
+    _, m_ep, g_ep = value_and_grad(model, flat, batch, tcfg, rules, grid)
+    ce_l, ce_e = float(m_local["ce"]), float(m_ep["ce"])
+    if not abs(ce_e - ce_l) <= SHARD_CE_RTOL * abs(ce_l):
+        raise AssertionError(f"sharded ce {ce_e} vs {ce_l}, over rtol "
+                             f"{SHARD_CE_RTOL}")
+    worst = {}
+    for path, a, b in zip(_leaf_paths(flat), g_ep, g_local):
+        err, top = _leaf_err(torch, a, b)
+        if err > SHARD_TOL * top:
+            raise AssertionError(f"sharded d{path}: {err} from the local "
+                                 f"gradient, over {SHARD_TOL} * {top}")
+        e0, t0_ = worst.get(path, (0.0, 0.0))
+        worst[path] = (max(e0, err), max(t0_, top))
+    record["compare"] = {
+        "capacity_factor": SHARD_CAP, "aux_loss_weight": 0.0,
+        "ce_local": ce_l, "ce_sharded": ce_e,
+        "ce_rtol": SHARD_CE_RTOL,
+        "grad_max_rel_err": {p: (e / t if t else 0.0)
+                             for p, (e, t) in worst.items()},
+        "grad_bitwise": all(e == 0.0 for e, _ in worst.values()),
+        "tolerance": f"{SHARD_TOL} * max|g_local| per leaf"}
+    del g_local, g_ep, m_local, m_ep
+    compare_launches = _launches(kmods)
+    _check_launches("sharded value_and_grad", compare_launches, {})
+
+    model.cfg = cfg
+    for blk in model.blocks:
+        blk.moe.cfg = cfg
+    opt = adamw.init(flat, ocfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _reset(kmods)
+    step = lambda: train_step(model, opt, batch, tcfg, flat, rules=rules,
+                              grid=grid)
+    times, mets = _timed_steps(torch, dev, step, SHARD_STEPS)
+    losses = [float(m["loss"]) for m in mets]
+    peak = torch.cuda.max_memory_allocated(dev)
+    if not all(math.isfinite(v) for v in losses) or any(
+            b >= a for a, b in zip(losses, losses[1:])):
+        raise AssertionError(f"sharded train losses {losses}: not finite "
+                             f"or not falling at every step")
+    if peak >= SHARD_PEAK_LIMIT_BYTES:
+        raise AssertionError(f"sharded train peak {peak} B over "
+                             f"{SHARD_PEAK_LIMIT_BYTES}")
+    profile = profile_device(torch, step, ())
+    launches = _launches(kmods)
+    _check_launches("sharded train step", launches, {})
+    record.update(_leg_record(times, B * S, profile, launches))
+    record.update({"losses": losses, "aux": [float(m["aux"]) for m in mets],
+                   "capacity_factor": cfg.moe.capacity_factor,
+                   "aux_loss_weight": cfg.moe.aux_loss_weight,
+                   "lr": SHARD_LR, "peak_mem_bytes": peak,
+                   "peak_limit_bytes": SHARD_PEAK_LIMIT_BYTES,
+                   "launches": {k: compare_launches[k] + n
+                                for k, n in launches.items()}})
+    del model, flat, opt, mets
+    return record
+
+
+def _driver(args, env):
+    """One ``python -m repro_torch.launch.train`` run (through
+    ``DRIVER_PRELUDE``): exit code, stdout, its printed losses by step,
+    its kernel launches (None after a hard exit) and its wall seconds."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", DRIVER_PRELUDE, *args],
+                          capture_output=True, text=True, env=env,
+                          cwd=str(ROOT), timeout=DRIVER_TIMEOUT)
+    losses, launches = {}, None
+    for line in proc.stdout.splitlines():
+        if line.startswith("[train] step"):
+            losses[int(line.split()[2])] = line.split()[4]
+        elif line.startswith("LAUNCHES "):
+            launches = json.loads(line[len("LAUNCHES "):])
+    return {"rc": proc.returncode, "stdout": proc.stdout,
+            "stderr": proc.stderr[-2000:], "losses": losses,
+            "launches": launches, "wall_s": time.perf_counter() - t0}
+
+
+def train_driver_leg(torch, dev, kmods):
+    """Phase 13 (c): smollm-360m at full width. In process: its train
+    state on the card (seeded bf16 weights, float32 ``m`` and ``v`` drawn
+    seeded, the step) saved blocking and async, restored into a like-tree
+    on the card, the sha256 of the weights, ``m`` and ``v`` equal to the
+    saved ones. Then three runs of ``python -m repro_torch.launch.train``
+    (``DRIVER_ARGS``, a directory each under ``build/``): uninterrupted;
+    killed at ``DRIVER_DIE`` (exit 42); resumed (``resumed from step
+    DRIVER_RESUME``), whose printed losses at ``DRIVER_HELD`` must equal
+    the uninterrupted run's. The directories are removed."""
+    import os
+    import shutil
+    from repro_torch.checkpoint.manager import CheckpointManager, \
+        train_state
+    from repro_torch.configs import get_config
+    from repro_torch.models.decoder import DecoderLM
+    from repro_torch.models.params import FlatParams
+    from repro_torch.optim import adamw
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    dirs = {k: build / f"ckpt_{k}" for k in ("inproc", "ref", "ft")}
+    for d in dirs.values():
+        shutil.rmtree(d, ignore_errors=True)
+    record = {"model": DRIVER_ARCH,
+              "disk_free_bytes": shutil.disk_usage(build).free}
+    _reset(kmods)
+    gen = torch.Generator("cuda").manual_seed(SEED + 51)
+    model = DecoderLM(get_config(DRIVER_ARCH), gen)
+    flat = FlatParams.of(model)
+    opt = adamw.init(flat, adamw.AdamWConfig())
+    opt["m"].normal_(generator=gen)
+    opt["v"].uniform_(generator=gen)
+    opt["step"] = 5
+    state = train_state(flat, opt)
+    shas = {k: _sha(torch, list(v.values())) for k, v in (
+        ("params", state["params"]), ("m", state["opt"]["m"]),
+        ("v", state["opt"]["v"]))}
+    leaves = list(state["params"].values()) + list(
+        state["opt"]["m"].values()) + list(state["opt"]["v"].values())
+    record["bytes"] = sum(t.numel() * t.element_size() for t in leaves)
+    mgr = CheckpointManager(str(dirs["inproc"]))
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    mgr.save(5, state)
+    record["save_blocking_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mgr.save(6, state, blocking=False)
+    record["save_async_return_s"] = time.perf_counter() - t0
+    mgr.wait()
+    record["save_async_s"] = time.perf_counter() - t0
+    for step in (5, 6):
+        t0 = time.perf_counter()
+        back = mgr.restore(step, state)
+        torch.cuda.synchronize(dev)
+        record[f"restore_s_step{step}"] = time.perf_counter() - t0
+        got = {k: _sha(torch, list(v.values())) for k, v in (
+            ("params", back["params"]), ("m", back["opt"]["m"]),
+            ("v", back["opt"]["v"]))}
+        if got != shas or int(back["opt"]["step"]) != 5:
+            raise AssertionError(f"checkpoint step {step}: restored sha256 "
+                                 f"{got} != saved {shas}")
+        if any(t.device != dev for t in back["params"].values()):
+            raise AssertionError("restored weights not on the card")
+        del back
+    record["sha256"] = shas
+    record["peak_mem_bytes"] = torch.cuda.max_memory_allocated(dev)
+    inproc = _launches(kmods)
+    _check_launches("in-process checkpoint", inproc, {})
+    del model, flat, opt, state, leaves
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(dirs["inproc"], ignore_errors=True)
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src") + (
+        ":" + os.environ["PYTHONPATH"] if os.environ.get("PYTHONPATH")
+        else ""))
+    runs = {}
+    try:
+        runs["uninterrupted"] = _driver(
+            DRIVER_ARGS + ("--ckpt-dir", str(dirs["ref"])), env)
+        shutil.rmtree(dirs["ref"], ignore_errors=True)
+        runs["killed"] = _driver(DRIVER_ARGS + (
+            "--ckpt-dir", str(dirs["ft"]), "--die-at-step",
+            str(DRIVER_DIE)), env)
+        runs["resumed"] = _driver(
+            DRIVER_ARGS + ("--ckpt-dir", str(dirs["ft"])), env)
+    finally:
+        for d in dirs.values():
+            shutil.rmtree(d, ignore_errors=True)
+    want = {"uninterrupted": 0, "killed": 42, "resumed": 0}
+    for name, run in runs.items():
+        if run["rc"] != want[name]:
+            raise AssertionError(f"driver {name}: exit {run['rc']}, "
+                                 f"expected {want[name]}\n{run['stdout']}"
+                                 f"\n{run['stderr']}")
+    if "injected failure" not in runs["killed"]["stdout"]:
+        raise AssertionError("driver killed: no injected failure printed")
+    if f"resumed from step {DRIVER_RESUME}" not in runs["resumed"]["stdout"]:
+        raise AssertionError("driver resumed: no 'resumed from step "
+                             f"{DRIVER_RESUME}'")
+    ref_l, res_l = runs["uninterrupted"]["losses"], runs["resumed"]["losses"]
+    for step in DRIVER_HELD:
+        if ref_l.get(step) is None or ref_l.get(step) != res_l.get(step):
+            raise AssertionError(f"driver step {step}: resumed loss "
+                                 f"{res_l.get(step)} != uninterrupted "
+                                 f"{ref_l.get(step)}")
+    launches = dict(inproc)
+    for name in ("uninterrupted", "resumed"):
+        counted = runs[name]["launches"]
+        if counted is None:
+            raise AssertionError(f"driver {name}: no launch counts printed")
+        _check_launches(f"driver {name}", counted, {})
+        for k, n in counted.items():
+            launches[k] = launches.get(k, 0) + n
+    record["runs"] = {name: {"rc": run["rc"], "wall_s": run["wall_s"],
+                             "losses": run["losses"],
+                             "launches": run["launches"],
+                             "step_s": [float(line.split("(")[1].split(
+                                 "s/step")[0]) for line in
+                                 run["stdout"].splitlines()
+                                 if line.startswith("[train] step")]}
+                      for name, run in runs.items()}
+    record["held_steps"] = list(DRIVER_HELD)
+    record["launches"] = launches
+    return record
+
+
+def sharded_train_phase(torch, dev, kmods):
+    """Phase 13, sharded training (:func:`ep_backward_leg`,
+    :func:`sharded_train_leg`, :func:`train_driver_leg`), each leg freeing
+    the card before the next. Prints one ``{"ep_backward": ...}``, one
+    ``{"sharded_train": ...}`` and one ``{"train_driver": ...}`` line;
+    returns each path's kernel launches (all 0)."""
+    from repro_torch.configs import get_config
+
+    t0 = time.perf_counter()
+    out = {}
+    for key, leg in (("ep_backward", lambda: ep_backward_leg(
+            torch, dev, get_config(SHARD_ARCH), kmods)),
+                     ("sharded_train", lambda: sharded_train_leg(
+                         torch, dev, kmods)),
+                     ("train_driver", lambda: train_driver_leg(
+                         torch, dev, kmods))):
+        rec = leg()
+        out[key] = rec["launches"]
+        print(json.dumps({key: rec}))
+        print(f"sharded-training phase: {key} done "
+              f"({time.perf_counter() - t0:.3f} s)")
+        del rec
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
 FEEDBACK_LINES = {"int8": 123, "int4": 204, "fp8": 294}
 
 
-def kernel_lines(kernels, on_train, on_tree):
+def _counter_keys(name):
+    """The launch counters behind one ``{"kernels": ...}`` entry."""
+    for c, codec in (("int8", "int8_block"), ("int4", "int4_block"),
+                     ("fp8", "fp8_sim")):
+        encodes, decode = CODEC_KERNELS[codec]
+        if name == f"{c}_encode_feedback":
+            return FEEDBACK_KERNELS[codec]
+        if name == f"{c}_encode_residual":
+            return encodes
+        if name == f"{c}_decode_reduce":
+            return (decode,)
+    if name == "rwkv6_wkv":  # the recurrent kernel sits behind it too
+        return (name, "rwkv6_wkv_recurrent")
+    return (name,)
+
+
+def kernel_lines(kernels, on_train, on_tree, on_sharded):
     """The ``{"kernels": [...]}`` entries, one per TPU kernel of the
     repository, in the order of PERF.md's table: each codec's feedback
     encode (the HAS_ERR variant of its encode kernel, timed in phase 1;
@@ -4759,7 +5284,9 @@ def kernel_lines(kernels, on_train, on_tree):
     for the prefill). ``on_train``: each counter's launches over the train
     steps (``launches_by_path["train"]`` of every entry); ``on_tree``: over
     the ``compress_tree`` call (the feedback encodes'
-    ``launches_by_path["compress_tree"]``)."""
+    ``launches_by_path["compress_tree"]``); ``on_sharded``: phase 13's
+    paths' launches (``ep_backward``, ``sharded_train`` and
+    ``train_driver`` in every entry's ``launches_by_path``, all 0)."""
     out = []
     for c, encode in (("int8", "int8_block_encode"),
                       ("int4", "int4_block_encode"), ("fp8", "fp8_encode")):
@@ -4797,6 +5324,14 @@ def kernel_lines(kernels, on_train, on_tree):
         rec["launches_by_path"] = dict(rec.get("launches_by_path", {}),
                                        train=on_train.get(k, 0))
         out.append(rec)
+    for rec in out:
+        keys = _counter_keys(rec["name"])
+        for path, counts in on_sharded.items():
+            n = sum(counts.get(k, 0) for k in keys)
+            if n:
+                raise AssertionError(f"{rec['name']}: {n} launches on the "
+                                     f"{path} path")
+            rec["launches_by_path"][path] = n
     return out
 
 
@@ -5043,8 +5578,15 @@ def main() -> int:
                 kernels[name]["tick_path_ms"][key] = \
                     rec["staged"]["tick_path_ms"][kname]
 
+    gc.collect()
+    torch.cuda.empty_cache()
+    sharded = sharded_train_phase(torch, dev, kmods)
+    print(f"sharded-training phase done ({time.perf_counter() - t0:.3f} s "
+          f"in all)")
+
     print(_smi("name,power.limit"))
-    print(json.dumps({"kernels": kernel_lines(kernels, on_train, on_tree)}))
+    print(json.dumps({"kernels": kernel_lines(kernels, on_train, on_tree,
+                                              sharded)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,2 +1,4 @@
-"""Grid construction for launched runs (port of ``repro.launch``; only
-``mesh.make_process_grid`` so far)."""
+"""Launched runs (port of ``repro.launch``): rank grids and default
+sharding rules (``mesh``), every cell's abstract arguments and specs
+(``specs``), and the training driver (``train``, ``python -m
+repro_torch.launch.train``)."""

@@ -13,7 +13,9 @@ Unlike the reference's immutable arrays, a cache passed to
 same dict is returned as the new cache: the serving engine holds one KV
 buffer per layer for its whole life.
 
-Not ported yet: ``cache_pspec``/``logical_axes`` (with sharding).
+:func:`logical_axes`, :func:`cache_logical` and :func:`cache_pspec` name
+the weights' and the cache's axes for the sharding rules
+(``sharding/rules.py``), as the reference's do.
 """
 from __future__ import annotations
 
@@ -26,11 +28,47 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.kernels import attention as kattn
 from repro_torch.layers import common
 from repro_torch.layers.common import Accum, Compute
+from repro_torch.sharding.rules import canonical
 
 Index = Union[int, torch.Tensor]
 
 #: T*S above STREAMING_THRESHOLD**2 switches prefill to streaming attention
 STREAMING_THRESHOLD = 2048
+
+
+def logical_axes(cfg, cross: bool = False) -> Dict[str, tuple]:
+    """The weights' logical axes (the reference's ``logical_axes``)."""
+    la = {"wq": ("fsdp", "heads"), "wk": ("fsdp", "kv_heads"),
+          "wv": ("fsdp", "kv_heads"), "wo": ("heads", "fsdp")}
+    if cfg.qkv_bias and not cross:
+        la.update({"bq": ("heads",), "bk": ("kv_heads",),
+                   "bv": ("kv_heads",)})
+    return la
+
+
+def cache_logical() -> Dict[str, tuple]:
+    return {"k": ("batch", "seq", "kv_heads", None),
+            "v": ("batch", "seq", "kv_heads", None)}
+
+
+def cache_pspec(cfg, rules, shape) -> tuple:
+    """The KV cache's spec on a grid of axis sizes ``shape`` (the
+    reference's ``cache_pspec``): the kv heads take the TP axis where it
+    divides them, else the cache's sequence dim takes it (context-parallel
+    decode); ``rules.seq`` composes on the same dim."""
+    batch = tuple(a for a in (rules.batch or ())
+                  if shape.get(a, 1) > 1) or None
+    seq_axes = []
+    if rules.seq and shape.get(rules.seq, 1) > 1:
+        seq_axes.append(rules.seq)
+    kv_ax = None
+    tp = rules.tp
+    if tp and shape.get(tp, 1) > 1:
+        if cfg.n_kv_heads % shape[tp] == 0:
+            kv_ax = tp
+        else:
+            seq_axes.append(tp)
+    return canonical((batch, tuple(seq_axes) or None, kv_ax, None))
 
 
 def init_cache(cfg, batch: int, max_len: int, dtype=Compute, device="cuda"

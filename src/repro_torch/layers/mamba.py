@@ -43,6 +43,20 @@ def dims(cfg) -> Tuple[int, int, int, int]:
     return Di, dt_rank, cfg.mamba_d_state, cfg.mamba_d_conv
 
 
+def logical_axes(cfg=None):
+    """The weights' logical axes (the reference's ``logical_axes``)."""
+    return {"in_proj": ("fsdp", "inner"), "conv_w": (None, "inner"),
+            "conv_b": ("inner",), "x_proj": ("inner", None),
+            "dt_proj": (None, "inner"), "dt_bias": ("inner",),
+            "A_log": ("inner", None), "D_skip": ("inner",),
+            "out_proj": ("inner", "fsdp")}
+
+
+def state_logical():
+    return {"conv": ("batch", None, "inner"),
+            "ssm": ("batch", "inner", None)}
+
+
 def init_state(cfg, batch: int, dtype=Compute, device="cuda") -> State:
     """A zeroed decode state: the conv's last ``K - 1`` inputs ``(batch,
     K - 1, Di)`` in ``dtype``, the scan state ``(batch, Di, N)`` in

@@ -11,6 +11,12 @@ from torch import nn
 from repro_torch.layers import common
 
 
+def logical_axes(cfg=None):
+    """The weights' logical axes (the reference's ``logical_axes``)."""
+    return {"w_gate": ("fsdp", "ff"), "w_up": ("fsdp", "ff"),
+            "w_down": ("ff", "fsdp")}
+
+
 class MLP(nn.Module):
     """Weights on ``device`` (the card unless the caller asks for another),
     drawn by ``generator`` (on that device) or left uninitialised for

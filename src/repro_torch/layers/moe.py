@@ -36,8 +36,24 @@ body runs for all ranks at once:
 
 Without a grid, with a TP axis of size 1, or with experts that do not
 split over it, the layer runs the single-device path, as the reference
-does. The expert-parallel path has no backward yet (ROADMAP.md, queue 1
-item 8) and does not run across processes (item 5b).
+does. The expert-parallel path does not run across processes (ROADMAP.md,
+queue 1 item 5b).
+
+The backward (the reference's ``jax.grad`` through its ``shard_map``): an
+all-to-all is its own transpose, so each token all-to-all is one
+:class:`_AllToAll` whose backward runs the same plan on the cotangent over
+the same TP group, and the tiled all-gather of the outputs is one
+:class:`_AllGather` whose backward is the group's reduce-scatter. Neither
+differentiates through the grid primitives (on the card ``take`` and
+``ppermute`` are the ``pack_blocks`` kernel, which has no backward). The
+integer metadata all-to-alls carry no gradient. The aux loss's value is
+TP rank 0's slice's, averaged over the batch shards, but
+its gradient is the mean over every rank's slice: ``shard_map``'s
+transpose divides the cotangent of an output unmapped over an axis by
+that axis' size and sums the inputs' cotangents over it, so that is the
+gradient the reference takes. A compressed combine under grad raises:
+the codec's rounding has no derivative and its per-block scale sends a
+block's gradient to one element (ROADMAP.md, queue 3).
 
 Expert weights are stored ``(E, D, F)`` and ``(E, F, D)`` as the
 reference stores them; the router is float32. Drawing them is done expert
@@ -70,6 +86,15 @@ def _expert_stack(generator, shape, scale, device) -> torch.Tensor:
     return w
 
 
+def logical_axes(cfg=None):
+    """The weights' logical axes (the reference's ``logical_axes``): the
+    experts over TP, each expert's model dim over FSDP."""
+    return {"router": (None, None),
+            "w_gate": ("experts", "fsdp", None),
+            "w_up": ("experts", "fsdp", None),
+            "w_down": ("experts", None, "fsdp")}
+
+
 def ep_capacity(n_tokens: int, tp_size: int, moe) -> int:
     """Dispatch slots per destination peer for ``n_tokens`` tokens of one
     batch shard routed over ``tp_size`` ranks (the reference's
@@ -77,6 +102,39 @@ def ep_capacity(n_tokens: int, tp_size: int, moe) -> int:
     rank's ``ceil(n_tokens / tp) * top_k`` routings."""
     t = -(-n_tokens // tp_size)
     return max(1, int(-(-t * moe.top_k // tp_size) * moe.capacity_factor))
+
+
+class _AllToAll(torch.autograd.Function):
+    """One all-to-all of the TP group, ``fn(x, topo, grid, **kw)``; its
+    backward is the same all-to-all of the cotangent (the exchange is a
+    permutation that is its own inverse: slot ``j`` of rank ``i`` goes to
+    slot ``i`` of rank ``j``)."""
+
+    @staticmethod
+    def forward(ctx, x, fn, topo, grid, kw):
+        ctx.call = (fn, topo, grid, kw)
+        return fn(x, topo, grid, **kw)
+
+    @staticmethod
+    def backward(ctx, g):
+        fn, topo, grid, kw = ctx.call
+        return fn(g.contiguous(), topo, grid, **kw), None, None, None, None
+
+
+class _AllGather(torch.autograd.Function):
+    """``grid.all_gather(x, axes, tiled=True)``; its backward is the
+    group's tiled reduce-scatter of the cotangent."""
+
+    @staticmethod
+    def forward(ctx, x, grid, axes):
+        ctx.call = (grid, axes)
+        return grid.all_gather(x, axes, tiled=True)
+
+    @staticmethod
+    def backward(ctx, g):
+        grid, axes = ctx.call
+        return grid.psum_scatter(g.contiguous(), axes, tiled=True), None, \
+            None
 
 
 def _route(router: torch.Tensor, tokens: torch.Tensor, k: int):
@@ -119,20 +177,31 @@ class MoE(nn.Module):
                 g, shape, dev, lambda: _expert_stack(
                     g, shape, 1.0 / math.sqrt(fan_in), dev)))
 
+    def _expert_weights(self):
+        """Each expert's three weights as views, one tuple per weight
+        (``unbind``): in the backward one node per weight stacks every
+        expert's gradient at once, where indexing an expert would
+        materialise a zero-filled gradient of the whole ``(E, D, F)``
+        weight for each expert and add them up (1.2 s of a 2.0 s train
+        step at qwen3-moe's width on an H100 80GB HBM3, PERF.md §6)."""
+        return tuple(w.unbind(0) for w in (self.w_gate, self.w_up,
+                                           self.w_down))
+
     def _experts(self, x_sorted: torch.Tensor, counts: List[int],
-                 first: int = 0) -> torch.Tensor:
+                 first: int = 0, weights=None) -> torch.Tensor:
         """The SwiGLU of experts ``first, first + 1, ...`` over their
         groups of the expert-sorted rows (``counts[e]`` rows for expert
-        ``first + e``, counts already on the host)."""
+        ``first + e``, counts already on the host); ``weights`` is
+        :meth:`_expert_weights` of the call."""
+        wg, wu, wd = weights or self._expert_weights()
         out = torch.empty_like(x_sorted)
         start = 0
         for e, n in enumerate(counts):
             if n:
                 rows = x_sorted[start:start + n]
-                h = nn.functional.silu(rows @ self.w_gate[first + e]) \
-                    * (rows @ self.w_up[first + e])
-                out[start:start + n] = h.to(rows.dtype) \
-                    @ self.w_down[first + e]
+                h = nn.functional.silu(rows @ wg[first + e]) \
+                    * (rows @ wu[first + e])
+                out[start:start + n] = h.to(rows.dtype) @ wd[first + e]
             start += n
         return out
 
@@ -161,12 +230,6 @@ class MoE(nn.Module):
             raise NotImplementedError(
                 "expert-parallel MoE across processes (a ProcessGrid) comes "
                 "with the process groups of ROADMAP.md, queue 1 item 5b")
-        if torch.is_grad_enabled() and any(
-                t.requires_grad for t in (x, self.router, self.w_gate,
-                                          self.w_up, self.w_down)):
-            raise NotImplementedError(
-                "the expert-parallel MoE has no backward yet: it comes with "
-                "the sharded train step (ROADMAP.md, queue 1 item 8)")
         if comm is None:
             comm = communicator(grid)
         return self._expert_parallel(x, rules, grid, comm.split(axes=tp),
@@ -216,6 +279,20 @@ class MoE(nn.Module):
         comb_sel = (comm.plan("alltoall", nbytes, dtype=dtype,
                               error_budget=error_budget)
                     if error_budget > 0.0 else a2a_sel)
+        grad = torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, self.router, self.w_gate,
+                                      self.w_up, self.w_down))
+        codec = comb_sel.codec if mcoll.supports_codec(
+            "alltoall", comb_sel.algo) else "none"
+        if grad and codec != "none":
+            raise ValueError(
+                f"the compressed combine ({codec}) has no usable gradient: "
+                f"the codec's rounding has zero derivative and its "
+                f"per-block amax scale sends each block's gradient to one "
+                f"element (at reduced qwen3-moe in float32 the reference's "
+                f"w_down gradient under error_budget=0.07 is 805 off a "
+                f"lossless maximum of 11.5); train with error_budget=0 or "
+                f"call it under no_grad")
 
         # each rank's batch shard (row-major over the batch axes, as a
         # PartitionSpec over several axes splits) and TP index, on the host
@@ -265,7 +342,8 @@ class MoE(nn.Module):
         fn = mcoll.algorithm("alltoall", a2a_sel.algo)
         kw = ({"chunks": a2a_sel.chunks}
               if mcoll.supports_chunks("alltoall", a2a_sel.algo) else {})
-        rx = fn(send_x[:n_slots].view(shape + (D,)), comm.topo, grid, **kw)
+        rx = _AllToAll.apply(send_x[:n_slots].view(shape + (D,)), fn,
+                             comm.topo, grid, kw)
         re = fn(send_eid[:n_slots].view(shape), comm.topo, grid)
         rok = fn(send_ok[:n_slots].view(shape), comm.topo, grid)
         rx = rx.reshape(world, tp_size * cap, D)
@@ -279,8 +357,9 @@ class MoE(nn.Module):
         counts.scatter_add_(1, eid, torch.ones_like(eid))
         sizes = counts.tolist()  # the one host read of the call
         x_sorted = rx.gather(1, order[..., None].expand(-1, -1, D))
+        weights = self._expert_weights()
         out_sorted = torch.stack([self._experts(x_sorted[r], sizes[r],
-                                                rt_of[r] * El)
+                                                rt_of[r] * El, weights)
                                   for r in range(world)])
         out = torch.empty_like(out_sorted).scatter_(
             1, order[..., None].expand(-1, -1, D), out_sorted)
@@ -289,24 +368,30 @@ class MoE(nn.Module):
         cfn = mcoll.algorithm("alltoall", comb_sel.algo)
         ckw = ({"chunks": comb_sel.chunks}
                if mcoll.supports_chunks("alltoall", comb_sel.algo) else {})
-        if comb_sel.codec != "none" and \
-                mcoll.supports_codec("alltoall", comb_sel.algo):
-            ckw["codec"] = comb_sel.codec
-        back = cfn(out.view(shape + (D,)), comm.topo, grid, **ckw)
+        if codec != "none":
+            ckw["codec"] = codec
+        back = _AllToAll.apply(out.view(shape + (D,)), cfn, comm.topo, grid,
+                               ckw)
         # a dropped routing reads slot cap - 1 (the reference's gather
         # clamps the index cap it gives a dropped routing) and weighs it 0
         gathered = back[r_idx, dest, pos.clamp(max=cap - 1)]
         contrib = gathered * (flat_w * valid)[..., None].to(gathered.dtype)
         y_mine = contrib.reshape(world, t, k, D).sum(2)
-        y_all = grid.all_gather(y_mine, tp, tiled=True)[:, :T]
+        y_all = _AllGather.apply(y_mine, grid, tp)[:, :T]
 
         # the shards' outputs (every TP rank of a shard holds the same),
         # and the reference's aux as its decoder reads it: the mean over
-        # the batch shards of the first TP rank 0's routing slice
+        # the batch shards of the first TP rank 0's routing slice, with
+        # the reference's gradient, the mean over every rank's slice
         lead = [min(r for r in range(world)
                     if shard_of[r] == s and rt_of[r] == 0)
                 for s in range(bshard)]
         y = y_all[lead].reshape(B, S, D)
         counts_e = torch.zeros((world, E), dtype=torch.long, device=dev)
         counts_e.scatter_add_(1, flat_ids, torch.ones_like(flat_ids))
-        return y, _aux(probs, counts_e, moe)[lead].mean()
+        per_rank = _aux(probs, counts_e, moe)
+        aux = per_rank[lead].mean()
+        if grad:
+            every = per_rank.mean()
+            aux = aux.detach() + (every - every.detach())
+        return y, aux

@@ -43,6 +43,24 @@ def n_heads(cfg) -> int:
     return cfg.d_model // cfg.rwkv_head_dim
 
 
+def logical_axes(cfg=None):
+    """The weights' logical axes (the reference's ``logical_axes``)."""
+    return {
+        "tm": {"mu": (None, None), "wr": ("fsdp", "heads"),
+               "wk": ("fsdp", "heads"), "wv": ("fsdp", "heads"),
+               "wg": ("fsdp", "heads"), "wo": ("heads", "fsdp"),
+               "w0": (None,), "w1": (None, None), "w2": (None, None),
+               "u": ("heads", None), "ln_x": {"scale": (None,)}},
+        "cm": {"mu": (None, None), "wk": ("fsdp", "ff"),
+               "wv": ("ff", "fsdp"), "wr": ("fsdp", None)},
+    }
+
+
+def state_logical():
+    return {"tm_shift": ("batch", None), "wkv": ("batch", "heads", None, None),
+            "cm_shift": ("batch", None)}
+
+
 def init_state(cfg, batch: int, dtype=Compute, device="cuda") -> State:
     """A zeroed decode state: the two token-shift carries in ``dtype``, the
     ``(batch, H, hd, hd)`` WKV state in float32."""

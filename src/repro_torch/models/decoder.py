@@ -56,6 +56,9 @@ from repro_torch.layers import attention, common, mamba, rwkv
 from repro_torch.layers.common import RMSNorm
 from repro_torch.layers.mlp import MLP
 from repro_torch.layers.moe import MoE
+from repro_torch.layers import mlp as _mlp
+from repro_torch.layers import moe as _moe
+from repro_torch.models import params as _params
 from repro_torch.models.params import block_is_moe
 
 Caches = List[Dict[str, torch.Tensor]]
@@ -92,6 +95,43 @@ def n_cycles(cfg) -> int:
     if cfg.n_layers % len(pat):
         raise ValueError(f"{cfg.n_layers} layers do not cycle {pat}")
     return cfg.n_layers // len(pat)
+
+
+def _block_logical(cfg, kind: str, j: int) -> dict:
+    if kind == "rwkv":
+        return {"ln1": {"scale": (None,)}, "tm_cm": rwkv.logical_axes(cfg),
+                "ln2": {"scale": (None,)}}
+    la = {"ln1": {"scale": (None,)}, "ln2": {"scale": (None,)},
+          kind: (attention if kind == "attn" else mamba).logical_axes(cfg)}
+    if block_is_moe(cfg, j):
+        la["moe"] = _moe.logical_axes(cfg)
+    if not block_is_moe(cfg, j) or cfg.moe.dense_residual:
+        la["ffn"] = _mlp.logical_axes(cfg)
+    return la
+
+
+def logical(cfg) -> Dict[str, tuple]:
+    """Every weight's logical axes (the reference's ``logical``), keyed by
+    its ``models.params.param_shapes`` path: ``groups/...`` stacked over
+    the pattern cycles (a leading ``None``)."""
+    cyc = {f"blk{j}": _block_logical(cfg, kind, j)
+           for j, kind in enumerate(cfg.block_pattern)}
+    return _params.keyed_logical(cfg, {
+        "embed": ("vocab", "fsdp"), "groups": cyc,
+        "final_norm": {"scale": (None,)}, "lm_head": ("fsdp", "vocab")})
+
+
+def cache_logical(cfg) -> Dict[str, tuple]:
+    """The decode caches' logical axes (the reference's
+    ``cache_logical``), keyed ``blk<j>/<name>`` as its cache tree stacked
+    over the pattern cycles (a leading ``None``), in its flatten order."""
+    out = {}
+    for j, kind in enumerate(cfg.block_pattern):
+        la = (attention.cache_logical() if kind == "attn" else
+              (mamba if kind == "mamba" else rwkv).state_logical())
+        for name, t in la.items():
+            out[f"blk{j}/{name}"] = (None,) + t
+    return dict(sorted(out.items()))
 
 
 class _MixerBlock(nn.Module):

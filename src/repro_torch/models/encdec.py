@@ -27,11 +27,26 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.layers import attention, common
+from repro_torch.layers import mlp as _mlp
 from repro_torch.layers.common import RMSNorm
 from repro_torch.layers.mlp import MLP
+from repro_torch.models import params as _params
 from repro_torch.models.decoder import REMATS, DecoderLM, RunFlags
 
 Caches = List[Dict[str, torch.Tensor]]
+
+
+def logical(cfg) -> Dict[str, tuple]:
+    """Every weight's logical axes (the reference's ``logical``), keyed by
+    its ``models.params.param_shapes`` path: ``enc/...`` and ``dec/...``
+    stacked over the layers (a leading ``None``)."""
+    norm = {"scale": (None,)}
+    enc = {"ln1": norm, "attn": attention.logical_axes(cfg), "ln2": norm,
+           "ffn": _mlp.logical_axes(cfg)}
+    dec = dict(enc, lnx=norm, xattn=attention.logical_axes(cfg, cross=True))
+    return _params.keyed_logical(cfg, {
+        "embed": ("vocab", "fsdp"), "enc": enc, "dec": dec,
+        "enc_norm": norm, "final_norm": norm, "lm_head": ("fsdp", "vocab")})
 
 
 class EncLayer(nn.Module):
@@ -204,10 +219,13 @@ class EncDecLM(nn.Module):
         return logits, caches
 
     def forward_train(self, frames: torch.Tensor, tokens: torch.Tensor,
-                      flags: RunFlags = RunFlags()):
+                      flags: RunFlags = RunFlags(), rules=None, grid=None):
         """``(logits, aux, None)`` of the training pass: encode ``frames``,
         then the causal decoder over ``tokens``; ``aux`` is a float32 zero
-        (no MoE), as the decoder's forward returns one."""
+        (no MoE), as the decoder's forward returns one. ``rules`` and
+        ``grid`` (the reference's ``rules=`` and ``mesh=``) change no value:
+        the family has no MoE, and on a grid held by one device the
+        reference's sharding constraints move nothing."""
         enc_out = self.encode(frames, flags)
         logits, _ = self.decode_forward(tokens, enc_out, flags)
         return logits, torch.zeros((), dtype=common.Accum,

@@ -16,7 +16,8 @@ them).
 """
 from __future__ import annotations
 
-from typing import List, Tuple
+import bisect
+from typing import Dict, List, Tuple
 
 import torch
 
@@ -148,6 +149,27 @@ def param_shapes(cfg) -> List[Leaf]:
     return tree_top[:2] + stacked + tree_top[2:]
 
 
+def keyed_logical(cfg, tree) -> dict:
+    """A nested dict of logical-axis tuples (the reference's ``logical``
+    tree of one pattern cycle or layer under each stacked key) as ``{path:
+    tuple}`` in :func:`param_shapes`' order, the stacked leaves' tuples
+    led by ``None`` (their layer dim), as the reference prepends it."""
+    leaves = dict(_flatten(tree))
+    shapes = param_shapes(cfg)
+    if set(leaves) != {p for p, _ in shapes}:
+        raise ValueError(f"{cfg.name}: the logical tree's paths are not "
+                         f"the parameters'")
+    out = {}
+    for path, shape in shapes:
+        lg = leaves[path]
+        if path.split("/")[0] in STACKED:
+            lg = (None,) + lg
+        if len(lg) != len(shape):
+            raise ValueError(f"{path}: logical axes {lg} for {shape}")
+        out[path] = lg
+    return out
+
+
 def n_params(cfg) -> int:
     total = 0
     for _, shape in param_shapes(cfg):
@@ -207,21 +229,30 @@ class FlatParams:
 
     ``leaves`` is ``[(path, [tensor, ...]), ...]`` in flatten order:
     :meth:`of` builds it for a ``DecoderLM``; a reference tree carried as
-    one tensor per leaf works as well."""
+    one tensor per leaf works as well. An entry may carry the leaf's
+    reference shape third (:meth:`of` gives it); without one it is the one
+    tensor's shape, or several tensors' stacked."""
 
     def __init__(self, leaves):
         self.tensors: List[torch.Tensor] = []
         self.offsets: List[int] = []
         #: ``(path, start, end, first tensor index)`` per leaf
         self.spans: List[Tuple[str, int, int, int]] = []
+        #: each leaf's shape in the reference's tree
+        self.shapes: Dict[str, Tuple[int, ...]] = {}
+        self._counts: Dict[str, int] = {}
         off = 0
-        for path, ts in leaves:
+        for path, ts, *shape in leaves:
             start, first = off, len(self.tensors)
             for t in ts:
                 self.tensors.append(t)
                 self.offsets.append(off)
                 off += t.numel()
             self.spans.append((path, start, off, first))
+            self._counts[path] = len(ts)
+            self.shapes[path] = tuple(shape[0]) if shape else (
+                tuple(ts[0].shape) if len(ts) == 1
+                else (len(ts),) + tuple(ts[0].shape))
         self.n = off
 
     @classmethod
@@ -233,7 +264,7 @@ class FlatParams:
             if any(tuple(t.shape) != tuple(want) for t in ts):
                 raise ValueError(f"{path}: the model's weights are not "
                                  f"{want}")
-            leaves.append((path, ts))
+            leaves.append((path, ts, shape))
         return cls(leaves)
 
     @property
@@ -269,12 +300,58 @@ class FlatParams:
                     acc[off:off + t.numel()].add_(
                         t.reshape(-1).float() / div)
 
-    def assign(self, flat: torch.Tensor) -> None:
-        """Write a float32 ``(n,)`` buffer into the weights, each cast to
-        its own dtype."""
+    def pieces(self, a: int, b: int):
+        """``(flat view of a weight, lo, hi)`` for each weight holding
+        elements of the flat range ``[a, b)``: the view's elements are the
+        range's ``[lo, hi)``."""
+        i = max(bisect.bisect_right(self.offsets, a) - 1, 0)
+        while i < len(self.tensors) and self.offsets[i] < b:
+            w, off = self.tensors[i], self.offsets[i]
+            lo, hi = max(a, off), min(b, off + w.numel())
+            if hi > lo:
+                yield w.detach().view(-1)[lo - off:hi - off], lo - a, hi - a
+            i += 1
+
+    def read_range(self, a: int, b: int) -> torch.Tensor:
+        """Elements ``[a, b)`` of :meth:`read`, reading only them."""
+        out = torch.empty(b - a, dtype=torch.float32, device=self.device)
+        for w, lo, hi in self.pieces(a, b):
+            out[lo:hi].copy_(w)
+        return out
+
+    def assign_range(self, a: int, b: int, vals: torch.Tensor) -> None:
+        """Write float32 ``vals`` into elements ``[a, b)`` of the weights,
+        each cast to its weight's dtype."""
         with torch.no_grad():
-            for w, off in zip(self.tensors, self.offsets):
-                w.copy_(flat[off:off + w.numel()].view(w.shape))
+            for w, lo, hi in self.pieces(a, b):
+                w.copy_(vals[lo:hi])
+
+    def tree(self, flat: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """``{path: view}`` of a flat ``(n,)`` buffer (AdamW's ``m`` or
+        ``v``), each leaf in its reference shape (no copy)."""
+        return {p: flat[s:e].view(self.shapes[p])
+                for p, s, e, _ in self.spans}
+
+    def weights(self) -> Dict[str, torch.Tensor]:
+        """``{path: tensor}`` of the weights in their reference shapes and
+        dtypes: a stacked leaf's layers stacked (a copy), a single weight
+        itself."""
+        out = {}
+        for p, s, e, first in self.spans:
+            ts = self.tensors[first:first + self._counts[p]]
+            out[p] = (ts[0].detach().view(self.shapes[p]) if len(ts) == 1
+                      else torch.stack([t.detach() for t in ts]))
+        return out
+
+    def assign_weights(self, tree: Dict[str, torch.Tensor]) -> None:
+        """Write ``{path: tensor}`` (:meth:`weights`' layout) into the
+        weights, each cast to its weight's dtype."""
+        with torch.no_grad():
+            for p, s, e, first in self.spans:
+                src = tree[p].reshape(-1)
+                for i in range(first, first + self._counts[p]):
+                    t, off = self.tensors[i], self.offsets[i] - s
+                    t.view(-1).copy_(src[off:off + t.numel()])
 
     def leaf(self, path: str) -> Tuple[int, int]:
         """``(start, end)`` of a leaf in the flat layout."""

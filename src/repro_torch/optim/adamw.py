@@ -5,16 +5,21 @@ The reference maps its update over parameter trees; here every tensor of
 the update is one flat float32 buffer in the reference's flatten order
 (``models.params.FlatParams``): the gradient, AdamW's ``m`` and ``v`` and,
 with ``master_fp32``, the float32 master weights. The update is then a few
-elementwise passes over those buffers, and the weights (bf16, some leaves
-float32) are written back from the new float32 values, each cast to its
-own dtype.
+elementwise passes over those buffers, run leaf by leaf in pieces of at
+most :data:`CHUNK` elements, so its float32 temporaries are a piece's and
+not the buffer's (at qwen3-moe's width a buffer is 14.8 GB); the weights
+(bf16, some leaves float32) are written back from the new float32 values,
+each cast to its own dtype. Every element goes through the same
+operations in the same order whatever the pieces, so the bits do not
+depend on them.
 
 Rounding: the passes are the reference's expressions in its order, in
 float32; the reference's XLA contracts some ``a*b + c`` into fused
 multiply-adds and sums the global norm in another order, so the results
 agree within a few float32 ulps, not bitwise (``tests/test_torch_train.py``
-states the tolerance). ``state_logical`` (sharding metadata for the
-launcher) has no counterpart yet: ROADMAP.md, queue 1 item 8.
+states the tolerance). :func:`state_logical` gives the launcher the
+state's logical axes, keyed as the weights' (``FlatParams.tree`` views the
+flat ``m`` and ``v`` leaf by leaf in those shapes).
 """
 from __future__ import annotations
 
@@ -42,6 +47,9 @@ class AdamWConfig:
 
 
 _f32 = np.float32
+
+#: elements of one piece of the update's elementwise passes
+CHUNK = 1 << 24
 
 
 def schedule_lr(cfg: AdamWConfig, step: int) -> float:
@@ -120,17 +128,33 @@ def update(params, grads: torch.Tensor, state: Dict, cfg: AdamWConfig
     b1, b2 = cfg.b1, cfg.b2
     bc1 = float(_f32(1.0) - _f32(b1) ** _f32(step))
     bc2 = float(_f32(1.0) - _f32(b2) ** _f32(step))
-    m, v = state["m"], state["v"]
-    m.mul_(b1).add_(grads * (1 - b1))
-    v.mul_(b2).add_(torch.square(grads).mul_(1 - b2))
-    base = state["master"] if "master" in state else params.read()
-    u = (m / bc1).div_(torch.sqrt(v / bc2).add_(cfg.eps))
-    if cfg.weight_decay:
-        for path, s, e, _ in params.spans:
-            if decays(path):
-                u[s:e].add_(base[s:e] * cfg.weight_decay)
-    new = base.sub_(u.mul_(lr))  # the master, or a fresh float32 copy
-    params.assign(new)
+    m, v, master = state["m"], state["v"], state.get("master")
+    for path, s, e, _ in params.spans:
+        decay = cfg.weight_decay and decays(path)
+        for a in range(s, e, CHUNK):
+            b = min(e, a + CHUNK)
+            g = grads[a:b]
+            m_, v_ = m[a:b], v[a:b]
+            m_.mul_(b1).add_(g * (1 - b1))
+            v_.mul_(b2).add_(torch.square(g).mul_(1 - b2))
+            base = master[a:b] if master is not None else \
+                params.read_range(a, b)
+            u = (m_ / bc1).div_(torch.sqrt(v_ / bc2).add_(cfg.eps))
+            if decay:
+                u.add_(base * cfg.weight_decay)
+            # the master in place, or a fresh float32 copy of the piece
+            params.assign_range(a, b, base.sub_(u.mul_(lr)))
     state["step"] = step
     return {"grad_norm": gnorm,
             "lr": torch.tensor(lr, dtype=torch.float32)}
+
+
+def state_logical(param_logical, cfg: AdamWConfig) -> Dict:
+    """The optimizer state's logical axes (the reference's
+    ``state_logical``): ``m``, ``v`` and the master shard exactly like the
+    weights (ZeRO), the step is a scalar. ``param_logical`` is a model's
+    ``logical(cfg)``."""
+    out = {"step": (), "m": param_logical, "v": param_logical}
+    if cfg.master_fp32:
+        out["master"] = param_logical
+    return out

@@ -315,13 +315,24 @@ def test_expert_parallel_equals_the_local_path_at_capacity_tp(layers):
     assert torch.equal(y, layer(x)[0])
 
 
-def test_expert_parallel_refuses_grad_and_process_grids(layers):
+def test_expert_parallel_refuses_grad_and_process_grids(layers,
+                                                         monkeypatch):
+    """The expert-parallel path differentiates (``test_torch_moe_backward.
+    py``), but not through a compressed combine: a codec plan under grad
+    raises; a process grid raises (item 5b)."""
     layer = layers["1x4", "tp"]
     x = torch.from_numpy(_x("1x4")).bfloat16()
     rules = Rules(batch=("node",), tp="local")
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
+
+    def plan(self, collective, nbytes, dtype="float32", error_budget=0.0):
+        codec = "int8_block" if error_budget > 0.0 else "none"
+        return autotune.Selection(collective, "pip_mcoll", 0.0, "prior", "",
+                                  codec=codec)
+    monkeypatch.setattr(tcomm.Communicator, "plan", plan)
+    with pytest.raises(ValueError, match="compressed combine"):
         layer(x.clone().requires_grad_(), rules=rules,
-              grid=RankGrid(1, 4, "cpu"))
+              grid=RankGrid(1, 4, "cpu"), error_budget=ERROR_BUDGET)
+    monkeypatch.undo()
     from repro_torch.core.grid import ProcessGrid
     fake = object.__new__(ProcessGrid)
     fake.n_nodes, fake.n_local = 1, 4
