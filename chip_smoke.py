@@ -3,8 +3,8 @@
 
 Usage: ``python3 chip_smoke.py`` from the repository root, on a machine
 with an NVIDIA Hopper card and the CUDA toolkit. It imports nothing of JAX
-or of the JAX package. Thirteen phases (phase 13 runs before the report,
-phase 12); any failure exits non-zero:
+or of the JAX package. Fourteen phases (phases 13 and 14 run before the
+report, phase 12); any failure exits non-zero:
 
 1. **Kernels.** Builds ``kernels/csrc/codec_{int8,int4,fp8}.cu``,
    ``flash_decode.cu``, ``rwkv6_wkv.cu``, ``mamba_scan.cu`` and
@@ -384,6 +384,33 @@ phase 12); any failure exits non-zero:
    the checkpoint directories removed. One ``{"ep_backward": ...}``, one
    ``{"sharded_train": ...}`` and one ``{"train_driver": ...}`` line, each
    with its peak memory.
+14. **The roofline on the card**, after phase 13, the earlier phases'
+   memory freed first (``roofline_phase``). (a) smollm-360m at full width
+   runs one-device ``train_step``s of (8, 2048) tokens (remat "dots",
+   AdamW at a constant 1e-4): a warm-up, 3 steps timed on the host clock
+   around a synchronize, then one step under the work counter
+   (``roofline/counter.py``); the same step on ``meta`` weights is counted
+   too. Its FLOPs and collective bytes must equal the ``meta`` count's
+   bitwise, its HBM bytes too or each differing op is named
+   (``bytes_differ_by_op``); the roofline bound of the count from the H100
+   SXM5's data-sheet peaks (``roofline/terms.py``) must be at most the
+   median step (a fraction above 1 fails as an impossible reading); the
+   counted live peak is recorded beside ``max_memory_allocated``. (b)
+   smollm-360m's and rwkv6-1.6b's decode ticks at full width, 8 rows at
+   per-row offsets into 2048-position caches, with the flash-decode and
+   the WKV6 kernels on: one counted tick, whose kernel calls must equal
+   the wrapper's launches (each launch's registered cost counted once)
+   with no other kernel, then 10 timed ticks, the count's bound at most
+   their median. (c) ``launch.dryrun.run_cell`` of smollm-360m x train_4k
+   and qwen3-moe x decode_32k on the 32x8 grid on ``meta``, their terms
+   printed. (d) ``repro_torch.examples.quickstart``, ``serve_llm`` and
+   ``collectives_demo`` on the card, each's last line its ``... OK``. One
+   ``{"roofline_train": ...}`` line, one ``{"roofline_tick": ...}`` per
+   served model, one ``{"roofline_dryrun": ...}`` and one
+   ``{"roofline_examples": ...}``; every ``{"kernels": ...}`` entry's
+   ``launches_by_path`` gains ``roofline_train``,
+   ``roofline_flash_decode``, ``roofline_rwkv6_wkv`` and
+   ``example_<name>``.
 """
 from __future__ import annotations
 
@@ -5253,6 +5280,260 @@ def sharded_train_phase(torch, dev, kmods):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the roofline on the card
+# ---------------------------------------------------------------------------
+
+#: (a) one-device train steps: the arch, (batch, sequence), timed steps
+ROOF_ARCH, ROOF_TOKENS, ROOF_STEPS = "smollm-360m", (8, 2048), 3
+#: (b) serving ticks with the kernels: (arch, RunFlags knob, the kernel's
+#: counter name), 8 rows of a 2048-position cache at per-row offsets
+ROOF_SERVE = (("smollm-360m", "use_flash_decode", "flash_decode"),
+              ("rwkv6-1.6b", "use_rwkv_kernel", "rwkv6_wkv"))
+ROOF_TICKS = 10
+#: (c) dry-run cells on the 32x8 production grid on meta
+ROOF_CELLS = (("smollm-360m", "train_4k"), ("qwen3-moe-235b-a22b",
+                                            "decode_32k"))
+#: (d) the examples, each ending with "<name> OK"
+ROOF_EXAMPLES = ("quickstart", "serve_llm", "collectives_demo")
+
+
+def _roof_bound(costs):
+    """The H100 SXM5 roofline bound of counted work (``roofline.terms``):
+    ``(seconds, "compute" or "memory", each term)``."""
+    from repro_torch.roofline import terms as T
+    hw = T.H100_SXM
+    terms = {"compute": costs.flops / hw.peak_flops,
+             "memory": costs.memory_bytes / hw.hbm_bw}
+    by = max(terms, key=terms.get)
+    return terms[by], by, terms
+
+
+def _by_op_diff(card, meta):
+    """The ops whose counted bytes or calls differ between two counts."""
+    return {k: {"card": list(card.get(k, (0, 0))),
+                "meta": list(meta.get(k, (0, 0)))}
+            for k in sorted(set(card) | set(meta))
+            if tuple(card.get(k, (0, 0))) != tuple(meta.get(k, (0, 0)))}
+
+
+def roofline_train_leg(torch, dev, kmods):
+    """Phase 14 (a): full-width one-device ``train_step`` of ``ROOF_ARCH``
+    at ``ROOF_TOKENS``, remat "dots": its count on the card against the
+    same step's count on ``meta`` (FLOPs and collective bytes bitwise,
+    HBM bytes equal or each differing op named), and the roofline bound
+    of the count against the measured median step (host clock around a
+    synchronize, after a warm-up)."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models.decoder import DecoderLM, RunFlags
+    from repro_torch.models.params import FlatParams
+    from repro_torch.optim import adamw
+    from repro_torch.roofline.counter import WorkCounter
+    from repro_torch.train.step import TrainConfig, train_step
+
+    cfg = get_config(ROOF_ARCH)
+    B, S = ROOF_TOKENS
+    ocfg = adamw.AdamWConfig(lr=TRAIN_LR, warmup_steps=0,
+                             schedule="constant")
+    tcfg = TrainConfig(optimizer=ocfg, flags=RunFlags(remat="dots"))
+    host = SyntheticLM(cfg.vocab, S, B, seed=0).batch(0)
+
+    def setup(device, gen):
+        model = DecoderLM(cfg, gen, device=device)
+        flat = FlatParams.of(model)
+        batch = {k: torch.from_numpy(np.ascontiguousarray(v)).long()
+                 .to(device) for k, v in host.items()}
+        return model, flat, adamw.init(flat, ocfg), batch
+
+    def counted(model, flat, opt, batch):
+        with WorkCounter() as wc:
+            train_step(model, opt, batch, tcfg, flat)
+        return wc
+
+    t0 = time.perf_counter()
+    meta = counted(*setup("meta", None))
+    meta_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats(dev)
+    model, flat, opt, batch = setup(dev, torch.Generator(dev)
+                                    .manual_seed(SEED))
+    _reset(kmods)
+    train_step(model, opt, batch, tcfg, flat)  # warm-up
+    times, _ = _timed_steps(torch, dev, lambda: train_step(
+        model, opt, batch, tcfg, flat), ROOF_STEPS)
+    torch.cuda.synchronize(dev)
+    card = counted(model, flat, opt, batch)
+    torch.cuda.synchronize(dev)
+    peak = torch.cuda.max_memory_allocated(dev)
+    launches = _launches(kmods)
+    cc, mc = card.costs(), meta.costs()
+    if cc.flops != mc.flops:
+        raise AssertionError(f"train step: {cc.flops} FLOPs on the card, "
+                             f"{mc.flops} on meta")
+    if cc.collective_bytes != mc.collective_bytes:
+        raise AssertionError(f"train step: collective bytes "
+                             f"{cc.collective_bytes} on the card, "
+                             f"{mc.collective_bytes} on meta")
+    differ = _by_op_diff(card.by_op, meta.by_op)
+    if cc.memory_bytes != mc.memory_bytes and not differ:
+        raise AssertionError("train step: HBM bytes differ and no op "
+                             "names the difference")
+    bound, by, terms = _roof_bound(cc)
+    step = statistics.median(times)
+    if bound > step:
+        raise AssertionError(f"train step: the roofline bound {bound} s "
+                             f"exceeds the measured step {step} s (an "
+                             f"impossible reading)")
+    rec = {"model": cfg.name, "tokens": [B, S], "remat": "dots",
+           "step_s": times, "median_step_s": step,
+           "flops": cc.flops, "memory_bytes": {"card": cc.memory_bytes,
+                                               "meta": mc.memory_bytes},
+           "bytes_differ_by_op": differ,
+           "collective_bytes": cc.collective_bytes,
+           "aten_ops": {"card": cc.aten_ops, "meta": mc.aten_ops},
+           "bound_s": bound, "bound_by": by, "terms_s": terms,
+           "roofline_fraction": bound / step,
+           "peak_live_bytes": {"card": cc.peak_live_bytes,
+                               "meta": mc.peak_live_bytes},
+           "max_memory_allocated": peak, "meta_count_s": meta_s,
+           "launches": launches}
+    del model, flat, opt, batch
+    return rec
+
+
+def roofline_serve_leg(torch, dev, kmods, arch, knob, kernel):
+    """Phase 14 (b): full-width ``arch`` decode ticks of 8 rows at per-row
+    offsets into 2048-position caches with the kernel ``knob`` on: one
+    counted tick (the kernel's registered cost once per launch, the
+    wrapper's launch count), then ``ROOF_TICKS`` timed ticks, the count's
+    bound at most their median."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.decoder import DecoderLM, RunFlags
+    from repro_torch.roofline.counter import WorkCounter
+
+    cfg = get_config(arch)
+    B = SERVE_BATCH
+    model = DecoderLM(cfg, torch.Generator(dev).manual_seed(SEED),
+                      device=dev)
+    caches = model.init_cache(B, SERVE_LEN)
+    gen = torch.Generator(dev).manual_seed(SEED)
+    tok = torch.randint(0, cfg.vocab, (B, 1), generator=gen, device=dev)
+    idx = torch.arange(B, device=dev) * (SERVE_PROMPT[1] // B) \
+        + SERVE_PROMPT[0]
+    flags = RunFlags(**{knob: True})
+
+    @torch.no_grad()
+    def tick():
+        return model(tok, caches=caches, cache_index=idx, flags=flags)[0]
+    tick()
+    _reset(kmods)
+    torch.cuda.synchronize(dev)
+    with WorkCounter() as wc:
+        tick()
+    torch.cuda.synchronize(dev)
+    launched = _launches(kmods)
+    costs = wc.costs()
+    calls = costs.kernels.get(kernel, {}).get("calls", 0)
+    if not calls or calls != launched.get(kernel, 0):
+        raise AssertionError(f"{arch} tick: {calls} counted calls of "
+                             f"{kernel}, {launched.get(kernel, 0)} launches")
+    others = {k: n for k, n in launched.items() if n and k != kernel}
+    if others or set(costs.kernels) != {kernel}:
+        raise AssertionError(f"{arch} tick: other kernels {others}, "
+                             f"counted {sorted(costs.kernels)}")
+    _reset(kmods)
+    times, _ = _timed_steps(torch, dev, tick, ROOF_TICKS)
+    tick_launches = _launches(kmods)
+    bound, by, terms = _roof_bound(costs)
+    med = statistics.median(times)
+    if bound > med:
+        raise AssertionError(f"{arch} tick: the roofline bound {bound} s "
+                             f"exceeds the measured tick {med} s")
+    rec = {"model": cfg.name, "rows": B, "cache": SERVE_LEN,
+           "offsets": idx.tolist(), "kernel": kernel,
+           "counted_calls": calls, "kernel_cost": costs.kernels[kernel],
+           "flops": costs.flops, "memory_bytes": costs.memory_bytes,
+           "kernel_ops": costs.kernel_ops, "tick_s": times,
+           "median_tick_s": med, "bound_s": bound, "bound_by": by,
+           "terms_s": terms, "roofline_fraction": bound / med}
+    launches = {k: launched.get(k, 0) + tick_launches.get(k, 0)
+                for k in set(launched) | set(tick_launches)}
+    del model, caches
+    return rec, launches
+
+
+def roofline_examples_leg(torch, dev, kmods):
+    """Phase 14 (d): the three examples on ``dev``'s kind of device, in
+    this process (the kernels already built), each's stdout ending with
+    its OK line; returns their seconds and each's kernel launches."""
+    import contextlib
+    import importlib
+    import io
+    out = {}
+    for name in ROOF_EXAMPLES:
+        mod = importlib.import_module(f"repro_torch.examples.{name}")
+        buf = io.StringIO()
+        _reset(kmods)
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(buf):
+                mod.main(["--device", dev.type])
+        finally:
+            # the training driver turns deterministic algorithms on
+            torch.use_deterministic_algorithms(False)
+        lines = buf.getvalue().splitlines()
+        if not lines or lines[-1] != f"{name} OK":
+            raise AssertionError(f"example {name}: last line "
+                                 f"{lines[-1:] if lines else None}")
+        print(f"  {name}: {lines[-1]}")
+        out[name] = {"seconds": time.perf_counter() - t0,
+                     "launches": _launches(kmods)}
+    return out
+
+
+def roofline_phase(torch, dev, kmods):
+    """Phase 14, the roofline on the card: (a) :func:`roofline_train_leg`,
+    (b) :func:`roofline_serve_leg` for each of ``ROOF_SERVE``, (c)
+    ``launch.dryrun.run_cell`` of ``ROOF_CELLS`` on the 32x8 grid on
+    ``meta``, (d) :func:`roofline_examples_leg`. Prints one
+    ``{"roofline_train": ...}``, one ``{"roofline_tick": ...}`` per served
+    model, one ``{"roofline_dryrun": ...}`` and one ``{"roofline_examples":
+    ...}`` line as each leg ends; returns each path's kernel launches."""
+    from repro_torch.launch import dryrun
+
+    t0 = time.perf_counter()
+    paths = {}
+    rec = roofline_train_leg(torch, dev, kmods)
+    paths["roofline_train"] = rec["launches"]
+    print(json.dumps({"roofline_train": rec}))
+    del rec
+    gc.collect()
+    torch.cuda.empty_cache()
+    for arch, knob, kernel in ROOF_SERVE:
+        rec, paths[f"roofline_{kernel}"] = roofline_serve_leg(
+            torch, dev, kmods, arch, knob, kernel)
+        print(json.dumps({"roofline_tick": rec}))
+        del rec
+        gc.collect()
+        torch.cuda.empty_cache()
+    cells = {}
+    for arch, shape in ROOF_CELLS:
+        cell = dryrun.run_cell(arch, shape, False)
+        if cell["status"] != "ok":
+            raise AssertionError(f"dry run {arch} x {shape}: {cell}")
+        cells[f"{arch}/{shape}"] = {
+            k: cell[k] for k in ("mesh", "count_s", "roofline", "hlo",
+                                 "memory", "moe_rule")}
+    print(json.dumps({"roofline_dryrun": cells}))
+    examples = roofline_examples_leg(torch, dev, kmods)
+    for name, ex in examples.items():
+        paths[f"example_{name}"] = ex["launches"]
+    print(json.dumps({"roofline_examples": examples}))
+    print(f"roofline phase: {time.perf_counter() - t0:.3f} s")
+    return paths
+
+
 FEEDBACK_LINES = {"int8": 123, "int4": 204, "fp8": 294}
 
 
@@ -5272,7 +5553,7 @@ def _counter_keys(name):
     return (name,)
 
 
-def kernel_lines(kernels, on_train, on_tree, on_sharded):
+def kernel_lines(kernels, on_train, on_tree, on_sharded, on_roofline):
     """The ``{"kernels": [...]}`` entries, one per TPU kernel of the
     repository, in the order of PERF.md's table: each codec's feedback
     encode (the HAS_ERR variant of its encode kernel, timed in phase 1;
@@ -5286,7 +5567,10 @@ def kernel_lines(kernels, on_train, on_tree, on_sharded):
     the ``compress_tree`` call (the feedback encodes'
     ``launches_by_path["compress_tree"]``); ``on_sharded``: phase 13's
     paths' launches (``ep_backward``, ``sharded_train`` and
-    ``train_driver`` in every entry's ``launches_by_path``, all 0)."""
+    ``train_driver`` in every entry's ``launches_by_path``, all 0);
+    ``on_roofline``: phase 14's paths' launches (``roofline_train``, the
+    two ``roofline_<kernel>`` serving ticks and the ``example_<name>``
+    runs, in every entry's ``launches_by_path``)."""
     out = []
     for c, encode in (("int8", "int8_block_encode"),
                       ("int4", "int4_block_encode"), ("fp8", "fp8_encode")):
@@ -5332,6 +5616,9 @@ def kernel_lines(kernels, on_train, on_tree, on_sharded):
                 raise AssertionError(f"{rec['name']}: {n} launches on the "
                                      f"{path} path")
             rec["launches_by_path"][path] = n
+        for path, counts in on_roofline.items():
+            rec["launches_by_path"][path] = sum(counts.get(k, 0)
+                                                for k in keys)
     return out
 
 
@@ -5584,9 +5871,20 @@ def main() -> int:
     print(f"sharded-training phase done ({time.perf_counter() - t0:.3f} s "
           f"in all)")
 
+    gc.collect()
+    torch.cuda.empty_cache()
+    roof = roofline_phase(torch, dev, kmods)
+    print(f"roofline phase done ({time.perf_counter() - t0:.3f} s in all)")
+    for path, want in (("roofline_train", None),
+                       ("roofline_flash_decode", "flash_decode"),
+                       ("roofline_rwkv6_wkv", "rwkv6_wkv")):
+        extra = {k: n for k, n in roof[path].items() if n and k != want}
+        if extra or (want and not roof[path].get(want)):
+            raise AssertionError(f"{path}: launches {roof[path]}")
+
     print(_smi("name,power.limit"))
     print(json.dumps({"kernels": kernel_lines(kernels, on_train, on_tree,
-                                              sharded)}))
+                                              sharded, roof)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

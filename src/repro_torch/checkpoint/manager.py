@@ -106,13 +106,15 @@ class CheckpointManager:
 
     def save(self, step: int, tree: Any, blocking: bool = True) -> None:
         """Write ``tree`` as checkpoint ``step``: now, or with ``blocking``
-        off on a background thread (after the previous one is done). The
-        leaves are copied to the host before this returns."""
+        off on a background thread; either way after the previous async
+        save is done (two writes of one step would share its temporary
+        directory). The leaves are copied to the host before this
+        returns."""
         host = [(p, *_to_host(v)) for p, v in _leaves(tree)]
+        self.wait()
         if blocking:
             self._write(step, host)
         else:
-            self.wait()
             self._thread = threading.Thread(
                 target=self._write_caught, args=(step, host), daemon=True)
             self._thread.start()

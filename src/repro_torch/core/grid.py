@@ -22,6 +22,10 @@ grid's device, so a repeated round builds nothing on the host. ``psum``,
 ``psum_scatter``, ``all_gather``, ``all_to_all`` and ``where`` stay torch
 ops: they are the reference's ``lax`` collectives, not Pallas kernels.
 
+Under the work counter (``roofline/counter.py``) each collective
+primitive counts once per call under the reference's HLO op name, with the
+larger of its operand's and its result's bytes per held rank.
+
 Sums run in rank order (``((x0 + x1) + x2) + ...``), the same order for
 every element and every payload length, so a reduction is elementwise
 deterministic: splitting a payload into buckets never changes a bit.
@@ -35,6 +39,7 @@ axis and the flat ``("node", "local")`` axis cross processes over a
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, Iterable, List, Optional, Sequence, Tuple, Union
 
@@ -43,7 +48,7 @@ import torch.distributed as dist
 
 from repro_torch.core import telemetry as _tm
 from repro_torch.distributed import backend as _backend
-from repro_torch.kernels import staging
+from repro_torch.kernels import _dispatch, staging
 
 Axes = Union[str, Sequence[str]]
 
@@ -64,6 +69,25 @@ def _signed(fn):
         return fn(self, x.view(dt), *args, **kw).view(x.dtype)
     call.__name__, call.__doc__ = fn.__name__, fn.__doc__
     return call
+
+
+def _collective(op: str):
+    """Count each call of a primitive under the work counter as one
+    ``op`` of ``max(operand, result)`` bytes per held rank (a call made
+    inside another primitive is part of it)."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(self, x, *args, **kw):
+            c = _dispatch.counter()
+            if c is None:
+                return fn(self, x, *args, **kw)
+            with c.collective(op) as box:
+                out = fn(self, x, *args, **kw)
+                box[0] = max(_dispatch.nbytes(x), _dispatch.nbytes(out)) \
+                    / self.rows
+            return out
+        return call
+    return wrap
 
 
 def resolve_device(device) -> torch.device:
@@ -179,6 +203,7 @@ class RankGrid:
             return r // self.n_local
         return r
 
+    @_collective("all-reduce")
     @_signed
     def psum(self, x: torch.Tensor, axes: Axes) -> torch.Tensor:
         """Every rank gets the sum of its group's rows."""
@@ -186,6 +211,7 @@ class RankGrid:
         s = self._sum_members(g)
         return self._ungroup(s.unsqueeze(1).expand_as(g), axes)
 
+    @_collective("reduce-scatter")
     @_signed
     def psum_scatter(self, x: torch.Tensor, axes: Axes,
                      tiled: bool = True) -> torch.Tensor:
@@ -204,6 +230,7 @@ class RankGrid:
             raise ValueError(f"untiled psum_scatter needs dim0 == {G}")
         return self._ungroup(s, axes)
 
+    @_collective("all-gather")
     def all_gather(self, x: torch.Tensor, axes: Axes,
                    tiled: bool = False) -> torch.Tensor:
         """Every rank gets its group's rows stacked on a new dim 0
@@ -215,6 +242,7 @@ class RankGrid:
             out = out.reshape((Go, G, G * g.shape[2]) + tuple(g.shape[3:]))
         return self._ungroup(out, axes)
 
+    @_collective("all-to-all")
     def all_to_all(self, x: torch.Tensor, axes: Axes, split_axis: int,
                    concat_axis: int, tiled: bool = False) -> torch.Tensor:
         """``lax.all_to_all``. Untiled: each rank's ``split_axis`` (size G)
@@ -278,6 +306,7 @@ class RankGrid:
             hit = self._src_maps[key] = self._flat_src(key).to(self.device)
         return hit
 
+    @_collective("collective-permute")
     def ppermute(self, x: torch.Tensor, axes: Axes,
                  pairs: Iterable[Tuple[int, int]]) -> torch.Tensor:
         """Static permutation within each group: member ``dst`` receives
@@ -469,6 +498,7 @@ class ProcessGrid(RankGrid):
 
     # -- the lax primitives across processes ----------------------------------
 
+    @_collective("all-reduce")
     @_signed
     def psum(self, x: torch.Tensor, axes: Axes) -> torch.Tensor:
         ax = self._axes(axes)
@@ -481,6 +511,7 @@ class ProcessGrid(RankGrid):
         return s.unsqueeze(1).expand((Gh, h) + rest).reshape(
             (self.rows,) + rest)
 
+    @_collective("reduce-scatter")
     @_signed
     def psum_scatter(self, x: torch.Tensor, axes: Axes,
                      tiled: bool = True) -> torch.Tensor:
@@ -500,6 +531,7 @@ class ProcessGrid(RankGrid):
         return self._sum_members(y.reshape(
             (self.rows, G, x.shape[1] // G) + tuple(x.shape[2:])))
 
+    @_collective("all-gather")
     def all_gather(self, x: torch.Tensor, axes: Axes,
                    tiled: bool = False) -> torch.Tensor:
         ax = self._axes(axes)
@@ -568,6 +600,7 @@ class ProcessGrid(RankGrid):
             torch.tensor(local, device=self.device), sends, recvs)
         return hit
 
+    @_collective("collective-permute")
     def ppermute(self, x: torch.Tensor, axes: Axes,
                  pairs: Iterable[Tuple[int, int]]) -> torch.Tensor:
         self._rows(x)

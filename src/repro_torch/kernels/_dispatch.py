@@ -5,14 +5,65 @@ else raises. Nothing here falls back.
 The model kernels have no backward (nor have the reference's Pallas
 kernels), so their wrappers refuse, on every device, an operand that
 would need one (:func:`refuse_grad`): a kernel's output has no ``grad_fn``,
-and a gradient through it would be zero without a word."""
+and a gradient through it would be zero without a word.
+
+Under the work counter (``roofline/counter.py``) each wrapper counts one
+call through :func:`kernel_call`: the :class:`Cost` registered beside it
+(the bytes and operations of the function it computes, whichever device
+computes it), and none of the aten ops beneath (the plain version's on the
+CPU, the launch's allocations on the card). There, and only there, a
+``meta`` operand is taken too: the wrapper returns outputs of the kernel's
+shapes on ``meta`` without computing them. Outside a count nothing
+changes: :func:`on_card` raises for ``meta`` as for any other device."""
 from __future__ import annotations
 
-from typing import Tuple
+import contextlib
+from typing import Callable, Iterator, List, NamedTuple, Tuple
 
 import torch
 
 from repro_torch.kernels import _build
+
+
+class Cost(NamedTuple):
+    """The work of one kernel call: the bytes its function must move (each
+    input read once, each output written once) and its fp32 operations,
+    the terms of its roofline bound (PERF.md §6)."""
+
+    nbytes: int
+    ops: int
+
+
+#: the work counters in effect, innermost last: ``roofline.counter``
+#: pushes one for the span of its ``with`` (empty outside a count)
+COUNTERS: List = []
+
+
+def counter():
+    """The work counter in effect, or None."""
+    return COUNTERS[-1] if COUNTERS else None
+
+
+@contextlib.contextmanager
+def kernel_call(name: str, cost: Callable[[], Cost],
+                *tensors: torch.Tensor) -> Iterator[bool]:
+    """One call of the kernel ``name``. Under the work counter: records
+    ``cost()`` once and hides the aten ops run inside the ``with`` from
+    the count; yields whether the operands lie on ``meta``, where the
+    wrapper returns outputs of the kernel's shapes instead of computing.
+    Outside a count it yields False and does nothing else."""
+    c = counter()
+    if c is None:
+        yield False
+        return
+    with c.kernel(name, cost()):
+        yield all(t.device.type == "meta" for t in tensors)
+
+
+def nbytes(*tensors) -> int:
+    """The bytes of ``tensors``' elements (None counts nothing)."""
+    return sum(t.numel() * t.element_size() for t in tensors
+               if t is not None)
 
 
 def on_card(*tensors: torch.Tensor) -> bool:

@@ -29,8 +29,9 @@ from typing import Dict, Tuple, Union
 import torch
 
 from repro_torch.kernels import _build, ref
-from repro_torch.kernels._dispatch import (check, on_card, raise_on,
-                                          refuse_grad, stream)
+from repro_torch.kernels._dispatch import (Cost, check, kernel_call,
+                                          on_card, raise_on, refuse_grad,
+                                          stream)
 
 #: launches of the CUDA kernel
 launches: Dict[str, int] = {"flash_decode": 0}
@@ -92,6 +93,26 @@ def _tickets_for(device: torch.device, st: int, pairs: int) -> torch.Tensor:
     return t
 
 
+def cost(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+         lengths: Union[int, torch.Tensor]) -> Cost:
+    """What one call must move and compute: q, each row's K and V up to
+    its length and the fp32 output; 4 operations per (query head, valid
+    position, dim) (q.k and p.v). A length on ``meta`` has no value: it
+    counts every position of the cache."""
+    B, _, H, hd = q.shape
+    S, KV = k.shape[1], k.shape[2]
+    if not torch.is_tensor(lengths):
+        lens = [int(lengths)] * B
+    elif lengths.device.type == "meta":
+        lens = [S] * B
+    else:
+        lens = lengths.expand(B).tolist()
+    valid = sum(min(max(int(n), 0), S) for n in lens)
+    esize = q.element_size()
+    return Cost(B * H * hd * esize + 2 * valid * KV * hd * esize
+                + B * H * hd * 4, 4 * H * hd * valid)
+
+
 def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  lengths: Union[int, torch.Tensor]) -> torch.Tensor:
     """One-token GQA attention. q: ``(B, 1, H, hd)``; k, v: ``(B, S, KV,
@@ -116,7 +137,21 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if vec and (lengths.is_floating_point() or lengths.is_complex()):
         raise TypeError(f"lengths: expected an integer tensor, got "
                         f"{lengths.dtype}")
-    if not on_card(q, k, v, *((lengths,) if vec else ())):
+    operands = (q, k, v) + ((lengths,) if vec else ())
+    with kernel_call("flash_decode", lambda: cost(q, k, v, lengths),
+                     *operands) as meta:
+        if meta:
+            return torch.empty((B, 1, H * hd), dtype=torch.float32,
+                               device="meta")
+        return _flash_decode(q, k, v, lengths, operands)
+
+
+def _flash_decode(q, k, v, lengths, operands) -> torch.Tensor:
+    """The plain version for CPU operands, else the kernel's launch."""
+    B, _, H, hd = q.shape
+    S, KV = k.shape[1], k.shape[2]
+    vec = torch.is_tensor(lengths)
+    if not on_card(*operands):
         return ref.flash_decode(q, k, v, lengths)
     if q.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"q: the kernel takes bfloat16 or float32, got "

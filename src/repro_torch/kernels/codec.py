@@ -23,6 +23,10 @@ suffix under feedback).
 
 The :class:`CodecLowering` registry holds ``int8_block``, ``int4_block``
 and ``fp8_sim``.
+
+Under the work counter a call of any of the nine functions counts its
+cost (:func:`encode_cost`, :func:`decode_cost`) once, under the function's
+name (``_dispatch.kernel_call``).
 """
 from __future__ import annotations
 
@@ -33,7 +37,8 @@ import torch
 
 from repro_torch.core.compress import BLOCK
 from repro_torch.kernels import _build, ref
-from repro_torch.kernels._dispatch import (check as _check,
+from repro_torch.kernels._dispatch import (Cost, kernel_call, nbytes,
+                                           check as _check,
                                            on_card as _on_card,
                                            raise_on as _raise_on,
                                            stream as _stream)
@@ -48,6 +53,91 @@ launches: Dict[str, int] = {
     "fp8_amax": 0, "fp8_encode": 0, "fp8_amax_feedback": 0,
     "fp8_encode_feedback": 0, "fp8_decode_reduce": 0,
 }
+
+
+#: modeled fp32 operations per element: the block encodes (add, abs, max,
+#: mul, div, rint, 2 clips, fma), the fp8 encode (add, abs, max, mul, max,
+#: div, 2 clips, 2 converts, fma) and one fma per peer in decode-reduce
+ENCODE_OPS = {"int8": 9, "int4": 9, "fp8": 11}
+DECODE_OPS_PER_PEER = 2
+#: wire bytes per 256-element block of the block codecs
+_BLOCK_WIRE = {"int8": BLOCK, "int4": BLOCK // 2}
+
+
+def encode_cost(codec: str, x: torch.Tensor,
+                err: Optional[torch.Tensor] = None) -> Cost:
+    """What one encode of ``codec`` ("int8", "int4" or "fp8") must move
+    and compute: x (and the carried error) read, the wire, the scales and
+    the f32 residual written; ``ENCODE_OPS`` per element."""
+    L = int(x.shape[-1]) if x.dim() else 1
+    S = x.numel() // max(L, 1)
+    if codec == "fp8":
+        wire, scales = S * L, 4 * S
+    else:
+        nb = -(-L // BLOCK)
+        wire, scales = S * nb * _BLOCK_WIRE[codec], 4 * S * nb
+    return Cost(nbytes(x, err) + wire + scales + 4 * S * L,
+                ENCODE_OPS[codec] * S * L)
+
+
+def decode_cost(codec: str, comp, length: int) -> Cost:
+    """What one decode-reduce of ``codec`` must move and compute: the wire
+    and the scales read, the f32 sum written per rank; one fma per (rank,
+    peer, element)."""
+    q, scale = comp["q"], comp["scale"]
+    fp8 = codec == "fp8"
+    slices = scale.numel() if fp8 else \
+        scale.numel() // max(int(scale.shape[-1]), 1)  # ranks x peers
+    R = int(q.shape[0]) if q.dim() == (3 if fp8 else 4) else 1
+    return Cost(nbytes(q, scale) + 4 * R * int(length),
+                DECODE_OPS_PER_PEER * slices * int(length))
+
+
+def _encode_meta(codec: str, x: torch.Tensor):
+    """An encode's outputs on ``meta``, shaped as the kernel's."""
+    lead, L = tuple(x.shape[:-1]), int(x.shape[-1])
+    if codec == "fp8":
+        comp = {"q": torch.empty(x.shape, dtype=torch.uint8, device="meta"),
+                "scale": torch.empty(lead, dtype=torch.float32,
+                                     device="meta")}
+    else:
+        nb = -(-L // BLOCK)
+        comp = {"q": torch.empty(lead + (nb, _BLOCK_WIRE[codec]),
+                                 dtype=torch.int8 if codec == "int8"
+                                 else torch.uint8, device="meta"),
+                "scale": torch.empty(lead + (nb,), dtype=torch.float32,
+                                     device="meta")}
+    return comp, torch.empty_like(x)
+
+
+def _encode(codec: str, plain, launch, x: torch.Tensor,
+            err: Optional[torch.Tensor] = None):
+    """One encode call: counted under the work counter, the plain
+    version for CPU operands, else ``launch``."""
+    operands = (x,) if err is None else (x, err)
+    name = f"{codec}_encode_{'residual' if err is None else 'feedback'}"
+    with kernel_call(name, lambda: encode_cost(codec, x, err),
+                     *operands) as meta:
+        if meta:
+            return _encode_meta(codec, x)
+        if not _on_card(*operands):
+            return plain(*operands)
+        return launch(x, err)
+
+
+def _decode(codec: str, plain, launch, comp, length: int) -> torch.Tensor:
+    """One decode-reduce call: counted under the work counter, the plain
+    version for CPU operands, else ``launch``."""
+    q, scale = comp["q"], comp["scale"]
+    with kernel_call(f"{codec}_decode_reduce",
+                     lambda: decode_cost(codec, comp, length), q, scale) as meta:
+        if meta:
+            lead = tuple(q.shape[:-2 if codec == "fp8" else -3])
+            return torch.empty(lead + (int(length),), dtype=torch.float32,
+                               device="meta")
+        if not _on_card(q, scale):
+            return plain(comp, length)
+        return launch(comp, length)
 
 
 def _variant(kernel: str, err: Optional[torch.Tensor]) -> str:
@@ -146,27 +236,24 @@ def _int8_encode_launch(x, err):
 def int8_encode_feedback(x: torch.Tensor, err: torch.Tensor):
     """Encode ``x + err``: ``(*B, L)`` f32 -> ({"q" (*B, nb, 256) int8,
     "scale" (*B, nb) f32}, residual (*B, L) f32)."""
-    if not _on_card(x, err):
-        return ref.int8_encode_feedback(x, err)
-    return _int8_encode_launch(x, err)
+    return _encode("int8", ref.int8_encode_feedback, _int8_encode_launch, x,
+                   err)
 
 
 def int8_encode_residual(x: torch.Tensor):
     """Encode ``x`` -> (wire form, round-trip residual); as above without
     the carried error."""
-    if not _on_card(x):
-        return ref.int8_encode_residual(x)
-    return _int8_encode_launch(x, None)
+    return _encode("int8", ref.int8_encode_residual, _int8_encode_launch, x)
 
 
 def int8_decode_reduce(comp, length: int) -> torch.Tensor:
     """Sum the ``(*B, W, nb, 256)`` int8 wire slices times their
     ``(*B, W, nb)`` scales over W -> ``(*B, length)`` f32 (at most one
     leading batch dim)."""
-    if not _on_card(comp["q"], comp["scale"]):
-        return ref.int8_decode_reduce(comp, length)
-    return _block_decode_launch("codec_int8", "int8_decode_reduce",
-                                torch.int8, BLOCK, comp, length, align=8)
+    return _decode("int8", ref.int8_decode_reduce, lambda c, n:
+                   _block_decode_launch("codec_int8", "int8_decode_reduce",
+                                        torch.int8, BLOCK, c, n, align=8),
+                   comp, length)
 
 
 # ---------------------------------------------------------------------------
@@ -182,27 +269,24 @@ def _int4_encode_launch(x, err):
 def int4_encode_feedback(x: torch.Tensor, err: torch.Tensor):
     """Encode ``x + err``: ``(*B, L)`` f32 -> ({"q" (*B, nb, 128) uint8
     nibble pairs, "scale" (*B, nb) f32}, residual (*B, L) f32)."""
-    if not _on_card(x, err):
-        return ref.int4_encode_feedback(x, err)
-    return _int4_encode_launch(x, err)
+    return _encode("int4", ref.int4_encode_feedback, _int4_encode_launch, x,
+                   err)
 
 
 def int4_encode_residual(x: torch.Tensor):
     """Encode ``x`` -> (wire form, round-trip residual); as above without
     the carried error."""
-    if not _on_card(x):
-        return ref.int4_encode_residual(x)
-    return _int4_encode_launch(x, None)
+    return _encode("int4", ref.int4_encode_residual, _int4_encode_launch, x)
 
 
 def int4_decode_reduce(comp, length: int) -> torch.Tensor:
     """Sum the ``(*B, W, nb, 128)`` packed wire slices times their
     ``(*B, W, nb)`` scales over W -> ``(*B, length)`` f32 (at most one
     leading batch dim)."""
-    if not _on_card(comp["q"], comp["scale"]):
-        return ref.int4_decode_reduce(comp, length)
-    return _block_decode_launch("codec_int4", "int4_decode_reduce",
-                                torch.uint8, BLOCK // 2, comp, length)
+    return _decode("int4", ref.int4_decode_reduce, lambda c, n:
+                   _block_decode_launch("codec_int4", "int4_decode_reduce",
+                                        torch.uint8, BLOCK // 2, c, n),
+                   comp, length)
 
 
 # ---------------------------------------------------------------------------
@@ -231,17 +315,14 @@ def _fp8_encode_launch(x: torch.Tensor, err: Optional[torch.Tensor]):
 def fp8_encode_feedback(x: torch.Tensor, err: torch.Tensor):
     """Encode ``x + err``: ``(*B, L)`` f32 -> ({"q" (*B, L) uint8 e4m3
     bits, "scale" (*B,) f32}, residual (*B, L) f32)."""
-    if not _on_card(x, err):
-        return ref.fp8_encode_feedback(x, err)
-    return _fp8_encode_launch(x, err)
+    return _encode("fp8", ref.fp8_encode_feedback, _fp8_encode_launch, x,
+                   err)
 
 
 def fp8_encode_residual(x: torch.Tensor):
     """Encode ``x`` -> (wire form, round-trip residual); as above without
     the carried error."""
-    if not _on_card(x):
-        return ref.fp8_encode_residual(x)
-    return _fp8_encode_launch(x, None)
+    return _encode("fp8", ref.fp8_encode_residual, _fp8_encode_launch, x)
 
 
 def fp8_decode_reduce(comp, length: int) -> torch.Tensor:
@@ -250,9 +331,12 @@ def fp8_decode_reduce(comp, length: int) -> torch.Tensor:
     dim). The kernel takes the wire at any address and any ``Lq``: it
     reads 8-byte vectors where ``q``'s address and ``Lq`` are multiples of
     8, single bytes elsewhere."""
+    return _decode("fp8", ref.fp8_decode_reduce, _fp8_decode_launch, comp,
+                   length)
+
+
+def _fp8_decode_launch(comp, length: int) -> torch.Tensor:
     q, scale = comp["q"], comp["scale"]
-    if not _on_card(q, scale):
-        return ref.fp8_decode_reduce(comp, length)
     _check(q, torch.uint8, "q")
     _check(scale, torch.float32, "scale")
     if q.dim() not in (2, 3) or tuple(q.shape[:-1]) != tuple(scale.shape):

@@ -14,7 +14,9 @@ and ``Di`` need not be multiples of any chunk, and the final state may be
 written in place over ``h0``.
 
 ``launches`` counts kernel launches (the CPU path counts nothing), so a run
-can show that its prefills and decode ticks went through the kernel.
+can show that its prefills and decode ticks went through the kernel. Under
+the work counter a call counts :func:`cost` once
+(``_dispatch.kernel_call``).
 """
 from __future__ import annotations
 
@@ -23,11 +25,16 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.kernels import _build, ref
-from repro_torch.kernels._dispatch import (check, on_card, overlaps_partly,
+from repro_torch.kernels._dispatch import (Cost, check, kernel_call,
+                                           on_card, overlaps_partly,
                                            raise_on, refuse_grad, stream)
 
 #: launches of the CUDA kernel
 launches: Dict[str, int] = {"mamba_scan": 0}
+
+#: modeled fp32 operations of the scan per (step, channel, state): dt*A,
+#: dA*h, (dt*x)*B, their add, h*C and its sum (the exponential apart)
+OPS_PER_STATE = 6
 
 #: the kernel spreads a channel's N states (padded to 4, 8, 16 or 32) over
 #: up to 8 lanes of one warp, four in each thread's registers
@@ -68,6 +75,19 @@ def _check_operands(dt, A, Bm, Cm, x, h0, state_out) -> None:
             raise TypeError(f"{what}: expected torch.float32, got {t.dtype}")
 
 
+def cost(dt: torch.Tensor, A: torch.Tensor, x: torch.Tensor) -> Cost:
+    """What one call from a carried state must move and compute: dt and y
+    in fp32 and x in its type over (B, T, Di), Bm and Cm in fp32, A once,
+    h0 read and hT written once; ``OPS_PER_STATE`` fp32 operations per
+    (step, channel, state) plus dt*x per (step, channel). Its B*T*Di*N
+    exponentials, the SFU's work, are not among them."""
+    B, T, Di = dt.shape
+    N = A.shape[1]
+    return Cost(B * T * Di * (4 + x.element_size() + 4) + 2 * B * T * N * 4
+                + Di * N * 4 + 2 * B * Di * N * 4,
+                OPS_PER_STATE * B * T * Di * N + B * T * Di)
+
+
 def mamba_scan(dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
                Cm: torch.Tensor, x: torch.Tensor,
                h0: Optional[torch.Tensor] = None,
@@ -87,6 +107,20 @@ def mamba_scan(dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
     refuse_grad("mamba_scan", dt, A, Bm, Cm, x, h0)
     _check_operands(dt, A, Bm, Cm, x, h0, state_out)
     extra = tuple(t for t in (h0, state_out) if t is not None)
+    with kernel_call("mamba_scan", lambda: cost(dt, A, x), dt, A, Bm, Cm,
+                     x, *extra) as meta:
+        if meta:
+            B, T, Di = dt.shape
+            return (torch.empty((B, T, Di), dtype=torch.float32,
+                                device="meta"),
+                    torch.empty((B, Di, A.shape[1]), dtype=torch.float32,
+                                device="meta")
+                    if state_out is None else state_out)
+        return _launch(dt, A, Bm, Cm, x, h0, state_out, extra)
+
+
+def _launch(dt, A, Bm, Cm, x, h0, state_out, extra):
+    """The plain version for CPU operands, else the kernel's launch."""
     if not on_card(dt, A, Bm, Cm, x, *extra):
         y, hT = ref.mamba_scan(dt, A, Bm, Cm, x, h0)
         return y, (hT if state_out is None else state_out.copy_(hT))

@@ -23,7 +23,10 @@ recurrent kernel (:func:`rwkv6_wkv_recurrent`, one CTA per (b, head)
 walking the steps) runs only when asked for by name; it and the chunked
 one take any ``T``. ``launches`` counts each kernel under its own key (the
 CPU path counts nothing): the tick kernel under ``rwkv6_wkv``, so a run can
-show that its prefills and decode ticks went through the kernels.
+show that its prefills and decode ticks went through the kernels. Under
+the work counter a call of any of the three counts :func:`cost` once,
+under ``rwkv6_wkv``, the function they compute
+(``_dispatch.kernel_call``).
 """
 from __future__ import annotations
 
@@ -32,8 +35,9 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.kernels import _build, ref
-from repro_torch.kernels._dispatch import (check, on_card, overlaps_partly,
-                                          raise_on, refuse_grad, stream)
+from repro_torch.kernels._dispatch import (Cost, check, kernel_call,
+                                          on_card, overlaps_partly, raise_on,
+                                          refuse_grad, stream)
 
 #: calls of each CUDA kernel: ``rwkv6_wkv`` the tick kernel's (through
 #: :func:`rwkv6_wkv`), ``rwkv6_wkv_recurrent`` the recurrent kernel's, and
@@ -87,6 +91,18 @@ def _check_operands(r, k, v, w, u, s0, state_out) -> None:
             raise TypeError(f"{what}: expected torch.float32, got {t.dtype}")
 
 
+def cost(r: torch.Tensor) -> Cost:
+    """What one call must move and compute: r, k, v in their type, w and
+    y in fp32, s0 read and sT written once, u once; 5 fp32 operations per
+    (step, head, state element), 2 for y's sum over the state and 3 for
+    the update, and 3 per (step, head, lane) for the bonus term's dot
+    product."""
+    B, T, H, hd = r.shape
+    return Cost(B * T * H * hd * (3 * r.element_size() + 4 + 4)
+                + 2 * B * H * hd * hd * 4 + H * hd * 4,
+                5 * B * T * H * hd * hd + 3 * B * T * H * hd)
+
+
 def rwkv6_wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               w: torch.Tensor, u: torch.Tensor, s0: torch.Tensor,
               state_out: Optional[torch.Tensor] = None
@@ -128,6 +144,16 @@ def _run(r, k, v, w, u, s0, state_out, chunked):
     refuse_grad("rwkv6_wkv", r, k, v, w, u, s0)
     _check_operands(r, k, v, w, u, s0, state_out)
     outs = () if state_out is None else (state_out,)
+    with kernel_call("rwkv6_wkv", lambda: cost(r), r, k, v, w, u, s0,
+                     *outs) as meta:
+        if meta:
+            return (torch.empty(r.shape, dtype=torch.float32, device="meta"),
+                    torch.empty_like(s0) if state_out is None else state_out)
+        return _launch(r, k, v, w, u, s0, state_out, outs, chunked)
+
+
+def _launch(r, k, v, w, u, s0, state_out, outs, chunked):
+    """The plain version for CPU operands, else the kernel's launch."""
     if not on_card(r, k, v, w, u, s0, *outs):
         plain = ref.rwkv6_wkv_chunked if chunked else ref.rwkv6_wkv
         y, sT = plain(r, k, v, w, u, s0)

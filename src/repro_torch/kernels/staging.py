@@ -23,16 +23,19 @@ is a fresh tensor; a zero-size one returns at once, with no launch.
 
 ``launches`` counts kernel launches per kernel (the CPU path counts
 nothing), so a run can show that its collectives went through the
-kernels.
+kernels. Under the work counter a call counts its wrapper's cost
+(:func:`shift_cost`, :func:`pack_cost`) once (``_dispatch.kernel_call``).
 """
 from __future__ import annotations
 
+import math
 from typing import Dict, Tuple
 
 import torch
 
 from repro_torch.kernels import _build, ref
-from repro_torch.kernels._dispatch import on_card, raise_on, stream
+from repro_torch.kernels._dispatch import (Cost, kernel_call, nbytes,
+                                           on_card, raise_on, stream)
 
 #: launches of each CUDA kernel
 launches: Dict[str, int] = {"shift_blocks": 0, "pack_blocks": 0}
@@ -68,6 +71,20 @@ def _index(t: torch.Tensor, what: str) -> torch.Tensor:
     return t.to(torch.long).contiguous()
 
 
+def shift_cost(v: torch.Tensor, shift: torch.Tensor) -> Cost:
+    """Every row of ``v`` read once and written once, and the int64
+    shifts; no arithmetic."""
+    return Cost(2 * nbytes(v) + 8 * shift.numel(), 0)
+
+
+def pack_cost(src: torch.Tensor, idx: torch.Tensor) -> Cost:
+    """Every output row read once and written once, and the int64
+    indices; no arithmetic."""
+    row = math.prod(src.shape[idx.dim():])
+    return Cost(2 * idx.numel() * row * src.element_size()
+                + 8 * idx.numel(), 0)
+
+
 def shift_blocks(v: torch.Tensor, shift: torch.Tensor) -> torch.Tensor:
     """Per-rank roll: ``v`` ``(R, K, ...)``, ``shift`` ``(R,)`` integers on
     ``v``'s device; row ``k`` of rank ``r`` of the result is ``v[r, (k -
@@ -75,6 +92,15 @@ def shift_blocks(v: torch.Tensor, shift: torch.Tensor) -> torch.Tensor:
     if v.dim() < 2 or tuple(shift.shape) != (v.shape[0],):
         raise ValueError(f"shift_blocks takes v (R, K, ...) and shift (R,); "
                          f"got {tuple(v.shape)}, {tuple(shift.shape)}")
+    with kernel_call("shift_blocks", lambda: shift_cost(v, shift), v,
+                     shift) as meta:
+        if meta:
+            return torch.empty(v.shape, dtype=v.dtype, device="meta")
+        return _shift(v, shift)
+
+
+def _shift(v: torch.Tensor, shift: torch.Tensor) -> torch.Tensor:
+    """The plain version for CPU operands, else the kernel's launch."""
     if not on_card(v, shift):
         return ref.shift_blocks(v, shift)
     shift = _index(shift, "shift")
@@ -105,6 +131,17 @@ def pack_blocks(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"pack_blocks takes src (N, ...) with idx (K,), or "
                          f"src (R, N, ...) with idx (R, J); got "
                          f"{tuple(src.shape)}, {tuple(idx.shape)}")
+    with kernel_call("pack_blocks", lambda: pack_cost(src, idx), src,
+                     idx) as meta:
+        if meta:
+            return torch.empty(tuple(idx.shape)
+                               + tuple(src.shape[idx.dim():]),
+                               dtype=src.dtype, device="meta")
+        return _pack(src, idx)
+
+
+def _pack(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """The plain version for CPU operands, else the kernel's launch."""
     if not on_card(src, idx):
         return ref.pack_blocks(src, idx)
     idx = _index(idx, "idx")

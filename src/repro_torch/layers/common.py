@@ -121,7 +121,8 @@ def mrope_cos_sin(positions3: torch.Tensor, head_dim: int, theta: float,
     ang_all = positions3[..., None].to(Accum) * freqs   # (B, 3, T, half)
     sec_id = torch.repeat_interleave(
         torch.arange(3, device=positions3.device),
-        torch.tensor(sections, device=positions3.device))  # (half,)
+        torch.tensor(sections, device=positions3.device),
+        output_size=half)  # (half,)
     B, _, T, _ = ang_all.shape
     ang = torch.gather(ang_all, 1, sec_id.expand(B, 1, T, half))[:, 0]
     return torch.cos(ang), torch.sin(ang)

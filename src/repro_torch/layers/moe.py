@@ -16,11 +16,14 @@ leading flat-rank dim (``core/grid.py``), so the reference's per-device
 body runs for all ranks at once:
 
   * each TP rank routes its ``t = ceil(T / tp)`` slice of its batch
-    shard's ``T`` tokens (zero rows pad the last slice) and packs them per
-    destination peer into ``cap`` slots (:func:`ep_capacity`), in the flat
-    order of the routings (token-major, k-minor); a routing past ``cap``
-    is dropped, and an empty slot carries expert ``E/tp - 1`` with its
-    ``ok`` flag off;
+    shard's ``T`` tokens (zero rows pad the last slice; a batch that the
+    batch axes do not divide is replicated over them, as
+    ``sharding.rules.spec_for`` replicates it, where the reference's
+    ``shard_map`` refuses it) and packs them per destination peer into
+    ``cap`` slots (:func:`ep_capacity`), in the flat order of the
+    routings (token-major, k-minor); a routing past ``cap`` is dropped,
+    and an empty slot carries expert ``E/tp - 1`` with its ``ok`` flag
+    off;
   * dispatch is three all-to-alls over the TP group
     ``communicator(grid).split(axes=tp)`` (tokens, expert ids, flags),
     with the algorithm ``comm.plan("alltoall", tp * cap * D * itemsize)``
@@ -55,6 +58,13 @@ gradient the reference takes. A compressed combine under grad raises:
 the codec's rounding has no derivative and its per-block scale sends a
 block's gradient to one element (ROADMAP.md, queue 3).
 
+Under the work counter (``roofline/counter.py``) on ``meta`` the group
+sizes have no values to read: each rank's rows split evenly over its
+experts (:func:`_group_sizes`; a grouped product's FLOPs depend only on
+the rows' total, which is the same), so every rank's expert work has one
+shape, and the expert-parallel path runs one rank of each TP index and
+counts it once for each of the ranks (:func:`_counted_experts`).
+
 Expert weights are stored ``(E, D, F)`` and ``(E, F, D)`` as the
 reference stores them; the router is float32. Drawing them is done expert
 by expert, so the float32 transient is one expert's matrix, not all of
@@ -72,6 +82,7 @@ from torch import nn
 from repro_torch.core import mcoll, runtime
 from repro_torch.core.comm import Communicator, communicator
 from repro_torch.core.grid import ProcessGrid
+from repro_torch.kernels import _dispatch
 from repro_torch.layers import common
 from repro_torch.layers.common import Accum, Compute
 
@@ -135,6 +146,60 @@ class _AllGather(torch.autograd.Function):
         grid, axes = ctx.call
         return grid.psum_scatter(g.contiguous(), axes, tiled=True), None, \
             None
+
+
+def _group_sizes(counts: torch.Tensor, rows: int):
+    """The rows of each expert group on the host (``counts`` over the last
+    dim; ``rows`` their total per leading index): the one host read of a
+    call. Under the work counter a ``meta`` call has no values to read:
+    the rows split evenly, the first ``rows % groups`` groups one more."""
+    if counts.device.type != "meta" or _dispatch.counter() is None:
+        return counts.tolist()
+    n = counts.shape[-1]
+    q, r = divmod(rows, n)
+    even = [q + (e < r) for e in range(n)]
+    return [even] * counts.shape[0] if counts.dim() == 2 else even
+
+
+class _Replicas(torch.autograd.Function):
+    """Under the work counter: the representatives' expert outputs ``(tp,
+    rows, D)`` made into every rank's ``(world, rows, D)`` by TP index,
+    uncounted; the backward sums the ranks' cotangents back, uncounted, and
+    counts what follows (the representatives' backward) ``n`` times."""
+
+    @staticmethod
+    def forward(ctx, rep, rank_tp, counter, n):
+        ctx.call = (rank_tp, counter, n, rep.shape[0])
+        with counter.hidden():
+            return rep[rank_tp]
+
+    @staticmethod
+    def backward(ctx, g):
+        rank_tp, counter, n, tp = ctx.call
+        with counter.hidden():
+            g_rep = g.new_zeros((tp,) + tuple(g.shape[1:])).index_add_(
+                0, rank_tp, g)
+        counter.push_scale(n)
+        return g_rep, None, None, None
+
+
+class _ScaledInputs(torch.autograd.Function):
+    """The representatives' inputs (views of them); in the backward, the
+    end of their ``n``-fold count."""
+
+    @staticmethod
+    def forward(ctx, counter, n, *xs):
+        ctx.call = (counter, n)
+        out = tuple(x.view_as(x) for x in xs)
+        ctx.mark_non_differentiable(*(o for o, x in zip(out, xs)
+                                      if not x.requires_grad))
+        return out
+
+    @staticmethod
+    def backward(ctx, *gs):
+        counter, n = ctx.call
+        counter.pop_scale(n)
+        return (None, None) + gs
 
 
 def _route(router: torch.Tensor, tokens: torch.Tensor, k: int):
@@ -205,6 +270,29 @@ class MoE(nn.Module):
             start += n
         return out
 
+    def _counted_experts(self, counter, x_sorted, sizes, rt_of, El,
+                         weights) -> torch.Tensor:
+        """Every rank's expert outputs under the work counter on ``meta``:
+        the even split gives every rank the same group sizes, so one rank
+        of each TP index runs, counted ``world / tp`` times, forward and
+        backward. Exact for the FLOPs; the backward's sums of the ranks'
+        cotangents into the shared weights (one add per rank past the
+        first) are not counted."""
+        world, tp = len(rt_of), max(rt_of) + 1
+        n = world // tp
+        reps = [rt_of.index(j) for j in range(tp)]
+        E = len(weights[0])
+        ins = _ScaledInputs.apply(counter, n, x_sorted,
+                                  *(w for ws in weights for w in ws))
+        xs, flat = ins[0], ins[1:]
+        ws = tuple(flat[i * E:(i + 1) * E] for i in range(3))
+        with counter.scaled(n):
+            rep = torch.stack([self._experts(xs[r], sizes[r], rt_of[r] * El,
+                                             ws) for r in reps])
+        with counter.hidden():
+            rank_tp = torch.tensor(rt_of, device=x_sorted.device)
+        return _Replicas.apply(rep, rank_tp, counter, n)
+
     def forward(self, x: torch.Tensor, rules=None, grid=None,
                 error_budget: float = 0.0
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -246,7 +334,7 @@ class MoE(nn.Module):
         order = torch.argsort(flat, stable=True)
         x_sorted = tokens.repeat_interleave(k, dim=0)[order]
         counts = torch.bincount(flat, minlength=E)
-        out = self._experts(x_sorted, counts.tolist())
+        out = self._experts(x_sorted, _group_sizes(counts, flat.numel()))
         unsorted = torch.empty_like(out)
         unsorted[order] = out
         y = (unsorted.reshape(-1, k, D) * w[..., None].to(out.dtype)).sum(1)
@@ -268,8 +356,10 @@ class MoE(nn.Module):
                            if a in grid.axis_names)
         bshard = math.prod(grid.shape[a] for a in batch_axes)
         if B % bshard:
-            raise ValueError(f"batch {B} does not split over {batch_axes} "
-                             f"({bshard} shards)")
+            # replicated, as sharding.rules.spec_for replicates a dim its
+            # axes do not divide (the production grid's 64 nodes and a
+            # batch of 32): every TP group routes the whole batch
+            batch_axes, bshard = (), 1
         T = B // bshard * S  # a shard's tokens
         t = -(-T // tp_size)  # a TP rank's routing slice, padded
         cap = ep_capacity(T, tp_size, moe)
@@ -355,12 +445,17 @@ class MoE(nn.Module):
         order = torch.argsort(eid, dim=1, stable=True)
         counts = torch.zeros((world, El), dtype=torch.long, device=dev)
         counts.scatter_add_(1, eid, torch.ones_like(eid))
-        sizes = counts.tolist()  # the one host read of the call
+        sizes = _group_sizes(counts, tp_size * cap)  # the one host read
         x_sorted = rx.gather(1, order[..., None].expand(-1, -1, D))
         weights = self._expert_weights()
-        out_sorted = torch.stack([self._experts(x_sorted[r], sizes[r],
-                                                rt_of[r] * El, weights)
-                                  for r in range(world)])
+        counter = _dispatch.counter()
+        if counter is not None and x.device.type == "meta":
+            out_sorted = self._counted_experts(counter, x_sorted, sizes,
+                                               rt_of, El, weights)
+        else:
+            out_sorted = torch.stack([self._experts(x_sorted[r], sizes[r],
+                                                    rt_of[r] * El, weights)
+                                      for r in range(world)])
         out = torch.empty_like(out_sorted).scatter_(
             1, order[..., None].expand(-1, -1, D), out_sorted)
         out.masked_fill_(~rok[..., None], 0)
