@@ -3,7 +3,7 @@
 
 Usage: ``python3 chip_smoke.py`` from the repository root, on a machine
 with an NVIDIA Hopper card and the CUDA toolkit. It imports nothing of JAX
-or of the JAX package. Fourteen phases (phases 13 and 14 run before the
+or of the JAX package. Fifteen phases (phases 13 to 15 run before the
 report, phase 12); any failure exits non-zero:
 
 1. **Kernels.** Builds ``kernels/csrc/codec_{int8,int4,fp8}.cu``,
@@ -411,6 +411,40 @@ report, phase 12); any failure exits non-zero:
    ``launches_by_path`` gains ``roofline_train``,
    ``roofline_flash_decode``, ``roofline_rwkv6_wkv`` and
    ``example_<name>``.
+15. **One process per rank on the card**, after phase 14, the earlier
+   phases' memory freed first (``process_groups_phase``): the port's
+   process groups over gloo, where every axis of the ``ProcessGrid(2, 4)``
+   crosses processes. The parent's ``RankGrid(2, 4)`` results come first
+   (phase 8's case digests and sync step, the groups below, the sync-free
+   engine's tokens, the EP layer's digests), then the card is freed and
+   ``distributed.launch.run`` starts eight one-rank workers (the kernels
+   already built): (a) phase 8's 148 cases, every held row bitwise the
+   parent's (sha256), staging launches > 0 exactly where
+   ``oracles.moves_rows`` says, the key ``2x4/host_ipc/host_ipc``, each
+   lossless plan's host ms per call at 8 B and 4 MiB per rank beside phase
+   8's two-process and the one-process times with the bytes sent; the
+   ``("node",)`` and ``("local",)`` children and the color splits
+   ``[0, 1] * 4`` with and without a key that reverses each group, six
+   collectives each under ``pip_mcoll`` at both sizes, bitwise; (b) the
+   full-width smollm-360m int8 EF sync step (391 buckets), every bucket's
+   output and new error bitwise the parent's, 2 encodes and 1
+   decode-reduce a bucket in every worker; (d) smollm-360m served at full
+   width by each worker's ``Engine(mesh=ProcessGrid(2, 4))`` (phase 4's
+   16 requests), tokens equal to the sync-free engine's, ``flash_decode``
+   launches ticks x 32 and staging launches one sync call's x ticks per
+   worker, tick p50/p99 and tokens/s beside phase 4's. Then four workers
+   of two ranks (each node two processes, the TP group across a process
+   boundary): (c) qwen3-moe's MoE layer at full width on (8, 512) bf16
+   tokens, capacity factor 4 (no drop), under ``pip_mcoll``,
+   ``pip_pipeline`` c2, ``xla`` and ``auto``: routings, drops, y and aux
+   bitwise the parent's, and under ``pip_mcoll`` and ``auto`` the
+   gradients of ``sum(y * r)`` with respect to the router, the three
+   expert weights and x bitwise the parent's (two ranks an expert: the
+   cross-process sums keep its order), host ms forward and
+   forward+backward, the peak per worker. One ``{"process_groups": ...}``
+   line naming the card; every ``{"kernels": ...}`` entry's
+   ``launches_by_path`` gains ``pg_collectives``, ``pg_sync``,
+   ``pg_moe`` and ``pg_serve``, summed over the workers.
 """
 from __future__ import annotations
 
@@ -3141,12 +3175,14 @@ def _sum_launches(launched):
     return total
 
 
-def two_process_phase(torch, dev, cfg, kcodec, kstaging):
+def two_process_phase(torch, dev, cfg, kcodec, kstaging, keep=None):
     """Phase 8: the parent's ``RankGrid(2, 4)`` runs every case and the
     full-width sync step, keeps the digests and frees the card; then two
     workers of four ranks each (``distributed.launch.run``) run the same on
     ``make_process_grid()``, and every held row must be bitwise the
-    parent's. Returns the record of the ``{"two_process": ...}`` line."""
+    parent's. Returns the record of the ``{"two_process": ...}`` line;
+    ``keep`` (a dict) receives the parent's digests, times and sync step,
+    which phase 15 holds its workers to."""
     import numpy as np
     from repro_torch.core.comm import Communicator
     from repro_torch.core.grid import RankGrid
@@ -3247,6 +3283,8 @@ def two_process_phase(torch, dev, cfg, kcodec, kstaging):
            "model_vs_measured": None,
            "launches": [w["collective_launches"] for w in workers]}
     rec["model_vs_measured"] = tp_model_vs_measured(rec["plans"])
+    if keep is not None:
+        keep.update(digests=digests, times=times, sync=sync)
     return rec
 
 
@@ -5537,6 +5575,466 @@ def roofline_phase(torch, dev, kmods):
 FEEDBACK_LINES = {"int8": 123, "int4": 204, "fp8": 294}
 
 
+# ---------------------------------------------------------------------------
+# phase 15: one process per rank on the card (process groups over gloo)
+# ---------------------------------------------------------------------------
+
+#: (a), (b) and (d): eight one-rank workers; (c): four workers of two ranks
+PG_PROCS, PG_MOE_PROCS = 8, 4
+#: every axis crosses processes in both layouts
+PG_KEY = "2x4/host_ipc/host_ipc"
+PG_TIMEOUT = 900
+#: the color splits across processes: alternating ranks, and the same
+#: with a key that reverses each group
+PG_SPLITS = {"alternate": ([0, 1] * 4, None),
+             "alternate_reversed": ([0, 1] * 4, list(range(8))[::-1])}
+#: the children's and the color groups' collectives and per-rank sizes
+PG_GROUP_COLLS = ("allreduce", "alltoall", "allgather", "reduce_scatter",
+                  "broadcast", "scatter")
+#: the EP layer: capacity factor 4 (the TP size: nothing drops), the plans
+#: forced through Communicator.plan (None: the selector's) and the ones
+#: also taken through the backward
+PG_MOE_CAP = 4.0
+PG_MOE_PLANS = (("pip_mcoll", "pip_mcoll", 1),
+                ("pip_pipeline_c2", "pip_pipeline", 2), ("xla", "xla", 1),
+                ("auto", None, None))
+PG_MOE_BWD = ("pip_mcoll", "auto")
+PG_MOE_ITERS = 2
+#: elements per digest chunk
+PG_DIGEST_CHUNK = 1 << 24
+
+
+def _bits_digest(torch, t):
+    """A bitwise digest of ``t`` on its device: per chunk of
+    ``PG_DIGEST_CHUNK`` elements the int64 sum of its bit patterns times a
+    fixed odd weight per position (wrapping, so independent of the sum's
+    order)."""
+    bits = {1: torch.int8, 2: torch.int16, 4: torch.int32,
+            8: torch.int64}[t.element_size()]
+    flat = t.detach().contiguous().reshape(-1).view(bits)
+    out = []
+    for s in range(0, flat.numel(), PG_DIGEST_CHUNK):
+        w = flat[s:s + PG_DIGEST_CHUNK].to(torch.int64)
+        k = torch.arange(s, s + w.numel(), dtype=torch.int64,
+                         device=w.device)
+        out.append(int((w * (k * 2654435761 + 1)).sum()))
+    return out
+
+
+def pg_groups(torch, np, comm, kstaging):
+    """The ``("node",)`` and ``("local",)`` children and the color splits
+    of ``PG_SPLITS`` on ``comm``, every collective of ``PG_GROUP_COLLS``
+    under ``pip_mcoll`` at ``TP_SIZES``: per call the member indices this
+    process holds and the sha256 of each held result row, and the staging
+    launches of all the calls."""
+    from repro_torch.core import runtime
+    grid = comm.grid
+    world = grid.world
+    out = {}
+    _reset((kstaging,))
+    for ax in ("node", "local"):
+        child = comm.split(axes=ax)
+        for coll in PG_GROUP_COLLS:
+            for nb in TP_SIZES:
+                x = runtime.example_input(coll, child.topo, nb, devices=world,
+                                          device=grid.device)
+                y = child.invoke(coll, x, algo="pip_mcoll")
+                out[f"{ax}/{coll}/{nb}"] = (list(grid.held),
+                                            _row_sha(torch, y, grid.rows))
+    for name, (color, key) in PG_SPLITS.items():
+        for c, child in comm.split(color=color, key=key).items():
+            held = [i for i, r in enumerate(child.ranks) if r in grid.held]
+            if not held:
+                continue
+            for coll in PG_GROUP_COLLS:
+                for nb in TP_SIZES:
+                    x = torch.from_numpy(tp_operand(
+                        np, coll, nb, "float32", world=len(child.ranks))).to(
+                            grid.device)
+                    y = child.invoke(coll, x, algo="pip_mcoll")
+                    out[f"{name}/{c}/{coll}/{nb}"] = (
+                        held, _row_sha(torch, y, len(held)))
+    torch.cuda.synchronize()
+    return out, {k: n for k, n in kstaging.launches.items() if n}
+
+
+def pg_serve(torch, np, grid, cfg, kmods):
+    """Full-width ``cfg`` (seeded bf16 weights, the same in every process)
+    served by ``Engine(max_batch=SERVE_BATCH, max_len=SERVE_LEN,
+    use_flash_decode=True, mesh=grid)`` (no mesh: the sync-free engine):
+    the phase-4 requests' tokens, the tick times, the run's launches and
+    one sync call's alone."""
+    from repro_torch.models.decoder import DecoderLM, RunFlags
+    from repro_torch.serve.engine import Engine, Request
+
+    model = DecoderLM(cfg, torch.Generator("cuda").manual_seed(SEED))
+    prompts = _serve_requests(np, cfg.vocab)
+    eng = Engine(model, cfg, max_batch=SERVE_BATCH, max_len=SERVE_LEN,
+                 flags=RunFlags(use_flash_decode=True), mesh=grid,
+                 sync_algo="auto")
+    prefill_s, decode_s = [], []
+    eng._admit = _timed(eng._admit, prefill_s)
+    eng._decode_tick = _timed(eng._decode_tick, decode_s)
+    torch.cuda.synchronize()
+    _reset(kmods)
+    t0 = time.perf_counter()
+    done = eng.run([Request(prompt=p.copy(), max_new_tokens=SERVE_NEW)
+                    for p in prompts])
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    rec = {"tokens": {tuple(r.prompt.tolist()): r.out_tokens for r in done},
+           "metrics": eng.metrics(), "wall_s": wall_s,
+           "tokens_per_s": SERVE_REQUESTS * SERVE_NEW / wall_s,
+           "decode_tick_s": {"p50": statistics.median(decode_s),
+                             "p99": sorted(decode_s)[
+                                 int(0.99 * (len(decode_s) - 1))],
+                             "n": len(decode_s)},
+           "prefill_s_p50": statistics.median(prefill_s),
+           "launches": _launches(kmods)}
+    if grid is not None:
+        rec["sync_plan"] = eng._sync_op.plan
+        with torch.inference_mode():
+            tick = torch.zeros(SERVE_BATCH, dtype=torch.int32,
+                               device=grid.device)
+            rec["sync_launches"] = _sync_alone(
+                torch, None, kmods, lambda: eng._sync_op.start(tick).wait())
+    del eng, model
+    return rec
+
+
+def pg_moe(torch, cfg, grid, kmods):
+    """``cfg``'s MoE layer at full width (seeded bf16 experts, the same in
+    every process) expert parallel on ``grid``, the batch over the nodes
+    and the experts over the local axis, capacity factor ``PG_MOE_CAP``,
+    on seeded bf16 tokens of ``MOE_TOKENS``: under each plan of
+    ``PG_MOE_PLANS`` the digests of y, aux, the routings and the kept
+    flags (forward under no_grad, its median host ms), and under those of
+    ``PG_MOE_BWD`` the digests of ``torch.autograd.grad(sum(y * r))`` with
+    respect to the router, the three expert weights and x, with the
+    forward+backward host ms. The launches of every call (none: the
+    all-to-alls and the all-gather move no rows through the staging
+    primitives) and the peak memory."""
+    from repro_torch.core import autotune
+    from repro_torch.layers import moe as tmoe
+    from repro_torch.sharding.rules import Rules
+
+    dev = grid.device
+    torch.cuda.reset_peak_memory_stats(dev)
+    ccfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=PG_MOE_CAP))
+    layer = tmoe.MoE(ccfg, torch.Generator("cuda").manual_seed(SEED + 11))
+    B, S = MOE_TOKENS
+    x, r = (torch.randn((B, S, cfg.d_model), device=dev,
+                        generator=torch.Generator("cuda").manual_seed(s)
+                        ).to(torch.bfloat16) for s in (SEED + 12, SEED + 13))
+    rules = Rules(batch=("node",), tp="local")
+    out = {"plans": {}}
+    _reset(kmods)
+    for name, algo, chunks in PG_MOE_PLANS:
+        plan = None if algo is None else _forced(autotune, algo, chunks)
+        with torch.no_grad():
+            (y, aux), secs = _host_timed(torch, _with_plan(
+                lambda: layer(x, rules=rules, grid=grid), plan),
+                PG_MOE_ITERS)
+        kept = layer.ep_routing["kept"]
+        rec = {"host_ms": secs * 1e3, "aux": float(aux),
+               "dropped": int((~kept).sum()),
+               "digests": {"y": _bits_digest(torch, y),
+                           "ids": _bits_digest(torch,
+                                               layer.ep_routing["ids"]),
+                           "kept": _bits_digest(torch, kept)}}
+        del y, aux
+        if name in PG_MOE_BWD:
+            layer.requires_grad_(True)
+            xg = x.clone().requires_grad_()
+            leaves = [layer.router, layer.w_gate, layer.w_up, layer.w_down,
+                      xg]
+
+            def fb():
+                y, _ = layer(xg, rules=rules, grid=grid)
+                return torch.autograd.grad((y * r).sum(), leaves)
+            grads, secs = _host_timed(torch, _with_plan(fb, plan), 1)
+            rec["fwd_bwd_host_ms"] = secs * 1e3
+            rec["grad_digests"] = {
+                n: _bits_digest(torch, g) for n, g in zip(
+                    ("router", "w_gate", "w_up", "w_down", "x"), grads)}
+            rec["grad_max_abs"] = {
+                n: float(g.float().abs().max()) for n, g in zip(
+                    ("router", "w_gate", "w_up", "w_down", "x"), grads)}
+            del grads, xg, leaves
+            layer.requires_grad_(False)
+        out["plans"][name] = rec
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["launches"] = _launches(kmods)
+    out["peak_mem_bytes"] = torch.cuda.max_memory_allocated(dev)
+    del layer, x, r
+    return out
+
+
+def _pg_build(device):
+    """The worker's grid, its communicator and the kernel modules."""
+    import torch
+    from repro_torch.core.comm import Communicator
+    from repro_torch.core.grid import ProcessGrid
+    from repro_torch.kernels import attention as kattn
+    from repro_torch.kernels import codec as kcodec
+    from repro_torch.kernels import mamba as kmamba
+    from repro_torch.kernels import rwkv as krwkv
+    from repro_torch.kernels import staging as kstaging
+    grid = ProcessGrid(2, 4, device)
+    if grid.device.type == "cuda":
+        torch.cuda.set_device(grid.device)
+    return grid, Communicator(grid), (kcodec, kattn, krwkv, kmamba, kstaging)
+
+
+def process_groups_worker(total, device="cuda"):
+    """A phase-15 worker of one rank (``distributed.launch.run``, eight of
+    them): legs (a) every case of :func:`tp_cases` and the groups of
+    :func:`pg_groups`, (b) the full-width sync step, (d) the serving run,
+    each with its kernel counts zeroed just before and read just after."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import autotune
+    from repro_torch.kernels import codec as kcodec
+    from repro_torch.kernels import staging as kstaging
+
+    grid, comm, kmods = _pg_build(device)
+    res = {"rank": grid.rank, "held": list(grid.held),
+           "device": str(grid.device),
+           "topo_key": autotune.topo_key(comm.topo)}
+    t0 = time.perf_counter()
+    res["digests"], res["launched"], res["times"] = tp_collectives(
+        torch, np, comm, kcodec, kstaging)
+    res["groups"], res["group_launches"] = pg_groups(torch, np, comm,
+                                                     kstaging)
+    res["collectives_s"] = time.perf_counter() - t0
+    res["collective_launches"] = _sum_launches(
+        {**res["launched"], "groups": res["group_launches"]})
+    torch.cuda.empty_cache()
+    _reset(kmods)
+    sent = grid.bytes_sent
+    res["sync"] = tp_sync_step(torch, comm, total)
+    res["sync"]["bytes_sent"] = grid.bytes_sent - sent
+    res["sync"]["launches"] = {k: n for k, n in _launches(kmods).items()
+                               if n}
+    torch.cuda.empty_cache()
+    res["serve"] = pg_serve(torch, np, grid, get_config("smollm-360m"),
+                            kmods)
+    return res
+
+
+def process_groups_moe_worker(device="cuda"):
+    """A phase-15 worker of two ranks (four of them): leg (c),
+    :func:`pg_moe` on ``ProcessGrid(2, 4)``, each node two processes."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import autotune
+
+    grid, comm, kmods = _pg_build(device)
+    res = {"rank": grid.rank, "held": list(grid.held),
+           "topo_key": autotune.topo_key(comm.topo)}
+    t0 = time.perf_counter()
+    res["moe"] = pg_moe(torch, get_config(MOE_Q_ARCH), grid, kmods)
+    res["moe_s"] = time.perf_counter() - t0
+    return res
+
+
+def _pg_rows(want, held):
+    """The parent's per-row digests of a call, those of the rows
+    ``held``: the result's rows, then the new error's when there is one."""
+    return [d for i in range(len(want) // PG_PROCS)
+            for d in [want[i * PG_PROCS + h] for h in held]]
+
+
+def process_groups_phase(torch, dev, kmods, parent=None, earlier=None):
+    """Phase 15: the port's process groups on the card. The parent's
+    ``RankGrid(2, 4)`` results come first (``parent``: phase 8's case
+    digests and sync step, else computed here), with the groups, the
+    sync-free engine's tokens and the EP layer's digests; the card is freed;
+    then eight one-rank gloo workers run (a), (b) and (d) and four workers
+    of two ranks run (c), and every held row, digest and token must be the
+    parent's. ``earlier``: phase 4's and phase 8's records, written beside
+    this phase's numbers. Returns the ``{"process_groups": ...}`` record
+    and each path's launches summed over the workers."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.core.comm import Communicator
+    from repro_torch.core.grid import RankGrid
+    from repro_torch.distributed import launch
+    from repro_torch.models.params import param_shapes
+
+    kcodec, kattn, _, _, kstaging = kmods
+    smollm = get_config("smollm-360m")
+    total = sum(int(torch.Size(s).numel()) for _, s in param_shapes(smollm))
+    comm = Communicator(RankGrid(2, 4, dev))
+    t0 = time.perf_counter()
+    if parent is None:
+        digests, launched, times = tp_collectives(torch, np, comm, kcodec,
+                                                  kstaging)
+        parent = {"digests": digests, "times": times,
+                  "sync": tp_sync_step(torch, comm, total)}
+    groups, _ = pg_groups(torch, np, comm, kstaging)
+    torch.cuda.empty_cache()
+    served = pg_serve(torch, np, None, smollm, kmods)
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe = pg_moe(torch, get_config(MOE_Q_ARCH), comm.grid, kmods)
+    parent_s = time.perf_counter() - t0
+    del comm
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    workers = launch.run(process_groups_worker, total, str(dev),
+                         processes=PG_PROCS, ranks_per_process=1,
+                         timeout=PG_TIMEOUT)
+    spawn_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    moe_workers = launch.run(process_groups_moe_worker, str(dev),
+                             processes=PG_MOE_PROCS, ranks_per_process=2,
+                             timeout=PG_TIMEOUT)
+    moe_spawn_s = time.perf_counter() - t0
+
+    encodes, decode = CODEC_KERNELS[TP_CODEC]
+    sync_want = {**{k: 2 * parent["sync"]["buckets"] for k in encodes},
+                 decode: parent["sync"]["buckets"]}
+    for w in workers:
+        held, who = w["held"], f"rank {w['rank']}"
+        if w["topo_key"] != PG_KEY or held != [w["rank"]]:
+            raise AssertionError(f"{who}: key {w['topo_key']}, held {held}")
+        for key, want in parent["digests"].items():
+            if w["digests"][key] != _pg_rows(want, held):
+                raise AssertionError(f"{who}: {key} not bitwise the "
+                                     f"one-process grid's")
+        for key, (mine, shas) in w["groups"].items():
+            pmine, pshas = groups[key]
+            if shas != [pshas[i] for i in mine]:
+                raise AssertionError(f"{who}: group call {key} not bitwise "
+                                     f"the one-process grid's")
+        for part in ("out", "err"):
+            if w["sync"][part] != [[d[h] for h in held]
+                                   for d in parent["sync"][part]]:
+                raise AssertionError(f"{who}: sync {part} not bitwise the "
+                                     f"one-process step's")
+        if w["sync"]["launches"] != sync_want:
+            raise AssertionError(f"{who}: sync step launches "
+                                 f"{w['sync']['launches']}, expected "
+                                 f"{sync_want}")
+        sv = w["serve"]
+        if sv["tokens"] != served["tokens"]:
+            raise AssertionError(f"{who}: synced tokens differ from the "
+                                 f"sync-free engine's")
+        m = sv["metrics"]
+        if m["sync_starts"] != m["ticks"] or m["plan_rebinds"]:
+            raise AssertionError(f"{who}: {m['sync_starts']} sync starts "
+                                 f"over {m['ticks']} ticks")
+        _check_launches(f"{who} serving", sv["launches"], _with_sync(
+            sv, {"flash_decode": m["ticks"] * smollm.n_layers}))
+    # every member of every color group is held by exactly one worker
+    for key, (pmine, _) in groups.items():
+        seen = sorted(i for w in workers
+                      for i in w["groups"].get(key, ([], None))[0])
+        if seen != pmine:
+            raise AssertionError(f"group call {key}: members {seen}")
+    for w in moe_workers:
+        who = f"MoE rank {w['rank']}"
+        if w["topo_key"] != PG_KEY or w["held"] != [2 * w["rank"],
+                                                    2 * w["rank"] + 1]:
+            raise AssertionError(f"{who}: key {w['topo_key']}, held "
+                                 f"{w['held']}")
+        if any(w["moe"]["launches"].values()):
+            raise AssertionError(f"{who}: kernel launches "
+                                 f"{w['moe']['launches']}")
+        for name, want in moe["plans"].items():
+            got = w["moe"]["plans"][name]
+            if want["dropped"]:
+                raise AssertionError(f"{want['dropped']} routings dropped "
+                                     f"at capacity {PG_MOE_CAP}")
+            for k in ("digests", "grad_digests"):
+                if got.get(k) != want.get(k):
+                    raise AssertionError(f"{who}: {name} {k} not bitwise "
+                                         f"the one-process grid's")
+            if (got["aux"], got["dropped"]) != (want["aux"],
+                                                want["dropped"]):
+                raise AssertionError(f"{who}: {name} aux or drops differ")
+
+    def paths(counts_list):
+        total_ = {}
+        for c in counts_list:
+            for k, n in c.items():
+                total_[k] = total_.get(k, 0) + n
+        return total_
+    on_paths = {
+        "pg_collectives": paths(w["collective_launches"] for w in workers),
+        "pg_sync": paths(w["sync"]["launches"] for w in workers),
+        "pg_serve": paths(w["serve"]["launches"] for w in workers),
+        "pg_moe": paths(w["moe"]["launches"] for w in moe_workers)}
+    if not on_paths["pg_serve"].get("flash_decode") or not any(
+            on_paths["pg_collectives"].get(k) for k in STAGING_NAMES):
+        raise AssertionError(f"phase 15 launches {on_paths}")
+    earlier = earlier or {}
+    two = {p["plan"]: p for p in earlier.get("two_process", {}).get(
+        "plans", [])}
+    serve4 = earlier.get("serve", {})
+    rec = {"card": _smi("name,power.limit"), "topo_key": PG_KEY,
+           "workers": {"collectives_sync_serve": [PG_PROCS, 1],
+                       "moe": [PG_MOE_PROCS, 2]},
+           "parent_s": parent_s, "spawn_s": spawn_s,
+           "moe_spawn_s": moe_spawn_s,
+           "cases": len(parent["digests"]), "group_calls": len(groups),
+           "worker_collectives_s": [w["collectives_s"] for w in workers],
+           "plans": [{"plan": key, "one_process_ms": t["ms"],
+                      "two_process_ms": two.get(key, {}).get(
+                          "two_process_ms", "not measured in this run"),
+                      "eight_process_ms": [w["times"][key]["ms"]
+                                           for w in workers],
+                      "bytes_sent_per_call": [
+                          w["times"][key]["bytes_sent_per_call"]
+                          for w in workers]}
+                     for key, t in parent["times"].items()],
+           "sync": {"buckets": parent["sync"]["buckets"],
+                    "one_process_s": parent["sync"]["seconds"],
+                    "eight_process_s": [w["sync"]["seconds"]
+                                        for w in workers],
+                    "bytes_sent": [w["sync"]["bytes_sent"] for w in workers],
+                    "launches_per_worker": sync_want},
+           "moe": {"tokens": list(MOE_TOKENS), "capacity_factor": PG_MOE_CAP,
+                   "dropped": 0,
+                   "plans": {name: {
+                       "one_process_host_ms": want["host_ms"],
+                       "four_process_host_ms": [
+                           w["moe"]["plans"][name]["host_ms"]
+                           for w in moe_workers],
+                       "one_process_fwd_bwd_ms": want.get("fwd_bwd_host_ms"),
+                       "four_process_fwd_bwd_ms": [
+                           w["moe"]["plans"][name].get("fwd_bwd_host_ms")
+                           for w in moe_workers],
+                       "aux": want["aux"],
+                       "grad_max_abs": want.get("grad_max_abs"),
+                       "bitwise": True}
+                       for name, want in moe["plans"].items()},
+                   "backward_plans": list(PG_MOE_BWD),
+                   "peak_mem_bytes_one_process": moe["peak_mem_bytes"],
+                   "peak_mem_bytes_per_worker": [
+                       w["moe"]["peak_mem_bytes"] for w in moe_workers],
+                   "worker_s": [w["moe_s"] for w in moe_workers]},
+           "serve": {"sync_plan": workers[0]["serve"]["sync_plan"],
+                     "ticks": workers[0]["serve"]["metrics"]["ticks"],
+                     "sync_free": {k: served[k] for k in (
+                         "decode_tick_s", "tokens_per_s", "wall_s")},
+                     "phase4": {k: serve4.get(k, "not measured in this run")
+                                for k in ("decode_tick_s", "tokens_per_s")},
+                     "tick_s": [w["serve"]["decode_tick_s"]
+                                for w in workers],
+                     "tokens_per_s": [w["serve"]["tokens_per_s"]
+                                      for w in workers],
+                     "sync_launches": workers[0]["serve"]["sync_launches"]},
+           "launches_by_path": on_paths}
+    return rec, on_paths
+
+
 def _counter_keys(name):
     """The launch counters behind one ``{"kernels": ...}`` entry."""
     for c, codec in (("int8", "int8_block"), ("int4", "int4_block"),
@@ -5570,7 +6068,9 @@ def kernel_lines(kernels, on_train, on_tree, on_sharded, on_roofline):
     ``train_driver`` in every entry's ``launches_by_path``, all 0);
     ``on_roofline``: phase 14's paths' launches (``roofline_train``, the
     two ``roofline_<kernel>`` serving ticks and the ``example_<name>``
-    runs, in every entry's ``launches_by_path``)."""
+    runs) and phase 15's, summed over its workers (``pg_collectives``,
+    ``pg_sync``, ``pg_moe``, ``pg_serve``), in every entry's
+    ``launches_by_path``."""
     out = []
     for c, encode in (("int8", "int8_block_encode"),
                       ("int4", "int4_block_encode"), ("fp8", "fp8_encode")):
@@ -5730,6 +6230,7 @@ def main() -> int:
         "per_launch_ms", {}).get("flash_decode", "not measured")
     kernels["flash_decode"]["path_bound_ms"] = serve["flash_path_bound_ms"]
     staged["serve_smollm"] = _staged(serve)
+    serve4 = {k: serve[k] for k in ("decode_tick_s", "tokens_per_s")}
     print(json.dumps({"serve": serve}))
     print(f"serving phase done ({time.perf_counter() - t0:.3f} s so far)")
     serve = rwkv_serve_phase(torch, dev, rwkv6, krwkv, ref, kmods)
@@ -5783,7 +6284,9 @@ def main() -> int:
             for path, launches in staged.items() if path != "collectives"}
     gc.collect()
     torch.cuda.empty_cache()
-    two = two_process_phase(torch, dev, smollm, kcodec, kstaging)
+    tp_parent = {}
+    two = two_process_phase(torch, dev, smollm, kcodec, kstaging,
+                            keep=tp_parent)
     print(json.dumps({"two_process": two}))
     print(f"two-process phase done ({time.perf_counter() - t0:.3f} s in "
           f"all)")
@@ -5882,9 +6385,19 @@ def main() -> int:
         if extra or (want and not roof[path].get(want)):
             raise AssertionError(f"{path}: launches {roof[path]}")
 
+    gc.collect()
+    torch.cuda.empty_cache()
+    groups, on_groups = process_groups_phase(
+        torch, dev, kmods, parent=tp_parent,
+        earlier={"two_process": two, "serve": serve4})
+    print(json.dumps({"process_groups": groups}))
+    print(f"process-groups phase done ({time.perf_counter() - t0:.3f} s in "
+          f"all)")
+
     print(_smi("name,power.limit"))
     print(json.dumps({"kernels": kernel_lines(kernels, on_train, on_tree,
-                                              sharded, roof)}))
+                                              sharded, {**roof,
+                                                        **on_groups})}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -43,7 +43,7 @@ import torch
 
 from repro_torch.core import autotune, runtime
 from repro_torch.core import telemetry as _tm
-from repro_torch.core.grid import RankGrid
+from repro_torch.core.grid import ProcessGrid, RankGrid
 from repro_torch.core.topology import Topology
 from repro_torch.distributed import backend as _dist
 
@@ -400,15 +400,19 @@ class Communicator:
         int per rank of this grid (flat order); ranks of one color form a
         group ordered by ``(key[rank], rank)`` (``key`` defaults to the
         rank). Returns ``{color: Communicator}``, each on its own
-        ``RankGrid(1, size, device)`` and tagged ``color<c>`` unless
+        ``(1, size)`` grid on ``device`` and tagged ``color<c>`` unless
         ``group`` is given; its operand is the caller's choice of the
         group's rows, in that order (the child's ``ranks``).
 
         On a ``ProcessGrid`` an axes child shares the grid (and its
-        process group). A color group must lie inside one process, where
-        it runs on a ``RankGrid`` of its own; one that spans processes
-        would need a process group of its own and raises
-        ``NotImplementedError`` (ROADMAP queue 1 item 5b)."""
+        process group), along any axis, inside a process or across them.
+        A color group inside one process runs on a ``RankGrid`` of its
+        own; one that spans processes runs on a ``ProcessGrid.over`` its
+        members' processes, which holds this process's members in the
+        group's ``(key, rank)`` order (consecutive or not) and exchanges
+        with those processes alone. Every process gets the same dict of
+        colors, as the reference's does; a child of which this process
+        holds no member raises on every collective."""
         if (axes is None) == (color is None):
             raise ValueError("split() takes exactly one of axes= or color=")
         if axes is not None:
@@ -446,13 +450,11 @@ class Communicator:
             for c in sorted(set(color)):
                 ranks = sorted((r for r in range(world) if color[r] == c),
                                key=lambda r: (key[r], r))
-                procs = {r // self.grid.rows for r in ranks}
-                if len(procs) > 1:
-                    raise NotImplementedError(
-                        f"color group {c} spans processes {sorted(procs)}: "
-                        f"a group across processes needs a process group "
-                        f"of its own (ROADMAP queue 1 item 5b)")
-                grid = RankGrid(1, len(ranks), self.grid.device)
+                owners = [self.grid.owners[r] for r in ranks] \
+                    if isinstance(self.grid, ProcessGrid) else [0]
+                grid = (ProcessGrid.over(owners, self.grid.device)
+                        if len(set(owners)) > 1
+                        else RankGrid(1, len(ranks), self.grid.device))
                 tag = group if group is not None else f"color{c}"
                 topo = dataclasses.replace(Topology.from_grid(grid),
                                            group=tag)

@@ -32,10 +32,10 @@ deterministic: splitting a payload into buckets never changes a bit.
 
 The algorithms in ``core.mcoll`` are written once against these
 primitives. A :class:`ProcessGrid` has the same interface over several
-processes: one process is one node, holding its ``n_local`` ranks' rows;
-the local axis stays inside the process (the rows above), while the node
-axis and the flat ``("node", "local")`` axis cross processes over a
-``torch.distributed`` gloo process group.
+processes, each holding consecutive ranks of one node, down to one rank a
+process: an axis whose group lies in one process runs on the rows above,
+and any other axis crosses processes over a ``torch.distributed`` gloo
+process group.
 """
 from __future__ import annotations
 
@@ -109,8 +109,8 @@ class RankGrid:
     a grid allocates nothing; operands and results live on ``device``.
 
     An operand's dim 0 holds the ``rows`` ranks this process holds, flat
-    ranks ``offset .. offset + rows - 1``: all ``world`` of them here, one
-    node's in a :class:`ProcessGrid`.
+    ranks ``held`` (``offset .. offset + rows - 1``): all ``world`` of them
+    here, this process's share in a :class:`ProcessGrid`.
     """
 
     axis_names: Tuple[str, str] = ("node", "local")
@@ -125,6 +125,7 @@ class RankGrid:
         self.n_local = int(n_local)
         self.device = resolve_device(device)
         self.rows, self.offset = self.world, 0
+        self.held: Tuple[int, ...] = tuple(range(self.world))
         # (axes, pairs) -> (world,) flat source map of a ppermute round
         self._src_maps: Dict[tuple, torch.Tensor] = {}
 
@@ -147,6 +148,21 @@ class RankGrid:
     @property
     def shape(self) -> Dict[str, int]:
         return {"node": self.n_nodes, "local": self.n_local}
+
+    def held_of(self, rows: torch.Tensor) -> torch.Tensor:
+        """This process's rows of a ``(world, ...)`` tensor."""
+        return rows
+
+    def all_rows(self, x: torch.Tensor, device=None) -> torch.Tensor:
+        """Every rank's row of ``x``, ``(world, *s)`` in flat rank order, on
+        every process, on ``device`` (the grid's by default): here ``x``
+        itself, every row being held."""
+        self._rows(x)
+        return x if device is None else x.to(device)
+
+    def crosses(self, axis: str) -> bool:
+        """Whether ``axis``'s groups span processes: never here."""
+        return False
 
     # -- group views --------------------------------------------------------
 
@@ -377,17 +393,24 @@ class RankGrid:
 
 
 class ProcessGrid(RankGrid):
-    """An ``n_nodes x n_local`` grid over ``n_nodes`` processes of the
-    initialized ``torch.distributed`` process group: one process is one
-    node. This process is node ``rank`` and holds its ``n_local`` ranks'
-    rows, flat ranks ``offset = rank * n_local`` on, in every operand and
-    result; :meth:`axis_index` gives those rows' indices.
+    """An ``n_nodes x n_local`` grid over the processes of the initialized
+    ``torch.distributed`` process group. Its layout comes from the group:
+    each of the ``P`` processes holds ``r = world / P`` consecutive flat
+    ranks, process ``p`` ranks ``p * r`` on, and ``r`` must divide
+    ``n_local``, so that a process holds ranks of one node; a node is then
+    ``n_local / r`` processes, down to one rank a process. Every operand
+    and result holds this process's rows (``rows``, flat ranks ``held``,
+    from ``offset``); :meth:`axis_index` gives their indices.
 
-    The local axis never leaves the process: its primitives and the
-    per-rank helpers (``take``, ``roll``, ``dynamic_slice``, ``where``)
-    are :class:`RankGrid`'s on the held rows, the staging kernels on the
-    card (the PiP shared-address-space side). The node axis and the flat
-    ``("node", "local")`` axis cross processes:
+    Each axis exchanges only with its own group's processes: the local axis
+    with the processes of this node (the row), the node axis with the
+    processes that hold the same local indices in every node (the column),
+    the flat ``("node", "local")`` axis with all of them. An axis whose
+    group lies in this process runs in place: the local axis of a node
+    that is one process keeps :class:`RankGrid`'s code on the held rows,
+    the staging kernels on the card (the PiP shared-address-space side),
+    as do the per-rank helpers (``take``, ``roll``, ``dynamic_slice``,
+    ``where``) on every layout. Across processes:
 
       * ``ppermute`` gathers the rows whose source is in this process with
         one ``pack_blocks`` and receives the others by one
@@ -395,11 +418,19 @@ class ProcessGrid(RankGrid):
         peer process, each packed by ``pack_blocks``; a rank with no sender
         gets zeros. The split maps are built once per ``(axes, pairs)``;
       * ``all_gather`` and ``all_to_all`` exchange the held rows, or the
-        slices bound for each peer, by one ``batch_isend_irecv``;
+        slices bound for each peer, by one ``batch_isend_irecv`` with the
+        group's processes and place what comes back in member order;
       * ``psum`` gathers the group's rows and ``psum_scatter`` each
         member's chunk of them, then both sum in rank order, as
         ``RankGrid`` does, never through ``dist.all_reduce``: a reduction
         stays elementwise deterministic and bitwise the one-process grid's.
+
+    A color group of ``Communicator.split`` that spans processes is a
+    ``(1, G)`` grid of this class over the members' processes
+    (:meth:`over`): there a process holds its members in the group's order,
+    consecutive or not, and one that holds none raises on every collective.
+    Point-to-point exchanges over the world group are all a group needs, so
+    no ``dist.new_group`` is made.
 
     The transport is gloo, the process group's backend (any other raises
     ``NotImplementedError``, see ``distributed.backend``). Every payload
@@ -417,43 +448,139 @@ class ProcessGrid(RankGrid):
                  device: Union[str, torch.device] = "cuda"):
         super().__init__(n_nodes, n_local, device)
         be = _backend.current_backend()
-        if be.process_count != self.n_nodes:
+        n = be.process_count
+        r = self.world // n if self.world % n == 0 else 0
+        if not r or self.n_local % r:
             raise ValueError(
-                f"a ProcessGrid of {self.n_nodes} nodes needs as many "
-                f"processes; the process group has {be.process_count}")
-        self.rank = be.process_index
-        self.rows, self.offset = self.n_local, self.rank * self.n_local
+                f"a ProcessGrid of {self.n_nodes}x{self.n_local} over {n} "
+                f"processes: each process holds world / processes ranks of "
+                f"one node, a count that must divide n_local={self.n_local}")
+        self._place(tuple(f // r for f in range(self.world)),
+                    be.process_index)
+
+    @classmethod
+    def over(cls, owners: Sequence[int],
+             device: Union[str, torch.device] = "cuda") -> "ProcessGrid":
+        """A ``(1, len(owners))`` grid whose member ``m`` lives in process
+        ``owners[m]`` (a color group across processes); this process holds
+        its members in member order, none if it owns none."""
+        grid = cls.__new__(cls)
+        RankGrid.__init__(grid, 1, len(owners), device)
+        grid._place(tuple(int(o) for o in owners),
+                    _backend.current_backend().process_index)
+        return grid
+
+    def _place(self, owners: Tuple[int, ...], rank: int) -> None:
+        self.owners, self.rank = owners, int(rank)
+        by: Dict[int, List[int]] = {}
+        for f, q in enumerate(owners):
+            by.setdefault(q, []).append(f)
+        self._held_by = {q: tuple(fs) for q, fs in by.items()}
+        self.procs = tuple(sorted(by))
+        self.held = self._held_by.get(self.rank, ())
+        self.rows = len(self.held)
+        self.offset = self.held[0] if self.held else 0
+        self._contiguous = self.held == tuple(
+            range(self.offset, self.offset + self.rows))
         self.bytes_sent = 0
         # (axes, pairs) -> (local map, {peer: send rows}, {peer: recv pos})
         self._routes: Dict[tuple, tuple] = {}
+        # axes -> (groups held, members held, processes, their members)
+        self._layouts: Dict[tuple, tuple] = {}
 
     def __repr__(self) -> str:
         return (f"ProcessGrid({self.n_nodes}, {self.n_local}, {self.device}, "
-                f"rank={self.rank})")
+                f"rank={self.rank}, held={list(self.held)})")
 
     def _key(self) -> tuple:
-        return super()._key() + ("process", self.rank)
+        return super()._key() + ("process", self.rank, self.owners)
 
     @property
     def process_count(self) -> int:
-        return self.n_nodes
+        return len(self.procs)
+
+    def _rows(self, x: torch.Tensor) -> None:
+        if not self.rows:
+            raise RuntimeError(
+                f"process {self.rank} holds no rank of this grid (its ranks "
+                f"live in processes {list(self.procs)}): it takes no part "
+                f"in the group's collectives")
+        super()._rows(x)
+
+    def held_of(self, rows: torch.Tensor) -> torch.Tensor:
+        if self._contiguous:
+            return rows[self.offset:self.offset + self.rows]
+        return rows[list(self.held)]
+
+    def axis_index(self, axes: Axes) -> torch.Tensor:
+        if self._contiguous:
+            return super().axis_index(axes)
+        ax = self._axes(axes)
+        r = torch.tensor(self.held, dtype=torch.long, device=self.device)
+        return {("local",): r % self.n_local, ("node",): r // self.n_local,
+                ("node", "local"): r}[ax]
+
+    # -- the layout of the groups --------------------------------------------
+
+    def _members(self, f: int, ax: Tuple[str, ...]) -> List[int]:
+        """The flat ranks of ``f``'s group along ``ax``, in member order."""
+        node, local = divmod(f, self.n_local)
+        if ax == ("local",):
+            return [node * self.n_local + j for j in range(self.n_local)]
+        if ax == ("node",):
+            return [n * self.n_local + local for n in range(self.n_nodes)]
+        return list(range(self.world))
+
+    def crosses(self, axis: str) -> bool:
+        """Whether ``axis``'s groups span more than one process (walked at
+        the origin, as the reference's ``derive_link`` walks a mesh)."""
+        return len({self.owners[f]
+                    for f in self._members(0, self._axes(axis))}) > 1
+
+    def _layout(self, ax: Tuple[str, ...]) -> tuple:
+        """``(Gh, h, procs, pos)`` of ``ax``: the held rows are ``Gh``
+        groups of ``h`` members each (row-major), ``procs`` the processes
+        of those groups (each holds the same members of every one of them)
+        and ``pos[q]`` the member indices process ``q`` holds, ascending."""
+        hit = self._layouts.get(ax)
+        if hit is None:
+            members = self._members(self.held[0], ax)
+            pos: Dict[int, List[int]] = {}
+            for m, f in enumerate(members):
+                pos.setdefault(self.owners[f], []).append(m)
+            h = len(pos[self.rank])
+            hit = self._layouts[ax] = (self.rows // h, h,
+                                       sorted(pos, key=lambda q: pos[q][0]),
+                                       pos)
+        return hit
+
+    def _in_process(self, ax: Tuple[str, ...]) -> bool:
+        """The local axis of a node that is this one process: RankGrid's
+        code on the held rows."""
+        return ax == ("local",) and self.rows == self.n_local \
+            and self._contiguous
+
+    @staticmethod
+    def _member_order(t: torch.Tensor, dim: int, procs, pos) -> torch.Tensor:
+        """``t``, its ``dim`` concatenated over ``procs`` (each ``pos[q]``'s
+        members), put in member order."""
+        order = [m for q in procs for m in pos[q]]
+        if order == sorted(order):
+            return t
+        inv = torch.tensor(sorted(range(len(order)), key=order.__getitem__),
+                           device=t.device)
+        return t.index_select(dim, inv)
 
     # -- the wire ------------------------------------------------------------
-
-    def _held(self, ax: Tuple[str, ...]) -> Tuple[int, int]:
-        """``(groups, members)`` of a cross-process axis among the held
-        rows: on the node axis each held row is this process's member of
-        its own column group; on the flat axis they are ``n_local``
-        consecutive members of the one group."""
-        return (self.n_local, 1) if ax == ("node",) else (1, self.n_local)
 
     @staticmethod
     def _wire(t: torch.Tensor) -> torch.Tensor:
         """``t`` as contiguous bytes in host memory."""
-        return t.contiguous().reshape(-1).view(torch.uint8).cpu()
-
-    def _peers(self) -> List[int]:
-        return [j for j in range(self.n_nodes) if j != self.rank]
+        flat = t.contiguous().reshape(-1)
+        if flat.numel() == 1 and flat.stride(0) != 1:
+            # a one-element view may keep any stride
+            flat = flat.clone(memory_format=torch.contiguous_format)
+        return flat.view(torch.uint8).cpu()
 
     def _exchange(self, what: str, sends: Dict[int, torch.Tensor],
                   recv_bytes: Dict[int, int]) -> Dict[int, torch.Tensor]:
@@ -476,25 +603,49 @@ class ProcessGrid(RankGrid):
         self.bytes_sent += nbytes
         return bufs
 
-    def _receive(self, buf: Optional[torch.Tensor], shape, dtype
-                 ) -> torch.Tensor:
-        """Received bytes as a ``shape``/``dtype`` tensor on the grid's
-        device."""
+    def _receive(self, buf: Optional[torch.Tensor], shape, dtype,
+                 device=None) -> torch.Tensor:
+        """Received bytes as a ``shape``/``dtype`` tensor on ``device`` (the
+        grid's by default)."""
+        device = self.device if device is None else device
         if buf is None:
-            return torch.empty(shape, dtype=dtype, device=self.device)
-        return buf.view(dtype).reshape(shape).to(self.device)
+            return torch.empty(shape, dtype=dtype, device=device)
+        return buf.view(dtype).reshape(shape).to(device)
 
     def _gather_members(self, x: torch.Tensor, ax) -> torch.Tensor:
-        """``(groups, G, *s)``: every member's row of the held rows' groups
-        along the cross-process axis ``ax``, in member order."""
-        Gh, h = self._held(ax)
-        mine = x.reshape((Gh, h) + tuple(x.shape[1:]))
+        """``(Gh, G, *s)``: every member's row of the held rows' groups
+        along ``ax``, in member order."""
+        Gh, h, procs, pos = self._layout(ax)
+        rest = tuple(x.shape[1:])
+        mine = x.reshape((Gh, h) + rest)
+        if len(procs) == 1:
+            return mine
         wire = self._wire(mine)
-        got = self._exchange("all_gather", {j: wire for j in self._peers()},
-                             {j: wire.numel() for j in self._peers()})
-        return torch.cat([mine if j == self.rank else
-                          self._receive(got.get(j), mine.shape, x.dtype)
-                          for j in range(self.n_nodes)], dim=1)
+        peers = [q for q in procs if q != self.rank]
+        got = self._exchange("all_gather", {q: wire for q in peers},
+                             {q: wire.numel() // h * len(pos[q])
+                              for q in peers})
+        parts = [mine if q == self.rank else
+                 self._receive(got.get(q), (Gh, len(pos[q])) + rest, x.dtype)
+                 for q in procs]
+        return self._member_order(torch.cat(parts, 1), 1, procs, pos)
+
+    def all_rows(self, x: torch.Tensor, device=None) -> torch.Tensor:
+        self._rows(x)
+        device = self.device if device is None else device
+        rest = tuple(x.shape[1:])
+        if self.process_count == 1:
+            return x.to(device)
+        wire = self._wire(x)
+        each = wire.numel() // self.rows
+        peers = [q for q in self.procs if q != self.rank]
+        got = self._exchange("all_rows", {q: wire for q in peers},
+                             {q: each * len(self._held_by[q]) for q in peers})
+        parts = [x.to(device) if q == self.rank else self._receive(
+            got.get(q), (len(self._held_by[q]),) + rest, x.dtype, device)
+            for q in self.procs]
+        return self._member_order(torch.cat(parts), 0, self.procs,
+                                  self._held_by)
 
     # -- the lax primitives across processes ----------------------------------
 
@@ -502,11 +653,11 @@ class ProcessGrid(RankGrid):
     @_signed
     def psum(self, x: torch.Tensor, axes: Axes) -> torch.Tensor:
         ax = self._axes(axes)
-        if ax == ("local",):
+        if self._in_process(ax):
             return super().psum(x, axes)
         self._rows(x)
         s = self._sum_members(self._gather_members(x, ax))
-        Gh, h = self._held(ax)
+        Gh, h = self._layout(ax)[:2]
         rest = tuple(s.shape[1:])
         return s.unsqueeze(1).expand((Gh, h) + rest).reshape(
             (self.rows,) + rest)
@@ -516,7 +667,7 @@ class ProcessGrid(RankGrid):
     def psum_scatter(self, x: torch.Tensor, axes: Axes,
                      tiled: bool = True) -> torch.Tensor:
         ax = self._axes(axes)
-        if ax == ("local",):
+        if self._in_process(ax):
             return super().psum_scatter(x, axes, tiled)
         self._rows(x)
         G = self._group_size(ax)
@@ -535,11 +686,11 @@ class ProcessGrid(RankGrid):
     def all_gather(self, x: torch.Tensor, axes: Axes,
                    tiled: bool = False) -> torch.Tensor:
         ax = self._axes(axes)
-        if ax == ("local",):
+        if self._in_process(ax):
             return super().all_gather(x, axes, tiled)
         self._rows(x)
         g = self._gather_members(x, ax)
-        Gh, h = self._held(ax)
+        Gh, h = self._layout(ax)[:2]
         rest = tuple(g.shape[1:])
         out = g.unsqueeze(1).expand((Gh, h) + rest).reshape(
             (self.rows,) + rest)
@@ -550,24 +701,30 @@ class ProcessGrid(RankGrid):
     def _exchange_slices(self, x: torch.Tensor, axes: Axes, split_axis: int,
                          concat_axis: int) -> torch.Tensor:
         ax = self._axes(axes)
-        if ax == ("local",):
+        if self._in_process(ax):
             return super()._exchange_slices(x, axes, split_axis,
                                             concat_axis)
-        Gh, h = self._held(ax)
+        Gh, h, procs, pos = self._layout(ax)
         # (groups, src members held, dst members, *rest)
         v = x.reshape((Gh, h) + tuple(x.shape[1:])).movedim(2 + split_axis,
                                                             2)
 
-        def bound_for(j):  # the slices for process j's members
-            return v.narrow(2, j * h, h)
-        shape = tuple(bound_for(self.rank).shape)
-        nbytes = math.prod(shape) * x.element_size()
+        def bound_for(q):  # the slices for process q's members
+            p = pos[q]
+            if p == list(range(p[0], p[0] + len(p))):
+                return v.narrow(2, p[0], len(p))
+            return v.index_select(2, torch.tensor(p, device=v.device))
+
+        def shape_from(q):  # what q sends this process
+            return (Gh, len(pos[q]), h) + tuple(v.shape[3:])
+        peers = [q for q in procs if q != self.rank]
         got = self._exchange(
-            "all_to_all", {j: self._wire(bound_for(j)) for j in self._peers()},
-            {j: nbytes for j in self._peers()})
-        y = torch.cat([bound_for(j) if j == self.rank else
-                       self._receive(got.get(j), shape, x.dtype)
-                       for j in range(self.n_nodes)], dim=1)
+            "all_to_all", {q: self._wire(bound_for(q)) for q in peers},
+            {q: math.prod(shape_from(q)) * x.element_size() for q in peers})
+        y = torch.cat([bound_for(q) if q == self.rank else
+                       self._receive(got.get(q), shape_from(q), x.dtype)
+                       for q in procs], dim=1)
+        y = self._member_order(y, 1, procs, pos)  # (Gh, src, dst, ..)
         y = y.transpose(1, 2).movedim(2, 2 + concat_axis)  # (Gh, dst, ..)
         return y.reshape((self.rows,) + tuple(y.shape[2:]))
 
@@ -583,15 +740,18 @@ class ProcessGrid(RankGrid):
         if hit is not None:
             return hit
         src = self._flat_src(key).tolist()
-        n, lo = self.rows, self.offset
-        mine = src[lo:lo + n]
-        local = [s - lo if s >= 0 and s // n == self.rank else -1
-                 for s in mine]
+        own, me = self.owners, self.rank
+        index = {f: i for i, f in enumerate(self.held)}
+
+        def from_(q, f):  # f's source, if process q holds it
+            return src[f] >= 0 and own[src[f]] == q
+        local = [index[src[f]] if from_(me, f) else -1 for f in self.held]
         sends, recvs = {}, {}
-        for j in self._peers():
-            pos = [i for i, s in enumerate(mine) if s >= 0 and s // n == j]
-            idx = [s - lo for s in src[j * n:(j + 1) * n]
-                   if s >= 0 and s // n == self.rank]
+        for j in self.procs:
+            if j == me:
+                continue
+            pos = [i for i, f in enumerate(self.held) if from_(j, f)]
+            idx = [index[src[f]] for f in self._held_by[j] if from_(me, f)]
             if pos:
                 recvs[j] = torch.tensor(pos, device=self.device)
             if idx:

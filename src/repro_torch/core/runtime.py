@@ -50,7 +50,7 @@ nothing is moved implicitly.
 On a :class:`~repro_torch.core.grid.ProcessGrid` over several processes
 every process passes the same full logical operand, as the reference's
 ``global_operand`` has it; the plan wires it to the D rows as above and
-keeps the process's own (``grid.rows`` from flat rank ``grid.offset``).
+keeps the process's own (``grid.rows``, flat ranks ``grid.held``).
 A row-mode operand (allreduce, reduce_scatter, alltoall) may instead hold
 only those rows, ``(rows, ...)``: a process then never holds the other
 processes' payloads (:func:`logical` sizes it as the whole). The result
@@ -474,11 +474,11 @@ def _construct(grid, topo: Topology, collective: str, algo: str,
     wire = _WIRING[collective]
     fn = partial(_mcoll.algorithm(collective, algo), topo=topo, grid=grid,
                  **kw)
-    world, lo, hi = grid.world, grid.offset, grid.offset + grid.rows
+    world = grid.world
 
     def held(x):  # this process's rows of the wired operand
         rows = wire.to_rows(x, world)
-        return rows if rows.shape[0] == grid.rows else rows[lo:hi]
+        return rows if rows.shape[0] == grid.rows else grid.held_of(rows)
     if not carry:
         return lambda x: wire.from_rows(fn(held(x)), stacked)
     if (wire.in_mode, wire.out_mode) != ("row", "stack"):

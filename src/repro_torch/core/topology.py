@@ -12,9 +12,10 @@ crosses a process boundary: on the CPU both levels are ``host_cpu``; on
 CUDA both are ``h100_grid``, the preset fitted from calibration on an H100
 (``costmodel.h100_grid``), as the reference maps its TPU onto its
 ``tpu_v5e_ici`` preset. On a :class:`~repro_torch.core.grid.ProcessGrid`
-of several processes the node axis crosses the process boundary and is
-``host_ipc``, the reference's link between host processes; its local axis
-keeps the in-process link. Any other platform warns once and borrows the
+any axis whose groups span more than one process is ``host_ipc``, the
+reference's link between host processes (eight one-rank processes as
+``(2, 4)`` give ``2x4/host_ipc/host_ipc``); an axis inside a process keeps
+the in-process link. Any other platform warns once and borrows the
 ``host_cpu`` constants, as the reference does for an unknown platform.
 """
 from __future__ import annotations
@@ -44,10 +45,10 @@ def derive_link(grid, axis: str, level: str) -> str:
 
     The reference classifies an axis by the process boundaries it crosses,
     then maps the platform onto a preset. Process boundaries classify
-    first: the node axis of a grid over more than one process
-    (``grid.process_count``, a ``ProcessGrid``'s) crosses them and is
-    ``"host_ipc"`` on any platform (gloo between host processes). Every
-    other axis is an in-process link:
+    first: an axis whose groups span more than one process
+    (``grid.crosses(axis)``, walked at the origin as the reference walks
+    its mesh) is ``"host_ipc"`` on any platform (gloo between host
+    processes). Every other axis is an in-process link:
 
       * cpu: ``"host_cpu"``;
       * cuda: ``"h100_grid"`` (ranks as rows of one card's memory);
@@ -55,7 +56,8 @@ def derive_link(grid, axis: str, level: str) -> str:
         calibration tables record which rows rest on folklore constants.
     """
     del level  # the process boundary distinguishes levels, not the caller
-    if axis == "node" and getattr(grid, "process_count", 1) > 1:
+    crosses = getattr(grid, "crosses", None)
+    if crosses is not None and crosses(axis):
         return "host_ipc"
     platform = grid.device.type
     if platform == "cuda":

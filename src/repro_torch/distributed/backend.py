@@ -12,11 +12,12 @@ process or many. The contract:
     It is a no-op in a plain single-process run, so every script can call
     it unconditionally, and idempotent.
   * The transport is gloo. A process group of any other backend raises
-    ``NotImplementedError``: NCCL with one process per card, with row and
-    column process groups, is ROADMAP queue 1 item 5b.
+    ``NotImplementedError``: NCCL with one process per card on several
+    cards is ROADMAP queue 1 item 5b. Over gloo a grid's axis and color
+    groups may span any processes, down to one rank a process.
   * :func:`to_host` is the full logical value of a
     :class:`~repro_torch.core.grid.ProcessGrid` result on every process,
-    its rows gathered over the process group. (The reference's
+    its rows gathered from the grid's processes. (The reference's
     ``global_array`` has its counterpart in ``core.runtime``: every process
     passes the full logical operand and keeps its own rows.)
   * :func:`merge_tuning_table` is the calibration merge: each rank writes
@@ -76,9 +77,8 @@ class Backend:
 def _not_gloo(backend: str) -> NotImplementedError:
     return NotImplementedError(
         f"torch.distributed backend {backend!r}: this transport implements "
-        f"{TRANSPORT!r} only; NCCL with one process per card (row and "
-        f"column process groups, color splits across processes) is ROADMAP "
-        f"queue 1 item 5b")
+        f"{TRANSPORT!r} only; NCCL with one process per card on several "
+        f"cards is ROADMAP queue 1 item 5b")
 
 
 def auto_initialize() -> Backend:
@@ -142,18 +142,22 @@ def to_host(x: torch.Tensor, grid=None) -> torch.Tensor:
 
     ``x`` is a result on ``grid``: on a :class:`ProcessGrid` of several
     processes it holds this process's rows (stacked results) or shards
-    (sharded ones), dim 0 in flat rank order, and the processes' parts are
-    gathered over the process group and concatenated in process order.
-    Anything else (a one-process grid, no grid, an allgather result with
-    ``stacked=False``, which every process holds whole) is copied as it
-    is. The parts travel as bytes, so every dtype comes back bit for
-    bit; every process holds a part of the same shape and dtype."""
+    (sharded ones), dim 0 in the order of its held ranks, and the grid's
+    processes exchange their parts and place them in flat rank order.
+    Anything else (a one-process grid, no grid) is copied as it is; an
+    allgather result with ``stacked=False``, which every process holds
+    whole, is not a part and must not be passed. The parts travel as
+    bytes, so every dtype comes back bit for bit."""
     if grid is None or getattr(grid, "process_count", 1) <= 1:
         return x.detach().cpu()
-    wire = x.detach().contiguous().reshape(-1).view(torch.uint8).cpu()
-    bufs = [torch.empty_like(wire) for _ in range(grid.process_count)]
-    dist.all_gather(bufs, wire)
-    return torch.cat([b.view(x.dtype).reshape(x.shape) for b in bufs])
+    rows = grid.rows
+    if x.shape[0] % max(rows, 1):
+        raise ValueError(f"a part of {tuple(x.shape)} does not split over "
+                         f"the {rows} held ranks")
+    per = x.shape[0] // rows
+    part = x.detach().reshape((rows, per) + tuple(x.shape[1:]))
+    full = grid.all_rows(part, device="cpu")
+    return full.reshape((grid.world * per,) + tuple(x.shape[1:]))
 
 
 def barrier(name: str) -> None:

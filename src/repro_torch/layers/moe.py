@@ -39,8 +39,26 @@ body runs for all ranks at once:
 
 Without a grid, with a TP axis of size 1, or with experts that do not
 split over it, the layer runs the single-device path, as the reference
-does. The expert-parallel path does not run across processes (ROADMAP.md,
-queue 1 item 5b).
+does.
+
+On a ``ProcessGrid`` (``core/grid.py``) whose TP group crosses processes
+the same path runs with each process holding its ranks' rows: every
+process routes every rank's slice (a few small products, so the routings,
+the drop counts and the aux are the one-process grid's on every process),
+then dispatches, computes and combines for its held ranks only, the four
+all-to-alls and the all-gather crossing processes through the grid. The
+shards' outputs come back to every process by ``grid.all_rows``
+(:class:`_AllRows`), so the layer returns the whole ``(B, S, D)`` there
+too. In the backward the held rows' cotangents of the routed tokens and of
+the routing weights are gathered back to every rank's (:class:`_HeldRows`)
+and each process keeps its own rows of the output's cotangent, so the
+router's and ``x``'s gradients are the one-process grid's, bitwise; each
+process's experts are a view of the experts of its TP indices
+(:class:`_HeldExperts`), whose backward sums each expert's gradient over
+the ranks that routed rows to it, in rank order, across processes.
+Operations batched over the ranks are batched per rank where a batch's
+size could change a reduction's order (the routing is over every rank on
+every grid; the sum of a token's ``k`` results runs rank by rank).
 
 The backward (the reference's ``jax.grad`` through its ``shard_map``): an
 all-to-all is its own transpose, so each token all-to-all is one
@@ -81,7 +99,6 @@ from torch import nn
 
 from repro_torch.core import mcoll, runtime
 from repro_torch.core.comm import Communicator, communicator
-from repro_torch.core.grid import ProcessGrid
 from repro_torch.kernels import _dispatch
 from repro_torch.layers import common
 from repro_torch.layers.common import Accum, Compute
@@ -130,6 +147,91 @@ class _AllToAll(torch.autograd.Function):
     def backward(ctx, g):
         fn, topo, grid, kw = ctx.call
         return fn(g.contiguous(), topo, grid, **kw), None, None, None, None
+
+
+class _HeldRows(torch.autograd.Function):
+    """This process's rows (``grid.held_of``) of a tensor every process
+    computes for every rank; the backward gathers each process's cotangent
+    rows (``grid.all_rows``), so every process holds every rank's."""
+
+    @staticmethod
+    def forward(ctx, x, grid):
+        ctx.grid = grid
+        return grid.held_of(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.grid.all_rows(g.contiguous()), None
+
+
+class _AllRows(torch.autograd.Function):
+    """Every rank's rows (``grid.all_rows``) on every process; the backward
+    keeps this process's own rows of the cotangent: every process computes
+    the same loss from the whole, so each answers for its own ranks."""
+
+    @staticmethod
+    def forward(ctx, x, grid):
+        ctx.grid = grid
+        return grid.all_rows(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.grid.held_of(g), None
+
+
+#: bytes of expert gradients gathered at once across processes
+_GRAD_CHUNK_BYTES = 256 << 20
+
+
+class _HeldExperts(torch.autograd.Function):
+    """The experts of this process's TP indices, ``[lo, lo + n)`` of one
+    ``(E, ...)`` expert weight (a view). The backward makes the whole
+    weight's gradient on every process: expert ``e`` of TP index ``j`` is
+    the sum of the gradients of the ranks of index ``j`` that routed rows
+    to it, in rank order, across processes (a rank that routed none adds
+    nothing, as autograd adds nothing for an unused view). Each held row
+    sends its index's slice, a chunk of experts at a time (a process's
+    first row of an index answers for its others, whose rows autograd has
+    already summed)."""
+
+    @staticmethod
+    def forward(ctx, w, grid, lo, n, rt_of, used):
+        ctx.call = (grid, lo, rt_of, used, w.shape)
+        return w.narrow(0, lo, n)
+
+    @staticmethod
+    def backward(ctx, g):
+        grid, lo, rt_of, used, shape = ctx.call
+        tp = max(rt_of) + 1
+        El = shape[0] // tp
+        held_rt = [rt_of[f] for f in grid.held]
+        first = [held_rt.index(j) == i for i, j in enumerate(held_rt)]
+        mine = [[any(u[e] for u, j2 in zip(used, held_rt) if j2 == j)
+                 and first[i] for e in range(El)]
+                for i, j in enumerate(held_rt)]
+        users = grid.all_rows(torch.tensor(mine, device=g.device)).tolist()
+        out = g.new_empty(shape)
+        per = math.prod(shape[1:]) * g.element_size() * grid.world
+        step = max(1, min(El, _GRAD_CHUNK_BYTES // max(per, 1)))
+        for e0 in range(0, El, step):
+            e1 = min(El, e0 + step)
+            rows = torch.stack([
+                g[(j * El - lo) + e0:(j * El - lo) + e1] if first[i]
+                else g.new_zeros((e1 - e0,) + tuple(shape[1:]))
+                for i, j in enumerate(held_rt)])
+            every = grid.all_rows(rows)  # (world, e1 - e0, ...)
+            for e in range(e0, e1):
+                for j in range(tp):
+                    dst = out[j * El + e]
+                    src = [r for r in range(grid.world)
+                           if rt_of[r] == j and users[r][e]]
+                    if not src:
+                        dst.zero_()
+                        continue
+                    dst.copy_(every[src[0], e - e0])
+                    for r in src[1:]:
+                        dst += every[r, e - e0]
+        return out, None, None, None, None, None
 
 
 class _AllGather(torch.autograd.Function):
@@ -299,7 +401,8 @@ class MoE(nn.Module):
         """x: (B, S, D) -> (y (B, S, D), the load-balance loss, a float32
         scalar: the value the reference's decoder reads, ``aux.mean()``).
 
-        ``grid`` (a ``RankGrid``, or a ``Communicator`` on one) with
+        ``grid`` (a ``RankGrid`` or a ``ProcessGrid``, or a
+        ``Communicator`` on one) with
         ``rules`` (``sharding.rules.Rules``) asks for the expert-parallel
         path; ``error_budget`` lets its combine all-to-all run compressed.
         The reference's condition picks the single-device path instead: no
@@ -314,10 +417,6 @@ class MoE(nn.Module):
         if grid is None or tp_size == 1 or \
                 self.cfg.moe.n_experts % tp_size:
             return self._local(x)
-        if isinstance(grid, ProcessGrid):
-            raise NotImplementedError(
-                "expert-parallel MoE across processes (a ProcessGrid) comes "
-                "with the process groups of ROADMAP.md, queue 1 item 5b")
         if comm is None:
             comm = communicator(grid)
         return self._expert_parallel(x, rules, grid, comm.split(axes=tp),
@@ -399,9 +498,10 @@ class MoE(nn.Module):
         if t * tp_size > T:
             tokens = torch.cat([tokens, tokens.new_zeros(
                 (bshard, t * tp_size - T, D))], 1)
-        mine = tokens.reshape(bshard, tp_size, t, D)[shard, rt]  # (W, t, D)
+        # every rank's slice, routed on every process
+        mine_all = tokens.reshape(bshard, tp_size, t, D)[shard, rt]
 
-        w, ids, probs = _route(self.router, mine, k)
+        w, ids, probs = _route(self.router, mine_all, k)
         flat_ids = ids.reshape(world, t * k)
         flat_w = w.reshape(world, t * k)
         dest = flat_ids // El
@@ -412,11 +512,23 @@ class MoE(nn.Module):
         #: ids (W, t, k) and whether each routing kept its slot (W, t*k)
         self.ep_routing = {"ids": ids, "kept": valid}
 
+        # from here on this process's ranks only (every rank on a grid
+        # held by one process)
+        split = grid.rows != world
+        rows = grid.rows
+        rt_h = [rt_of[f] for f in grid.held]
+        mine, w_h, ids_h, dest, pos, valid = (
+            mine_all, flat_w, flat_ids, dest, pos, valid)
+        if split:
+            mine, w_h = (_HeldRows.apply(a, grid) for a in (mine, w_h))
+            ids_h, dest, pos, valid = (grid.held_of(a) for a in (
+                ids_h, dest, pos, valid))
+
         # pack: slot (r, dest, pos) of one flat buffer, every dropped
         # routing into one spare slot past the end (the reference's
         # scatter with mode="drop")
-        n_slots = world * tp_size * cap
-        r_idx = torch.arange(world, device=dev)[:, None]
+        n_slots = rows * tp_size * cap
+        r_idx = torch.arange(rows, device=dev)[:, None]
         slot = torch.where(valid, (r_idx * tp_size + dest) * cap + pos,
                            n_slots).reshape(-1)
         tok = torch.arange(t * k, device=dev) // k
@@ -424,10 +536,10 @@ class MoE(nn.Module):
         send_x[slot] = mine[r_idx, tok[None, :]].reshape(-1, D)
         send_eid = torch.full((n_slots + 1,), El - 1, dtype=torch.int32,
                               device=dev)
-        send_eid[slot] = (flat_ids % El).to(torch.int32).reshape(-1)
+        send_eid[slot] = (ids_h % El).to(torch.int32).reshape(-1)
         send_ok = torch.zeros(n_slots + 1, dtype=torch.bool, device=dev)
         send_ok[slot] = valid.reshape(-1)
-        shape = (world, tp_size, cap)
+        shape = (rows, tp_size, cap)
 
         fn = mcoll.algorithm("alltoall", a2a_sel.algo)
         kw = ({"chunks": a2a_sel.chunks}
@@ -436,26 +548,34 @@ class MoE(nn.Module):
                              comm.topo, grid, kw)
         re = fn(send_eid[:n_slots].view(shape), comm.topo, grid)
         rok = fn(send_ok[:n_slots].view(shape), comm.topo, grid)
-        rx = rx.reshape(world, tp_size * cap, D)
-        re = re.reshape(world, tp_size * cap)
-        rok = rok.reshape(world, tp_size * cap)
+        rx = rx.reshape(rows, tp_size * cap, D)
+        re = re.reshape(rows, tp_size * cap)
+        rok = rok.reshape(rows, tp_size * cap)
 
         # each rank's experts over its received rows, sorted by expert
         eid = torch.where(rok, re, El - 1).long()
         order = torch.argsort(eid, dim=1, stable=True)
-        counts = torch.zeros((world, El), dtype=torch.long, device=dev)
+        counts = torch.zeros((rows, El), dtype=torch.long, device=dev)
         counts.scatter_add_(1, eid, torch.ones_like(eid))
         sizes = _group_sizes(counts, tp_size * cap)  # the one host read
         x_sorted = rx.gather(1, order[..., None].expand(-1, -1, D))
-        weights = self._expert_weights()
+        j0 = 0
+        if split:
+            j0, j1 = min(rt_h), max(rt_h) + 1
+            weights = tuple(_HeldExperts.apply(
+                wt, grid, j0 * El, (j1 - j0) * El, rt_of,
+                [[n > 0 for n in sz] for sz in sizes]).unbind(0)
+                for wt in (self.w_gate, self.w_up, self.w_down))
+        else:
+            weights = self._expert_weights()
         counter = _dispatch.counter()
-        if counter is not None and x.device.type == "meta":
+        if counter is not None and x.device.type == "meta" and not split:
             out_sorted = self._counted_experts(counter, x_sorted, sizes,
                                                rt_of, El, weights)
         else:
-            out_sorted = torch.stack([self._experts(x_sorted[r], sizes[r],
-                                                    rt_of[r] * El, weights)
-                                      for r in range(world)])
+            out_sorted = torch.stack([
+                self._experts(x_sorted[i], sizes[i], (rt_h[i] - j0) * El,
+                              weights) for i in range(rows)])
         out = torch.empty_like(out_sorted).scatter_(
             1, order[..., None].expand(-1, -1, D), out_sorted)
         out.masked_fill_(~rok[..., None], 0)
@@ -470,9 +590,12 @@ class MoE(nn.Module):
         # a dropped routing reads slot cap - 1 (the reference's gather
         # clamps the index cap it gives a dropped routing) and weighs it 0
         gathered = back[r_idx, dest, pos.clamp(max=cap - 1)]
-        contrib = gathered * (flat_w * valid)[..., None].to(gathered.dtype)
-        y_mine = contrib.reshape(world, t, k, D).sum(2)
+        contrib = gathered * (w_h * valid)[..., None].to(gathered.dtype)
+        y_mine = torch.stack([c.sum(1) for c in contrib.reshape(
+            rows, t, k, D)])
         y_all = _AllGather.apply(y_mine, grid, tp)[:, :T]
+        if split:
+            y_all = _AllRows.apply(y_all, grid)
 
         # the shards' outputs (every TP rank of a shard holds the same),
         # and the reference's aux as its decoder reads it: the mean over

@@ -58,7 +58,9 @@ class Engine:
     (argmax).
 
     ``mesh`` is a ``RankGrid`` on the same device whose ranks are the DP
-    replicas the tick tokens are synced across, with the topology ``topo``
+    replicas the tick tokens are synced across, or a ``ProcessGrid``,
+    where each process runs its own engine, one DP replica a process (its
+    held rows), with the topology ``topo``
     (default ``Topology.from_grid(mesh)``). ``sync_algo`` pins the tick
     sync's broadcast algorithm or, ``"auto"`` (the default), lets the
     selector pick it; ``sync_error_budget`` is the accuracy knob on that
@@ -110,7 +112,9 @@ class Engine:
     def _sync_tokens(self, nxt: torch.Tensor) -> torch.Tensor:
         """Cross-replica agreement on each slot's next token: a persistent
         small-message broadcast of the ``(max_batch,)`` int32 tick payload;
-        returns rank 0's copy."""
+        returns held row 0, which is rank 0's broadcast copy on every
+        process of a ``ProcessGrid`` too (under ``sync_axes``, its group's
+        first rank's)."""
         if self.mesh is None or self.sync_comm.topo.world == 1:
             return nxt  # nothing to reconcile; skip the per-tick dispatch
         gen = self.sync_comm.selector.table.generation

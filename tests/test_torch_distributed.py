@@ -140,8 +140,13 @@ def test_process_grid_holds_its_node(two_processes):
     assert grid != RankGrid(2, 4, "cpu") and grid == ProcessGrid(2, 4, "cpu")
     be = dist.current_backend()
     assert be.name == "multiprocess" and be.process_index == 1
-    with pytest.raises(ValueError, match="needs as many processes"):
+    # two processes of 4 ranks: 4 must divide n_local, so a process holds
+    # ranks of one node; (4, 2) would put two nodes in a process
+    with pytest.raises(ValueError, match="must divide n_local=2"):
         ProcessGrid(4, 2, "cpu")
+    with pytest.raises(ValueError, match="must divide n_local=3"):
+        ProcessGrid(1, 3, "cpu")
+    assert ProcessGrid(1, 8, "cpu").held == tuple(range(4, 8))
 
 
 def test_derive_link_splits_on_process_boundary(two_processes):
@@ -173,12 +178,28 @@ def test_other_backends_raise_naming_item_5b(two_processes):
 
 
 def test_color_split_across_processes_raises(two_processes):
+    """A color group across processes is a grid over its members'
+    processes holding this process's members in the group's order
+    (consecutive or not); one inside a process is a RankGrid of its own."""
     comm = Communicator(ProcessGrid(2, 4, "cpu"))
-    with pytest.raises(NotImplementedError, match="item 5b"):
-        comm.split(color=[0, 1] * 4)
+    across = comm.split(color=[0, 1] * 4)
+    assert sorted(across) == [0, 1]
+    assert across[0].ranks == (0, 2, 4, 6) and across[1].ranks == (1, 3, 5, 7)
+    for c, child in across.items():
+        g = child.grid
+        assert isinstance(g, ProcessGrid) and g.process_count == 2
+        assert (g.n_nodes, g.n_local, g.held, g.rows) == (1, 4, (2, 3), 2)
+        assert g.axis_index("local").tolist() == [2, 3]
+        assert topo_key(child.topo) == f"1x4/host_cpu/host_ipc/g:color{c}"
+    rev = comm.split(color=[0, 1] * 4, key=list(range(8))[::-1])
+    assert rev[0].ranks == (6, 4, 2, 0) and rev[0].grid.held == (0, 1)
+    mixed = comm.split(color=[0] * 8, key=[0, 2, 4, 6, 1, 3, 5, 7])
+    assert mixed[0].ranks == (0, 4, 1, 5, 2, 6, 3, 7)
+    assert mixed[0].grid.held == (1, 3, 5, 7)
+    assert mixed[0].grid.axis_index("local").tolist() == [1, 3, 5, 7]
     inside = comm.split(color=[0] * 4 + [1] * 4)
     assert inside[1].ranks == (4, 5, 6, 7)
-    assert isinstance(inside[1].grid, RankGrid)
+    assert type(inside[1].grid) is RankGrid
 
 
 def test_held_rows_wiring_and_result_shapes(two_processes):

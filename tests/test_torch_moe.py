@@ -319,7 +319,11 @@ def test_expert_parallel_refuses_grad_and_process_grids(layers,
                                                          monkeypatch):
     """The expert-parallel path differentiates (``test_torch_moe_backward.
     py``), but not through a compressed combine: a codec plan under grad
-    raises; a process grid raises (item 5b)."""
+    raises, on a ``RankGrid`` and on a ``ProcessGrid`` alike. A process
+    grid runs the path (here one process holding every rank: the
+    ``RankGrid``'s result bitwise; across processes in
+    ``tests/test_torch_process_groups.py``)."""
+    from repro_torch.core.grid import ProcessGrid
     layer = layers["1x4", "tp"]
     x = torch.from_numpy(_x("1x4")).bfloat16()
     rules = Rules(batch=("node",), tp="local")
@@ -329,15 +333,14 @@ def test_expert_parallel_refuses_grad_and_process_grids(layers,
         return autotune.Selection(collective, "pip_mcoll", 0.0, "prior", "",
                                   codec=codec)
     monkeypatch.setattr(tcomm.Communicator, "plan", plan)
-    with pytest.raises(ValueError, match="compressed combine"):
-        layer(x.clone().requires_grad_(), rules=rules,
-              grid=RankGrid(1, 4, "cpu"), error_budget=ERROR_BUDGET)
+    for grid in (RankGrid(1, 4, "cpu"), ProcessGrid(1, 4, "cpu")):
+        with pytest.raises(ValueError, match="compressed combine"):
+            layer(x.clone().requires_grad_(), rules=rules, grid=grid,
+                  error_budget=ERROR_BUDGET)
     monkeypatch.undo()
-    from repro_torch.core.grid import ProcessGrid
-    fake = object.__new__(ProcessGrid)
-    fake.n_nodes, fake.n_local = 1, 4
-    with pytest.raises(NotImplementedError, match="item 5b"):
-        layer(x, rules=rules, grid=fake)
+    y, aux = layer(x, rules=rules, grid=ProcessGrid(1, 4, "cpu"))
+    want, want_aux = layer(x, rules=rules, grid=RankGrid(1, 4, "cpu"))
+    assert torch.equal(y, want) and torch.equal(aux, want_aux)
     # the reference's local-path condition: no TP axis of size > 1
     y, _ = layer(x, rules=Rules(batch=("node",), tp="node"),
                  grid=RankGrid(1, 4, "cpu"))

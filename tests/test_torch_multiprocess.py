@@ -26,8 +26,9 @@ two steps each; every process's losses, weights and AdamW moments must be
 bitwise those of the same steps on ``RankGrid(2, 2, "cpu")``.
 
 The 2x4 workers also run a persistent op, ``split(axes=...)`` children, a
-color split inside each process (and one across processes, which must
-raise), the calibrate-merge leg (one table, written by rank 0 under
+color split inside each process and one across processes (each process
+holds its members' rows of the one-process child's result), the
+calibrate-merge leg (one table, written by rank 0 under
 ``2x4/host_ipc/host_cpu``, each plan the max over ranks, ``auto`` alike on
 both ranks), the data leg (the stacked 2-process ``SyntheticLM`` batch is
 the 1-process batch and the reference's) and a traced call whose Chrome
@@ -308,11 +309,7 @@ def _worker_2x4(scratch):
         _child_call(comm, ax, coll), grid).numpy()
         for ax in ("node", "local") for coll in runtime.collectives()}
     res["color"] = _color_results(comm, [0] * P + [1] * P, ops)
-    try:
-        comm.split(color=[0, 1] * P)
-        res["color_across"] = "no error"
-    except NotImplementedError as err:
-        res["color_across"] = str(err)
+    res["color_across"] = _color_results(comm, [0, 1] * P, ops)
 
     # a traced call: gloo spans, the Chrome trace's pid is the rank
     tm.reset()
@@ -562,12 +559,20 @@ def test_2x4_axis_children(spawned_2x4, comm_2x4, ax):
 
 def test_2x4_color_splits(spawned_2x4, comm_2x4):
     """A color group inside one process runs there; one across processes
-    raises, naming ROADMAP item 5b."""
+    runs over its members' processes, each holding its own members' rows
+    of the one-process child's result, bitwise."""
     want = _color_results(comm_2x4, [0] * P + [1] * P, _operands())
+    across = _color_results(comm_2x4, [0, 1] * P, _operands())
     for r in spawned_2x4:
         assert list(r["color"]) == [r["rank"]]
         _bitwise(r["color"][r["rank"]], want[r["rank"]])
-        assert "item 5b" in r["color_across"]
+        assert sorted(r["color_across"]) == [0, 1]
+        for c, got in r["color_across"].items():
+            ranks = range(c, WORLD, 2)  # the group in (key, rank) order
+            held = [i for i, k in enumerate(ranks)
+                    if r["offset"] <= k < r["offset"] + r["rows"]]
+            assert len(held) == 2
+            _bitwise(got, across[c][held])
 
 
 def test_2x4_trace_carries_rank_and_gloo_spans(spawned_2x4):
