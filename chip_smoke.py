@@ -216,8 +216,9 @@ report, phase 12); any failure exits non-zero:
    bucket within its tolerance; then it frees the card's memory. Two
    workers (``distributed.launch.run``, the kernels already built) each
    hold four ranks of ``launch.mesh.make_process_grid()`` on the card, the
-   node axis over gloo: every held row's digest must equal the parent's,
-   the key must be ``2x4/host_ipc/h100_grid``, staging launches more than
+   node axis over the ``"shm"`` transport the grid chooses for processes
+   on one card: every held row's digest must equal the parent's, the key
+   must be ``2x4/h100_ipc/h100_grid``, staging launches more than
    0 exactly where ``oracles.moves_rows`` says, codec launches the
    parent's per call, the sync step's launches 2 encodes and 1
    decode-reduce per bucket. A short calibration on both workers must
@@ -413,16 +414,21 @@ report, phase 12); any failure exits non-zero:
    ``example_<name>``.
 15. **One process per rank on the card**, after phase 14, the earlier
    phases' memory freed first (``process_groups_phase``): the port's
-   process groups over gloo, where every axis of the ``ProcessGrid(2, 4)``
-   crosses processes. The parent's ``RankGrid(2, 4)`` results come first
+   process groups, where every axis of the ``ProcessGrid(2, 4)`` crosses
+   processes, under both transports in the same spawns: every worker builds
+   a grid handed a ``GlooTransport`` and one that chooses its own, which
+   must be ``"shm"`` (CUDA IPC device slots, no host copy), and runs each
+   leg below on both, one after the other. The parent's ``RankGrid(2, 4)`` results come first
    (phase 8's case digests and sync step, the groups below, the sync-free
    engine's tokens, the EP layer's digests), then the card is freed and
    ``distributed.launch.run`` starts eight one-rank workers (the kernels
    already built): (a) phase 8's 148 cases, every held row bitwise the
    parent's (sha256), staging launches > 0 exactly where
-   ``oracles.moves_rows`` says, the key ``2x4/host_ipc/host_ipc``, each
-   lossless plan's host ms per call at 8 B and 4 MiB per rank beside phase
-   8's two-process and the one-process times with the bytes sent; the
+   ``oracles.moves_rows`` says, the key ``2x4/host_ipc/host_ipc``
+   (``2x4/h100_ipc/h100_ipc`` under ``"shm"``), each lossless plan's host
+   ms per call at 8 B and 4 MiB per rank under both transports beside
+   phase 8's two-process and the one-process times with the bytes sent;
+   the
    ``("node",)`` and ``("local",)`` children and the color splits
    ``[0, 1] * 4`` with and without a key that reverses each group, six
    collectives each under ``pip_mcoll`` at both sizes, bitwise; (b) the
@@ -432,7 +438,14 @@ report, phase 12); any failure exits non-zero:
    width by each worker's ``Engine(mesh=ProcessGrid(2, 4))`` (phase 4's
    16 requests), tokens equal to the sync-free engine's, ``flash_decode``
    launches ticks x 32 and staging launches one sync call's x ticks per
-   worker, tick p50/p99 and tokens/s beside phase 4's. Then four workers
+   worker, tick p50/p99 and tokens/s beside phase 4's; (e) under
+   ``"shm"`` only, ``calibrate(include_splits=True)`` at 8 B and 4 MiB per
+   rank (lossless plans, median of 10, folded over the workers with max),
+   ``costmodel.fit_net`` of those rows (the constants behind
+   ``h100_ipc``) and in how many cells the checked-in ``h100_ipc``, the
+   fresh fit and ``host_ipc`` pick the measured argmin. Every ``"shm"``
+   leg moves no payload byte through host memory (``host_bytes`` 0). Then
+   four workers
    of two ranks (each node two processes, the TP group across a process
    boundary): (c) qwen3-moe's MoE layer at full width on (8, 512) bf16
    tokens, capacity factor 4 (no drop), under ``pip_mcoll``,
@@ -441,10 +454,12 @@ report, phase 12); any failure exits non-zero:
    gradients of ``sum(y * r)`` with respect to the router, the three
    expert weights and x bitwise the parent's (two ranks an expert: the
    cross-process sums keep its order), host ms forward and
-   forward+backward, the peak per worker. One ``{"process_groups": ...}``
-   line naming the card; every ``{"kernels": ...}`` entry's
+   forward+backward, the peak per worker (with the ``"shm"`` slots, which
+   PyTorch's allocator does not see). One ``{"process_groups": ...}`` line
+   naming the card; every ``{"kernels": ...}`` entry's
    ``launches_by_path`` gains ``pg_collectives``, ``pg_sync``,
-   ``pg_moe`` and ``pg_serve``, summed over the workers.
+   ``pg_moe`` and ``pg_serve`` and their ``_shm`` twins, summed over the
+   workers.
 """
 from __future__ import annotations
 
@@ -2893,9 +2908,10 @@ TP_TIMEOUT = 600
 TP_CAL = ("allreduce", "broadcast")
 TP_CAL_ITERS = 3
 TP_TABLE = "two_process_table.json"
-#: the workers' topology key: the node axis crosses processes (gloo), the
-#: local axis stays on the card
-TP_KEY = "2x4/host_ipc/h100_grid"
+#: the workers' topology key: the node axis crosses processes (the "shm"
+#: transport, which processes on one card choose), the local axis stays on
+#: the card
+TP_KEY = "2x4/h100_ipc/h100_grid"
 #: the full-width sync step: codec and budget, as phase 2's int8 run
 TP_CODEC, TP_BUDGET = SYNC_CODECS[0]
 
@@ -3045,7 +3061,8 @@ def tp_collectives(torch, np, comm, kcodec, kstaging):
     each held result row (and new-error row), the staging and codec
     launches of the call; per lossless float32 pair and size the median
     host ms per call over ``TP_ITERS`` calls (each ended by a synchronize)
-    and, on a ``ProcessGrid``, the bytes it sent over gloo per call. Staging launches must be more than 0 exactly where
+    and, on a ``ProcessGrid``, the bytes it sent to other processes per
+    call. Staging launches must be more than 0 exactly where
     ``oracles.moves_rows`` says, codec launches exactly for the compressed
     reductions."""
     from repro_torch.core import compress, oracles
@@ -3139,8 +3156,8 @@ def two_process_worker(total, table_path, device="cuda"):
 
 
 def tp_model_vs_measured(plans):
-    """The cost model under the workers' topology (``TP_KEY``'s links: the
-    reference's ``host_ipc`` constants on the node axis) against each
+    """The cost model under the workers' topology (``TP_KEY``'s links:
+    ``h100_ipc`` on the node axis) against each
     lossless plan's measured two-process time (the slower worker's): each
     plan's ``model_ms``, and per (collective, size) cell whether the
     model's argmin is the measured one, with the median |(measured -
@@ -5576,13 +5593,16 @@ FEEDBACK_LINES = {"int8": 123, "int4": 204, "fp8": 294}
 
 
 # ---------------------------------------------------------------------------
-# phase 15: one process per rank on the card (process groups over gloo)
+# phase 15: one process per rank on the card (process groups, both transports)
 # ---------------------------------------------------------------------------
 
-#: (a), (b) and (d): eight one-rank workers; (c): four workers of two ranks
+#: (a), (b), (d) and (e): eight one-rank workers; (c): four workers of two
+#: ranks
 PG_PROCS, PG_MOE_PROCS = 8, 4
-#: every axis crosses processes in both layouts
-PG_KEY = "2x4/host_ipc/host_ipc"
+#: every worker runs every leg on a grid of each transport, in this order
+PG_TRANSPORTS = ("gloo", "shm")
+#: every axis crosses processes in both layouts: the key under each
+PG_KEYS = {"gloo": "2x4/host_ipc/host_ipc", "shm": "2x4/h100_ipc/h100_ipc"}
 PG_TIMEOUT = 900
 #: the color splits across processes: alternating ranks, and the same
 #: with a key that reverses each group
@@ -5773,26 +5793,92 @@ def pg_moe(torch, cfg, grid, kmods):
 
 
 def _pg_build(device):
-    """The worker's grid, its communicator and the kernel modules."""
+    """The worker's communicator on a ``ProcessGrid(2, 4)`` of each
+    transport, and the kernel modules: gloo handed in, ``"shm"`` the one
+    the grid chooses for processes on one card (checked)."""
     import torch
     from repro_torch.core.comm import Communicator
     from repro_torch.core.grid import ProcessGrid
+    from repro_torch.distributed.transport import GlooTransport
     from repro_torch.kernels import attention as kattn
     from repro_torch.kernels import codec as kcodec
     from repro_torch.kernels import mamba as kmamba
     from repro_torch.kernels import rwkv as krwkv
     from repro_torch.kernels import staging as kstaging
-    grid = ProcessGrid(2, 4, device)
-    if grid.device.type == "cuda":
-        torch.cuda.set_device(grid.device)
-    return grid, Communicator(grid), (kcodec, kattn, krwkv, kmamba, kstaging)
+    if torch.device(device).type == "cuda":
+        torch.cuda.set_device(torch.device(device))
+    comms = {"gloo": Communicator(ProcessGrid(2, 4, device,
+                                              transport=GlooTransport())),
+             "shm": Communicator(ProcessGrid(2, 4, device))}
+    for name, comm in comms.items():
+        if comm.grid.transport.name != name:
+            raise AssertionError(f"the {name} grid runs over "
+                                 f"{comm.grid.transport.name}")
+    return comms, (kcodec, kattn, krwkv, kmamba, kstaging)
+
+
+def _slot_bytes(grid):
+    """The device bytes of the transport's slots (0 under gloo)."""
+    return getattr(grid.transport, "slot_bytes", 0)
+
+
+def pg_calibrate(torch, comm):
+    """(e) ``calibrate(include_splits=True)`` of ``comm``'s grid into a
+    selector of its own at ``CAL_SIZES``, lossless plans, ``CAL_ITERS``
+    samples each; each row's median folded over the processes with max (a
+    collective is as slow as its slowest process, as the tuning-table
+    merge folds). On process 0 ``costmodel.fit_net`` of the folded rows
+    and, per preset (the grid's own links, the fresh fit, ``host_ipc``),
+    the cells whose prior argmin is the measured one."""
+    import torch.distributed as dist
+    from repro_torch.core import artifact, autotune, costmodel
+    from repro_torch.core.comm import Communicator
+
+    grid = comm.grid
+    ccomm = Communicator(grid, selector=autotune.Selector())
+    host0 = grid.host_bytes
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rows = ccomm.calibrate(include_splits=True, sizes=CAL_SIZES,
+                           iters=CAL_ITERS, codecs=())
+    seconds = time.perf_counter() - t0
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, [r.seconds for r in rows])
+    rows = [dataclasses.replace(r, seconds=max(e[i] for e in every))
+            for i, r in enumerate(rows)]
+    out = {"rows": len(rows), "seconds": seconds,
+           "host_bytes": grid.host_bytes - host0}
+    if grid.rank == 0:
+        fitted, report = costmodel.fit_net(_fit_samples(ccomm, rows),
+                                           "h100_ipc")
+        out.update({
+            "link": ccomm.topo.link_names[0],
+            "checked_in": dataclasses.asdict(
+                costmodel.resolve_net(ccomm.topo.link_names[0])),
+            "fresh_fit": {**dataclasses.asdict(fitted),
+                          **{k: v for k, v in report.items()
+                             if k != "rel_err"}},
+            "fit_rel_err": report["rel_err"],
+            "agreement": {
+                "checked_in": _agreement(artifact.calibration_sections(
+                    ccomm, rows)),
+                "fresh_fit": _agreement(artifact.calibration_sections(
+                    ccomm, rows, link=fitted)),
+                "host_ipc": _agreement(artifact.calibration_sections(
+                    ccomm, rows, link="host_ipc"))},
+            "rows_ms": [[r.group or "root", r.collective, r.algo, r.chunks,
+                         r.nbytes, r.seconds * 1e3] for r in rows]})
+    return out
 
 
 def process_groups_worker(total, device="cuda"):
     """A phase-15 worker of one rank (``distributed.launch.run``, eight of
-    them): legs (a) every case of :func:`tp_cases` and the groups of
-    :func:`pg_groups`, (b) the full-width sync step, (d) the serving run,
-    each with its kernel counts zeroed just before and read just after."""
+    them): on its gloo grid and then on its ``"shm"`` grid, leg by leg,
+    (a) every case of :func:`tp_cases` and the groups of :func:`pg_groups`,
+    (b) the full-width sync step, (d) the serving run, each with its kernel
+    counts zeroed just before and read just after and the payload bytes
+    its transport moved through host memory; then (e), :func:`pg_calibrate`
+    on the ``"shm"`` grid; the slots' bytes and the worker's peak."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
@@ -5800,44 +5886,76 @@ def process_groups_worker(total, device="cuda"):
     from repro_torch.kernels import codec as kcodec
     from repro_torch.kernels import staging as kstaging
 
-    grid, comm, kmods = _pg_build(device)
-    res = {"rank": grid.rank, "held": list(grid.held),
-           "device": str(grid.device),
-           "topo_key": autotune.topo_key(comm.topo)}
-    t0 = time.perf_counter()
-    res["digests"], res["launched"], res["times"] = tp_collectives(
-        torch, np, comm, kcodec, kstaging)
-    res["groups"], res["group_launches"] = pg_groups(torch, np, comm,
-                                                     kstaging)
-    res["collectives_s"] = time.perf_counter() - t0
-    res["collective_launches"] = _sum_launches(
-        {**res["launched"], "groups": res["group_launches"]})
+    comms, kmods = _pg_build(device)
+    first = comms[PG_TRANSPORTS[0]].grid
+    res = {"rank": first.rank, "held": list(first.held),
+           "device": str(first.device)}
+    for name, comm in comms.items():
+        res[name] = {"topo_key": autotune.topo_key(comm.topo),
+                     "host_bytes": {}}
+
+    def collectives(out, comm):
+        t0 = time.perf_counter()
+        out["digests"], out["launched"], out["times"] = tp_collectives(
+            torch, np, comm, kcodec, kstaging)
+        out["groups"], out["group_launches"] = pg_groups(torch, np, comm,
+                                                         kstaging)
+        out["collectives_s"] = time.perf_counter() - t0
+        out["collective_launches"] = _sum_launches(
+            {**out["launched"], "groups": out["group_launches"]})
+
+    def sync(out, comm):
+        _reset(kmods)
+        sent = comm.grid.bytes_sent
+        out["sync"] = tp_sync_step(torch, comm, total)
+        out["sync"]["bytes_sent"] = comm.grid.bytes_sent - sent
+        out["sync"]["launches"] = {k: n for k, n in _launches(kmods).items()
+                                   if n}
+
+    def serve(out, comm):
+        out["serve"] = pg_serve(torch, np, comm.grid,
+                                get_config("smollm-360m"), kmods)
+
+    for label, leg in (("collectives", collectives), ("sync", sync),
+                       ("serve", serve)):
+        for name, comm in comms.items():
+            torch.cuda.empty_cache()
+            host0 = comm.grid.host_bytes
+            leg(res[name], comm)
+            res[name]["host_bytes"][label] = comm.grid.host_bytes - host0
     torch.cuda.empty_cache()
-    _reset(kmods)
-    sent = grid.bytes_sent
-    res["sync"] = tp_sync_step(torch, comm, total)
-    res["sync"]["bytes_sent"] = grid.bytes_sent - sent
-    res["sync"]["launches"] = {k: n for k, n in _launches(kmods).items()
-                               if n}
-    torch.cuda.empty_cache()
-    res["serve"] = pg_serve(torch, np, grid, get_config("smollm-360m"),
-                            kmods)
+    res["shm"]["calibrate"] = pg_calibrate(torch, comms["shm"])
+    res["slot_bytes"] = _slot_bytes(comms["shm"].grid)
+    res["peak_mem_bytes"] = (torch.cuda.max_memory_allocated(first.device)
+                             + res["slot_bytes"])
     return res
 
 
 def process_groups_moe_worker(device="cuda"):
     """A phase-15 worker of two ranks (four of them): leg (c),
-    :func:`pg_moe` on ``ProcessGrid(2, 4)``, each node two processes."""
+    :func:`pg_moe` on ``ProcessGrid(2, 4)``, each node two processes, on
+    the gloo grid and then on the ``"shm"`` grid; the peak with the
+    slots."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.core import autotune
 
-    grid, comm, kmods = _pg_build(device)
-    res = {"rank": grid.rank, "held": list(grid.held),
-           "topo_key": autotune.topo_key(comm.topo)}
-    t0 = time.perf_counter()
-    res["moe"] = pg_moe(torch, get_config(MOE_Q_ARCH), grid, kmods)
-    res["moe_s"] = time.perf_counter() - t0
+    comms, kmods = _pg_build(device)
+    first = comms[PG_TRANSPORTS[0]].grid
+    res = {"rank": first.rank, "held": list(first.held),
+           "device": str(first.device)}
+    for name, comm in comms.items():
+        host0 = comm.grid.host_bytes
+        t0 = time.perf_counter()
+        rec = pg_moe(torch, get_config(MOE_Q_ARCH), comm.grid, kmods)
+        rec["moe_s"] = time.perf_counter() - t0
+        rec["host_bytes"] = comm.grid.host_bytes - host0
+        rec["topo_key"] = autotune.topo_key(comm.topo)
+        rec["slot_bytes"] = _slot_bytes(comm.grid)
+        rec["peak_mem_bytes"] += rec["slot_bytes"]
+        res[name] = rec
+        gc.collect()
+        torch.cuda.empty_cache()
     return res
 
 
@@ -5848,16 +5966,106 @@ def _pg_rows(want, held):
             for d in [want[i * PG_PROCS + h] for h in held]]
 
 
+def _pg_check(workers, moe_workers, parent, groups, served, moe, sync_want,
+              n_layers):
+    """Every worker's every leg under each transport against the parent's
+    one-process results: held rows, group calls, the sync step's digests
+    and launches, the served tokens and launches, the EP layer's digests;
+    the keys; under ``"shm"`` on the card no payload byte through host
+    memory."""
+    for w in workers:
+        held = w["held"]
+        for name in PG_TRANSPORTS:
+            got, who = w[name], f"rank {w['rank']} ({name})"
+            if got["topo_key"] != PG_KEYS[name] or held != [w["rank"]]:
+                raise AssertionError(f"{who}: key {got['topo_key']}, held "
+                                     f"{held}")
+            if name == "shm" and w["device"].startswith("cuda") and \
+                    any(got["host_bytes"].values()):
+                raise AssertionError(f"{who}: host bytes "
+                                     f"{got['host_bytes']}")
+            for key, want in parent["digests"].items():
+                if got["digests"][key] != _pg_rows(want, held):
+                    raise AssertionError(f"{who}: {key} not bitwise the "
+                                         f"one-process grid's")
+            for key, (mine, shas) in got["groups"].items():
+                pmine, pshas = groups[key]
+                if shas != [pshas[i] for i in mine]:
+                    raise AssertionError(f"{who}: group call {key} not "
+                                         f"bitwise the one-process grid's")
+            for part in ("out", "err"):
+                if got["sync"][part] != [[d[h] for h in held]
+                                         for d in parent["sync"][part]]:
+                    raise AssertionError(f"{who}: sync {part} not bitwise "
+                                         f"the one-process step's")
+            if got["sync"]["launches"] != sync_want:
+                raise AssertionError(f"{who}: sync step launches "
+                                     f"{got['sync']['launches']}, expected "
+                                     f"{sync_want}")
+            sv = got["serve"]
+            if sv["tokens"] != served["tokens"]:
+                raise AssertionError(f"{who}: synced tokens differ from the "
+                                     f"sync-free engine's")
+            m = sv["metrics"]
+            if m["sync_starts"] != m["ticks"] or m["plan_rebinds"]:
+                raise AssertionError(f"{who}: {m['sync_starts']} sync "
+                                     f"starts over {m['ticks']} ticks")
+            _check_launches(f"{who} serving", sv["launches"], _with_sync(
+                sv, {"flash_decode": m["ticks"] * n_layers}))
+        if w["device"].startswith("cuda") and \
+                w["shm"]["calibrate"]["host_bytes"]:
+            raise AssertionError(f"rank {w['rank']}: the calibration moved "
+                                 f"host bytes")
+    # every member of every color group is held by exactly one worker
+    for name in PG_TRANSPORTS:
+        for key, (pmine, _) in groups.items():
+            seen = sorted(i for w in workers
+                          for i in w[name]["groups"].get(key, ([], None))[0])
+            if seen != pmine:
+                raise AssertionError(f"group call {key} ({name}): members "
+                                     f"{seen}")
+    for w in moe_workers:
+        for name in PG_TRANSPORTS:
+            got, who = w[name], f"MoE rank {w['rank']} ({name})"
+            if got["topo_key"] != PG_KEYS[name] or \
+                    w["held"] != [2 * w["rank"], 2 * w["rank"] + 1]:
+                raise AssertionError(f"{who}: key {got['topo_key']}, held "
+                                     f"{w['held']}")
+            if name == "shm" and w["device"].startswith("cuda") and \
+                    got["host_bytes"]:
+                raise AssertionError(f"{who}: host bytes "
+                                     f"{got['host_bytes']}")
+            if any(got["launches"].values()):
+                raise AssertionError(f"{who}: kernel launches "
+                                     f"{got['launches']}")
+            for plan, want in moe["plans"].items():
+                mine = got["plans"][plan]
+                if want["dropped"]:
+                    raise AssertionError(f"{want['dropped']} routings "
+                                         f"dropped at capacity {PG_MOE_CAP}")
+                for k in ("digests", "grad_digests"):
+                    if mine.get(k) != want.get(k):
+                        raise AssertionError(f"{who}: {plan} {k} not "
+                                             f"bitwise the one-process "
+                                             f"grid's")
+                if (mine["aux"], mine["dropped"]) != (want["aux"],
+                                                      want["dropped"]):
+                    raise AssertionError(f"{who}: {plan} aux or drops "
+                                         f"differ")
+
+
 def process_groups_phase(torch, dev, kmods, parent=None, earlier=None):
-    """Phase 15: the port's process groups on the card. The parent's
-    ``RankGrid(2, 4)`` results come first (``parent``: phase 8's case
-    digests and sync step, else computed here), with the groups, the
-    sync-free engine's tokens and the EP layer's digests; the card is freed;
-    then eight one-rank gloo workers run (a), (b) and (d) and four workers
-    of two ranks run (c), and every held row, digest and token must be the
-    parent's. ``earlier``: phase 4's and phase 8's records, written beside
-    this phase's numbers. Returns the ``{"process_groups": ...}`` record
-    and each path's launches summed over the workers."""
+    """Phase 15: the port's process groups on the card, under both
+    transports. The parent's ``RankGrid(2, 4)`` results come first
+    (``parent``: phase 8's case digests and sync step, else computed here),
+    with the groups, the sync-free engine's tokens and the EP layer's
+    digests; the card is freed; then eight one-rank workers run (a), (b),
+    (d) on a gloo and a ``"shm"`` grid and (e) on the ``"shm"`` one, and
+    four workers of two ranks run (c) on both, and every held row, digest
+    and token must be the parent's (:func:`_pg_check`). ``earlier``:
+    phase 4's and phase 8's records, written beside this phase's numbers.
+    Returns the ``{"process_groups": ...}`` record and each path's launches
+    summed over the workers (``pg_<leg>`` under gloo, ``pg_<leg>_shm``)."""
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.core.comm import Communicator
@@ -5900,65 +6108,8 @@ def process_groups_phase(torch, dev, kmods, parent=None, earlier=None):
     encodes, decode = CODEC_KERNELS[TP_CODEC]
     sync_want = {**{k: 2 * parent["sync"]["buckets"] for k in encodes},
                  decode: parent["sync"]["buckets"]}
-    for w in workers:
-        held, who = w["held"], f"rank {w['rank']}"
-        if w["topo_key"] != PG_KEY or held != [w["rank"]]:
-            raise AssertionError(f"{who}: key {w['topo_key']}, held {held}")
-        for key, want in parent["digests"].items():
-            if w["digests"][key] != _pg_rows(want, held):
-                raise AssertionError(f"{who}: {key} not bitwise the "
-                                     f"one-process grid's")
-        for key, (mine, shas) in w["groups"].items():
-            pmine, pshas = groups[key]
-            if shas != [pshas[i] for i in mine]:
-                raise AssertionError(f"{who}: group call {key} not bitwise "
-                                     f"the one-process grid's")
-        for part in ("out", "err"):
-            if w["sync"][part] != [[d[h] for h in held]
-                                   for d in parent["sync"][part]]:
-                raise AssertionError(f"{who}: sync {part} not bitwise the "
-                                     f"one-process step's")
-        if w["sync"]["launches"] != sync_want:
-            raise AssertionError(f"{who}: sync step launches "
-                                 f"{w['sync']['launches']}, expected "
-                                 f"{sync_want}")
-        sv = w["serve"]
-        if sv["tokens"] != served["tokens"]:
-            raise AssertionError(f"{who}: synced tokens differ from the "
-                                 f"sync-free engine's")
-        m = sv["metrics"]
-        if m["sync_starts"] != m["ticks"] or m["plan_rebinds"]:
-            raise AssertionError(f"{who}: {m['sync_starts']} sync starts "
-                                 f"over {m['ticks']} ticks")
-        _check_launches(f"{who} serving", sv["launches"], _with_sync(
-            sv, {"flash_decode": m["ticks"] * smollm.n_layers}))
-    # every member of every color group is held by exactly one worker
-    for key, (pmine, _) in groups.items():
-        seen = sorted(i for w in workers
-                      for i in w["groups"].get(key, ([], None))[0])
-        if seen != pmine:
-            raise AssertionError(f"group call {key}: members {seen}")
-    for w in moe_workers:
-        who = f"MoE rank {w['rank']}"
-        if w["topo_key"] != PG_KEY or w["held"] != [2 * w["rank"],
-                                                    2 * w["rank"] + 1]:
-            raise AssertionError(f"{who}: key {w['topo_key']}, held "
-                                 f"{w['held']}")
-        if any(w["moe"]["launches"].values()):
-            raise AssertionError(f"{who}: kernel launches "
-                                 f"{w['moe']['launches']}")
-        for name, want in moe["plans"].items():
-            got = w["moe"]["plans"][name]
-            if want["dropped"]:
-                raise AssertionError(f"{want['dropped']} routings dropped "
-                                     f"at capacity {PG_MOE_CAP}")
-            for k in ("digests", "grad_digests"):
-                if got.get(k) != want.get(k):
-                    raise AssertionError(f"{who}: {name} {k} not bitwise "
-                                         f"the one-process grid's")
-            if (got["aux"], got["dropped"]) != (want["aux"],
-                                                want["dropped"]):
-                raise AssertionError(f"{who}: {name} aux or drops differ")
+    _pg_check(workers, moe_workers, parent, groups, served, moe, sync_want,
+              smollm.n_layers)
 
     def paths(counts_list):
         total_ = {}
@@ -5966,71 +6117,100 @@ def process_groups_phase(torch, dev, kmods, parent=None, earlier=None):
             for k, n in c.items():
                 total_[k] = total_.get(k, 0) + n
         return total_
-    on_paths = {
-        "pg_collectives": paths(w["collective_launches"] for w in workers),
-        "pg_sync": paths(w["sync"]["launches"] for w in workers),
-        "pg_serve": paths(w["serve"]["launches"] for w in workers),
-        "pg_moe": paths(w["moe"]["launches"] for w in moe_workers)}
-    if not on_paths["pg_serve"].get("flash_decode") or not any(
-            on_paths["pg_collectives"].get(k) for k in STAGING_NAMES):
-        raise AssertionError(f"phase 15 launches {on_paths}")
+    on_paths = {}
+    for name in PG_TRANSPORTS:
+        tag = "" if name == "gloo" else f"_{name}"
+        on_paths.update({
+            f"pg_collectives{tag}": paths(w[name]["collective_launches"]
+                                          for w in workers),
+            f"pg_sync{tag}": paths(w[name]["sync"]["launches"]
+                                   for w in workers),
+            f"pg_serve{tag}": paths(w[name]["serve"]["launches"]
+                                    for w in workers),
+            f"pg_moe{tag}": paths(w[name]["launches"] for w in moe_workers)})
+        if not on_paths[f"pg_serve{tag}"].get("flash_decode") or not any(
+                on_paths[f"pg_collectives{tag}"].get(k)
+                for k in STAGING_NAMES):
+            raise AssertionError(f"phase 15 launches {on_paths}")
     earlier = earlier or {}
     two = {p["plan"]: p for p in earlier.get("two_process", {}).get(
         "plans", [])}
     serve4 = earlier.get("serve", {})
-    rec = {"card": _smi("name,power.limit"), "topo_key": PG_KEY,
+
+    def each(fn):
+        return {name: [fn(w[name]) for w in workers]
+                for name in PG_TRANSPORTS}
+    rec = {"card": _smi("name,power.limit"), "topo_keys": PG_KEYS,
            "workers": {"collectives_sync_serve": [PG_PROCS, 1],
                        "moe": [PG_MOE_PROCS, 2]},
            "parent_s": parent_s, "spawn_s": spawn_s,
            "moe_spawn_s": moe_spawn_s,
            "cases": len(parent["digests"]), "group_calls": len(groups),
-           "worker_collectives_s": [w["collectives_s"] for w in workers],
+           "worker_collectives_s": each(lambda r: r["collectives_s"]),
+           "host_bytes": each(lambda r: r["host_bytes"]),
+           "slot_bytes_per_worker": [w["slot_bytes"] for w in workers],
+           "peak_mem_bytes_per_worker": [w["peak_mem_bytes"]
+                                         for w in workers],
            "plans": [{"plan": key, "one_process_ms": t["ms"],
                       "two_process_ms": two.get(key, {}).get(
                           "two_process_ms", "not measured in this run"),
-                      "eight_process_ms": [w["times"][key]["ms"]
-                                           for w in workers],
+                      "eight_process_ms": each(
+                          lambda r: r["times"][key]["ms"]),
                       "bytes_sent_per_call": [
-                          w["times"][key]["bytes_sent_per_call"]
+                          w["gloo"]["times"][key]["bytes_sent_per_call"]
                           for w in workers]}
                      for key, t in parent["times"].items()],
            "sync": {"buckets": parent["sync"]["buckets"],
                     "one_process_s": parent["sync"]["seconds"],
-                    "eight_process_s": [w["sync"]["seconds"]
-                                        for w in workers],
-                    "bytes_sent": [w["sync"]["bytes_sent"] for w in workers],
+                    "eight_process_s": each(lambda r: r["sync"]["seconds"]),
+                    "bytes_sent": [w["gloo"]["sync"]["bytes_sent"]
+                                   for w in workers],
                     "launches_per_worker": sync_want},
            "moe": {"tokens": list(MOE_TOKENS), "capacity_factor": PG_MOE_CAP,
                    "dropped": 0,
-                   "plans": {name: {
+                   "plans": {plan: {
                        "one_process_host_ms": want["host_ms"],
-                       "four_process_host_ms": [
-                           w["moe"]["plans"][name]["host_ms"]
-                           for w in moe_workers],
+                       "four_process_host_ms": {
+                           name: [w[name]["plans"][plan]["host_ms"]
+                                  for w in moe_workers]
+                           for name in PG_TRANSPORTS},
                        "one_process_fwd_bwd_ms": want.get("fwd_bwd_host_ms"),
-                       "four_process_fwd_bwd_ms": [
-                           w["moe"]["plans"][name].get("fwd_bwd_host_ms")
-                           for w in moe_workers],
+                       "four_process_fwd_bwd_ms": {
+                           name: [w[name]["plans"][plan].get(
+                               "fwd_bwd_host_ms") for w in moe_workers]
+                           for name in PG_TRANSPORTS},
                        "aux": want["aux"],
                        "grad_max_abs": want.get("grad_max_abs"),
                        "bitwise": True}
-                       for name, want in moe["plans"].items()},
+                       for plan, want in moe["plans"].items()},
                    "backward_plans": list(PG_MOE_BWD),
                    "peak_mem_bytes_one_process": moe["peak_mem_bytes"],
-                   "peak_mem_bytes_per_worker": [
-                       w["moe"]["peak_mem_bytes"] for w in moe_workers],
-                   "worker_s": [w["moe_s"] for w in moe_workers]},
-           "serve": {"sync_plan": workers[0]["serve"]["sync_plan"],
-                     "ticks": workers[0]["serve"]["metrics"]["ticks"],
+                   "peak_mem_bytes_per_worker": {
+                       name: [w[name]["peak_mem_bytes"] for w in moe_workers]
+                       for name in PG_TRANSPORTS},
+                   "slot_bytes_per_worker": [w["shm"]["slot_bytes"]
+                                             for w in moe_workers],
+                   "host_bytes": {name: [w[name]["host_bytes"]
+                                         for w in moe_workers]
+                                  for name in PG_TRANSPORTS},
+                   "worker_s": {name: [w[name]["moe_s"] for w in moe_workers]
+                                for name in PG_TRANSPORTS}},
+           "serve": {"sync_plan": each(lambda r: r["serve"]["sync_plan"]),
+                     "ticks": workers[0]["gloo"]["serve"]["metrics"]["ticks"],
                      "sync_free": {k: served[k] for k in (
                          "decode_tick_s", "tokens_per_s", "wall_s")},
                      "phase4": {k: serve4.get(k, "not measured in this run")
                                 for k in ("decode_tick_s", "tokens_per_s")},
-                     "tick_s": [w["serve"]["decode_tick_s"]
-                                for w in workers],
-                     "tokens_per_s": [w["serve"]["tokens_per_s"]
-                                      for w in workers],
-                     "sync_launches": workers[0]["serve"]["sync_launches"]},
+                     "tick_s": each(lambda r: r["serve"]["decode_tick_s"]),
+                     "tokens_per_s": each(
+                         lambda r: r["serve"]["tokens_per_s"]),
+                     "sync_launches": each(
+                         lambda r: r["serve"]["sync_launches"])},
+           "calibrate": {
+               "seconds": [w["shm"]["calibrate"]["seconds"]
+                           for w in workers],
+               **{k: v for k, v in workers[0]["shm"]["calibrate"].items()
+                  if k != "seconds"}},
            "launches_by_path": on_paths}
     return rec, on_paths
 

@@ -410,7 +410,7 @@ class Communicator:
         own; one that spans processes runs on a ``ProcessGrid.over`` its
         members' processes, which holds this process's members in the
         group's ``(key, rank)`` order (consecutive or not) and exchanges
-        with those processes alone. Every process gets the same dict of
+        with those processes alone, through the parent's transport. Every process gets the same dict of
         colors, as the reference's does; a child of which this process
         holds no member raises on every collective."""
         if (axes is None) == (color is None):
@@ -452,7 +452,8 @@ class Communicator:
                                key=lambda r: (key[r], r))
                 owners = [self.grid.owners[r] for r in ranks] \
                     if isinstance(self.grid, ProcessGrid) else [0]
-                grid = (ProcessGrid.over(owners, self.grid.device)
+                grid = (ProcessGrid.over(owners, self.grid.device,
+                                         self.grid.transport)
                         if len(set(owners)) > 1
                         else RankGrid(1, len(ranks), self.grid.device))
                 tag = group if group is not None else f"color{c}"

@@ -110,10 +110,13 @@ def host_cpu() -> NetParams:
 
 def host_ipc() -> NetParams:
     """Cross-process boundary between local ``torch.distributed`` processes
-    (gloo over loopback, ``core.grid.ProcessGrid``'s node axis): far higher
-    latency and lower bandwidth than in-process memcpy, which is exactly
-    the intra/inter asymmetry the multi-leader algorithms exploit. The
-    reference's constants, not fitted to the port's transport."""
+    (a ``core.grid.ProcessGrid`` axis that crosses processes, under the
+    gloo transport, which a grid chooses unless its processes share one
+    card, and under a ``ShmTransport`` handed to CPU ranks): far
+    higher latency and lower bandwidth than in-process memcpy, which is
+    exactly the intra/inter asymmetry the multi-leader algorithms exploit.
+    The reference's constants, fitted to neither of the port's transports;
+    the ``"shm"`` transport on the card has :func:`h100_ipc`."""
     return NetParams("host_ipc", alpha_inter=6.0e-6, beta_inter=1 / 8.0e9,
                      alpha_intra=2.0e-7, beta_intra=1 / 5.0e10, msg_rate=2e7)
 
@@ -138,6 +141,33 @@ def h100_grid() -> NetParams:
                      sync_overhead=0.00010593640868191727)
 
 
+def h100_ipc() -> NetParams:
+    """Processes on one H100 exchanging through the ``"shm"`` transport
+    (``distributed/transport.py``: CUDA IPC device slots ordered by
+    host-side counters), a ``ProcessGrid`` axis that crosses processes on
+    the card, the transport a grid of processes on one card chooses.
+    Fitted by :func:`fit_net` to the 232 lossless rows of the ``"shm"``
+    calibration in ``chip_smoke.py`` phase 15 (eight one-rank
+    processes as ``(2, 4)``, the root and its ``("node",)``,
+    ``("local",)`` and ``("node", "local")`` groups at 8 B and 4 MiB per
+    rank; host clock around a device synchronize, median of 10, the
+    slowest process's; 232 because the preset in force during that run
+    was not this fit, and the chunk candidates follow the preset: under
+    this one the same calibration makes 216 rows) of run A in the
+    slice-19 Findings of PERF.md, on an NVIDIA H100 80GB HBM3 at a
+    700.00 W power limit: median |rel err|
+    0.3194839663278773, rms 0.43028420840489523. The times are the
+    processes' host waits on each other, so the per-call and per-round
+    terms carry them and the per-byte terms are near 0 (the message-rate
+    term came out 0: ``msg_rate`` infinite). ``copy_factor`` is 1 and
+    ``flop_rate`` the model's default, as for ``h100_grid``."""
+    return NetParams("h100_ipc", alpha_inter=0.000572554137785054,
+                     beta_inter=2.6670306680933916e-11,
+                     alpha_intra=0.0006008895410773235, beta_intra=0.0,
+                     msg_rate=math.inf, copy_factor=1.0,
+                     sync_overhead=0.0010576337291954216)
+
+
 # name -> factory; the string side of Topology.node_link / local_link.
 NET_PRESETS = {
     "pip": paper_cluster_pip,
@@ -150,6 +180,7 @@ NET_PRESETS = {
     "host_cpu": host_cpu,
     "host_ipc": host_ipc,
     "h100_grid": h100_grid,
+    "h100_ipc": h100_ipc,
 }
 
 _DEFAULT_PRESET = "tpu_v5e_dcn"

@@ -34,8 +34,10 @@ The algorithms in ``core.mcoll`` are written once against these
 primitives. A :class:`ProcessGrid` has the same interface over several
 processes, each holding consecutive ranks of one node, down to one rank a
 process: an axis whose group lies in one process runs on the rows above,
-and any other axis crosses processes over a ``torch.distributed`` gloo
-process group.
+and any other axis crosses processes through the grid's transport
+(``distributed/transport.py``: the shared slots of ``"shm"`` among
+processes of one card, else gloo's host copies) beside a
+``torch.distributed`` gloo process group.
 """
 from __future__ import annotations
 
@@ -44,10 +46,9 @@ import math
 from typing import Dict, Iterable, List, Optional, Sequence, Tuple, Union
 
 import torch
-import torch.distributed as dist
 
-from repro_torch.core import telemetry as _tm
 from repro_torch.distributed import backend as _backend
+from repro_torch.distributed import transport as _transport
 from repro_torch.kernels import _dispatch, staging
 
 Axes = Union[str, Sequence[str]]
@@ -413,13 +414,14 @@ class ProcessGrid(RankGrid):
     ``where``) on every layout. Across processes:
 
       * ``ppermute`` gathers the rows whose source is in this process with
-        one ``pack_blocks`` and receives the others by one
-        ``dist.batch_isend_irecv``, one contiguous buffer to and from each
-        peer process, each packed by ``pack_blocks``; a rank with no sender
-        gets zeros. The split maps are built once per ``(axes, pairs)``;
+        one ``pack_blocks`` and receives the others by one exchange of the
+        transport, one contiguous buffer to and from each peer process,
+        each packed by ``pack_blocks`` (rows that arrive consecutive land
+        in place); a rank with no sender gets zeros. The split maps are
+        built once per ``(axes, pairs)``;
       * ``all_gather`` and ``all_to_all`` exchange the held rows, or the
-        slices bound for each peer, by one ``batch_isend_irecv`` with the
-        group's processes and place what comes back in member order;
+        slices bound for each peer, by one exchange with the group's
+        processes and place what comes back in member order;
       * ``psum`` gathers the group's rows and ``psum_scatter`` each
         member's chunk of them, then both sum in rank order, as
         ``RankGrid`` does, never through ``dist.all_reduce``: a reduction
@@ -432,20 +434,37 @@ class ProcessGrid(RankGrid):
     Point-to-point exchanges over the world group are all a group needs, so
     no ``dist.new_group`` is made.
 
-    The transport is gloo, the process group's backend (any other raises
-    ``NotImplementedError``, see ``distributed.backend``). Every payload
-    travels as a contiguous byte view (``.view(torch.uint8)``), so gloo
-    never sees a dtype and fp8 wire forms, unsigned and bool tensors pass
-    bit for bit. gloo sends and receives host memory: on the card the
-    transport copies each outgoing buffer to the host and each incoming
-    one back to the grid's device (the rows, the kernels and the results
-    stay on the card). With telemetry on, each exchange is one
-    ``transport/<primitive>`` span tagged ``transport="gloo"`` with its
-    bytes; ``bytes_sent`` counts what this process has sent.
+    The process group is gloo (any other backend raises
+    ``NotImplementedError``, see ``distributed.backend``). The payloads go
+    through the grid's ``transport`` (``distributed/transport.py``) as
+    contiguous byte views, so fp8 wire forms, unsigned and bool tensors
+    pass bit for bit. A grid handed none takes ``transport.choose``'s, from
+    what the process group shows:
+
+      * ``ShmTransport`` when every process is on this card: each copies
+        into slots it owns and the others read them in place, CUDA IPC
+        device memory, so no payload touches host memory;
+      * ``GlooTransport`` otherwise (processes on other hosts or cards, CPU
+        ranks, one process): ``dist.batch_isend_irecv`` of host memory, so
+        on the card every outgoing buffer is copied to the host and every
+        incoming one back to the grid's device (the rows, the kernels and
+        the results stay on the card).
+
+    Either can be handed in as ``transport=`` (an instance on the grid's
+    device type, else ``ValueError``): ``ShmTransport("cpu")`` runs the
+    same protocol on CPU ranks over POSIX shared memory, and a
+    ``ShmTransport`` whose processes are not all on one host (on the card:
+    one card) raises ``ValueError`` when it is built. A color child
+    (:meth:`over`) takes its parent's transport. With
+    telemetry on, each exchange is one ``transport/<primitive>`` span
+    tagged with the transport's name and its bytes; ``bytes_sent`` counts
+    what this process has sent, ``host_bytes`` the payload bytes its
+    transport moved through host memory (0 for ``"shm"`` on the card).
     """
 
     def __init__(self, n_nodes: int = 1, n_local: int = 1,
-                 device: Union[str, torch.device] = "cuda"):
+                 device: Union[str, torch.device] = "cuda",
+                 transport: Optional[_transport.Transport] = None):
         super().__init__(n_nodes, n_local, device)
         be = _backend.current_backend()
         n = be.process_count
@@ -456,21 +475,36 @@ class ProcessGrid(RankGrid):
                 f"processes: each process holds world / processes ranks of "
                 f"one node, a count that must divide n_local={self.n_local}")
         self._place(tuple(f // r for f in range(self.world)),
-                    be.process_index)
+                    be.process_index, transport)
 
     @classmethod
     def over(cls, owners: Sequence[int],
-             device: Union[str, torch.device] = "cuda") -> "ProcessGrid":
+             device: Union[str, torch.device] = "cuda",
+             transport: Optional[_transport.Transport] = None
+             ) -> "ProcessGrid":
         """A ``(1, len(owners))`` grid whose member ``m`` lives in process
         ``owners[m]`` (a color group across processes); this process holds
         its members in member order, none if it owns none."""
         grid = cls.__new__(cls)
         RankGrid.__init__(grid, 1, len(owners), device)
         grid._place(tuple(int(o) for o in owners),
-                    _backend.current_backend().process_index)
+                    _backend.current_backend().process_index, transport)
         return grid
 
-    def _place(self, owners: Tuple[int, ...], rank: int) -> None:
+    def _place(self, owners: Tuple[int, ...], rank: int,
+               transport: Optional[_transport.Transport]) -> None:
+        if transport is None:
+            transport = _transport.choose(self.device)
+        elif not isinstance(transport, _transport.Transport):
+            raise TypeError(f"transport={transport!r}: a Transport "
+                            f"instance, or None for the grid's own choice")
+        elif transport.device is not None and \
+                transport.device.type != self.device.type:
+            raise ValueError(
+                f"a {transport.name} transport on {transport.device} under "
+                f"a grid on {self.device}: it moves only "
+                f"{transport.device.type} tensors")
+        self.transport = transport
         self.owners, self.rank = owners, int(rank)
         by: Dict[int, List[int]] = {}
         for f, q in enumerate(owners):
@@ -482,18 +516,21 @@ class ProcessGrid(RankGrid):
         self.offset = self.held[0] if self.held else 0
         self._contiguous = self.held == tuple(
             range(self.offset, self.offset + self.rows))
-        self.bytes_sent = 0
-        # (axes, pairs) -> (local map, {peer: send rows}, {peer: recv pos})
+        self.bytes_sent = self.host_bytes = 0
+        # (axes, pairs) -> (local map, {peer: send rows},
+        #                   {peer: (recv pos, its first row if consecutive)})
         self._routes: Dict[tuple, tuple] = {}
         # axes -> (groups held, members held, processes, their members)
         self._layouts: Dict[tuple, tuple] = {}
 
     def __repr__(self) -> str:
         return (f"ProcessGrid({self.n_nodes}, {self.n_local}, {self.device}, "
-                f"rank={self.rank}, held={list(self.held)})")
+                f"rank={self.rank}, held={list(self.held)}, "
+                f"transport={self.transport.name!r})")
 
     def _key(self) -> tuple:
-        return super()._key() + ("process", self.rank, self.owners)
+        return super()._key() + ("process", self.rank, self.owners,
+                                 self.transport.name)
 
     @property
     def process_count(self) -> int:
@@ -573,44 +610,22 @@ class ProcessGrid(RankGrid):
 
     # -- the wire ------------------------------------------------------------
 
-    @staticmethod
-    def _wire(t: torch.Tensor) -> torch.Tensor:
-        """``t`` as contiguous bytes in host memory."""
-        flat = t.contiguous().reshape(-1)
-        if flat.numel() == 1 and flat.stride(0) != 1:
-            # a one-element view may keep any stride
-            flat = flat.clone(memory_format=torch.contiguous_format)
-        return flat.view(torch.uint8).cpu()
-
     def _exchange(self, what: str, sends: Dict[int, torch.Tensor],
-                  recv_bytes: Dict[int, int]) -> Dict[int, torch.Tensor]:
-        """One ``dist.batch_isend_irecv``: the host bytes ``sends[j]`` to
-        process ``j``, ``recv_bytes[j]`` bytes back from each ``j`` (host
-        tensors). Empty buffers are not sent: both sides know the sizes."""
-        sends = {j: b for j, b in sends.items() if b.numel()}
-        bufs = {j: torch.empty(n, dtype=torch.uint8)
-                for j, n in recv_bytes.items() if n}
-        if not sends and not bufs:
-            return {}
-        nbytes = sum(b.numel() for b in sends.values())
-        ops = [dist.P2POp(dist.isend, b, j) for j, b in sends.items()]
-        ops += [dist.P2POp(dist.irecv, b, j) for j, b in bufs.items()]
-        with _tm.span(f"transport/{what}", cat="transport",
-                      transport=_backend.TRANSPORT, bytes_sent=nbytes,
-                      bytes_received=sum(recv_bytes.values())):
-            for req in dist.batch_isend_irecv(ops):
-                req.wait()
-        self.bytes_sent += nbytes
-        return bufs
+                  recvs: Dict[int, torch.Tensor]) -> None:
+        """One exchange of the transport: ``sends[j]``'s bytes to process
+        ``j``, ``recvs[j]`` (contiguous bytes) filled from process ``j``."""
+        self.bytes_sent += sum(t.numel() * t.element_size()
+                               for t in sends.values())
+        self.host_bytes += self.transport.exchange(what, sends, recvs)
 
-    def _receive(self, buf: Optional[torch.Tensor], shape, dtype,
-                 device=None) -> torch.Tensor:
-        """Received bytes as a ``shape``/``dtype`` tensor on ``device`` (the
-        grid's by default)."""
-        device = self.device if device is None else device
-        if buf is None:
-            return torch.empty(shape, dtype=dtype, device=device)
-        return buf.view(dtype).reshape(shape).to(device)
+    @staticmethod
+    def _landing(nbytes: int, device) -> torch.Tensor:
+        return torch.empty(nbytes, dtype=torch.uint8, device=device)
+
+    @staticmethod
+    def _receive(buf: torch.Tensor, shape, dtype) -> torch.Tensor:
+        """Received bytes as a ``shape``/``dtype`` tensor where they lie."""
+        return buf.view(dtype).reshape(shape)
 
     def _gather_members(self, x: torch.Tensor, ax) -> torch.Tensor:
         """``(Gh, G, *s)``: every member's row of the held rows' groups
@@ -620,13 +635,13 @@ class ProcessGrid(RankGrid):
         mine = x.reshape((Gh, h) + rest)
         if len(procs) == 1:
             return mine
-        wire = self._wire(mine)
+        each = Gh * math.prod(rest) * x.element_size()
         peers = [q for q in procs if q != self.rank]
-        got = self._exchange("all_gather", {q: wire for q in peers},
-                             {q: wire.numel() // h * len(pos[q])
-                              for q in peers})
+        got = {q: self._landing(each * len(pos[q]), self.device)
+               for q in peers}
+        self._exchange("all_gather", {q: mine for q in peers}, got)
         parts = [mine if q == self.rank else
-                 self._receive(got.get(q), (Gh, len(pos[q])) + rest, x.dtype)
+                 self._receive(got[q], (Gh, len(pos[q])) + rest, x.dtype)
                  for q in procs]
         return self._member_order(torch.cat(parts, 1), 1, procs, pos)
 
@@ -636,13 +651,13 @@ class ProcessGrid(RankGrid):
         rest = tuple(x.shape[1:])
         if self.process_count == 1:
             return x.to(device)
-        wire = self._wire(x)
-        each = wire.numel() // self.rows
+        each = math.prod(rest) * x.element_size()
         peers = [q for q in self.procs if q != self.rank]
-        got = self._exchange("all_rows", {q: wire for q in peers},
-                             {q: each * len(self._held_by[q]) for q in peers})
+        got = {q: self._landing(each * len(self._held_by[q]), device)
+               for q in peers}
+        self._exchange("all_rows", {q: x for q in peers}, got)
         parts = [x.to(device) if q == self.rank else self._receive(
-            got.get(q), (len(self._held_by[q]),) + rest, x.dtype, device)
+            got[q], (len(self._held_by[q]),) + rest, x.dtype)
             for q in self.procs]
         return self._member_order(torch.cat(parts), 0, self.procs,
                                   self._held_by)
@@ -718,11 +733,11 @@ class ProcessGrid(RankGrid):
         def shape_from(q):  # what q sends this process
             return (Gh, len(pos[q]), h) + tuple(v.shape[3:])
         peers = [q for q in procs if q != self.rank]
-        got = self._exchange(
-            "all_to_all", {q: self._wire(bound_for(q)) for q in peers},
-            {q: math.prod(shape_from(q)) * x.element_size() for q in peers})
+        got = {q: self._landing(math.prod(shape_from(q)) * x.element_size(),
+                                self.device) for q in peers}
+        self._exchange("all_to_all", {q: bound_for(q) for q in peers}, got)
         y = torch.cat([bound_for(q) if q == self.rank else
-                       self._receive(got.get(q), shape_from(q), x.dtype)
+                       self._receive(got[q], shape_from(q), x.dtype)
                        for q in procs], dim=1)
         y = self._member_order(y, 1, procs, pos)  # (Gh, src, dst, ..)
         y = y.transpose(1, 2).movedim(2, 2 + concat_axis)  # (Gh, dst, ..)
@@ -734,7 +749,8 @@ class ProcessGrid(RankGrid):
         each held row to the held row it receives (-1 where its source is
         in another process or there is none); ``sends[j]`` lists the held
         rows process ``j`` receives, in the order of its rows; ``recvs[j]``
-        the held rows that receive process ``j``'s buffer, in order."""
+        the held rows that receive process ``j``'s buffer, in order, and
+        the first of them where they are consecutive (else ``None``)."""
         key = self._round_key(axes, pairs)
         hit = self._routes.get(key)
         if hit is not None:
@@ -753,7 +769,9 @@ class ProcessGrid(RankGrid):
             pos = [i for i, f in enumerate(self.held) if from_(j, f)]
             idx = [index[src[f]] for f in self._held_by[j] if from_(me, f)]
             if pos:
-                recvs[j] = torch.tensor(pos, device=self.device)
+                run = pos == list(range(pos[0], pos[0] + len(pos)))
+                recvs[j] = (torch.tensor(pos, device=self.device),
+                            pos[0] if run else None)
             if idx:
                 sends[j] = torch.tensor(idx, device=self.device)
         hit = self._routes[key] = (
@@ -766,16 +784,16 @@ class ProcessGrid(RankGrid):
         self._rows(x)
         local, sends, recvs = self._route(axes, pairs)
         out = staging.pack_blocks(x, local)
+        # the received rows land in place as bytes, any dtype: straight
+        # into consecutive rows, else through a buffer and index_copy_
         row_bytes = math.prod(x.shape[1:]) * x.element_size()
-        got = self._exchange(
-            "ppermute",
-            {j: self._wire(staging.pack_blocks(x, idx))
-             for j, idx in sends.items()},
-            {j: len(pos) * row_bytes for j, pos in recvs.items()})
-        if got:
-            # the received rows land in place as bytes: any dtype
-            flat = out.view((self.rows, -1)).view(torch.uint8)
-            for j, pos in recvs.items():
-                flat.index_copy_(0, pos, got[j].view(len(pos), -1).to(
-                    self.device))
+        flat = out.view(torch.uint8).reshape(self.rows, row_bytes)
+        got = {j: flat[first:first + len(pos)].view(-1) if first is not None
+               else self._landing(len(pos) * row_bytes, self.device)
+               for j, (pos, first) in recvs.items()}
+        self._exchange("ppermute", {j: staging.pack_blocks(x, idx)
+                                    for j, idx in sends.items()}, got)
+        for j, (pos, first) in recvs.items():
+            if first is None:
+                flat.index_copy_(0, pos, got[j].view(len(pos), -1))
         return out

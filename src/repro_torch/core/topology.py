@@ -14,9 +14,13 @@ CUDA both are ``h100_grid``, the preset fitted from calibration on an H100
 ``tpu_v5e_ici`` preset. On a :class:`~repro_torch.core.grid.ProcessGrid`
 any axis whose groups span more than one process is ``host_ipc``, the
 reference's link between host processes (eight one-rank processes as
-``(2, 4)`` give ``2x4/host_ipc/host_ipc``); an axis inside a process keeps
-the in-process link. Any other platform warns once and borrows the
-``host_cpu`` constants, as the reference does for an unknown platform.
+``(2, 4)`` give ``2x4/host_ipc/host_ipc``), except on the card under the
+``"shm"`` transport (which processes on one card choose), where it is
+``h100_ipc``, the preset fitted to that transport's calibration on an H100
+(``2x4/h100_ipc/h100_ipc``); an axis
+inside a process keeps the in-process link. Any other platform warns once
+and borrows the ``host_cpu`` constants, as the reference does for an
+unknown platform.
 """
 from __future__ import annotations
 
@@ -47,8 +51,12 @@ def derive_link(grid, axis: str, level: str) -> str:
     then maps the platform onto a preset. Process boundaries classify
     first: an axis whose groups span more than one process
     (``grid.crosses(axis)``, walked at the origin as the reference walks
-    its mesh) is ``"host_ipc"`` on any platform (gloo between host
-    processes). Every other axis is an in-process link:
+    its mesh) is ``"h100_ipc"`` on a cuda grid whose transport is
+    ``"shm"`` (processes reading each other's slots on one card), and
+    ``"host_ipc"`` in every other case: gloo between host processes, and
+    ``"shm"`` on CPU ranks, which keep the reference's constants (no fit
+    of the port's transport on the CPU stands for a device). Every other
+    axis is an in-process link:
 
       * cpu: ``"host_cpu"``;
       * cuda: ``"h100_grid"`` (ranks as rows of one card's memory);
@@ -57,9 +65,11 @@ def derive_link(grid, axis: str, level: str) -> str:
     """
     del level  # the process boundary distinguishes levels, not the caller
     crosses = getattr(grid, "crosses", None)
-    if crosses is not None and crosses(axis):
-        return "host_ipc"
     platform = grid.device.type
+    if crosses is not None and crosses(axis):
+        if platform == "cuda" and grid.transport.name == "shm":
+            return "h100_ipc"
+        return "host_ipc"
     if platform == "cuda":
         return "h100_grid"
     if platform != "cpu":

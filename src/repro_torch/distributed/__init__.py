@@ -14,7 +14,9 @@ Two pieces:
     function, or re-execs a script, in each.
 
 The grid itself is :class:`repro_torch.core.grid.ProcessGrid`, built by
-``launch.mesh.make_process_grid``.
+``launch.mesh.make_process_grid``; its payloads across processes go
+through :mod:`repro_torch.distributed.transport` (the ``"shm"`` slots
+shared by processes of one card, else gloo's host copies).
 """
 from repro_torch.distributed.backend import (Backend, auto_initialize,
                                              barrier, current_backend,

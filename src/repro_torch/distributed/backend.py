@@ -11,10 +11,15 @@ process or many. The contract:
     coordinator, with a timeout, so a lost peer fails instead of hanging.
     It is a no-op in a plain single-process run, so every script can call
     it unconditionally, and idempotent.
-  * The transport is gloo. A process group of any other backend raises
-    ``NotImplementedError``: NCCL with one process per card on several
-    cards is ROADMAP queue 1 item 5b. Over gloo a grid's axis and color
-    groups may span any processes, down to one rank a process.
+  * The process group is gloo: the control plane (barriers, the
+    calibration merge, ``all_gather_object``) and the data transport of
+    grids whose processes do not share one card. A process group of any
+    other backend raises ``NotImplementedError``: NCCL with one process
+    per card on several cards is ROADMAP queue 1 item 5b. A grid's axis
+    and color groups may span any processes, down to one rank a process;
+    their payloads go through the ``"shm"`` transport's shared slots when
+    every process is on this card, else through gloo's host copies
+    (``distributed/transport.py``, whose ``choose`` decides).
   * :func:`to_host` is the full logical value of a
     :class:`~repro_torch.core.grid.ProcessGrid` result on every process,
     its rows gathered from the grid's processes. (The reference's
@@ -47,7 +52,8 @@ ENV_SCRATCH = "REPRO_TORCH_DIST_SCRATCH"
 #: ``XLA_FLAGS``)
 ENV_RANKS = "REPRO_TORCH_DIST_RANKS_PER_PROCESS"
 
-#: the one transport this slice implements
+#: the process group's backend (the control plane, and the default data
+#: transport; ``distributed/transport.py`` has the other)
 TRANSPORT = "gloo"
 
 #: seconds a process-group operation may wait for its peers

@@ -73,6 +73,15 @@ SIGNATURES = {
                                        _I64, _I64, _P]),
         "staging_error_string": (ctypes.c_char_p, [_INT]),
     },
+    # no kernel: the "shm" transport's device slots (distributed/transport.py)
+    "ipc": {
+        "ipc_alloc": (_INT, [_INT, _I64, ctypes.POINTER(_P),
+                             ctypes.c_char_p]),
+        "ipc_open": (_INT, [_INT, ctypes.c_char_p, ctypes.POINTER(_P)]),
+        "ipc_close": (_INT, [_INT, _P]),
+        "ipc_free": (_INT, [_INT, _P]),
+        "ipc_error_string": (ctypes.c_char_p, [_INT]),
+    },
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

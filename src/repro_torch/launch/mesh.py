@@ -54,10 +54,12 @@ def make_process_grid(device: Union[str, torch.device] = "cuda"
     the initialized backend, whose node axis is exactly the process
     boundary: process ``p`` holds flat ranks ``p * ranks_per_process`` on.
     ``ranks_per_process`` is the launcher's (``--ranks-per-process``; 1
-    when not launched). ``derive_link`` then classifies the node axis
-    ``host_ipc`` and the local axis as the grid's in-process link. Its
-    ranks live on ``device``, the card unless the caller passes
-    ``"cpu"``."""
+    when not launched). Its ranks live on ``device``, the card unless the
+    caller passes ``"cpu"``. Its payloads across processes go through the
+    transport the grid chooses (``distributed/transport.py``): the shared
+    slots of ``"shm"`` when every process is on this card, where
+    ``derive_link`` classifies the node axis ``h100_ipc``, else gloo,
+    ``host_ipc``; the local axis takes the grid's in-process link."""
     return ProcessGrid(_backend.process_count(),
                        _backend.ranks_per_process(), device)
 

@@ -18,7 +18,7 @@ from repro_torch.core.grid import ProcessGrid, RankGrid
 from repro_torch.core.topology import Topology, derive_link
 from repro_torch.data.pipeline import SyntheticLM
 from repro_torch.distributed import backend as dist
-from repro_torch.distributed import launch
+from repro_torch.distributed import launch, transport
 from repro_torch.launch.mesh import make_process_grid
 
 
@@ -149,13 +149,21 @@ def test_process_grid_holds_its_node(two_processes):
     assert ProcessGrid(1, 8, "cpu").held == tuple(range(4, 8))
 
 
-def test_derive_link_splits_on_process_boundary(two_processes):
+def test_derive_link_splits_on_process_boundary(two_processes, monkeypatch):
     grid = ProcessGrid(2, 4, "cpu")
     assert derive_link(grid, "node", "inter") == "host_ipc"
     assert derive_link(grid, "local", "intra") == "host_cpu"
     topo = Topology.from_grid(grid)
     assert topo.link_names == ("host_ipc", "host_cpu")
     assert topo_key(topo) == "2x4/host_ipc/host_cpu"
+    # on the card the grid chooses its transport from the processes'
+    # cards: these two report different cards, so gloo (processes on one
+    # card choose "shm", h100_ipc: tests/test_torch_shm_transport.py)
+    monkeypatch.setattr(transport, "_CHOSEN", {})
+    monkeypatch.setattr(transport, "_card_id", lambda device: "GPU-1")
+    monkeypatch.setattr(tdist, "all_gather_object", lambda out, obj:
+                        out.__setitem__(slice(None),
+                                        [(obj[0], "GPU-0"), obj]))
     card = Topology.from_grid(ProcessGrid(2, 4, "cuda"))
     assert topo_key(card) == "2x4/host_ipc/h100_grid"
     # a group of the node axis inherits the process link

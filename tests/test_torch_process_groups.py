@@ -41,6 +41,11 @@ of each leaf's largest entry; no layout here has that.) The train step's
 loss, every gradient leaf and AdamW's ``m`` and ``v`` must be bitwise
 ``RankGrid(2, 4)``'s, on every process.
 
+Every worker runs its legs twice in the same spawn: on the transport the
+grid chooses (gloo, on CPU ranks) and on a grid handed a
+``ShmTransport("cpu")`` of ``SHM_SLOT`` bytes a slot; every result of the
+second must be bitwise the first's and meet the same bars.
+
 In process, with ``tests/test_torch_distributed.py``'s stand-in group:
 the held rows and ``axis_index`` of ``ProcessGrid(2, 4)`` over 8 and 4
 processes, ``derive_link``'s keys against the reference's on
@@ -64,11 +69,14 @@ from repro_torch.core.comm import Communicator
 from repro_torch.core.grid import ProcessGrid, RankGrid
 from repro_torch.core.topology import Topology, derive_link
 from repro_torch.distributed import backend, launch
+from repro_torch.distributed.transport import ShmTransport
 
 HERE = pathlib.Path(__file__).resolve().parent
 REPO = HERE.parent
 #: seconds a spawn may take before its workers are killed
 SPAWN_TIMEOUT = 300
+#: the "shm" grids' slot bytes: payloads above it go in chunks
+SHM_SLOT = 1 << 20
 NBYTES = 4096
 MOE_ARCH = "qwen3-moe-235b-a22b"
 #: name -> (algo, chunks) forced through Communicator.plan
@@ -397,22 +405,42 @@ def _layout(comm):
 # ---------------------------------------------------------------------------
 
 
-def _worker_a():
-    torch.set_num_threads(1)
-    comm = Communicator(ProcessGrid(2, 2, "cpu"))
-    return {"layout": _layout(comm), "plans": _collectives_2x2(comm),
+def _legs_a(comm):
+    return {"transport": comm.grid.transport.name,
+            "layout": _layout(comm), "plans": _collectives_2x2(comm),
             "children": _children(comm),
             "colors": _color_splits(comm, A_SPLITS), "ef": _ef_steps(comm),
             "moe": _moe(comm.grid), "engine": _engine(comm.grid),
-            "bytes_sent": comm.grid.bytes_sent}
+            "bytes_sent": comm.grid.bytes_sent,
+            "host_bytes": comm.grid.host_bytes}
+
+
+def _legs_b(comm):
+    return {"transport": comm.grid.transport.name,
+            "layout": _layout(comm), "plans": _collectives_2x4(comm),
+            "colors": _color_splits(comm, B_SPLITS), "moe": _moe(comm.grid),
+            "train": _train(comm.grid), "bytes_sent": comm.grid.bytes_sent,
+            "host_bytes": comm.grid.host_bytes}
+
+
+def _worker(shape, legs):
+    """Every leg on the grid's own transport, then on a grid handed a
+    ``ShmTransport`` (under ``"shm"``)."""
+    torch.set_num_threads(1)
+    out = legs(Communicator(ProcessGrid(*shape, "cpu")))
+    shm = ShmTransport("cpu", capacity=SHM_SLOT)
+    out["shm"] = legs(Communicator(ProcessGrid(*shape, "cpu",
+                                               transport=shm)))
+    out["shm"]["slot_bytes"] = shm.slot_bytes
+    return out
+
+
+def _worker_a():
+    return _worker((2, 2), _legs_a)
 
 
 def _worker_b():
-    torch.set_num_threads(1)
-    comm = Communicator(ProcessGrid(2, 4, "cpu"))
-    return {"layout": _layout(comm), "plans": _collectives_2x4(comm),
-            "colors": _color_splits(comm, B_SPLITS), "moe": _moe(comm.grid),
-            "train": _train(comm.grid)}
+    return _worker((2, 4), _legs_b)
 
 
 def _parent():
@@ -712,6 +740,121 @@ def test_b_train_step_matches_rank_grid(runs, step):
         assert g["loss"] == w["loss"]
         for k in ("params", "m", "v"):
             _bitwise(g[k], w[k])
+
+
+# ---------------------------------------------------------------------------
+# the same legs on a "shm" grid in the same workers
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def shm_runs(runs):
+    """``runs`` with each worker's results on its ``"shm"`` grid in place
+    of its gloo grid's: every check above holds them to the same bars."""
+    return {**runs, **{k: [r["shm"] for r in runs[k]] for k in ("a", "b")}}
+
+
+def _same(got, want):
+    """Equal structures, their arrays bitwise."""
+    if isinstance(want, dict):
+        assert got.keys() == want.keys()
+        for k in want:
+            _same(got[k], want[k])
+    elif isinstance(want, (list, tuple)):
+        assert type(got) is type(want) and len(got) == len(want)
+        for g, w in zip(got, want):
+            _same(g, w)
+    elif isinstance(want, np.ndarray):
+        _bitwise(got, want)
+    else:
+        assert got == want
+
+
+@pytest.mark.parametrize("spawn", ["a", "b"])
+def test_shm_results_are_the_gloo_grids(runs, spawn):
+    """Every leg's every result bitwise the gloo grid's in the same worker
+    (gloo the grid's own choice on CPU ranks), the same bytes sent, and all
+    of them through host memory on CPU ranks (sent and received); the
+    slots one ``SHM_SLOT`` pair per peer."""
+    skip = ("layout", "transport", "slot_bytes", "shm")
+    for r in runs[spawn]:
+        s = r["shm"]
+        assert (r["transport"], s["transport"]) == ("gloo", "shm")
+        _same({k: v for k, v in s.items() if k not in skip},
+              {k: v for k, v in r.items() if k not in skip})
+        assert s["layout"] == r["layout"]
+        assert s["host_bytes"] == r["host_bytes"] > r["bytes_sent"] > 0
+        assert s["slot_bytes"] == 2 * SHM_SLOT * (len(runs[spawn]) - 1)
+
+
+def test_shm_a_layout(shm_runs):
+    test_a_layout(shm_runs)
+
+
+@pytest.mark.parametrize("coll,algo", PLANS_2x2,
+                         ids=[f"{c}/{a}" for c, a in PLANS_2x2])
+def test_shm_a_plans(shm_runs, coll, algo):
+    test_a_plans_match_reference_and_rank_grid(shm_runs, coll, algo)
+
+
+@pytest.mark.parametrize("ax", ["node", "local"])
+def test_shm_a_axis_children(shm_runs, ax):
+    test_a_axis_children(shm_runs, ax)
+
+
+@pytest.mark.parametrize("name", list(A_SPLITS))
+def test_shm_a_color_splits(shm_runs, name):
+    test_a_color_splits_across_processes(shm_runs, name)
+
+
+def test_shm_a_ef_sync_steps(shm_runs):
+    test_a_ef_sync_steps(shm_runs)
+
+
+@pytest.mark.parametrize("cap,plan", MOE_CASES,
+                         ids=[f"{c}/{p}" for c, p in MOE_CASES])
+def test_shm_a_moe_forward(shm_runs, cap, plan):
+    test_a_moe_forward(shm_runs, cap, plan)
+
+
+@pytest.mark.parametrize("cap", list(CAPS))
+def test_shm_a_moe_backward(shm_runs, cap):
+    test_a_moe_backward(shm_runs, cap)
+
+
+def test_shm_a_engine_tokens(shm_runs):
+    test_a_engine_tokens_are_the_sync_free_engines(shm_runs)
+
+
+def test_shm_b_layout(shm_runs):
+    test_b_layout(shm_runs)
+
+
+@pytest.mark.parametrize("coll,algo,dt", B_CASES,
+                         ids=[f"{c}/{a}/{d}" for c, a, d in B_CASES])
+def test_shm_b_collectives(shm_runs, coll, algo, dt):
+    test_b_collectives_match_rank_grid(shm_runs, coll, algo, dt)
+
+
+@pytest.mark.parametrize("name", list(B_SPLITS))
+def test_shm_b_color_splits(shm_runs, name):
+    test_b_color_splits_interleave_processes(shm_runs, name)
+
+
+@pytest.mark.parametrize("cap,plan", MOE_CASES,
+                         ids=[f"{c}/{p}" for c, p in MOE_CASES])
+def test_shm_b_moe_forward(shm_runs, cap, plan):
+    test_b_moe_forward(shm_runs, cap, plan)
+
+
+@pytest.mark.parametrize("cap", list(CAPS))
+def test_shm_b_moe_backward(shm_runs, cap):
+    test_b_moe_backward(shm_runs, cap)
+
+
+@pytest.mark.parametrize("step", [0, 1])
+def test_shm_b_train_step(shm_runs, step):
+    test_b_train_step_matches_rank_grid(shm_runs, step)
 
 
 # ---------------------------------------------------------------------------
