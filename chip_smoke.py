@@ -11,10 +11,13 @@ report, phase 12); any failure exits non-zero:
    ``staging.cu`` with nvcc (sm_90a), one compiler process each, all at
    once, and holds each of the six codec
    kernels against its plain PyTorch version on the card, bitwise
-   (tolerance 0): encodes at (16, 131072), (3, 1000) and (1, 256) with and
-   without the carried error, plus rows with subnormal e4m3 outputs, signed
-   zeros and a NaN (in the NaN's quantization block, or fp8 slice, only NaN
-   positions are compared; the row's other blocks stay bitwise);
+   (tolerance 0): encodes at (16, 131072) and (8, 131072) (the main path's
+   encode and re-encode), (16, 524288) (fp8 walks its rows twice), (3,
+   1000), (1, 256), (2, 131070) and a (16, 131072) view one float past a
+   16-byte boundary (the scalar paths), with and without the carried
+   error, plus rows with subnormal e4m3 outputs, signed zeros and a NaN
+   (in the NaN's quantization block, or fp8 slice, only NaN positions are
+   compared; the row's other blocks stay bitwise);
    decode-reduce over W in {1, 2, 3, 5, 8, 9, 17} (3, 5, 9 and 17
    outside the kernels' unrolled peer counts), at the compressed
    reduce_scatter's (8, 2, 524288), at the last gradient bucket's rows of
@@ -63,11 +66,15 @@ report, phase 12); any failure exits non-zero:
    also one ``scaled_dot_product_attention`` call as the library yardstick
    (no single PyTorch call computes the WKV6 recurrence or the scan). For
    the scan, the WKV6 tick and recurrent kernels at the decode tick and
-   the three decode-reduce kernels it also records CUPTI's time of the
+   the six codec kernels it also records CUPTI's time of the
    kernel alone (L2 flushed) and the events' own floor, the events' time
    of a one-element fill; each decode-reduce kernel also at the
    compressed reduce_scatter's (8, 2, 524288): events, CUPTI and its
-   bytes bound.
+   bytes bound; each encode also at the (8, 131072) re-encode (events,
+   CUPTI, bytes bound) and with the carried error, fp8's with its cluster
+   plan. ``--parent DIR`` (a checkout of the parent commit): the parent's
+   encodes are built from its sources into a fresh directory outside the
+   repository, held bitwise to this tree's and timed beside them.
    The staging kernels are held bitwise against their plain versions:
    pip_mcoll allgather's step-6 buffer V (8, 2, 4·m) rolled by the node
    index and Bruck's (8, 8, m) rolled by the rank at 8 B and 4 MiB per
@@ -90,8 +97,9 @@ report, phase 12); any failure exits non-zero:
    within ``collective_tolerance(codec, "allreduce", 8, A)`` of the
    float64 sum of the collective's input rows (gradient plus carried error;
    ``A`` their max-abs). Launch counts are zeroed just before each run and
-   must equal 2 encodes and 1 decode-reduce per bucket per step (fp8: each
-   encode is one ``fp8_amax`` and one ``fp8_encode`` launch). One more step
+   must equal 2 encodes and 1 decode-reduce per bucket per step (782 and
+   391 a step; fp8's encode is one ``fp8_encode`` launch, no amax pass).
+   One more step
    of each runs under ``torch.profiler``. Under ``int8_block`` one more
    step runs untraced and one with telemetry on, both timed: the traced
    step must leave one start->wait window per bucket (391), each on its
@@ -496,7 +504,22 @@ SYNC_CODECS = (("int8_block", 0.5 / 127), ("int4_block", 0.5 / 7),
 CODEC_KERNELS = {
     "int8_block": (("int8_block_encode",), "int8_decode_reduce"),
     "int4_block": (("int4_block_encode",), "int4_decode_reduce"),
-    "fp8_sim": (("fp8_amax", "fp8_encode"), "fp8_decode_reduce"),
+    "fp8_sim": (("fp8_encode",), "fp8_decode_reduce"),
+}
+#: each codec's encode kernel (its launch counter's key)
+ENCODE_NAMES = {"int8": "int8_block_encode", "int4": "int4_block_encode",
+                "fp8": "fp8_encode"}
+#: the CUDA kernel behind each codec's encode wrappers
+ENCODE_CUDA_KERNELS = {
+    "int8": "int8_block_encode<HAS_ERR, VEC> (a warp a quantization block, "
+            "8 elements a lane; CTAs of 4 warps walk the blocks over a grid "
+            "sized to the SMs, the next block's loads before this one's "
+            "stores)",
+    "int4": "int4_block_encode<HAS_ERR> (a CTA of 128 threads a block)",
+    "fp8": "fp8_encode<HAS_ERR, VEC, NV, WALK> (one launch, a thread-block "
+           "cluster a slice; the amax across the cluster through distributed "
+           "shared memory, the row in registers from load to store; rows "
+           "too long for them walked twice)",
 }
 #: the CUDA kernel behind each codec's decode-reduce wrapper
 DECODE_CUDA_KERNELS = {
@@ -803,17 +826,137 @@ def _check_encode(torch, what, got, want) -> float:
     return worst
 
 
-def kernel_phase(torch, kcodec, ref, dev):
+def _wire_bytes(S, L):
+    nb = -(-L // 256)
+    return {"int8": S * nb * 256, "int4": S * nb * 128, "fp8": S * L}
+
+
+def _scale_bytes(S, L):
+    nb = -(-L // 256)
+    return {"int8": 4 * S * nb, "int4": 4 * S * nb, "fp8": 4 * S}
+
+
+def encode_bytes(codec: str, S: int, L: int, err: bool = False) -> int:
+    """What one encode over (S, L) must move: x (and the carried error)
+    read, the wire, the scales and the f32 residual written."""
+    return 4 * S * L * (2 if err else 1) + _wire_bytes(S, L)[codec] \
+        + _scale_bytes(S, L)[codec] + 4 * S * L
+
+
+def parent_libraries(parent) -> dict:
+    """The parent tree's int8, int4 and fp8 codec libraries, built from its
+    sources with this tree's nvcc flags into a fresh directory outside the
+    repository and bound with the parent's encode signatures (its fp8
+    encode takes an amax scratch)."""
+    import ctypes
+    import tempfile
+
+    from repro_torch.kernels import _build
+
+    out = pathlib.Path(tempfile.mkdtemp(prefix="parent_codecs_"))
+    csrc = pathlib.Path(parent) / "src" / "repro_torch" / "kernels" / "csrc"
+    libs = {}
+    for c in ("int8", "int4", "fp8"):
+        so = out / f"libcodec_{c}.so"
+        proc = subprocess.run([_build.nvcc(), *_build.FLAGS, "-o", str(so),
+                               str(csrc / f"codec_{c}.cu")],
+                              capture_output=True, text=True)
+        if proc.returncode:
+            raise RuntimeError(f"the parent's codec_{c}.cu: {proc.stderr}")
+        lib = ctypes.CDLL(str(so))
+        fn = getattr(lib, f"codec_{c}_encode")
+        P, I64 = ctypes.c_void_p, ctypes.c_longlong
+        fn.restype = ctypes.c_int
+        fn.argtypes = [P] * 6 + [I64, I64, P] if c == "fp8" \
+            else [P] * 5 + [I64, I64, I64, P]
+        libs[c] = fn
+    return libs
+
+
+def _parent_encode(torch, fn, codec, x, err=None):
+    """One encode through the parent's library, allocating as its wrapper
+    did (fp8: an (S,) amax scratch a call)."""
+    S, L = x.shape
+    nb = -(-L // 256)
+    dev = x.device
+    res = torch.empty_like(x)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    ptr = None if err is None else err.data_ptr()
+    if codec == "fp8":
+        q = torch.empty(x.shape, dtype=torch.uint8, device=dev)
+        scale = torch.empty(S, device=dev)
+        amax = torch.empty(S, dtype=torch.int32, device=dev)
+        rc = fn(x.data_ptr(), ptr, amax.data_ptr(), q.data_ptr(),
+                scale.data_ptr(), res.data_ptr(), S, L, stream)
+    else:
+        q = torch.empty((S, nb, 256 if codec == "int8" else 128),
+                        dtype=torch.int8 if codec == "int8" else torch.uint8,
+                        device=dev)
+        scale = torch.empty((S, nb), device=dev)
+        rc = fn(x.data_ptr(), ptr, q.data_ptr(), scale.data_ptr(),
+                res.data_ptr(), S, L, nb, stream)
+    if rc:
+        raise RuntimeError(f"the parent's {codec} encode: CUDA error {rc}")
+    return {"q": q, "scale": scale}, res
+
+
+def parent_encode_times(torch, libs, codec, inputs, kernels, flush):
+    """The parent's encode beside this tree's on the same inputs, in the
+    same run: bitwise equal outputs, then events and CUPTI (the parent's
+    fp8 encode: its two kernels' CUPTI times summed; its memset is not a
+    kernel) at (16, 131072), feedback, and the (8, 131072) re-encode."""
+    x, e, x8 = inputs
+    kenc, kfb = kernels
+    fn = libs[codec]
+    for args, mine in (((x,), kenc(x)), ((x, e), kfb(x, e)),
+                       ((x8,), kenc(x8))):
+        theirs = _parent_encode(torch, fn, codec, *args)
+        torch.cuda.synchronize()
+        for a, b in ((mine[0]["q"], theirs[0]["q"]),
+                     (mine[0]["scale"], theirs[0]["scale"]),
+                     (mine[1], theirs[1])):
+            if not same_bits(torch, a, b):
+                raise AssertionError(f"{codec} encode differs from the "
+                                     f"parent's")
+    names = {"int8": ("int8_block_encode",), "int4": ("int4_block_encode",),
+             "fp8": ("fp8_amax", "fp8_encode")}[codec]
+
+    def cupti(fn_):
+        times = [cupti_ms(torch, fn_, flush, n) for n in names]
+        return sum(times) if all(isinstance(t, float) for t in times) \
+            else times
+    run = (lambda *a: lambda: _parent_encode(torch, fn, codec, *a))
+    return {"ms": time_ms(torch, run(x), flush),
+            "kernel_cupti_ms": cupti(run(x)),
+            "feedback_ms": time_ms(torch, run(x, e), flush),
+            "feedback_kernel_cupti_ms": cupti(run(x, e)),
+            "reencode_ms": time_ms(torch, run(x8), flush),
+            "reencode_kernel_cupti_ms": cupti(run(x8)),
+            "bitwise": True}
+
+
+def kernel_phase(torch, kcodec, ref, dev, parent=None):
     """Each kernel against its plain version; returns per-kernel records
-    (without launches) and raises on any mismatch."""
+    (without launches) and raises on any mismatch. ``parent``: the parent
+    tree's codec libraries (:func:`parent_libraries`), whose encodes are
+    then held bitwise to this tree's and timed beside them."""
     gen = torch.Generator(device=dev).manual_seed(SEED)
     codecs = ("int8", "int4", "fp8")
     err = {c: {"enc": 0.0, "dec": 0.0} for c in codecs}
     checked = dict.fromkeys(codecs, 0)  # decode-reduce cases
-    for S, L in ((16, 131072), (3, 1000), (1, 256)):
+    # (16, 131072) and (8, 131072): the main path's encode and re-encode
+    # (fp8: clusters of 8 and 16 CTAs, rows in registers); (16, 524288):
+    # fp8 walks its rows twice; L % 4 != 0 and a view one float past a
+    # 16-byte boundary: the encodes' scalar paths
+    for S, L, offset in ((16, 131072, 0), (8, 131072, 0), (16, 524288, 0),
+                         (3, 1000, 0), (1, 256, 0), (2, 131070, 0),
+                         (16, 131072, 1)):
         x = torch.randn((S, L), generator=gen, device=dev) \
             * torch.rand((S, 1), generator=gen, device=dev) * 100
         e = torch.randn((S, L), generator=gen, device=dev) * 0.01
+        if offset:
+            x, e = (torch.zeros(S * L + offset, device=dev)[offset:].view(
+                S, L).copy_(t) for t in (x, e))
         for c in codecs:
             for what, k, p, args in (
                     ("residual", getattr(kcodec, f"{c}_encode_residual"),
@@ -823,7 +966,8 @@ def kernel_phase(torch, kcodec, ref, dev):
                 got, want = k(*args), p(*args)
                 torch.cuda.synchronize()
                 err[c]["enc"] = max(err[c]["enc"], _check_encode(
-                    torch, f"{c} encode {what} {S}x{L}", got, want))
+                    torch, f"{c} encode {what} {S}x{L} at float {offset}",
+                    got, want))
     edge = _edge_rows(torch, dev)
     for c in codecs:
         got = getattr(kcodec, f"{c}_encode_residual")(edge)
@@ -888,20 +1032,19 @@ def kernel_phase(torch, kcodec, ref, dev):
                 checked[c] += 1
 
     # times at the main path's shapes: the first encode of each bucket is
-    # (ranks * W, Ls) = (16, 131072); decode-reduce gets (8, 2, ...) wire
+    # (ranks * W, Ls) = (16, 131072), the re-encode of the reduced slice
+    # (8, 131072); decode-reduce gets (8, 2, ...) wire
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     S, L, R, W = 16, 131072, 8, 2
-    nb = L // 256
     x = torch.randn((S, L), generator=gen, device=dev)
     e = torch.randn((S, L), generator=gen, device=dev) * 0.01
+    x8 = torch.randn((S // 2, L), generator=gen, device=dev)
     xw = torch.randn((R, W, L), generator=gen, device=dev)
-    wire = {"int8": S * L, "int4": S * L // 2, "fp8": S * L}
-    scales = {"int8": 4 * S * nb, "int4": 4 * S * nb, "fp8": 4 * S}
-    encode_name = {"int8": "int8_block_encode", "int4": "int4_block_encode",
-                   "fp8": "fp8_encode"}
+    wire, scales = _wire_bytes(S, L), _scale_bytes(S, L)
     replaces = {"int8": (136, 146), "int4": (214, 223), "fp8": (303, 311)}
     ops = {"int8": ENCODE_OPS_PER_ELEM, "int4": ENCODE_OPS_PER_ELEM,
            "fp8": FP8_ENCODE_OPS_PER_ELEM}
+    floor = event_floor_ms(torch, dev, flush)
     records, dec_comp = {}, {}
     for c in codecs:
         src = f"src/repro_torch/kernels/csrc/codec_{c}.cu"
@@ -909,11 +1052,10 @@ def kernel_phase(torch, kcodec, ref, dev):
         penc = getattr(ref, f"{c}_encode_residual")
         kfb = getattr(kcodec, f"{c}_encode_feedback")
         pfb = getattr(ref, f"{c}_encode_feedback")
-        # reads x, writes the wire, the scales and the f32 residual; the
-        # HAS_ERR variant (not on the main path) also reads the error
-        enc_bytes = 4 * S * L + wire[c] + scales[c] + 4 * S * L
+        enc_bytes = encode_bytes(c, S, L)
         enc_b, enc_by = bound_ms(enc_bytes, ops[c] * S * L)
-        fb_b, _ = bound_ms(enc_bytes + 4 * S * L, ops[c] * S * L)
+        fb_b, _ = bound_ms(encode_bytes(c, S, L, err=True), ops[c] * S * L)
+        re_bytes = encode_bytes(c, S // 2, L)
         comp, _ = penc(xw)
         dec_comp[c] = comp
         # R * W == S: decode reads the same wire and scale bytes the encode
@@ -923,17 +1065,42 @@ def kernel_phase(torch, kcodec, ref, dev):
                                  * L)
         kdec = getattr(kcodec, f"{c}_decode_reduce")
         pdec = getattr(ref, f"{c}_decode_reduce")
-        records[encode_name[c]] = {
-            "name": encode_name[c], "route": "cuda", "source": src,
+        name = ENCODE_NAMES[c]
+        records[name] = {
+            "name": name, "route": "cuda", "source": src,
             "replaces": f"src/repro/kernels/codec.py:{replaces[c][0]}",
+            "cuda_kernel": ENCODE_CUDA_KERNELS[c],
             "max_abs_err": err[c]["enc"],
             "ms": time_ms(torch, lambda: kenc(x), flush),
+            "kernel_cupti_ms": cupti_ms(torch, lambda: kenc(x), flush, name),
+            "event_floor_ms": floor,
             "plain_ms": time_ms(torch, lambda: penc(x), flush),
             "bound_ms": enc_b, "bound_by": enc_by, "library_ms": None,
             "bytes": enc_bytes, "shape": [S, L],
+            # the re-encode of each bucket's reduced (8, 131072) slice
+            "reencode_shape": {
+                "shape": [S // 2, L],
+                "ms": time_ms(torch, lambda: kenc(x8), flush),
+                "kernel_cupti_ms": cupti_ms(torch, lambda: kenc(x8), flush,
+                                            name),
+                "bytes": re_bytes,
+                "bound_ms": bound_ms(re_bytes, ops[c] * S // 2 * L)[0]},
+            # the mean bound of the path's encodes: half at each shape
+            "path_bound_ms": (enc_b + bound_ms(
+                re_bytes, ops[c] * S // 2 * L)[0]) / 2,
             "feedback_ms": time_ms(torch, lambda: kfb(x, e), flush),
+            "feedback_kernel_cupti_ms": cupti_ms(
+                torch, lambda: kfb(x, e), flush, name),
             "feedback_plain_ms": time_ms(torch, lambda: pfb(x, e), flush),
             "feedback_bound_ms": fb_b}
+        if c == "fp8":
+            records[name]["cluster_plan"] = {
+                f"{s}x{L}{' feedback' if fb else ''}":
+                    kcodec.fp8_encode_plan(s, L, feedback=fb)
+                for s, fb in ((S, False), (S // 2, False), (S, True))}
+        if parent is not None:
+            records[name]["parent"] = parent_encode_times(
+                torch, parent, c, (x, e, x8), (kenc, kfb), flush)
         records[f"{c}_decode_reduce"] = {
             "name": f"{c}_decode_reduce", "route": "cuda", "source": src,
             "replaces": f"src/repro/kernels/codec.py:{replaces[c][1]}",
@@ -945,7 +1112,6 @@ def kernel_phase(torch, kcodec, ref, dev):
             "shape": list(comp["q"].shape)}
     # each decode-reduce kernel alone (CUPTI), the events' floor, and the
     # compressed reduce_scatter's wire, (8, 2, 524288) decoded
-    floor = event_floor_ms(torch, dev, flush)
     Lrs = 4 * L
     for c in codecs:
         rec = records[f"{c}_decode_reduce"]
@@ -6259,7 +6425,8 @@ def kernel_lines(kernels, on_train, on_tree, on_sharded, on_roofline):
         fb_tree = on_tree.get(encode + "_feedback", 0)
         out.append({
             "name": f"{c}_encode_feedback", "route": "cuda",
-            "cuda_kernel": encode + " (HAS_ERR)", "source": rec["source"],
+            "cuda_kernel": rec["cuda_kernel"] + ", HAS_ERR",
+            "source": rec["source"],
             "replaces": f"src/repro/kernels/codec.py:{FEEDBACK_LINES[c]}",
             "launches": rec["feedback_launches"] + fb_train + fb_tree,
             "launches_by_cuda_kernel": {
@@ -6269,15 +6436,23 @@ def kernel_lines(kernels, on_train, on_tree, on_sharded, on_roofline):
                                  "compress_tree": fb_tree,
                                  "train": fb_train},
             "max_abs_err": rec["max_abs_err"], "ms": rec["feedback_ms"],
+            "kernel_cupti_ms": rec["feedback_kernel_cupti_ms"],
+            "event_floor_ms": rec["event_floor_ms"],
             "plain_ms": rec["feedback_plain_ms"],
             "bound_ms": rec["feedback_bound_ms"], "bound_by": "bytes",
             "library_ms": None, "shape": rec["shape"]})
+        if "parent" in rec:
+            out[-1]["parent"] = {k[len("feedback_"):]: v for k, v in
+                                 rec["parent"].items()
+                                 if k.startswith("feedback_")}
         residual = {k: v for k, v in rec.items()
                     if not k.startswith("feedback_")}
+        if "parent" in rec:
+            residual["parent"] = {k: v for k, v in rec["parent"].items()
+                                  if not k.startswith("feedback_")}
         residual["launches_by_path"] = dict(
             rec.get("launches_by_path", {}), train=on_train.get(encode, 0))
-        out.append({**residual, "name": f"{c}_encode_residual",
-                    "cuda_kernel": encode})
+        out.append({**residual, "name": f"{c}_encode_residual"})
         out.append(kernels[f"{c}_decode_reduce"])
         out[-1]["launches_by_path"] = dict(
             out[-1].get("launches_by_path", {}),
@@ -6302,8 +6477,17 @@ def kernel_lines(kernels, on_train, on_tree, on_sharded, on_roofline):
     return out
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
     import torch
+    ap = argparse.ArgumentParser(description="the port's smoke test on one "
+                                 "GPU")
+    ap.add_argument("--parent", default=None,
+                    help="a checkout of the parent commit: its codec "
+                    "encodes are built outside the repository, held bitwise "
+                    "to this tree's and timed beside them in phase 1")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         return fail("torch.cuda.is_available() is false: this smoke test "
                     "runs on an NVIDIA GPU")
@@ -6335,9 +6519,12 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print("    " + line.strip())
 
-    kernels = kernel_phase(torch, kcodec, ref, dev)
+    parent = parent_libraries(args.parent) if args.parent else None
+    kernels = kernel_phase(torch, kcodec, ref, dev, parent=parent)
     print("kernel phase: all six codec kernels bitwise equal to their plain "
           "versions")
+    for name in ENCODE_NAMES.values():
+        print("kernel " + json.dumps(kernels[name]))
     kernels["flash_decode"] = flash_phase(torch, kattn, ref, dev)
     print(f"kernel phase: flash_decode within {FLASH_TOL} * (1 + |plain|) "
           f"of its plain version in "

@@ -40,8 +40,9 @@ SIGNATURES = {
     "codec_int8": {f"codec_int8_{k}": v for k, v in _BLOCK_CODEC.items()},
     "codec_int4": {f"codec_int4_{k}": v for k, v in _BLOCK_CODEC.items()},
     "codec_fp8": {
-        "codec_fp8_encode": (_INT, [_P, _P, _P, _P, _P, _P, _I64, _I64,
-                                    _P]),
+        "codec_fp8_encode": (_INT, [_P, _P, _P, _P, _P, _I64, _I64, _P]),
+        "codec_fp8_encode_plan": (_INT, [_I64, _I64, _INT, _INT,
+                                         ctypes.POINTER(_INT)]),
         "codec_fp8_decode_reduce": (_INT, [_P, _P, _P, _I64, _I64, _I64,
                                            _I64, _P]),
         "codec_fp8_error_string": (ctypes.c_char_p, [_INT]),

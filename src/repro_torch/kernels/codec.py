@@ -9,17 +9,19 @@ operand, a failed build or a refused launch raises — nothing falls back.
 
   encode + error feedback   read x (and the carried residual) once; write
                             the wire form, the scales and the new residual
-                            from registers (fp8: one amax pass, then one
-                            element pass, since its scale spans a slice).
+                            from registers (fp8: one launch, a slice a
+                            thread-block cluster, whose CTAs share the
+                            slice's amax through distributed shared memory
+                            before any element is scaled).
   decode + reduce           accumulate the W incoming wire slices in
                             registers and write the f32 sum once.
 
 ``launches`` counts kernel launches per CUDA kernel (the CPU path counts
 nothing), so a run can show that its path went through the kernels. An
 encode's error-feedback variant (``HAS_ERR``) counts under its kernel's
-name plus ``_feedback``, apart from the residual-only variant; one fp8
-encode counts one ``fp8_amax`` and one ``fp8_encode`` launch (with the
-suffix under feedback).
+name plus ``_feedback``, apart from the residual-only variant; every
+encode call is one launch, fp8's too (``fp8_encode``, or
+``fp8_encode_feedback``).
 
 The :class:`CodecLowering` registry holds ``int8_block``, ``int4_block``
 and ``fp8_sim``.
@@ -30,6 +32,7 @@ name (``_dispatch.kernel_call``).
 """
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 from typing import Callable, Dict, Optional, Tuple
 
@@ -50,8 +53,7 @@ launches: Dict[str, int] = {
     "int8_decode_reduce": 0,
     "int4_block_encode": 0, "int4_block_encode_feedback": 0,
     "int4_decode_reduce": 0,
-    "fp8_amax": 0, "fp8_encode": 0, "fp8_amax_feedback": 0,
-    "fp8_encode_feedback": 0, "fp8_decode_reduce": 0,
+    "fp8_encode": 0, "fp8_encode_feedback": 0, "fp8_decode_reduce": 0,
 }
 
 
@@ -302,14 +304,26 @@ def _fp8_encode_launch(x: torch.Tensor, err: Optional[torch.Tensor]):
     if S and not L:
         raise ValueError("fp8 encode of empty slices: no amax to scale by")
     if S:
-        amax = torch.empty((S,), dtype=torch.int32, device=x.device)
         rc = _build.load("codec_fp8").codec_fp8_encode(
-            x.data_ptr(), _ptr(err), amax.data_ptr(), q.data_ptr(),
-            scale.data_ptr(), res.data_ptr(), S, L, _stream(x))
+            x.data_ptr(), _ptr(err), q.data_ptr(), scale.data_ptr(),
+            res.data_ptr(), S, L, _stream(x))
         _raise_on(rc, "codec_fp8", "fp8_encode")
-        launches[_variant("fp8_amax", err)] += 1
         launches[_variant("fp8_encode", err)] += 1
     return {"q": q, "scale": scale}, res
+
+
+def fp8_encode_plan(S: int, L: int, feedback: bool = False) -> dict:
+    """How the fp8 encode kernel runs over aligned ``(S, L)`` operands on
+    the current card: its thread-block cluster size, float4 a thread,
+    whether it walks each row twice (rows longer than the cluster's
+    registers hold), and ``cudaOccupancyMaxActiveClusters`` at that
+    size."""
+    out = (ctypes.c_int * 4)()
+    rc = _build.load("codec_fp8").codec_fp8_encode_plan(
+        int(S), int(L), int(feedback), 1, out)
+    _raise_on(rc, "codec_fp8", "fp8_encode")
+    return {"cluster": out[0], "vectors_per_thread": out[1],
+            "walk": bool(out[2]), "max_active_clusters": out[3]}
 
 
 def fp8_encode_feedback(x: torch.Tensor, err: torch.Tensor):

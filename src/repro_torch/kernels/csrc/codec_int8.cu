@@ -12,9 +12,20 @@
 // card's memory rate bounds them (encode reads 4 or 8 bytes and writes 9
 // bytes per element; decode reads ~1 byte per peer and writes 4). The TPU
 // grid walked one 256-element block per step, in order; here every block
-// is independent, so one CUDA block of 256 threads owns one quantization
-// block and the amax is a warp-shuffle reduction plus one shared-memory
-// pass, with the element kept in a register from load to store.
+// is independent, so one warp owns one quantization block: lane l holds
+// the block's elements 8l .. 8l + 7 in registers from load (two float4;
+// two more of err under HAS_ERR) to store, the amax is five
+// __shfl_xor_sync with nanmax (no shared memory, no barrier), and each lane
+// writes its 8 bytes of q as one 8-byte word and its residual as two
+// float4; lane 0 writes the scale. CTAs of ENC_WARPS = 4 warps walk the
+// blocks in a grid-stride loop over a grid sized to the SMs (so no launch
+// is refused for the number of blocks), each warp issuing its next
+// block's loads before the current block's stores, and stepping its
+// (slice, block) pair with no division. At ~60 registers a thread, CTAs
+// of 4 warps keep more warps resident than CTAs of 8 or 16 and ran faster
+// on the H100; capping the registers to fit more spills and runs slower. VEC: L % 4 == 0 and x, err, res 16-byte
+// aligned, q 8-byte aligned; else the same lanes with scalar loads and
+// stores.
 //
 // Decode has no cross-block carry. At 1 byte read per peer and 4 written
 // per element it is held by instructions and loads, not bytes, if a thread
@@ -39,9 +50,11 @@
 // multiply-adds. The library is built with -fmad=false so the compiler
 // contracts nothing else.
 //
-// NaN: the amax propagates NaN, so a block holding a NaN gets a NaN scale,
-// a NaN residual and q = -127 (fmaxf drops the NaN in the clip); its
-// decoded sum is NaN.
+// NaN: the amax propagates NaN, so a block holding a NaN gets a NaN scale
+// and a NaN residual; its decoded sum is NaN. Where c / scale is NaN (a
+// NaN block, or an infinite element against an infinite scale) q is NaN
+// unclipped, as in the plain version and the reference: its wire byte is
+// 0 (their int8 cast of NaN) and its residual NaN.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -56,42 +69,114 @@ __device__ __forceinline__ float nanmax(float a, float b) {
   return (a != a || b != b) ? __fadd_rn(a, b) : fmaxf(a, b);
 }
 
-// One block of 256 threads per (slice, 256-element block). x, err, res are
-// (S, L) row-major; q is (S, nb, 256); scale is (S, nb). Columns past L are
-// zero padding: they enter the amax as 0 and store q = 0, no residual.
-template <bool HAS_ERR>
-__global__ void __launch_bounds__(BLOCK)
+constexpr int ENC_WARPS = 4;  // quantization blocks in flight per CTA
+constexpr int ENC_THREADS = 32 * ENC_WARPS;
+constexpr int PER_LANE = BLOCK / 32;  // 8
+
+// One lane's 8 elements of a block: p points at the first, n of them lie
+// inside the row (columns past L read as 0). Where VEC, n is a multiple of
+// 4 and p 16-byte aligned: one float4 for each 4 inside.
+template <bool VEC>
+__device__ __forceinline__ void load8(const float* __restrict__ p,
+                                      long long n, float (&v)[PER_LANE]) {
+  if (VEC) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float4 f = 4 * h < n ? *reinterpret_cast<const float4*>(p + 4 * h)
+                                 : make_float4(0.f, 0.f, 0.f, 0.f);
+      v[4 * h] = f.x;
+      v[4 * h + 1] = f.y;
+      v[4 * h + 2] = f.z;
+      v[4 * h + 3] = f.w;
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < PER_LANE; ++k) v[k] = k < n ? p[k] : 0.f;
+  }
+}
+
+// x, err, res (S, L) row-major; q (S, nb, 256); scale (S, nb). CTAs of
+// WARPS warps; warp w of the grid takes blocks w, w + stride, ... of the
+// S * nb, walking (s, b) by (ds, db) = divmod(stride, nb). Columns past L
+// are zero padding: they enter the amax as 0 and store q = 0, no residual.
+// WARPS is ENC_WARPS in every launch here; scripts/encode_sweep.py times
+// other CTA sizes.
+template <bool HAS_ERR, bool VEC, int WARPS = ENC_WARPS>
+__global__ void __launch_bounds__(32 * WARPS)
 int8_block_encode(const float* __restrict__ x, const float* __restrict__ err,
                   int8_t* __restrict__ q, float* __restrict__ scale,
-                  float* __restrict__ res, long long L, long long nb) {
-  __shared__ float warp_max[BLOCK / 32];
-  const long long blk = blockIdx.x;
-  const long long s = blk / nb;
-  const long long col = (blk - s * nb) * BLOCK + threadIdx.x;
-  const bool in = col < L;
-  const long long at = s * L + col;
+                  float* __restrict__ res, long long L, long long nb,
+                  long long total) {
+  const int lane = threadIdx.x & 31;
+  const long long stride = static_cast<long long>(gridDim.x) * WARPS;
+  long long blk = static_cast<long long>(blockIdx.x) * WARPS +
+                  (threadIdx.x >> 5);
+  if (blk >= total) return;
+  const long long ds = stride / nb, db = stride - ds * nb;
+  long long s = blk / nb, b = blk - s * nb;
+  float xv[PER_LANE], ev[PER_LANE];
+  long long col = b * BLOCK + PER_LANE * lane;
+  load8<VEC>(x + s * L + col, L - col, xv);
+  if (HAS_ERR) load8<VEC>(err + s * L + col, L - col, ev);
+  for (;;) {
+    float c[PER_LANE];
+#pragma unroll
+    for (int k = 0; k < PER_LANE; ++k)
+      c[k] = HAS_ERR ? __fadd_rn(xv[k], ev[k]) : xv[k];
+    const long long at = s * L + col, n = L - col, here = blk;
+    // the next block's loads go out before this block's stores
+    blk += stride;
+    const bool more = blk < total;
+    if (more) {
+      s += ds;
+      b += db;
+      if (b >= nb) {
+        b -= nb;
+        ++s;
+      }
+      col = b * BLOCK + PER_LANE * lane;
+      load8<VEC>(x + s * L + col, L - col, xv);
+      if (HAS_ERR) load8<VEC>(err + s * L + col, L - col, ev);
+    }
 
-  float c = 0.f;
-  if (in) {
-    c = x[at];
-    if (HAS_ERR) c = __fadd_rn(c, err[at]);
+    float m = fabsf(c[0]);
+#pragma unroll
+    for (int k = 1; k < PER_LANE; ++k) m = nanmax(m, fabsf(c[k]));
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      m = nanmax(m, __shfl_xor_sync(0xffffffffu, m, o));
+    const float sc = __fmul_rn(m, RECIP127);
+    const float d = (sc != sc) ? sc : fmaxf(sc, TINY);
+    unsigned bytes[2] = {0u, 0u};
+    float r[PER_LANE];
+#pragma unroll
+    for (int k = 0; k < PER_LANE; ++k) {
+      float qf = rintf(__fdiv_rn(c[k], d));
+      qf = (qf != qf) ? qf : fminf(fmaxf(qf, -127.f), 127.f);
+      const unsigned byte =
+          (qf != qf) ? 0u : static_cast<unsigned>(__float2int_rn(qf)) & 0xffu;
+      bytes[k >> 2] |= byte << (8 * (k & 3));
+      r[k] = __fmaf_rn(-qf, sc, c[k]);
+    }
+    int8_t* qp = q + here * BLOCK + PER_LANE * lane;
+    float* rp = res + at;
+    if (VEC) {
+      *reinterpret_cast<uint2*>(qp) = make_uint2(bytes[0], bytes[1]);
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        if (4 * h < n)
+          *reinterpret_cast<float4*>(rp + 4 * h) =
+              make_float4(r[4 * h], r[4 * h + 1], r[4 * h + 2], r[4 * h + 3]);
+    } else {
+#pragma unroll
+      for (int k = 0; k < PER_LANE; ++k) {
+        qp[k] = static_cast<int8_t>(bytes[k >> 2] >> (8 * (k & 3)));
+        if (k < n) rp[k] = r[k];
+      }
+    }
+    if (lane == 0) scale[here] = sc;
+    if (!more) return;
   }
-  float m = fabsf(c);
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    m = nanmax(m, __shfl_xor_sync(0xffffffffu, m, o));
-  if ((threadIdx.x & 31) == 0) warp_max[threadIdx.x >> 5] = m;
-  __syncthreads();
-  float amax = warp_max[0];
-#pragma unroll
-  for (int w = 1; w < BLOCK / 32; ++w) amax = nanmax(amax, warp_max[w]);
-
-  const float sc = __fmul_rn(amax, RECIP127);
-  const float d = (sc != sc) ? sc : fmaxf(sc, TINY);
-  const float qf = fminf(fmaxf(rintf(__fdiv_rn(c, d)), -127.f), 127.f);
-  q[blk * BLOCK + threadIdx.x] = static_cast<int8_t>(qf);
-  if (threadIdx.x == 0) scale[blk] = sc;
-  if (in) res[at] = __fmaf_rn(-qf, sc, c);
 }
 
 constexpr int DEC_V = 8;         // outputs per thread: one int2 of q a peer
@@ -185,27 +270,70 @@ void launch_decode(dim3 grid, cudaStream_t st, const int8_t* q,
         q, scale, out, static_cast<int>(W), nb, L, R);
 }
 
+using Encode = void (*)(const float*, const float*, int8_t*, float*, float*,
+                       long long, long long, long long);
+
+Encode pick_encode(bool has_err, bool vec) {
+  if (has_err)
+    return vec ? int8_block_encode<true, true> : int8_block_encode<true, false>;
+  return vec ? int8_block_encode<false, true> : int8_block_encode<false, false>;
+}
+
+bool aligned(const void* p, uintptr_t n) {
+  return reinterpret_cast<uintptr_t>(p) % n == 0;
+}
+
+// The encode's grid: as many CTAs as the card holds at once (SMs x
+// cudaOccupancyMaxActiveBlocksPerMultiprocessor, asked once per host
+// thread, device and instance), no more than the blocks need.
+int encode_grid(Encode k, long long total, unsigned* ctas) {
+  constexpr int DEVICES = 16;
+  thread_local int resident[DEVICES][4] = {};  // CTAs a card holds
+  int dev = 0;
+  int rc = static_cast<int>(cudaGetDevice(&dev));
+  if (rc) return rc;
+  if (dev < 0 || dev >= DEVICES)
+    return static_cast<int>(cudaErrorInvalidDevice);
+  const int i = (k == int8_block_encode<true, true>) * 3 +
+                (k == int8_block_encode<true, false>) * 2 +
+                (k == int8_block_encode<false, true>) * 1;
+  if (!resident[dev][i]) {
+    int sms = 0, per_sm = 0;
+    rc = static_cast<int>(cudaDeviceGetAttribute(
+        &sms, cudaDevAttrMultiProcessorCount, dev));
+    if (!rc)
+      rc = static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, k, ENC_THREADS, 0));
+    if (rc) return rc;
+    resident[dev][i] = sms * (per_sm > 0 ? per_sm : 1);
+  }
+  const long long need = (total + ENC_WARPS - 1) / ENC_WARPS;
+  *ctas = static_cast<unsigned>(need < resident[dev][i] ? need
+                                                        : resident[dev][i]);
+  return 0;
+}
+
 }  // namespace
 
 extern "C" {
 
 // Launch the encode on `stream` over S slices of length L (nb blocks each);
-// err == nullptr selects the residual-only variant. Returns the CUDA error
+// err == nullptr selects the residual-only variant. One launch of a grid
+// sized to the SMs, whatever the number of blocks. Returns the CUDA error
 // code of the launch (0 = success).
 int codec_int8_encode(const float* x, const float* err, int8_t* q,
                       float* scale, float* res, long long S, long long L,
                       long long nb, void* stream) {
-  const long long blocks = S * nb;
-  if (blocks <= 0) return 0;
-  if (blocks > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (err != nullptr) {
-    int8_block_encode<true><<<static_cast<unsigned>(blocks), BLOCK, 0, st>>>(
-        x, err, q, scale, res, L, nb);
-  } else {
-    int8_block_encode<false><<<static_cast<unsigned>(blocks), BLOCK, 0, st>>>(
-        x, nullptr, q, scale, res, L, nb);
-  }
+  const long long total = S * nb;
+  if (total <= 0) return 0;
+  const bool vec = L % 4 == 0 && aligned(x, 16) && aligned(res, 16) &&
+                   aligned(q, 8) && (err == nullptr || aligned(err, 16));
+  const Encode k = pick_encode(err != nullptr, vec);
+  unsigned ctas = 0;
+  int rc = encode_grid(k, total, &ctas);
+  if (rc) return rc;
+  k<<<ctas, ENC_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      x, err, q, scale, res, L, nb, total);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -24,8 +24,7 @@ from repro_torch.kernels import ref
 SHAPES = [(1, 256), (3, 1000), (4, 64), (2, 2048), (16, 4096)]
 CODECS = ("int4", "fp8")
 #: CUDA kernel names counted by each codec's encode and decode wrappers
-ENCODE_KERNELS = {"int4": ("int4_block_encode",),
-                  "fp8": ("fp8_amax", "fp8_encode")}
+ENCODE_KERNELS = {"int4": ("int4_block_encode",), "fp8": ("fp8_encode",)}
 DECODE_KERNEL = {"int4": "int4_decode_reduce", "fp8": "fp8_decode_reduce"}
 
 
@@ -106,6 +105,66 @@ def test_edge_values_match_pallas(jkern, codec):
         assert bool(((q & 0x78) == 0).logical_and(q & 0x07 != 0).any()), \
             "no subnormal e4m3 byte in the edge rows"
         assert float(got[0]["scale"][3]) == np.float32(1e-30)
+
+
+#: the fp8 encode kernel's edges at sizes the reference's interpret mode
+#: takes on the CPU (S, L, offset, special): L % 4 != 0, a slice shorter
+#: than a warp's vector, a view one float past a 16-byte boundary, and
+#: slices holding a NaN, +-inf and zeros
+FP8_CPU_EDGES = [(4, 1001, 0, False), (2, 255, 0, False),
+                 (3, 1000, 1, False), (4, 1000, 0, True),
+                 (4, 1001, 1, True)]
+#: the fp8 encode kernel's cases on the card: the main path's (16, 131072)
+#: and (8, 131072) (clusters of 8 and 16 CTAs, rows in registers), rows it
+#: walks twice ((16, 524288), one slice of 1 << 22), short rows, the edges
+#: above, and a misaligned (16, 131072)
+FP8_CUDA_CASES = [(16, 131072, 0, False), (8, 131072, 0, False),
+                  (16, 524288, 0, False), (1, 1 << 22, 0, False),
+                  (3, 1000, 0, False), (1, 256, 0, False),
+                  (4, 1001, 0, False), (2, 131070, 0, False),
+                  (16, 131072, 1, False), (3, 1000, 1, False),
+                  (8, 131072, 0, True), (4, 1001, 1, True)]
+
+
+def _encode_operands(S, L, offset, special, device="cpu"):
+    """x and err of one encode case as contiguous views starting
+    ``offset`` floats into their buffers. ``special``: slice 0 holds a NaN,
+    slice 1 +inf and -inf, slice 2 zeros (x and err)."""
+    x, err = _payload((S, L), seed=S + L + offset)
+    if special:
+        x[0, L // 3] = np.nan
+        x[1, 5], x[1, L - 2] = np.inf, -np.inf
+        x[2], err[2] = 0.0, 0.0
+
+    def put(a):
+        buf = torch.zeros(a.size + offset, dtype=torch.float32,
+                          device=device)
+        return buf[offset:].view(a.shape).copy_(torch.from_numpy(a))
+    return put(x), put(err)
+
+
+@pytest.mark.parametrize("with_err", [False, True])
+@pytest.mark.parametrize("S,L,offset,special", FP8_CPU_EDGES)
+def test_fp8_encode_edges_match_pallas(jkern, S, L, offset, special,
+                                       with_err):
+    """The plain fp8 encode against the reference's kernel at the
+    kernel's edges: q and scale bitwise, residual bitwise up to the sign
+    of a NaN (which the CPU's arithmetic and XLA's give otherwise)."""
+    x, err = _encode_operands(S, L, offset, special)
+    assert x.is_contiguous() and x.storage_offset() == offset
+    if with_err:
+        want = jkern.fp8_encode_feedback(x.numpy(), err.numpy(),
+                                         interpret=True)
+        got = tkern.fp8_encode_feedback(x, err)
+    else:
+        want = jkern.fp8_encode_residual(x.numpy(), interpret=True)
+        got = tkern.fp8_encode_residual(x)
+    _assert_wire(got, want)
+    if special:
+        scale = got[0]["scale"]
+        assert np.isnan(float(scale[0])) and float(scale[1]) == np.inf
+        assert float(scale[2]) == np.float32(1e-30)
+        assert np.isnan(got[1][:2].numpy()).all() and not got[1][2].any()
 
 
 @pytest.mark.parametrize("codec", CODECS)
@@ -283,11 +342,17 @@ def _same(a, b):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("S,L", [(16, 131072), (3, 1000), (1, 256)])
+@pytest.mark.parametrize("codec,S,L,offset,special", [
+    ("int4", S, L, 0, False) for S, L in ((16, 131072), (3, 1000), (1, 256))]
+    + [("fp8",) + case for case in FP8_CUDA_CASES])
 @pytest.mark.parametrize("with_err", [False, True])
-@pytest.mark.parametrize("codec", CODECS)
-def test_cuda_encode_matches_plain(cuda, codec, S, L, with_err):
-    x, err = (torch.from_numpy(a).to(cuda) for a in _payload((S, L), S + L))
+def test_cuda_encode_matches_plain(cuda, codec, S, L, offset, special,
+                                   with_err):
+    if offset or special:
+        x, err = _encode_operands(S, L, offset, special, cuda)
+    else:  # the int4 cases' operands as before
+        x, err = (torch.from_numpy(a).to(cuda)
+                  for a in _payload((S, L), S + L))
     keys = [k + ("_feedback" if with_err else "")
             for k in ENCODE_KERNELS[codec]]
     before = dict(tkern.launches)
@@ -301,7 +366,13 @@ def test_cuda_encode_matches_plain(cuda, codec, S, L, with_err):
     assert tkern.launches == {**before, **{k: before[k] + 1 for k in keys}}
     assert _same(got[0]["q"], want[0]["q"])
     assert _same(got[0]["scale"], want[0]["scale"])
-    assert _same(got[1], want[1])
+    if special:  # the residual's NaNs by position (the plain version
+        # rounds a float64 NaN, the kernel's fused multiply-add a float32)
+        nan = got[1].isnan()
+        assert torch.equal(nan, want[1].isnan())
+        assert _same(got[1][~nan], want[1][~nan])
+    else:
+        assert _same(got[1], want[1])
 
 
 @pytest.mark.cuda
