@@ -15,9 +15,10 @@ report, phase 12); any failure exits non-zero:
    encode and re-encode), (16, 524288) (fp8 walks its rows twice), (3,
    1000), (1, 256), (2, 131070) and a (16, 131072) view one float past a
    16-byte boundary (the scalar paths), with and without the carried
-   error, plus rows with subnormal e4m3 outputs, signed zeros and a NaN
-   (in the NaN's quantization block, or fp8 slice, only NaN positions are
-   compared; the row's other blocks stay bitwise);
+   error, plus rows with subnormal e4m3 outputs, signed zeros, a NaN and
+   +-inf among finite values (wire bytes bitwise in every block, NaN
+   blocks included; scales and residuals bitwise where the plain one is
+   a number, NaN at the same positions);
    decode-reduce over W in {1, 2, 3, 5, 8, 9, 17} (3, 5, 9 and 17
    outside the kernels' unrolled peer counts), at the compressed
    reduce_scatter's (8, 2, 524288), at the last gradient bucket's rows of
@@ -515,7 +516,10 @@ ENCODE_CUDA_KERNELS = {
             "8 elements a lane; CTAs of 4 warps walk the blocks over a grid "
             "sized to the SMs, the next block's loads before this one's "
             "stores)",
-    "int4": "int4_block_encode<HAS_ERR> (a CTA of 128 threads a block)",
+    "int4": "int4_block_encode<HAS_ERR, VEC> (a warp a quantization block, "
+            "8 elements a lane packed into one 4-byte wire word; CTAs of 4 "
+            "warps walk the blocks over a grid sized to the SMs, the next "
+            "block's loads before this one's stores)",
     "fp8": "fp8_encode<HAS_ERR, VEC, NV, WALK> (one launch, a thread-block "
            "cluster a slice; the amax across the cluster through distributed "
            "shared memory, the row in registers from load to store; rows "
@@ -774,9 +778,11 @@ def same_bits(torch, got, want) -> bool:
 
 def _edge_rows(torch, dev, L=1000):
     """Rows with subnormal e4m3 outputs (one large element, the rest down
-    to 2**-12), signed zeros, rounding ties, an all-zero row and a NaN."""
+    to 2**-12), signed zeros, rounding ties, an all-zero row, a NaN, and
+    +inf and -inf among finite values (row 5: blocks 0 and 2 of the block
+    codecs)."""
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
-    x = torch.zeros((5, L), device=dev)
+    x = torch.zeros((6, L), device=dev)
     x[0] = torch.randn(L, generator=gen, device=dev) * torch.exp2(
         -torch.randint(0, 13, (L,), generator=gen, device=dev).float())
     x[0, 0] = 448.0
@@ -789,40 +795,33 @@ def _edge_rows(torch, dev, L=1000):
     x[2, 1] = 448.0
     x[4] = torch.randn(L, generator=gen, device=dev)
     x[4, 17] = float("nan")
+    x[5] = torch.randn(L, generator=gen, device=dev)
+    x[5, 3], x[5, 600] = float("inf"), float("-inf")
     return x
 
 
 def _check_encode(torch, what, got, want) -> float:
-    """Wire, scale and residual bitwise; returns their max abs difference.
-
-    A quantization block (the whole slice for fp8) whose plain scale is NaN
-    holds a NaN: its wire bytes are unspecified and only the NaN positions
-    of its scale and residual must agree. Every other block of the same row
-    is still compared bitwise."""
-    (gq, gs), gr = (got[0]["q"], got[0]["scale"]), got[1]
-    (wq, ws), wr = (want[0]["q"], want[0]["scale"]), want[1]
-    L = gr.shape[-1]
-    block = 256 if ws.dim() == 2 else L  # fp8 scales the whole slice
-    pos = torch.arange(L, device=gr.device) // block
+    """Wire bytes bitwise in every block, NaN-scale blocks included; scales
+    and residuals bitwise wherever the plain one is a number and NaN at the
+    same positions (a NaN's payload is not part of the contract: the plain
+    residual rounds a float64 NaN, the kernel's fused multiply-add a
+    float32 one). Returns the max abs difference of the compared values."""
     worst = 0.0
-    for r in range(gr.shape[0]):
-        nan_blk = ws[r].reshape(-1).isnan()
-        nan_pos = nan_blk[pos]
-        qmask = nan_blk if ws.dim() == 2 else nan_pos
-        for a, b, name, keep in (
-                (gq[r], wq[r], "q", ~qmask),
-                (gs[r].reshape(-1), ws[r].reshape(-1), "scale", ~nan_blk),
-                (gr[r], wr[r], "res", ~nan_pos)):
-            if not same_bits(torch, a[keep], b[keep]):
-                raise AssertionError(f"{what}: {name} of row {r} differs "
-                                     f"from the plain version: max "
-                                     f"{max_diff(torch, a[keep], b[keep])}")
-            worst = max(worst, max_diff(torch, a[keep], b[keep]))
-        gn, wn = gr[r][nan_pos].isnan(), wr[r][nan_pos].isnan()
-        if not bool(gs[r].reshape(-1)[nan_blk].isnan().all()) or \
-                not torch.equal(gn, wn):
-            raise AssertionError(f"{what}: NaN positions of scale or residual "
-                                 f"differ in row {r}")
+    for a, b, name in ((got[0]["q"], want[0]["q"], "q"),
+                       (got[0]["scale"], want[0]["scale"], "scale"),
+                       (got[1], want[1], "res")):
+        nan = b.isnan() if b.is_floating_point() else \
+            torch.zeros(b.shape, dtype=torch.bool, device=b.device)
+        if not torch.equal(a.isnan() if a.is_floating_point() else nan, nan):
+            raise AssertionError(f"{what}: NaN positions of {name} differ "
+                                 f"from the plain version's")
+        if not same_bits(torch, a[~nan], b[~nan]):
+            rows = (a != b).logical_and(~nan).reshape(a.shape[0], -1).any(1)
+            raise AssertionError(
+                f"{what}: {name} of rows {rows.nonzero().flatten().tolist()} "
+                f"differs from the plain version: max "
+                f"{max_diff(torch, a[~nan], b[~nan])}")
+        worst = max(worst, max_diff(torch, a[~nan], b[~nan]))
     return worst
 
 
@@ -846,8 +845,8 @@ def encode_bytes(codec: str, S: int, L: int, err: bool = False) -> int:
 def parent_libraries(parent) -> dict:
     """The parent tree's int8, int4 and fp8 codec libraries, built from its
     sources with this tree's nvcc flags into a fresh directory outside the
-    repository and bound with the parent's encode signatures (its fp8
-    encode takes an amax scratch)."""
+    repository and bound with the parent's encode signatures (this tree's
+    too)."""
     import ctypes
     import tempfile
 
@@ -867,7 +866,7 @@ def parent_libraries(parent) -> dict:
         fn = getattr(lib, f"codec_{c}_encode")
         P, I64 = ctypes.c_void_p, ctypes.c_longlong
         fn.restype = ctypes.c_int
-        fn.argtypes = [P] * 6 + [I64, I64, P] if c == "fp8" \
+        fn.argtypes = [P] * 5 + [I64, I64, P] if c == "fp8" \
             else [P] * 5 + [I64, I64, I64, P]
         libs[c] = fn
     return libs
@@ -875,7 +874,7 @@ def parent_libraries(parent) -> dict:
 
 def _parent_encode(torch, fn, codec, x, err=None):
     """One encode through the parent's library, allocating as its wrapper
-    did (fp8: an (S,) amax scratch a call)."""
+    did."""
     S, L = x.shape
     nb = -(-L // 256)
     dev = x.device
@@ -885,9 +884,8 @@ def _parent_encode(torch, fn, codec, x, err=None):
     if codec == "fp8":
         q = torch.empty(x.shape, dtype=torch.uint8, device=dev)
         scale = torch.empty(S, device=dev)
-        amax = torch.empty(S, dtype=torch.int32, device=dev)
-        rc = fn(x.data_ptr(), ptr, amax.data_ptr(), q.data_ptr(),
-                scale.data_ptr(), res.data_ptr(), S, L, stream)
+        rc = fn(x.data_ptr(), ptr, q.data_ptr(), scale.data_ptr(),
+                res.data_ptr(), S, L, stream)
     else:
         q = torch.empty((S, nb, 256 if codec == "int8" else 128),
                         dtype=torch.int8 if codec == "int8" else torch.uint8,
@@ -902,9 +900,8 @@ def _parent_encode(torch, fn, codec, x, err=None):
 
 def parent_encode_times(torch, libs, codec, inputs, kernels, flush):
     """The parent's encode beside this tree's on the same inputs, in the
-    same run: bitwise equal outputs, then events and CUPTI (the parent's
-    fp8 encode: its two kernels' CUPTI times summed; its memset is not a
-    kernel) at (16, 131072), feedback, and the (8, 131072) re-encode."""
+    same run: bitwise equal outputs, then events and CUPTI at (16,
+    131072), feedback, and the (8, 131072) re-encode."""
     x, e, x8 = inputs
     kenc, kfb = kernels
     fn = libs[codec]
@@ -918,13 +915,8 @@ def parent_encode_times(torch, libs, codec, inputs, kernels, flush):
             if not same_bits(torch, a, b):
                 raise AssertionError(f"{codec} encode differs from the "
                                      f"parent's")
-    names = {"int8": ("int8_block_encode",), "int4": ("int4_block_encode",),
-             "fp8": ("fp8_amax", "fp8_encode")}[codec]
-
     def cupti(fn_):
-        times = [cupti_ms(torch, fn_, flush, n) for n in names]
-        return sum(times) if all(isinstance(t, float) for t in times) \
-            else times
+        return cupti_ms(torch, fn_, flush, ENCODE_NAMES[codec])
     run = (lambda *a: lambda: _parent_encode(torch, fn, codec, *a))
     return {"ms": time_ms(torch, run(x), flush),
             "kernel_cupti_ms": cupti(run(x)),
@@ -976,6 +968,9 @@ def kernel_phase(torch, kcodec, ref, dev, parent=None):
         if not bool(want[0]["scale"][4].isnan().any()):
             raise AssertionError(f"{c} edge rows: the NaN row has no NaN "
                                  f"scale")
+        if not bool(want[0]["scale"][5].isinf().any()):
+            raise AssertionError(f"{c} edge rows: the inf row has no "
+                                 f"infinite scale")
         err[c]["enc"] = max(err[c]["enc"], _check_encode(
             torch, f"{c} encode edge rows", got, want))
         if c == "fp8":

@@ -35,7 +35,7 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     _build.build_all(("codec_int8", "codec_int4", "codec_fp8"))
-    for lib in ("codec_int8", "codec_fp8"):
+    for lib in ("codec_int8", "codec_int4", "codec_fp8"):
         for line in _build.library_path(lib).with_suffix(".log") \
                 .read_text().splitlines():
             if "registers" in line or "spill" in line or "error" in line:

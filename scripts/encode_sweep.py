@@ -1,17 +1,20 @@
-"""Launch-shape sweep of the fp8 and int8 encode kernels on one card:
+"""Launch-shape sweep of the fp8, int8 and int4 encode kernels on one card:
 
     python3 scripts/encode_sweep.py
 
-Builds two small libraries that include ``kernels/csrc/codec_fp8.cu`` and
-``codec_int8.cu`` as they are and launch their encode kernels with a
-chosen shape: fp8 at cluster sizes 4, 8 and 16 (the float4 a thread and
-the second walk following from the size, as the launcher's plan does;
-16 is non-portable, allowed here), int8 at 4, 8 and 16 warps a CTA at
-the card's full occupancy. Each launch shape's output is held bitwise to the wrapper's,
+Builds three small libraries that include ``kernels/csrc/codec_fp8.cu``,
+``codec_int8.cu`` and ``codec_int4.cu`` as they are and launch their
+encode kernels with a chosen shape: fp8 at cluster sizes 4, 8 and 16 (the
+float4 a thread and the second walk following from the size, as the
+launcher's plan does; 16 is non-portable, allowed here), int8 and int4 at
+4, 8 and 16 warps a CTA at the card's full occupancy, and at 4 warps on
+a half and a quarter of it (each warp then walks 2 or 4 times as many
+blocks). Each launch shape's output is held bitwise to the wrapper's,
 then timed alone by CUPTI with L2 flushed (``chip_smoke.cupti_ms``) at
 the main path's (16, 131072) and (8, 131072), residual and feedback.
-Prints the card's name and power limit and one ``sweep`` line a shape.
-Needs one CUDA card.
+Last, the int8 and int4 wrappers at (1, 256), one warp and one block:
+what a launch costs whatever its size. Prints the card's name and power
+limit and one ``sweep`` line a shape. Needs one CUDA card.
 """
 import ctypes
 import json
@@ -78,14 +81,17 @@ FP8_SHAPES = ((16, 512, 8, 8), (16, 1024, 4, 8), (16, 1024, 5, 7),
               (8, 512, 8, 8), (8, 1024, 2, 16), (8, 1024, 3, 11),
               (8, 1024, 3, 12), (8, 512, 5, 13), (8, 1024, 4, 8))
 
-INT8 = r'''
-#include "%s/codec_int8.cu"
+#: a block codec's encode at WARPS warps a CTA (CODEC int8 or int4, WIRE
+#: its wire's element type), its grid sized as the launcher sizes it, then
+#: divided by `div`
+BLOCK_SWEEP = r'''
+#include "CSRC/codec_CODEC.cu"
 template <int W>
-int sweep_w(const float* x, const float* err, int8_t* q, float* scale,
+int sweep_w(const float* x, const float* err, WIRE* q, float* scale,
             float* res, long long S, long long L, long long nb,
-            cudaStream_t st, int* fits) {
-  auto k = err ? int8_block_encode<true, true, W>
-               : int8_block_encode<false, true, W>;
+            int div, cudaStream_t st, int* fits) {
+  auto k = err ? CODEC_block_encode<true, true, W>
+               : CODEC_block_encode<false, true, W>;
   int sms = 0, dev = 0, rc = cudaGetDevice(&dev);
   if (!rc) rc = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
                                        dev);
@@ -93,30 +99,37 @@ int sweep_w(const float* x, const float* err, int8_t* q, float* scale,
                                                               32 * W, 0);
   if (rc) return rc;
   const long long need = (S * nb + W - 1) / W;
-  long long ctas = static_cast<long long>(sms) * *fits;
+  long long ctas = static_cast<long long>(sms) * *fits / div;
   if (ctas > need) ctas = need;
+  if (ctas < 1) ctas = 1;
   k<<<static_cast<unsigned>(ctas), 32 * W, 0, st>>>(x, err, q, scale, res,
                                                    L, nb, S * nb);
   return static_cast<int>(cudaGetLastError());
 }
-extern "C" int sweep_int8(const float* x, const float* err, int8_t* q,
-                          float* scale, float* res, long long S, long long L,
-                          long long nb, int warps, void* stream, int* fits) {
+extern "C" int sweep_CODEC(const float* x, const float* err, WIRE* q,
+                           float* scale, float* res, long long S,
+                           long long L, long long nb, int warps, int div,
+                           void* stream, int* fits) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (warps) {
-    case 4: return sweep_w<4>(x, err, q, scale, res, S, L, nb, st, fits);
-    case 8: return sweep_w<8>(x, err, q, scale, res, S, L, nb, st, fits);
-    case 16: return sweep_w<16>(x, err, q, scale, res, S, L, nb, st, fits);
+    case 4: return sweep_w<4>(x, err, q, scale, res, S, L, nb, div, st, fits);
+    case 8: return sweep_w<8>(x, err, q, scale, res, S, L, nb, div, st, fits);
+    case 16:
+      return sweep_w<16>(x, err, q, scale, res, S, L, nb, div, st, fits);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 '''
+#: the block codecs swept: (wire element type in C, in torch, wire bytes a
+#: 256-element block)
+BLOCK_CODECS = {"int8": ("int8_t", "int8", 256),
+                "int4": ("uint8_t", "uint8", 128)}
 
 
 def build(tmp, name, source):
     from repro_torch.kernels import _build
     cu = tmp / f"{name}.cu"
-    cu.write_text(source % CSRC)
+    cu.write_text(source)
     so = tmp / f"lib{name}.so"
     proc = subprocess.run([_build.nvcc(), *_build.FLAGS, "-o", str(so),
                            str(cu)], capture_output=True, text=True)
@@ -141,14 +154,19 @@ def main() -> int:
     torch.cuda.set_device(dev)
     tmp = pathlib.Path(tempfile.mkdtemp(prefix="encode_sweep_"))
     P, I64, INT = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    lib = build(tmp, "sweep_fp8", FP8)
+    lib = build(tmp, "sweep_fp8", FP8 % CSRC)
     fp8 = lib.sweep_fp8
     fp8.argtypes = [P] * 5 + [I64, I64, INT, P, ctypes.POINTER(INT)]
     fp8_shape = lib.sweep_fp8_shape
     fp8_shape.argtypes = [P] * 5 + [I64, I64, INT, INT, INT, P,
                                     ctypes.POINTER(INT)]
-    int8 = build(tmp, "sweep_int8", INT8).sweep_int8
-    int8.argtypes = [P] * 5 + [I64, I64, I64, INT, P, ctypes.POINTER(INT)]
+    blocks = {}
+    for c, (wire, _, _) in BLOCK_CODECS.items():
+        src = BLOCK_SWEEP.replace("CSRC", str(CSRC)).replace(
+            "CODEC", c).replace("WIRE", wire)
+        blocks[c] = getattr(build(tmp, f"sweep_{c}", src), f"sweep_{c}")
+        blocks[c].argtypes = [P] * 5 + [I64, I64, I64, INT, INT, P,
+                                        ctypes.POINTER(INT)]
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     gen = torch.Generator(device=dev).manual_seed(0)
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -212,23 +230,35 @@ def main() -> int:
                 record("fp8_encode", run, want, q, scale, res, shape=[S, L],
                        variant=variant, cluster=C)
                 print(f"  max_active_clusters {n.value}")
-            want = (codec.int8_encode_residual(x) if err is None
-                    else codec.int8_encode_feedback(x, err))
-            for warps in (4, 8, 16):
-                q = torch.empty((S, nb, 256), dtype=torch.int8, device=dev)
-                scale = torch.empty((S, nb), device=dev)
-                res = torch.empty_like(x)
-                fits = INT(0)
+            for c, (_, dtype, cols) in BLOCK_CODECS.items():
+                want = (getattr(codec, f"{c}_encode_residual")(x)
+                        if err is None
+                        else getattr(codec, f"{c}_encode_feedback")(x, err))
+                for warps, div in ((4, 1), (8, 1), (16, 1), (4, 2), (4, 4)):
+                    q = torch.empty((S, nb, cols),
+                                    dtype=getattr(torch, dtype), device=dev)
+                    scale = torch.empty((S, nb), device=dev)
+                    res = torch.empty_like(x)
+                    fits = INT(0)
 
-                def run():
-                    rc = int8(x.data_ptr(), eptr, q.data_ptr(),
-                              scale.data_ptr(), res.data_ptr(), S, L, nb,
-                              warps, stream, ctypes.byref(fits))
-                    if rc:
-                        raise RuntimeError(f"int8: CUDA error {rc}")
-                record("int8_block_encode", run, want, q, scale, res,
-                       shape=[S, L], variant=variant, warps=warps)
-                print(f"  ctas_per_sm {fits.value}")
+                    def run():
+                        rc = blocks[c](x.data_ptr(), eptr, q.data_ptr(),
+                                       scale.data_ptr(), res.data_ptr(), S,
+                                       L, nb, warps, div, stream,
+                                       ctypes.byref(fits))
+                        if rc:
+                            raise RuntimeError(f"{c}: CUDA error {rc}")
+                    record(f"{c}_block_encode", run, want, q, scale, res,
+                           shape=[S, L], variant=variant, warps=warps,
+                           grid_divisor=div)
+                    print(f"  ctas_per_sm {fits.value}")
+    one = torch.randn((1, 256), generator=gen, device=dev)
+    for c in BLOCK_CODECS:
+        enc = getattr(codec, f"{c}_encode_residual")
+        print("sweep " + json.dumps({
+            "kernel": f"{c}_block_encode", "shape": [1, 256],
+            "variant": "residual", "kernel_cupti_ms": cs.cupti_ms(
+                torch, lambda: enc(one), flush, f"{c}_block_encode")}))
     return 0
 
 

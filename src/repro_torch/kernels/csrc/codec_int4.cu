@@ -12,11 +12,21 @@
 // memory rate bounds them (encode reads 4 or 8 bytes and writes 4.5 bytes
 // per element plus a scale per 256; decode reads half a byte per peer and
 // element and writes 4). The Pallas grid walked one 256-element block per
-// step, in order; here every block is independent: one CUDA block of 128
-// threads owns one quantization block, each thread two neighbouring
-// elements (one float2 load when the row allows it), which is exactly one
-// packed wire byte. The amax is a warp-shuffle reduction plus one pass over
-// four shared-memory words.
+// step, in order; here every block is independent, so one warp owns one
+// quantization block, as in int8's encode: lane l holds the block's
+// elements 8l .. 8l + 7 in registers from load (two float4; two more of
+// err under HAS_ERR) to store, the amax is five __shfl_xor_sync with
+// nanmax (no shared memory, no barrier), and each lane packs its 8
+// nibbles into one 32-bit word (byte j: element 2j in the low nibble,
+// 2j + 1 in the high one), so a warp writes its block's 128 wire bytes
+// with one 4-byte store a lane; its residual goes out as two float4 and
+// lane 0 writes the scale. CTAs of ENC_WARPS warps walk the blocks in a
+// grid-stride loop over a grid sized to the SMs (no launch is refused for
+// the number of blocks), each warp issuing its next block's loads before
+// the current block's stores and stepping its (slice, block) pair with no
+// division. No register cap: capped int8 variants spilled and ran slower.
+// VEC: L % 4 == 0, x, err and res 16-byte aligned and q 4-byte aligned;
+// else the same lanes with scalar loads and stores, the same bits.
 //
 // Decode has no cross-block carry. As int8's and fp8's decode-reduce, one
 // thread makes DEC_V = 8 consecutive outputs of one quantization block:
@@ -44,8 +54,10 @@
 // library is built with -fmad=false so the compiler contracts nothing else.
 //
 // NaN: the amax propagates NaN, so a block holding a NaN gets a NaN scale
-// and NaN residuals, and its nibbles are written as q = -7 (fmaxf drops the
-// NaN in the clip); its decoded sums are NaN.
+// and NaN residuals; its decoded sums are NaN. Where c / scale is NaN (a
+// NaN block, or an infinite element against an infinite scale) q is NaN
+// unclipped, as in the plain version and the reference: its nibble is 8
+// (their int32 cast of NaN leaves a low nibble of 0) and its residual NaN.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -53,7 +65,7 @@
 namespace {
 
 constexpr int BLOCK = 256;
-constexpr int HALF = BLOCK / 2;           // threads per quantization block
+constexpr int HALF = BLOCK / 2;           // wire bytes per quantization block
 constexpr float RECIP7 = 0x1.24924ap-3f;  // float32(1/7)
 constexpr float TINY = 1e-12f;
 
@@ -61,62 +73,116 @@ __device__ __forceinline__ float nanmax(float a, float b) {
   return (a != a || b != b) ? __fadd_rn(a, b) : fmaxf(a, b);
 }
 
-__device__ __forceinline__ float quantize(float c, float d) {
-  return fminf(fmaxf(rintf(__fdiv_rn(c, d)), -7.f), 7.f);
+constexpr int ENC_WARPS = 4;  // quantization blocks in flight per CTA
+constexpr int ENC_THREADS = 32 * ENC_WARPS;
+constexpr int PER_LANE = BLOCK / 32;  // 8
+
+// One lane's 8 elements of a block: p points at the first, n of them lie
+// inside the row (columns past L read as 0). Where VEC, n is a multiple of
+// 4 and p 16-byte aligned: one float4 for each 4 inside.
+template <bool VEC>
+__device__ __forceinline__ void load8(const float* __restrict__ p,
+                                      long long n, float (&v)[PER_LANE]) {
+  if (VEC) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float4 f = 4 * h < n ? *reinterpret_cast<const float4*>(p + 4 * h)
+                                 : make_float4(0.f, 0.f, 0.f, 0.f);
+      v[4 * h] = f.x;
+      v[4 * h + 1] = f.y;
+      v[4 * h + 2] = f.z;
+      v[4 * h + 3] = f.w;
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < PER_LANE; ++k) v[k] = k < n ? p[k] : 0.f;
+  }
 }
 
-// One block of 128 threads per (slice, 256-element block); thread t owns
-// columns 2t and 2t+1 of the block. x, err, res are (S, L) row-major; q is
-// (S, nb, 128); scale is (S, nb). Columns past L are zero padding: they
-// enter the amax as 0 and store nibble 8 (q = 0), no residual. `vec`: the
-// rows allow 8-byte float2 loads (L even, bases 8-byte aligned).
-template <bool HAS_ERR>
-__global__ void __launch_bounds__(HALF)
+// x, err, res (S, L) row-major; q (S, nb, 128); scale (S, nb). CTAs of
+// WARPS warps; warp w of the grid takes blocks w, w + stride, ... of the
+// S * nb, walking (s, b) by (ds, db) = divmod(stride, nb). Columns past L
+// are zero padding: they enter the amax as 0 and store nibble 8 (q = 0),
+// no residual; at an odd L the last byte's high nibble is padding. WARPS
+// is ENC_WARPS in every launch here; scripts/encode_sweep.py times other
+// CTA sizes.
+template <bool HAS_ERR, bool VEC, int WARPS = ENC_WARPS>
+__global__ void __launch_bounds__(32 * WARPS)
 int4_block_encode(const float* __restrict__ x, const float* __restrict__ err,
                   uint8_t* __restrict__ q, float* __restrict__ scale,
                   float* __restrict__ res, long long L, long long nb,
-                  bool vec) {
-  __shared__ float warp_max[HALF / 32];
-  const long long blk = blockIdx.x;
-  const long long s = blk / nb;
-  const long long col = (blk - s * nb) * BLOCK + 2 * threadIdx.x;
-  const long long at = s * L + col;
-  const bool in0 = col < L;
-  const bool in1 = col + 1 < L;
-
-  float c0 = 0.f, c1 = 0.f;
-  if (vec && in1) {
-    const float2 v = *reinterpret_cast<const float2*>(x + at);
-    c0 = v.x;
-    c1 = v.y;
-    if (HAS_ERR) {
-      const float2 e = *reinterpret_cast<const float2*>(err + at);
-      c0 = __fadd_rn(c0, e.x);
-      c1 = __fadd_rn(c1, e.y);
+                  long long total) {
+  const int lane = threadIdx.x & 31;
+  const long long stride = static_cast<long long>(gridDim.x) * WARPS;
+  long long blk = static_cast<long long>(blockIdx.x) * WARPS +
+                  (threadIdx.x >> 5);
+  if (blk >= total) return;
+  const long long ds = stride / nb, db = stride - ds * nb;
+  long long s = blk / nb, b = blk - s * nb;
+  float xv[PER_LANE], ev[PER_LANE];
+  long long col = b * BLOCK + PER_LANE * lane;
+  load8<VEC>(x + s * L + col, L - col, xv);
+  if (HAS_ERR) load8<VEC>(err + s * L + col, L - col, ev);
+  for (;;) {
+    float c[PER_LANE];
+#pragma unroll
+    for (int k = 0; k < PER_LANE; ++k)
+      c[k] = HAS_ERR ? __fadd_rn(xv[k], ev[k]) : xv[k];
+    const long long at = s * L + col, n = L - col, here = blk;
+    // the next block's loads go out before this block's stores
+    blk += stride;
+    const bool more = blk < total;
+    if (more) {
+      s += ds;
+      b += db;
+      if (b >= nb) {
+        b -= nb;
+        ++s;
+      }
+      col = b * BLOCK + PER_LANE * lane;
+      load8<VEC>(x + s * L + col, L - col, xv);
+      if (HAS_ERR) load8<VEC>(err + s * L + col, L - col, ev);
     }
-  } else {
-    if (in0) c0 = HAS_ERR ? __fadd_rn(x[at], err[at]) : x[at];
-    if (in1) c1 = HAS_ERR ? __fadd_rn(x[at + 1], err[at + 1]) : x[at + 1];
-  }
-  float m = nanmax(fabsf(c0), fabsf(c1));
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    m = nanmax(m, __shfl_xor_sync(0xffffffffu, m, o));
-  if ((threadIdx.x & 31) == 0) warp_max[threadIdx.x >> 5] = m;
-  __syncthreads();
-  float amax = warp_max[0];
-#pragma unroll
-  for (int w = 1; w < HALF / 32; ++w) amax = nanmax(amax, warp_max[w]);
 
-  const float sc = __fmul_rn(amax, RECIP7);
-  const float d = (sc != sc) ? sc : fmaxf(sc, TINY);
-  const float q0 = quantize(c0, d);
-  const float q1 = quantize(c1, d);
-  q[blk * HALF + threadIdx.x] = static_cast<uint8_t>(
-      (static_cast<int>(q0) + 8) | ((static_cast<int>(q1) + 8) << 4));
-  if (threadIdx.x == 0) scale[blk] = sc;
-  if (in0) res[at] = __fmaf_rn(-q0, sc, c0);
-  if (in1) res[at + 1] = __fmaf_rn(-q1, sc, c1);
+    float m = fabsf(c[0]);
+#pragma unroll
+    for (int k = 1; k < PER_LANE; ++k) m = nanmax(m, fabsf(c[k]));
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      m = nanmax(m, __shfl_xor_sync(0xffffffffu, m, o));
+    const float sc = __fmul_rn(m, RECIP7);
+    const float d = (sc != sc) ? sc : fmaxf(sc, TINY);
+    unsigned word = 0u;  // nibble k at bits 4k .. 4k + 3
+    float r[PER_LANE];
+#pragma unroll
+    for (int k = 0; k < PER_LANE; ++k) {
+      float qf = rintf(__fdiv_rn(c[k], d));
+      qf = (qf != qf) ? qf : fminf(fmaxf(qf, -7.f), 7.f);
+      const unsigned nib =
+          (qf != qf) ? 8u : static_cast<unsigned>(__float2int_rn(qf) + 8);
+      word |= nib << (4 * k);
+      r[k] = __fmaf_rn(-qf, sc, c[k]);
+    }
+    uint8_t* qp = q + here * HALF + (PER_LANE / 2) * lane;
+    float* rp = res + at;
+    if (VEC) {
+      *reinterpret_cast<unsigned*>(qp) = word;
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        if (4 * h < n)
+          *reinterpret_cast<float4*>(rp + 4 * h) =
+              make_float4(r[4 * h], r[4 * h + 1], r[4 * h + 2], r[4 * h + 3]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < PER_LANE / 2; ++j)
+        qp[j] = static_cast<uint8_t>(word >> (8 * j));
+#pragma unroll
+      for (int k = 0; k < PER_LANE; ++k)
+        if (k < n) rp[k] = r[k];
+    }
+    if (lane == 0) scale[here] = sc;
+    if (!more) return;
+  }
 }
 
 constexpr int DEC_V = 8;          // outputs per thread: one wire word a peer
@@ -245,30 +311,70 @@ void launch_decode(dim3 grid, cudaStream_t st, const uint8_t* q,
     launch_decode_out<W_T, false>(grid, st, q, scale, out, W, nb, L, R);
 }
 
+using Encode = void (*)(const float*, const float*, uint8_t*, float*, float*,
+                       long long, long long, long long);
+
+Encode pick_encode(bool has_err, bool vec) {
+  if (has_err)
+    return vec ? int4_block_encode<true, true> : int4_block_encode<true, false>;
+  return vec ? int4_block_encode<false, true> : int4_block_encode<false, false>;
+}
+
+bool aligned(const void* p, uintptr_t n) {
+  return reinterpret_cast<uintptr_t>(p) % n == 0;
+}
+
+// The encode's grid: as many CTAs as the card holds at once (SMs x
+// cudaOccupancyMaxActiveBlocksPerMultiprocessor, asked once per host
+// thread, device and instance), no more than the blocks need.
+int encode_grid(Encode k, long long total, unsigned* ctas) {
+  constexpr int DEVICES = 16;
+  thread_local int resident[DEVICES][4] = {};  // CTAs a card holds
+  int dev = 0;
+  int rc = static_cast<int>(cudaGetDevice(&dev));
+  if (rc) return rc;
+  if (dev < 0 || dev >= DEVICES)
+    return static_cast<int>(cudaErrorInvalidDevice);
+  const int i = (k == int4_block_encode<true, true>) * 3 +
+                (k == int4_block_encode<true, false>) * 2 +
+                (k == int4_block_encode<false, true>) * 1;
+  if (!resident[dev][i]) {
+    int sms = 0, per_sm = 0;
+    rc = static_cast<int>(cudaDeviceGetAttribute(
+        &sms, cudaDevAttrMultiProcessorCount, dev));
+    if (!rc)
+      rc = static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, k, ENC_THREADS, 0));
+    if (rc) return rc;
+    resident[dev][i] = sms * (per_sm > 0 ? per_sm : 1);
+  }
+  const long long need = (total + ENC_WARPS - 1) / ENC_WARPS;
+  *ctas = static_cast<unsigned>(need < resident[dev][i] ? need
+                                                        : resident[dev][i]);
+  return 0;
+}
+
 }  // namespace
 
 extern "C" {
 
 // Launch the encode on `stream` over S slices of length L (nb blocks each);
-// err == nullptr selects the residual-only variant. Returns the CUDA error
+// err == nullptr selects the residual-only variant. One launch of a grid
+// sized to the SMs, whatever the number of blocks. Returns the CUDA error
 // code of the launch (0 = success).
 int codec_int4_encode(const float* x, const float* err, uint8_t* q,
                       float* scale, float* res, long long S, long long L,
                       long long nb, void* stream) {
-  const long long blocks = S * nb;
-  if (blocks <= 0) return 0;
-  if (blocks > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
-  const bool vec = (L % 2 == 0)
-      && (reinterpret_cast<uintptr_t>(x) % 8 == 0)
-      && (err == nullptr || reinterpret_cast<uintptr_t>(err) % 8 == 0);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (err != nullptr) {
-    int4_block_encode<true><<<static_cast<unsigned>(blocks), HALF, 0, st>>>(
-        x, err, q, scale, res, L, nb, vec);
-  } else {
-    int4_block_encode<false><<<static_cast<unsigned>(blocks), HALF, 0, st>>>(
-        x, nullptr, q, scale, res, L, nb, vec);
-  }
+  const long long total = S * nb;
+  if (total <= 0) return 0;
+  const bool vec = L % 4 == 0 && aligned(x, 16) && aligned(res, 16) &&
+                   aligned(q, 4) && (err == nullptr || aligned(err, 16));
+  const Encode k = pick_encode(err != nullptr, vec);
+  unsigned ctas = 0;
+  int rc = encode_grid(k, total, &ctas);
+  if (rc) return rc;
+  k<<<ctas, ENC_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      x, err, q, scale, res, L, nb, total);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -32,12 +32,13 @@ peer terms lie within 2**29 of each other, so one cast back gives the fused
 multiply-add's single rounding.
 
 NaN: a NaN in a block (fp8: in a slice) makes its amax and scale NaN, so
-the residual there and every decoded sum that includes it are NaN. The int8
-and fp8 kernels write the wire bytes of this version there (int8 0, fp8 a
-NaN byte); the int4 kernel writes nibble 1, so for int4 compare NaN
-positions. A NaN's payload bits are not part of the contract: the
-residual here rounds a float64 NaN, the kernels' fused multiply-add a
-float32 one.
+the residual there and every decoded sum that includes it are NaN. Where
+c / scale is NaN (that block, or a +-inf element against its infinite
+scale) the kernels write the wire bytes of this version: int8 0, int4
+nibble 8 (the int32 cast of NaN leaves a low nibble of 0), fp8 a NaN
+byte. A NaN's payload bits are not part of the contract: the residual
+here rounds a float64 NaN, the kernels' fused multiply-add a float32
+one.
 """
 from __future__ import annotations
 

@@ -7,8 +7,9 @@ versions (``kernels/ref.py``); those are held against
 same numpy inputs. Wire bytes, scales, residuals and decode-reduce sums
 all match bitwise: both sides use the f32 reciprocal scale, round half to
 even, round ``c - q*scale`` and every ``acc + q*scale`` once, and
-accumulate the peers in order from 0. Where a slice holds a NaN the wire
-byte is not specified; NaN positions are compared instead. The
+accumulate the peers in order from 0. Where c / scale is NaN (a NaN in the
+block, or +-inf against an infinite scale) int4 stores nibble 8 and a NaN
+residual, as the reference does; NaN residuals compare by position. The
 ``cuda``-marked tests hold each CUDA kernel against its plain version on
 the card, bitwise, and skip where there is no card.
 """
@@ -107,17 +108,18 @@ def test_edge_values_match_pallas(jkern, codec):
         assert float(got[0]["scale"][3]) == np.float32(1e-30)
 
 
-#: the fp8 encode kernel's edges at sizes the reference's interpret mode
-#: takes on the CPU (S, L, offset, special): L % 4 != 0, a slice shorter
-#: than a warp's vector, a view one float past a 16-byte boundary, and
-#: slices holding a NaN, +-inf and zeros
+#: the fp8 and int4 encode kernels' edges at sizes the reference's
+#: interpret mode takes on the CPU (S, L, offset, special): L % 4 != 0, a
+#: slice shorter than a warp's vector, a view one float past a 16-byte
+#: boundary, and slices holding a NaN, +-inf and zeros
 FP8_CPU_EDGES = [(4, 1001, 0, False), (2, 255, 0, False),
                  (3, 1000, 1, False), (4, 1000, 0, True),
                  (4, 1001, 1, True)]
-#: the fp8 encode kernel's cases on the card: the main path's (16, 131072)
-#: and (8, 131072) (clusters of 8 and 16 CTAs, rows in registers), rows it
-#: walks twice ((16, 524288), one slice of 1 << 22), short rows, the edges
-#: above, and a misaligned (16, 131072)
+#: the fp8 and int4 encode kernels' cases on the card: the main path's
+#: (16, 131072) and (8, 131072) (fp8: clusters of 8 CTAs, rows in
+#: registers), rows fp8 walks twice ((16, 524288), one slice of 1 << 22;
+#: int4: more blocks than its grid's warps), short rows, the edges above,
+#: and a misaligned (16, 131072) (the scalar paths)
 FP8_CUDA_CASES = [(16, 131072, 0, False), (8, 131072, 0, False),
                   (16, 524288, 0, False), (1, 1 << 22, 0, False),
                   (3, 1000, 0, False), (1, 256, 0, False),
@@ -167,6 +169,33 @@ def test_fp8_encode_edges_match_pallas(jkern, S, L, offset, special,
         assert np.isnan(got[1][:2].numpy()).all() and not got[1][2].any()
 
 
+@pytest.mark.parametrize("with_err", [False, True])
+@pytest.mark.parametrize("S,L,offset,special", FP8_CPU_EDGES)
+def test_int4_encode_edges_match_pallas(jkern, S, L, offset, special,
+                                        with_err):
+    """The plain int4 encode against the reference's kernel at the same
+    edges: q and scale bitwise, residual NaNs by position. Where c / scale
+    is NaN both store nibble 8: byte 136 throughout slice 0's NaN block;
+    slice 1's first block (+inf) has an infinite scale and every residual
+    NaN (0 * inf); slice 2's scales are 0."""
+    x, err = _encode_operands(S, L, offset, special)
+    assert x.is_contiguous() and x.storage_offset() == offset
+    if with_err:
+        want = jkern.int4_encode_feedback(x.numpy(), err.numpy(),
+                                          interpret=True)
+        got = tkern.int4_encode_feedback(x, err)
+    else:
+        want = jkern.int4_encode_residual(x.numpy(), interpret=True)
+        got = tkern.int4_encode_residual(x)
+    _assert_wire(got, want)
+    if special:
+        q, scale = got[0]["q"].numpy(), got[0]["scale"].numpy()
+        assert (q[0, (L // 3) // 256] == 136).all()
+        assert scale[1, 0] == np.inf
+        assert np.isnan(got[1][1, :256].numpy()).all()
+        assert not scale[2].any()
+
+
 @pytest.mark.parametrize("codec", CODECS)
 def test_encode_rank_batch_matches_per_rank(jkern, codec):
     """A leading rank dim is the per-rank encodes stacked."""
@@ -182,13 +211,15 @@ def test_encode_rank_batch_matches_per_rank(jkern, codec):
 @pytest.mark.parametrize("codec", CODECS)
 def test_nan_propagates(codec):
     """A NaN makes its block's (int4) or slice's (fp8) scale and residuals
-    NaN and leaves the others alone; the wire byte there is unspecified."""
+    NaN and leaves the others alone; int4 stores byte 136 (nibble 8 twice)
+    throughout the NaN block, fp8's wire byte there is unspecified."""
     x = np.ones((2, 512), np.float32)
     x[0, 10] = np.nan
     comp, res = _fn(codec, "encode_residual")[0](torch.from_numpy(x))
     nan_res = np.isnan(res.numpy())
     if codec == "int4":
         assert np.isnan(float(comp["scale"][0, 0]))
+        assert (comp["q"][0, 0] == 136).all()
         assert nan_res[0, :256].all() and not nan_res[0, 256:].any()
     else:
         assert np.isnan(float(comp["scale"][0]))
@@ -343,16 +374,11 @@ def _same(a, b):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("codec,S,L,offset,special", [
-    ("int4", S, L, 0, False) for S, L in ((16, 131072), (3, 1000), (1, 256))]
-    + [("fp8",) + case for case in FP8_CUDA_CASES])
+    (codec,) + case for codec in CODECS for case in FP8_CUDA_CASES])
 @pytest.mark.parametrize("with_err", [False, True])
 def test_cuda_encode_matches_plain(cuda, codec, S, L, offset, special,
                                    with_err):
-    if offset or special:
-        x, err = _encode_operands(S, L, offset, special, cuda)
-    else:  # the int4 cases' operands as before
-        x, err = (torch.from_numpy(a).to(cuda)
-                  for a in _payload((S, L), S + L))
+    x, err = _encode_operands(S, L, offset, special, cuda)
     keys = [k + ("_feedback" if with_err else "")
             for k in ENCODE_KERNELS[codec]]
     before = dict(tkern.launches)
