@@ -467,9 +467,9 @@ class Selector:
 
         ``telemetry`` is the ``repro_torch.core.telemetry`` module or any object
         with a ``plan_observations()`` iterable of observation records
-        (``topo / collective / dtype / nbytes / plan`` plus
-        ``median(synced=True)``). Only synced samples count — dispatch-only
-        wall clock must not overwrite blocking calibration rows. Each
+        (``topo / collective / dtype / nbytes / plan`` plus ``median()``),
+        each sample a window that ended in a device wait, as a blocking
+        calibration row is. Each
         ingested row goes through :meth:`TuningTable.record`, so the
         generation bump invalidates selection memos and the next
         ``choose()`` resolves from the corrected entries — this is how a
@@ -481,7 +481,7 @@ class Selector:
         for obs in telemetry.plan_observations():
             if len(obs.samples) < max(1, int(min_samples)):
                 continue
-            med = obs.median(synced=True)
+            med = obs.median()
             if med is None or med <= 0.0:
                 continue
             self.table.record(obs.topo, obs.collective, obs.dtype,

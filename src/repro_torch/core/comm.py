@@ -30,8 +30,9 @@ Telemetry (``core.telemetry``, the reference's hooks at its places): plan
 resolution and persistent init emit spans, init and release bump the
 ``comm.persistent_inits`` / ``comm.persistent_releases`` counters, and each
 ``start`` opens a window on the op's own ``comm:<collective>#<n>`` track
-that ``wait`` closes; a blocking wait also records a synced plan
-observation (the window ends after the card's work is done).
+that ``wait`` closes; a blocking wait also records a plan observation
+(the window ends after the card's work is done). ``start``'s copies into
+the op's own buffers run in a ``persistent/writeback`` range.
 """
 from __future__ import annotations
 
@@ -145,15 +146,14 @@ class CollHandle:
             self._event.synchronize()
         if self._token is not None:
             # the telemetry window opened at start(): close it here; after
-            # a blocking wait it is a synced sample for the drift detector
+            # a blocking wait it is a sample for the drift detector
             _tm.end(self._token)
             if block:
                 op = self._op
                 _tm.observe_plan(op.comm.topo, op.collective,
                                  runtime.dtype_name(op.dtype),
                                  op._msg_nbytes, op.plan,
-                                 time.perf_counter() - self._t0,
-                                 synced=True)
+                                 time.perf_counter() - self._t0)
         return self._value
 
 
@@ -223,9 +223,9 @@ class PersistentOp:
                                  device=comm.grid.device)
                      for _ in range(self.depth)]
         if tm_on:
-            _tm.emit(f"persistent_init/{collective}", t0,
-                     time.perf_counter() - t0, cat="persistent",
-                     **self._tags())
+            dt = time.perf_counter() - t0
+            _tm.emit(f"persistent_init/{collective}", _tm.now() - dt, dt,
+                     cat="persistent", **self._tags())
         _tm.counter("comm.persistent_inits").inc()
         _LIVE_OPS += 1
 
@@ -314,11 +314,14 @@ class PersistentOp:
         if self.carry:
             self._check_operand(carry, what="carry")
             y, new_carry = self._fn(x, carry)
-            out.copy_(y)
-            carry.copy_(new_carry)
+            with _tm.span("persistent/writeback", cat="writeback"):
+                out.copy_(y)
+                carry.copy_(new_carry)
             value = (out, carry)
         else:
-            out.copy_(self._fn(x))
+            y = self._fn(x)
+            with _tm.span("persistent/writeback", cat="writeback"):
+                out.copy_(y)
             value = out
         event = None
         if out.is_cuda:
@@ -498,8 +501,9 @@ class Communicator:
             self.topo, spec.collective, spec.algo, proto, kw,
             error_budget=spec.error_budget, selector=self.selector)
         if tm_on:
-            _tm.emit(f"plan_resolve/{spec.collective}", t0,
-                     time.perf_counter() - t0, cat="resolve",
+            dt = time.perf_counter() - t0
+            _tm.emit(f"plan_resolve/{spec.collective}", _tm.now() - dt, dt,
+                     cat="resolve",
                      requested=spec.algo,
                      **_tm.plan_tags(spec.collective, algo_r,
                                      int(kw_r.get("chunks", 1)),

@@ -205,12 +205,15 @@ class Codec:
     def achieved_ratio(self, x2d) -> float:
         """Measured compression ratio on one payload: float32 payload bytes
         over actual wire bytes of ``encode(x2d)`` (>= 1 means the codec
-        shrinks the wire). Runs an encode, so callers sample it (the
+        shrinks the wire). Runs an encode (the fused one where registered,
+        whose wire form is the plain one's), so callers sample it (the
         telemetry error-feedback probe) rather than calling it per
         collective."""
         x2d = torch.as_tensor(x2d).float()
-        return float(x2d.numel() * 4.0) / max(1, self.wire_bytes(
-            self.encode(x2d)))
+        lw = self._lowering()
+        comp = lw.encode_residual(x2d)[0] if lw is not None \
+            else self.encode(x2d)
+        return float(x2d.numel() * 4.0) / max(1, self.wire_bytes(comp))
 
 
 # ---------------------------------------------------------------------------

@@ -42,6 +42,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 
 from repro_torch.core import compress as _codecs
+from repro_torch.core import telemetry as _tm
 from repro_torch.core.topology import Topology
 
 # ---------------------------------------------------------------------------
@@ -185,7 +186,12 @@ def _compressed_allreduce(x, topo: Topology, grid, codec: str, err=None):
     intra allgather. ``err`` (shaped like ``x``): each rank adds its carried
     residual before compressing and gets back the fresh residuals of both
     encode sites at the positions it owns post-scatter. Returns
-    ``(out, new_err)`` when ``err`` is given.
+    ``(out, new_err)`` when ``err`` is given. Profiler ranges
+    (``core.telemetry``): ``allreduce/intra_reduce_scatter`` (1),
+    ``allreduce/wire_reduce_scatter`` (2 and the decode + sum),
+    ``allreduce/wire_allgather`` (the re-encode and 4),
+    ``allreduce/intra_allgather`` (5) and ``allreduce/residual`` (both
+    residuals placed).
     """
     cd = _codecs.codec(codec)
     _check_codec_payload(x, codec, "allreduce")
@@ -197,47 +203,53 @@ def _compressed_allreduce(x, topo: Topology, grid, codec: str, err=None):
         else None
     Pl = topo.n_local if fast else 1
     R = x.shape[0]
-    g = x.float().reshape(R, -1)
-    orig = g.shape[1]
-    if err is not None:
-        g = g + err.float().reshape(R, -1)
-    gp, _ = _pad_to(g, Pl)
-    s = grid.psum_scatter(gp, fast, tiled=True) if fast else gp
+    with _tm.span("allreduce/intra_reduce_scatter", cat="allreduce"):
+        g = x.float().reshape(R, -1)
+        orig = g.shape[1]
+        if err is not None:
+            g = g + err.float().reshape(R, -1)
+        gp, _ = _pad_to(g, Pl)
+        s = grid.psum_scatter(gp, fast, tiled=True) if fast else gp
     Lp = s.shape[1]
     Ls = -(-Lp // W)
-    sp, _ = _pad_to(s, W * Ls)
-    xs = sp.reshape(R * W, Ls)
-    # one encode launch for every rank's W sub-slices
-    if err is not None:
-        comp, r1 = cd.encode_residual(xs)
-    else:
-        comp = cd.encode(xs)
-    # reduce-scatter over the wire: rank w of each wire group receives
-    # sub-slice w of every peer and reduces it in one decode_reduce launch
-    mine = cd.decode_reduce(_wire_all_to_all(grid, _split0(comp, (R, W)),
-                                             wire), Ls)
-    if err is not None:
-        comp2, r2 = cd.encode_residual(mine)
-    else:
-        comp2 = cd.encode(mine)
-    gathered = _wire_all_gather(grid, _split0(comp2, (R, 1)), wire)
-    red = cd.decode(_merge01(gathered), Ls).reshape(R, W * Ls)[:, :Lp]
-    out = grid.all_gather(red, fast, tiled=True) if fast else red
-    out = out[:, :orig].to(dtype).reshape(shape)
+    with _tm.span("allreduce/wire_reduce_scatter", cat="allreduce"):
+        sp, _ = _pad_to(s, W * Ls)
+        xs = sp.reshape(R * W, Ls)
+        # one encode launch for every rank's W sub-slices
+        if err is not None:
+            comp, r1 = cd.encode_residual(xs)
+        else:
+            comp = cd.encode(xs)
+        # reduce-scatter over the wire: rank w of each wire group receives
+        # sub-slice w of every peer and reduces it in one decode_reduce
+        # launch
+        mine = cd.decode_reduce(_wire_all_to_all(
+            grid, _split0(comp, (R, W)), wire), Ls)
+    with _tm.span("allreduce/wire_allgather", cat="allreduce"):
+        if err is not None:
+            comp2, r2 = cd.encode_residual(mine)
+        else:
+            comp2 = cd.encode(mine)
+        gathered = _wire_all_gather(grid, _split0(comp2, (R, 1)), wire)
+        red = cd.decode(_merge01(gathered), Ls).reshape(R, W * Ls)[:, :Lp]
+    with _tm.span("allreduce/intra_allgather", cat="allreduce"):
+        out = grid.all_gather(red, fast, tiled=True) if fast else red
+        out = out[:, :orig].to(dtype).reshape(shape)
     if err is None:
         return out
     # place both residuals at the positions each rank owns: r1 covers its
     # whole scattered slice; r2 belongs to the wire sub-slice it reduced
-    rows = torch.arange(R, device=x.device)
-    res = r1.reshape(R, W, Ls)
-    res[rows, grid.axis_index(wire)] += r2
-    res = res.reshape(R, W * Ls)[:, :Lp]
-    if fast:
-        new_err = torch.zeros((R, Pl, Lp), dtype=torch.float32,
-                              device=x.device)
-        new_err[rows, grid.axis_index(fast)] = res
-        res = new_err.reshape(R, Pl * Lp)
-    return out, res[:, :orig].reshape(err.shape)
+    with _tm.span("allreduce/residual", cat="allreduce"):
+        rows = torch.arange(R, device=x.device)
+        res = r1.reshape(R, W, Ls)
+        res[rows, grid.axis_index(wire)] += r2
+        res = res.reshape(R, W * Ls)[:, :Lp]
+        if fast:
+            new_err = torch.zeros((R, Pl, Lp), dtype=torch.float32,
+                                  device=x.device)
+            new_err[rows, grid.axis_index(fast)] = res
+            res = new_err.reshape(R, Pl * Lp)
+        return out, res[:, :orig].reshape(err.shape)
 
 
 def _compressed_reduce_scatter(x, topo: Topology, grid, codec: str):

@@ -19,9 +19,9 @@ the build/exec caches behind the Communicator.
 
 With telemetry on (``core.telemetry``), builds, persistent binds, cache
 hits, every call and every calibrated plan leave spans tagged with the
-resolved plan; calls add dispatch-only plan observations and calibration
-samples synced ones. Each entry point reads ``telemetry.enabled()`` once;
-with telemetry off that read is all the hooks cost.
+resolved plan; calibration samples, each ending in a device synchronize,
+are plan observations. Each entry point reads ``telemetry.enabled()``
+once; with telemetry off that read is all the hooks cost.
 
 Operands and results follow the reference's global conventions per
 collective (:data:`_WIRING`, the reference's ``runtime.build`` table); the
@@ -547,14 +547,9 @@ def run_resolved(grid, topo: Topology, name: str, algo: str, x, *,
         # dispatch host time only: the card may still be running
         dt = time.perf_counter() - t0
         nb = _message_bytes(name, topo, logical(grid, name, x))
-        _tm.emit(name, t0, dt, cat="collective",
+        _tm.emit(name, _tm.now() - dt, dt, cat="collective",
                  cache="hit" if hit else "miss",
                  **_span_tags(topo, name, algo, kw, nbytes=nb))
-        _tm.observe_plan(topo, name, dtype_name(x.dtype), nb,
-                         autotune.encode_plan(algo,
-                                              int(kw.get("chunks", 1)),
-                                              str(kw.get("codec", "none"))),
-                         dt, synced=False)
     return out
 
 
@@ -703,7 +698,7 @@ def calibrate(grid, topo: Topology,
                     # drift detector's best evidence
                     for sample in samples:
                         _tm.observe_plan(topo, name, dt, int(nb), plan,
-                                         sample, synced=True)
+                                         sample)
                 sec = float(statistics.median(samples))
                 sel.table.record(topo, name, dt, int(nb), plan, sec)
                 rows.append(CalibrationRow(name, algo, int(nb), dt, sec,

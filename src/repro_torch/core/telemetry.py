@@ -1,6 +1,6 @@
 """Collective telemetry: structured tracing, a metrics registry, and
 cost-model drift detection for the Communicator stack (port of
-``repro.core.telemetry``: the same names, signatures and semantics).
+``repro.core.telemetry``: the same names and semantics).
 
 Three pieces, all **zero-overhead when disabled** (every recording site in
 runtime/comm/train/serve guards on :func:`enabled`, a single module-global
@@ -16,8 +16,10 @@ read):
      ``chrome://tracing``): compute and dispatch spans ride the ``main``
      track, each persistent op's start->wait window its own ``comm:*``
      track and each gradient bucket's window its own ``bucket:<i>`` track.
-     Spans are host-clock windows (``time.perf_counter``); a window closed
-     by a blocking wait ends after the device result is ready.
+     Spans are stamped on the clock of ``torch.profiler``'s host events,
+     nanoseconds of the Unix epoch (:func:`now`), so a span lines up with
+     the profiler's kernels and gaps; a window closed by a blocking wait
+     ends after the device result is ready.
   2. **Metrics registry** — process-wide counters and fixed-bucket
      histograms (host-side only; recording never inserts a device sync).
      :func:`snapshot` unifies ``runtime.cache_stats()``,
@@ -25,22 +27,56 @@ read):
      the registry and the per-plan observations in one dict.
   3. **Drift detector** — :func:`observe_plan` accumulates per-plan
      wall-clock samples keyed on ``(topology, collective, dtype, size
-     bucket, plan)``; :func:`drift_report` compares the observed medians
+     bucket, plan)``, each a full dispatch-to-ready window (a persistent
+     ``wait(block=True)``, calibration loops that end in a device
+     synchronize); :func:`drift_report` compares the observed medians
      with the Selector's measured tuning table and the
      ``costmodel.plan_cost`` prior, flagging plans whose observation
      diverges beyond a threshold. ``Selector.ingest(telemetry)``
      (``core.autotune``) closes the loop by folding observed medians back
      into the table as measured evidence.
 
-Observation kinds: ``synced=True`` samples cover a full
-dispatch-to-ready window (a persistent ``wait(block=True)``, calibration
-loops that end in a device synchronize) and feed drift and ingest;
-``synced=False`` samples are dispatch-only host time (a blocking method's
-call under asynchronous CUDA execution) and are kept apart — they land in
-the histograms but never in drift verdicts.
+**Profiler ranges.** :func:`span` also opens a ``torch.profiler`` range of
+its name whenever a profiler records (``torch.autograd.profiler.
+_is_profiler_enabled``) or telemetry is enabled, so the program's spans
+appear in the profiler's own trace without :func:`enable` (which adds the
+ring buffer, plan observations and the sampled error-feedback probe). With
+neither on, :func:`span` returns the shared no-op context: the guard is one
+global read and one attribute read. :func:`begin`/:func:`end` windows cross
+frames and overlap one another, so they stay in the ring buffer only and
+the profiler's ranges nest. The ranges, by the stage they time:
 
-The module imports only the standard library; runtime/comm/autotune (and
-``torch.distributed`` for the process rank) are imported lazily inside
+  ==================================  ======================================
+  ``train/fwd_bwd``                   each held rank's forward, backward and
+                                      gradient gather (``train_step``, the
+                                      fused ``make_manual_train_step``)
+  ``train/grad_sync``                 the fused step's gradient sync
+  ``train/metric_sync``               its lossless loss and metric syncs
+  ``train/optimizer``                 ``optim.adamw.update``
+  ``sync/bucket``                     one bucket's sync call
+                                      (``sync_tree_bucketed``,
+                                      ``OverlappedGradSync.start``)
+  ``allreduce/intra_reduce_scatter``  the compressed allreduce's phases
+  ``allreduce/wire_reduce_scatter``   (``mcoll._compressed_allreduce``):
+  ``allreduce/wire_allgather``        the carried-error add and the fast
+  ``allreduce/intra_allgather``       axis' reduce-scatter; encode, wire
+  ``allreduce/residual``              all-to-all, decode-reduce; re-encode,
+                                      wire allgather, decode; the fast
+                                      axis' allgather; both residuals
+                                      placed into the new carry
+  ``persistent/writeback``            a persistent op's copies into its own
+                                      buffers (``PersistentOp.start``)
+  ``moe/alltoall``                    each expert-parallel all-to-all,
+                                      forward and backward
+  ``host_read/<site>``                each blocking device-to-host read or
+                                      synchronizing copy on a step's path
+                                      (:func:`host_read`; also counted as
+                                      ``host_reads.<site>``)
+  ==================================  ======================================
+
+The module imports only the standard library; torch's profiler is looked
+up in ``sys.modules`` (never imported from here), and runtime/comm/autotune
+(and ``torch.distributed`` for the process rank) are imported lazily inside
 :func:`snapshot` / :func:`drift_report`, so every core module may import
 this one without cycles.
 """
@@ -50,10 +86,11 @@ import dataclasses
 import json
 import math
 import pathlib
+import sys
 import threading
 import time
 from collections import deque
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 # ---------------------------------------------------------------------------
 # enablement: one module-global bool, read by every instrumentation site
@@ -97,6 +134,7 @@ def reset() -> None:
         _REGISTRY.reset()
         _PLAN_OBS.clear()
         _SAMPLE_COUNTERS.clear()
+        _DEFERRED.clear()
 
 
 # ---------------------------------------------------------------------------
@@ -106,22 +144,42 @@ def reset() -> None:
 
 @dataclasses.dataclass(frozen=True)
 class Span:
-    """One completed lifecycle window. ``start`` is ``time.perf_counter``
-    seconds (exported relative to the earliest span); ``track`` is the
-    logical timeline lane (``"main"`` for compute/dispatch, ``"comm:*"``
-    for in-flight collective windows so concurrent buckets never overlap
-    on one lane)."""
+    """One completed lifecycle window. ``start_ns`` and ``duration_ns`` are
+    nanoseconds on the trace's clock (:func:`now`; ``start``, ``duration``
+    and ``end`` give them in seconds, exported relative to the earliest
+    span); ``track`` is the logical timeline lane (``"main"`` for
+    compute/dispatch, ``"comm:*"`` for in-flight collective windows so
+    concurrent buckets never overlap on one lane)."""
 
     name: str
     cat: str
-    start: float
-    duration: float
+    start_ns: int
+    duration_ns: int
     track: str
     args: Tuple[Tuple[str, Any], ...]
 
     @property
+    def start(self) -> float:
+        return self.start_ns / 1e9
+
+    @property
+    def duration(self) -> float:
+        return self.duration_ns / 1e9
+
+    @property
     def end(self) -> float:
-        return self.start + self.duration
+        return (self.start_ns + self.duration_ns) / 1e9
+
+
+#: the trace's clock: ``torch.profiler`` stamps its host events in
+#: nanoseconds of the Unix epoch
+_clock_ns = time.time_ns
+
+
+def now() -> float:
+    """Seconds on the trace's clock, for a caller that times a window
+    itself and hands it to :func:`emit`."""
+    return _clock_ns() / 1e9
 
 
 _SPANS: "deque[Span]" = deque(maxlen=_DEFAULT_CAPACITY)
@@ -140,22 +198,62 @@ def _freeze_args(args: Dict[str, Any]) -> Tuple[Tuple[str, Any], ...]:
     return tuple(sorted(args.items()))
 
 
-class _SpanCtx:
-    """Context manager emitting one span on exit (enabled path only)."""
+class _NoProfiler:
+    """``torch.autograd.profiler`` until torch is loaded: no profiler
+    records; the first read after torch is loaded binds the real module."""
 
-    __slots__ = ("name", "cat", "track", "args", "_t0")
+    @property
+    def _is_profiler_enabled(self) -> bool:
+        global _PROFILER
+        mod = sys.modules.get("torch.autograd.profiler")
+        if mod is None:
+            return False
+        _PROFILER = mod
+        return mod._is_profiler_enabled
+
+
+#: the module whose ``_is_profiler_enabled`` says a profiler records
+_PROFILER: Any = _NoProfiler()
+#: the profiler range's context class, bound on first use
+_RANGE: Any = None
+
+
+def _range(name: str):
+    """An unopened profiler range named ``name``; None where torch is not
+    loaded."""
+    global _RANGE
+    if _RANGE is None:
+        if "torch" not in sys.modules:
+            return None
+        try:
+            from torch._C._profiler import _RecordFunctionFast as _RANGE
+        except ImportError:  # an older torch
+            from torch.profiler import record_function as _RANGE
+    return _RANGE(name)
+
+
+class _SpanCtx:
+    """Context manager emitting one span on exit (enabled path only),
+    inside a profiler range of its name."""
+
+    __slots__ = ("name", "cat", "track", "args", "_t0", "_range")
 
     def __init__(self, name, cat, track, args):
         self.name, self.cat, self.track = name, cat, track
         self.args = args
 
     def __enter__(self):
-        self._t0 = time.perf_counter()
+        self._range = _range(self.name)
+        if self._range is not None:
+            self._range.__enter__()
+        self._t0 = _clock_ns()
         return self
 
     def __exit__(self, *exc):
-        _emit(Span(self.name, self.cat, self._t0,
-                   time.perf_counter() - self._t0, self.track,
+        t1 = _clock_ns()
+        if self._range is not None:
+            self._range.__exit__(*exc)
+        _emit(Span(self.name, self.cat, self._t0, t1 - self._t0, self.track,
                    _freeze_args(self.args)))
         return False
 
@@ -175,21 +273,34 @@ _NULL_CTX = _NullCtx()
 
 def span(name: str, cat: str = "", track: str = "main", **args):
     """``with telemetry.span("compile/allreduce", plan=...):`` — records a
-    complete span on exit. Disabled: returns a shared no-op context (no
-    allocation beyond the call itself)."""
-    if not _ENABLED:
-        return _NULL_CTX
-    return _SpanCtx(name, cat, track, args)
+    complete span on exit, inside a profiler range of its name. Disabled,
+    it is the range alone while a profiler records (tags are the ring
+    buffer's), else a shared no-op context (no allocation beyond the call
+    itself)."""
+    if _ENABLED:
+        return _SpanCtx(name, cat, track, args)
+    if _PROFILER._is_profiler_enabled:
+        return _range(name)
+    return _NULL_CTX
+
+
+def host_read(site: str):
+    """The span ``host_read/<site>`` of one blocking device-to-host read
+    (or a copy that synchronizes), counted as ``host_reads.<site>`` in the
+    registry whether or not anything records."""
+    _REGISTRY.counter("host_reads." + site).inc()
+    return span("host_read/" + site, cat="host_read")
 
 
 def begin(name: str, cat: str = "", track: str = "main", **args
           ) -> Optional[tuple]:
     """Open a window that closes in a *different* call frame (persistent-op
     ``start`` -> ``wait``). Returns an opaque token for :func:`end`, or
-    ``None`` when disabled (``end(None)`` is a no-op)."""
+    ``None`` when disabled (``end(None)`` is a no-op). Ring buffer only:
+    such windows overlap, so they are no profiler ranges."""
     if not _ENABLED:
         return None
-    return (name, cat, track, _freeze_args(args), time.perf_counter())
+    return (name, cat, track, _freeze_args(args), _clock_ns())
 
 
 def end(token: Optional[tuple]) -> None:
@@ -197,16 +308,17 @@ def end(token: Optional[tuple]) -> None:
     if token is None:
         return
     name, cat, track, args, t0 = token
-    _emit(Span(name, cat, t0, time.perf_counter() - t0, track, args))
+    _emit(Span(name, cat, t0, _clock_ns() - t0, track, args))
 
 
 def emit(name: str, start: float, duration: float, cat: str = "",
          track: str = "main", **args) -> None:
     """Record a span whose window the caller timed itself (hot paths that
-    read ``perf_counter`` once and only build tags when enabled)."""
+    read :func:`now` once and only build tags when enabled); ``start`` in
+    seconds on the trace's clock."""
     if not _ENABLED:
         return
-    _emit(Span(name, cat, float(start), float(duration), track,
+    _emit(Span(name, cat, round(start * 1e9), round(duration * 1e9), track,
                _freeze_args(args)))
 
 
@@ -214,8 +326,7 @@ def instant(name: str, cat: str = "", track: str = "main", **args) -> None:
     """A zero-duration marker (cache hit, release, rebind)."""
     if not _ENABLED:
         return
-    _emit(Span(name, cat, time.perf_counter(), 0.0, track,
-               _freeze_args(args)))
+    _emit(Span(name, cat, _clock_ns(), 0, track, _freeze_args(args)))
 
 
 def spans() -> List[Span]:
@@ -249,13 +360,16 @@ def export_chrome_trace(path=None) -> dict:
     ``torch.distributed`` process group (0 alone), so the traces of a
     launched run's processes load side by side; spans are complete events
     (``ph="X"``) with microsecond timestamps relative to the earliest
-    recorded span. Returns the dict; writes it to ``path`` when given."""
+    recorded span, whose start on the trace's clock (ns of the Unix epoch,
+    as ``torch.profiler`` stamps its host events) is ``otherData``'s
+    ``epoch_ns``, so this file and the profiler's own trace line up when
+    merged. Returns the dict; writes it to ``path`` when given."""
     recorded = spans()
     pid, _ = _process_rank()
     tracks: Dict[str, int] = {"main": 0}
     for s in recorded:
         tracks.setdefault(s.track, len(tracks))
-    epoch = min((s.start for s in recorded), default=0.0)
+    epoch = min((s.start_ns for s in recorded), default=0)
     events: List[dict] = [
         {"ph": "M", "pid": pid, "tid": tid, "name": "thread_name",
          "args": {"name": track}}
@@ -263,10 +377,10 @@ def export_chrome_trace(path=None) -> dict:
     for s in recorded:
         events.append({
             "name": s.name, "cat": s.cat or "repro", "ph": "X",
-            "ts": (s.start - epoch) * 1e6, "dur": s.duration * 1e6,
+            "ts": (s.start_ns - epoch) / 1e3, "dur": s.duration_ns / 1e3,
             "pid": pid, "tid": tracks[s.track], "args": dict(s.args)})
     trace = {"traceEvents": events, "displayTimeUnit": "ms",
-             "otherData": {"spans_dropped": _DROPPED}}
+             "otherData": {"spans_dropped": _DROPPED, "epoch_ns": epoch}}
     if path is not None:
         p = pathlib.Path(path)
         p.parent.mkdir(parents=True, exist_ok=True)
@@ -431,14 +545,11 @@ class PlanObservation:
     plan: str
     samples: "deque[float]" = dataclasses.field(
         default_factory=lambda: deque(maxlen=_MAX_SAMPLES))
-    dispatch_samples: "deque[float]" = dataclasses.field(
-        default_factory=lambda: deque(maxlen=_MAX_SAMPLES))
 
-    def median(self, synced: bool = True) -> Optional[float]:
-        buf = self.samples if synced else self.dispatch_samples
-        if not buf:
+    def median(self) -> Optional[float]:
+        if not self.samples:
             return None
-        vals = sorted(buf)
+        vals = sorted(self.samples)
         n = len(vals)
         mid = vals[n // 2] if n % 2 else (vals[n // 2 - 1]
                                           + vals[n // 2]) / 2.0
@@ -449,12 +560,11 @@ _PLAN_OBS: Dict[tuple, PlanObservation] = {}
 
 
 def observe_plan(topo, collective: str, dtype: str, nbytes: int, plan: str,
-                 seconds: float, synced: bool = True) -> None:
+                 seconds: float) -> None:
     """Record one wall-clock sample for a resolved plan (no-op when
-    disabled). Called only at boundaries that already exist — calibration
-    timing loops and blocking persistent waits (``synced=True``), blocking
-    method dispatch windows (``synced=False``) — never by inserting a new
-    device sync."""
+    disabled): a full dispatch-to-ready window, taken only at boundaries
+    that already end in a device wait — calibration timing loops and
+    blocking persistent waits — never by inserting a new device sync."""
     if not _ENABLED:
         return
     dtype = str(dtype)
@@ -464,11 +574,9 @@ def observe_plan(topo, collective: str, dtype: str, nbytes: int, plan: str,
         if obs is None:
             obs = _PLAN_OBS[key] = PlanObservation(
                 topo, collective, dtype, int(nbytes), plan)
-        (obs.samples if synced else obs.dispatch_samples).append(
-            float(seconds))
-    kind = "sync" if synced else "dispatch"
+        obs.samples.append(float(seconds))
     _REGISTRY.histogram(
-        f"plan.{collective}.{plan}.{kind}_seconds").observe(float(seconds))
+        f"plan.{collective}.{plan}.sync_seconds").observe(float(seconds))
 
 
 def plan_observations() -> List[PlanObservation]:
@@ -486,14 +594,47 @@ SAMPLE_EVERY = 16
 def should_sample(key: str, every: int = SAMPLE_EVERY) -> bool:
     """Deterministic 1-in-``every`` sampler per key — the gate for
     observations that DO materialize device values (error-feedback carry
-    inspection), so the sync cost is paid rarely and only when telemetry
-    is on."""
+    inspection), so their cost is paid rarely and only when telemetry is
+    on. A sample first records the deferred observations whose values
+    have landed (:func:`defer`)."""
     if not _ENABLED:
         return False
     with _LOCK:
         n = _SAMPLE_COUNTERS.get(key, 0)
         _SAMPLE_COUNTERS[key] = n + 1
-    return n % max(1, int(every)) == 0
+    if n % max(1, int(every)):
+        return False
+    _drain(block=False)
+    return True
+
+
+#: observations whose device values are still on their way to the host
+_DEFERRED: "deque[Callable[[bool], bool]]" = deque()
+
+
+def defer(observe: Callable[[bool], bool]) -> None:
+    """Queue an observation whose device values are being copied to the
+    host behind an event, so that taking it never waits on the device:
+    ``observe(block)`` records it and returns True once the values have
+    landed (waiting for them when ``block``), else returns False. Queued
+    observations are recorded in order at the next sample and by
+    :func:`snapshot`."""
+    with _LOCK:
+        _DEFERRED.append(observe)
+
+
+def _drain(block: bool) -> None:
+    """Record the deferred observations in order, up to the first whose
+    values have not landed (all of them, waiting, with ``block``)."""
+    while True:
+        with _LOCK:
+            if not _DEFERRED:
+                return
+            observe = _DEFERRED[0]
+        if not observe(block):
+            return
+        with _LOCK:
+            _DEFERRED.popleft()
 
 
 def observe_ef_error(codec: str, rel_error: float, bound: float) -> None:
@@ -538,6 +679,7 @@ def snapshot() -> dict:
     top level a ``process`` block) so rank-0 merges of multi-controller
     snapshots don't alias per-process plan latencies."""
     from repro_torch.core import autotune, comm, runtime  # lazy: no cycle
+    _drain(block=True)
     cs = runtime.cache_stats()
     ss = runtime.selection_stats()
     rank, nprocs = _process_rank()
@@ -562,9 +704,7 @@ def snapshot() -> dict:
             "collective": o.collective, "dtype": o.dtype,
             "size_bucket": _bucket(o.nbytes), "plan": o.plan,
             "samples": len(o.samples),
-            "observed_median_s": o.median(synced=True),
-            "dispatch_samples": len(o.dispatch_samples),
-            "dispatch_median_s": o.median(synced=False),
+            "observed_median_s": o.median(),
             "rank": rank,
         } for o in obs],
     }
@@ -606,7 +746,7 @@ class DriftRow:
 def drift_report(selector=None, threshold: float = 0.5,
                  model_threshold: float = 10.0,
                  min_samples: int = 1) -> List[DriftRow]:
-    """Compare observed per-plan medians (synced samples only) against the
+    """Compare observed per-plan medians against the
     selector's measured table and the cost-model prior.
 
     ``threshold=0.5`` flags a plan whose observed median and table entry
@@ -621,7 +761,7 @@ def drift_report(selector=None, threshold: float = 0.5,
     for o in plan_observations():
         if len(o.samples) < max(1, int(min_samples)):
             continue
-        observed = o.median(synced=True)
+        observed = o.median()
         if not observed or observed <= 0.0:
             continue
         entry = sel.table.lookup(o.topo, o.collective, o.dtype,

@@ -6,7 +6,12 @@ weights renormalised), its k copies are sorted by expert (a stable sort),
 each expert's SwiGLU runs as plain matrix products over its own group of
 rows (the reference's ``ragged_dot``, an XLA product, not a Pallas
 kernel), and the outputs come back to their tokens weighted and summed.
-The group sizes are read to the host once per call to cut the groups.
+The group sizes are read to the host once per call to cut the groups
+(a ``host_read/moe_group_sizes`` profiler range, counted as
+``host_reads.moe_group_sizes``; ``core.telemetry``). The expert-parallel
+path's other synchronizing copies, the rank indices and the lead rows
+picked by Python lists, are ``host_read/moe_rank_index`` and
+``host_read/moe_lead_rows``.
 
 Expert parallelism (``MoE.forward(x, rules=..., grid=...)``, the
 reference's ``apply`` with a mesh and ``_moe_ep_shard``): the experts are
@@ -28,7 +33,9 @@ body runs for all ranks at once:
     ``communicator(grid).split(axes=tp)`` (tokens, expert ids, flags),
     with the algorithm ``comm.plan("alltoall", tp * cap * D * itemsize)``
     resolves; the tokens take its ``chunks`` where the algorithm is
-    segmented, the ids and flags go unsegmented;
+    segmented, the ids and flags go unsegmented; every all-to-all of the
+    layer, forward and backward, runs in a ``moe/alltoall`` profiler
+    range;
   * each rank's received rows are sorted by expert, its ``E / tp``
     experts run, rows whose flag is off are zeroed;
   * combine is a fourth all-to-all, under ``error_budget > 0`` with a
@@ -98,6 +105,7 @@ import torch
 from torch import nn
 
 from repro_torch.core import mcoll, runtime
+from repro_torch.core import telemetry as _tm
 from repro_torch.core.comm import Communicator, communicator
 from repro_torch.kernels import _dispatch
 from repro_torch.layers import common
@@ -132,6 +140,13 @@ def ep_capacity(n_tokens: int, tp_size: int, moe) -> int:
     return max(1, int(-(-t * moe.top_k // tp_size) * moe.capacity_factor))
 
 
+def _alltoall(fn, x, topo, grid, kw):
+    """``fn(x, topo, grid, **kw)``, one all-to-all of the TP group, in a
+    ``moe/alltoall`` profiler range."""
+    with _tm.span("moe/alltoall", cat="moe"):
+        return fn(x, topo, grid, **kw)
+
+
 class _AllToAll(torch.autograd.Function):
     """One all-to-all of the TP group, ``fn(x, topo, grid, **kw)``; its
     backward is the same all-to-all of the cotangent (the exchange is a
@@ -141,12 +156,13 @@ class _AllToAll(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, fn, topo, grid, kw):
         ctx.call = (fn, topo, grid, kw)
-        return fn(x, topo, grid, **kw)
+        return _alltoall(fn, x, topo, grid, kw)
 
     @staticmethod
     def backward(ctx, g):
         fn, topo, grid, kw = ctx.call
-        return fn(g.contiguous(), topo, grid, **kw), None, None, None, None
+        return (_alltoall(fn, g.contiguous(), topo, grid, kw), None, None,
+                None, None)
 
 
 class _HeldRows(torch.autograd.Function):
@@ -209,7 +225,9 @@ class _HeldExperts(torch.autograd.Function):
         mine = [[any(u[e] for u, j2 in zip(used, held_rt) if j2 == j)
                  and first[i] for e in range(El)]
                 for i, j in enumerate(held_rt)]
-        users = grid.all_rows(torch.tensor(mine, device=g.device)).tolist()
+        with _tm.host_read("moe_expert_users"):
+            users = grid.all_rows(torch.tensor(mine, device=g.device)
+                                  ).tolist()
         out = g.new_empty(shape)
         per = math.prod(shape[1:]) * g.element_size() * grid.world
         step = max(1, min(El, _GRAD_CHUNK_BYTES // max(per, 1)))
@@ -256,7 +274,8 @@ def _group_sizes(counts: torch.Tensor, rows: int):
     call. Under the work counter a ``meta`` call has no values to read:
     the rows split evenly, the first ``rows % groups`` groups one more."""
     if counts.device.type != "meta" or _dispatch.counter() is None:
-        return counts.tolist()
+        with _tm.host_read("moe_group_sizes"):
+            return counts.tolist()
     n = counts.shape[-1]
     q, r = divmod(rows, n)
     even = [q + (e < r) for e in range(n)]
@@ -492,8 +511,10 @@ class MoE(nn.Module):
             shard_of = [s * grid.shape[a] + index[r][a]
                         for r, s in enumerate(shard_of)]
         rt_of = [index[r][tp] for r in range(world)]
-        shard = torch.tensor(shard_of, device=dev)
-        rt = torch.tensor(rt_of, device=dev)
+        with _tm.host_read("moe_rank_index"):
+            shard = torch.tensor(shard_of, device=dev)
+        with _tm.host_read("moe_rank_index"):
+            rt = torch.tensor(rt_of, device=dev)
         tokens = x.reshape(bshard, T, D)
         if t * tp_size > T:
             tokens = torch.cat([tokens, tokens.new_zeros(
@@ -546,8 +567,10 @@ class MoE(nn.Module):
               if mcoll.supports_chunks("alltoall", a2a_sel.algo) else {})
         rx = _AllToAll.apply(send_x[:n_slots].view(shape + (D,)), fn,
                              comm.topo, grid, kw)
-        re = fn(send_eid[:n_slots].view(shape), comm.topo, grid)
-        rok = fn(send_ok[:n_slots].view(shape), comm.topo, grid)
+        re = _alltoall(fn, send_eid[:n_slots].view(shape), comm.topo, grid,
+                       {})
+        rok = _alltoall(fn, send_ok[:n_slots].view(shape), comm.topo, grid,
+                        {})
         rx = rx.reshape(rows, tp_size * cap, D)
         re = re.reshape(rows, tp_size * cap)
         rok = rok.reshape(rows, tp_size * cap)
@@ -604,11 +627,14 @@ class MoE(nn.Module):
         lead = [min(r for r in range(world)
                     if shard_of[r] == s and rt_of[r] == 0)
                 for s in range(bshard)]
-        y = y_all[lead].reshape(B, S, D)
+        with _tm.host_read("moe_lead_rows"):
+            y = y_all[lead].reshape(B, S, D)
         counts_e = torch.zeros((world, E), dtype=torch.long, device=dev)
         counts_e.scatter_add_(1, flat_ids, torch.ones_like(flat_ids))
         per_rank = _aux(probs, counts_e, moe)
-        aux = per_rank[lead].mean()
+        with _tm.host_read("moe_lead_rows"):
+            lead_aux = per_rank[lead]
+        aux = lead_aux.mean()
         if grad:
             every = per_rank.mean()
             aux = aux.detach() + (every - every.detach())

@@ -30,6 +30,8 @@ from typing import Dict
 import numpy as np
 import torch
 
+from repro_torch.core import telemetry as _tm
+
 
 @dataclasses.dataclass(frozen=True)
 class AdamWConfig:
@@ -121,7 +123,14 @@ def update(params, grads: torch.Tensor, state: Dict, cfg: AdamWConfig
     """One AdamW step on ``params`` (a ``FlatParams``) from the float32
     ``(n,)`` gradient ``grads`` (clipped in place). ``state`` (from
     :func:`init`) and the weights are updated in place. Returns the
-    metrics ``{"grad_norm", "lr"}``."""
+    metrics ``{"grad_norm", "lr"}``. Runs in a ``train/optimizer``
+    profiler range (``core.telemetry``)."""
+    with _tm.span("train/optimizer", cat="train"):
+        return _update(params, grads, state, cfg)
+
+
+def _update(params, grads: torch.Tensor, state: Dict, cfg: AdamWConfig
+            ) -> Dict[str, torch.Tensor]:
     grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip, params.spans)
     step = int(state["step"]) + 1
     lr = schedule_lr(cfg, step)

@@ -209,8 +209,8 @@ class Engine:
             self._ticks += 1
             self._occupied_slot_ticks += active_n
             self._tick_hist.observe(dt)
-            telemetry.emit("serve/tick", t_tick, dt, cat="serve",
-                           active=active_n)
+            telemetry.emit("serve/tick", telemetry.now() - dt, dt,
+                           cat="serve", active=active_n)
         done.extend([r for r in self.active if r is not None])
         return done
 

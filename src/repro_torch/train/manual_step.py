@@ -43,14 +43,20 @@ for the overlapped step, a schedule ``callable(step)``) admits
 error-bounded codecs. Metrics always sync lossless. The reference's
 ``donate`` knob has no counterpart: nothing here is donated.
 
-Telemetry (``core.telemetry``, on only when enabled): the overlapped
-step's stages as spans (``train/step``, with ``mode`` and ``overlap``, and
-inside it ``train/fwd``, ``train/head_bwd``, ``train/chunk_bwd[k]``,
-``train/embed_bwd``, or ``train/backward``, and ``train/apply``); each
-bucket's start->wait window on its own ``bucket:<i>`` track, a
-``bucket_rebuild`` instant and the ``train.bucket_rebuilds`` counter when a
-plan change rebuilds the ops, and, one wait in ``telemetry.SAMPLE_EVERY``
-per bucket, the error-feedback probe
+Telemetry (``core.telemetry``). Spans, which are also profiler ranges
+whenever a profiler records: the fused step's ``train/fwd_bwd`` (each held
+rank's forward, backward and gather), ``train/grad_sync`` (holding a
+``sync/bucket`` a bucket), ``train/metric_sync`` (the lossless loss and
+metric syncs) and ``adamw.update``'s ``train/optimizer``; its blocking
+reads ``host_read/train_shard_index`` and ``host_read/train_lr``; a
+``sync/bucket`` around each ``OverlappedGradSync.start``; the overlapped
+step's stages (``train/step``, with ``mode`` and ``overlap``, and inside it
+``train/fwd``, ``train/head_bwd``, ``train/chunk_bwd[k]``,
+``train/embed_bwd``, or ``train/backward``, and ``train/apply``). On only
+when enabled: each bucket's start->wait window on its own ``bucket:<i>``
+track, a ``bucket_rebuild`` instant and the ``train.bucket_rebuilds``
+counter when a plan change rebuilds the ops, and, one wait in
+``telemetry.SAMPLE_EVERY`` per bucket, the error-feedback probe
 (:meth:`OverlappedGradSync._observe_ef`), the only hook that reads device
 values.
 """
@@ -136,7 +142,8 @@ def _shards(comm, batch: Batch) -> List[Batch]:
         raise ValueError(f"global batch of {B} does not shard over "
                          f"{world} ranks")
     b = B // world
-    idx = comm.grid.axis_index(comm.topo.active_axes).tolist()
+    with _tm.host_read("train_shard_index"):
+        idx = comm.grid.axis_index(comm.topo.active_axes).tolist()
     return [{k: v[i * b:(i + 1) * b] for k, v in batch.items()
              if v is not None} for i in idx]
 
@@ -198,8 +205,9 @@ def sync_tree_bucketed(flat: torch.Tensor, sync_fn, bucket_bytes: int,
                           device=flat.device)
     new_errs = []
     for (start, n), e in zip(slices, errs):
-        y, e2 = sync_fn(flat[:, start:start + n], e)
-        out[:, start:start + n] = y
+        with _tm.span("sync/bucket", cat="sync"):
+            y, e2 = sync_fn(flat[:, start:start + n], e)
+            out[:, start:start + n] = y
         new_errs.append(e2)
     return out, tuple(e for e in new_errs if e is not None)
 
@@ -335,9 +343,10 @@ class OverlappedGradSync:
             self._btokens[i] = _tm.begin(
                 f"bucket{i}[{op.plan}]", cat="bucket", track=f"bucket:{i}",
                 bucket=i, **op._tags())
-        if op.carry:
-            return op.start(payload, carry=self.errs[i])
-        return op.start(payload)
+        with _tm.span("sync/bucket", cat="sync"):
+            if op.carry:
+                return op.start(payload, carry=self.errs[i])
+            return op.start(payload)
 
     def wait(self, i: int, handle, block: bool = False):
         """Complete bucket ``i``: returns the reduced payload and absorbs
@@ -364,13 +373,33 @@ class OverlappedGradSync:
         ``telemetry.SAMPLE_EVERY``): the carry's max-abs over the result's,
         beside the codec's stated bound, and the achieved wire ratio on the
         reduced payload. The only telemetry site that reads device values
-        to the host, which is why it hides behind ``should_sample``."""
-        amax_y = float(y.abs().max())
-        amax_e = float(new_err.abs().max())
-        _tm.observe_ef_error(op.codec, amax_e / (amax_y + 1e-30),
-                             codecs.meta(op.codec).error_bound)
-        _tm.observe_codec_ratio(
-            op.codec, codecs.codec(op.codec).achieved_ratio(y))
+        to the host, which is why it hides behind ``should_sample``; the
+        two max-abs values go to pinned host memory behind an event and are
+        recorded later (``telemetry.defer``), so the probe never waits on
+        the card."""
+        inf = float("inf")  # the max-abs, one pass and no temporary
+        amax = torch.stack([torch.linalg.vector_norm(y, inf),
+                            torch.linalg.vector_norm(new_err, inf)]).float()
+        event = None
+        if amax.is_cuda:
+            host = torch.empty(2, dtype=torch.float32, pin_memory=True)
+            host.copy_(amax, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record()
+            amax = host
+        ratio = codecs.codec(op.codec).achieved_ratio(y)
+        bound = codecs.meta(op.codec).error_bound
+
+        def observe(block: bool) -> bool:
+            if event is not None and not event.query():
+                if not block:
+                    return False
+                event.synchronize()
+            amax_y, amax_e = amax.tolist()
+            _tm.observe_ef_error(op.codec, amax_e / (amax_y + 1e-30), bound)
+            _tm.observe_codec_ratio(op.codec, ratio)
+            return True
+        _tm.defer(observe)
 
     def run(self, i: int, payload):
         """Barrier-style bucket ``i``: start and block out the wait."""
@@ -477,27 +506,36 @@ def make_manual_train_step(cfg, tcfg: TrainConfig, grid, topo=None,
         g = buf[0]
         per_rank = []
         for r, mb in enumerate(_shards(comm, batch)):
-            loss, metrics, grads = value_and_grad(model, flat, mb, tcfg)
-            flat.gather(grads, out=g[r])
-            del grads
+            with _tm.span("train/fwd_bwd", cat="train"):
+                loss, metrics, grads = value_and_grad(model, flat, mb, tcfg)
+                flat.gather(grads, out=g[r])
+                del grads
             per_rank.append((loss, metrics))
-        if bucketed:
-            g, err_state = sync_tree_bucketed(g, bucket_sync, bucket_bytes,
-                                              err_state, out=g)
-        else:
-            for _, s, e, _ in flat.spans:
-                g[:, s:e] = grad_sync(g[:, s:e], None)[0]
-        loss = sync_mean(torch.stack([l for l, _ in per_rank])[:, None])
+        with _tm.span("train/grad_sync", cat="train"):
+            if bucketed:
+                g, err_state = sync_tree_bucketed(g, bucket_sync,
+                                                  bucket_bytes, err_state,
+                                                  out=g)
+            else:
+                for _, s, e, _ in flat.spans:
+                    g[:, s:e] = grad_sync(g[:, s:e], None)[0]
+        with _tm.span("train/metric_sync", cat="train"):
+            loss = sync_mean(torch.stack([l for l, _ in per_rank])[:, None])
         om = adamw.update(flat, g[0], opt_state, tcfg.optimizer)
         out = {}
-        for k in METRIC_KEYS + ("grad_norm", "lr", "loss"):
-            if k == "loss":
-                v = loss[:, 0]
-            elif k in om:
-                v = om[k].to(g.device).expand(rows)
-            else:
-                v = torch.stack([m[k] for _, m in per_rank])
-            out[k] = sync_mean(v.float()[:, None])[0, 0]
+        with _tm.span("train/metric_sync", cat="train"):
+            for k in METRIC_KEYS + ("grad_norm", "lr", "loss"):
+                if k == "loss":
+                    v = loss[:, 0]
+                elif k in om:
+                    v = om[k]
+                    if v.device != g.device:  # the lr, made on the host
+                        with _tm.host_read("train_" + k):
+                            v = v.to(g.device)
+                    v = v.expand(rows)
+                else:
+                    v = torch.stack([m[k] for _, m in per_rank])
+                out[k] = sync_mean(v.float()[:, None])[0, 0]
         return err_state, out
 
     return step

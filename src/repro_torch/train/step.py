@@ -19,7 +19,9 @@ Gradients are taken with ``torch.autograd.grad`` with respect to the
 model's weights in the reference's flatten order (``models.params.
 FlatParams``) and land, cast to float32, in one flat ``(n,)`` buffer: the
 reference's gradients of bf16 leaves are bf16 and are cast at its flatten,
-the same point.
+the same point. Each microbatch's forward, backward and gather run in a
+``train/fwd_bwd`` profiler range, the update in ``train/optimizer``
+(``core.telemetry``).
 """
 from __future__ import annotations
 
@@ -28,6 +30,7 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
+from repro_torch.core import telemetry as _tm
 from repro_torch.layers.common import Accum
 from repro_torch.models.decoder import RunFlags
 from repro_torch.models.params import FlatParams
@@ -123,18 +126,20 @@ def train_step(model, opt_state: Dict, batch: Batch, tcfg: TrainConfig,
     flat = flat if flat is not None else FlatParams.of(model)
     nmb = tcfg.microbatches
     if nmb == 1:
-        loss, metrics, grads = value_and_grad(model, flat, batch, tcfg,
-                                              rules, grid)
-        g = flat.gather(grads)
-        del grads
+        with _tm.span("train/fwd_bwd", cat="train"):
+            loss, metrics, grads = value_and_grad(model, flat, batch, tcfg,
+                                                  rules, grid)
+            g = flat.gather(grads)
+            del grads
     else:
         g = torch.zeros(flat.n, dtype=torch.float32, device=flat.device)
         loss = torch.zeros((), dtype=Accum, device=flat.device)
         for mb in split_batch(batch, nmb):
-            mb_loss, metrics, grads = value_and_grad(model, flat, mb, tcfg,
-                                                     rules, grid)
-            flat.accumulate(grads, g, nmb)
-            loss = loss + mb_loss / nmb
-            del grads
+            with _tm.span("train/fwd_bwd", cat="train"):
+                mb_loss, metrics, grads = value_and_grad(
+                    model, flat, mb, tcfg, rules, grid)
+                flat.accumulate(grads, g, nmb)
+                loss = loss + mb_loss / nmb
+                del grads
     om = adamw.update(flat, g, opt_state, tcfg.optimizer)
     return dict(metrics, **om, loss=loss)

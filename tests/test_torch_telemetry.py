@@ -139,7 +139,11 @@ def test_export_chrome_trace_tracks_and_events(tmp_path):
     _, jtrace, theirs = _trace_events(jtelemetry, tmp_path)
     assert mine == theirs
     assert trace["displayTimeUnit"] == jtrace["displayTimeUnit"]
-    assert trace["otherData"] == jtrace["otherData"]
+    # the port adds the earliest span's start on the profiler's clock
+    other = dict(trace["otherData"])
+    assert other.pop("epoch_ns") == min(s.start_ns
+                                        for s in telemetry.spans())
+    assert other == jtrace["otherData"]
 
 
 def test_plan_tags_schema():
@@ -210,23 +214,29 @@ def test_registry_counters_always_on_and_reset():
 
 
 def _observe(tm, topo, plan="pip_mcoll", seconds=(1e-3, 2e-3, 3e-3),
-             synced=True, coll="allreduce", nbytes=4096):
+             coll="allreduce", nbytes=4096):
     for s in seconds:
-        tm.observe_plan(topo, coll, "float32", nbytes, plan, s,
-                        synced=synced)
+        tm.observe_plan(topo, coll, "float32", nbytes, plan, s)
 
 
 def test_observe_plan_median_keeps_sync_and_dispatch_separate():
+    """Every plan observation is a window that ended in a device wait:
+    the port keeps no dispatch-only samples, so a blocking method's call
+    leaves none beside the synced ones the median is taken over."""
     telemetry.enable()
     topo = Topology(4, 2)
-    _observe(telemetry, topo, seconds=(1e-3, 2e-3, 3e-3), synced=True)
-    _observe(telemetry, topo, seconds=(1e-6,), synced=False)
+    _observe(telemetry, topo, seconds=(1e-3, 2e-3, 3e-3))
+    grid, comm = _grid_comm()
+    comm.allreduce(torch.ones((1, 16), dtype=torch.float32))
     (obs,) = telemetry.plan_observations()
-    assert obs.median(synced=True) == 2e-3
-    assert obs.median(synced=False) == 1e-6
+    assert obs.median() == 2e-3 and len(obs.samples) == 3
+    assert not hasattr(obs, "dispatch_samples")
     reg = telemetry.registry().to_dict()["histograms"]
     assert reg["plan.allreduce.pip_mcoll.sync_seconds"]["count"] == 3
-    assert reg["plan.allreduce.pip_mcoll.dispatch_seconds"]["count"] == 1
+    assert not any(k.endswith(".dispatch_seconds") for k in reg)
+    (row,) = telemetry.snapshot()["plans"]
+    assert row["observed_median_s"] == 2e-3 and row["samples"] == 3
+    assert "dispatch_samples" not in row and "dispatch_median_s" not in row
 
 
 def _both(fn):
@@ -367,8 +377,8 @@ def test_outputs_and_exec_cache_keys_invariant_under_telemetry(shape):
     assert {f"build/{n}" for n in runtime.collectives()} <= names
     assert {f"plan_resolve/{n}" for n in runtime.collectives()} <= names
     assert set(runtime.collectives()) <= names  # the per-call emits
-    assert all(o.dispatch_samples and not o.samples
-               for o in telemetry.plan_observations())
+    # a blocking method's call ends in no device wait: no plan sample
+    assert telemetry.plan_observations() == []
 
 
 def test_persistent_op_bitwise_invariant_and_sampled_probe_gated():
