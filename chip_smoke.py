@@ -88,6 +88,15 @@ report, phase 12); any failure exits non-zero:
    others are, each beside its bytes bound, its plain version and one
    PyTorch call as the yardstick: advanced indexing for the roll and the
    per-rank take, ``index_select`` for the flat pack.
+   The fused AdamW kernel (``adamw.cu``, built with the others; no Pallas
+   original: the reference's AdamW is plain ``jnp``) is held bitwise
+   against the plain passes (``ref.adamw_update``) on ``m``, ``v``, the
+   master and the stored weights in ``ADAMW_CASES``: bf16 and float32
+   weights, decay and master on and off, leaves at flat offsets 1-3
+   (scalar heads and tails), qwen3-moe's largest leaf; then timed at that
+   leaf and at a smollm-360m layer's wq (events and CUPTI, L2 flushed)
+   beside the plain passes and its bytes bound. Its launches are counted
+   over phases 9, 13 and 14, each more than 0 (``launches_by_path``).
 2. **Slice.** The full-width smollm-360m gradient sync: 409,007,040
    float32 gradients per rank on ``RankGrid(2, 4, "cuda")``, 4 MiB buckets
    (391), one persistent ``pip_mcoll`` carry op per bucket with error
@@ -1128,6 +1137,111 @@ def kernel_phase(torch, kcodec, ref, dev, parent=None):
             "bound_ms": bound_ms(nbytes, DECODE_OPS_PER_ELEM_PEER * R * W
                                  * Lrs)[0]}
     return records
+
+
+#: the AdamW kernel's cases, each held bitwise to the plain passes on the
+#: card: (label, elements, weight dtype, master_fp32, decay, flat offset
+#: of the leaf in elements); the first two are also timed: qwen3-moe's
+#: largest leaf (an expert stack's w_up, (1, 128, 4096, 1536)) and one
+#: smollm-360m layer's wq (960, 960)
+ADAMW_CASES = (
+    ("qwen3-moe moe/w_up", 805306368, "bfloat16", False, False, 0),
+    ("smollm-360m attn/wq", 921600, "bfloat16", False, False, 0),
+    ("decayed bf16 at offset 1", 1003, "bfloat16", False, True, 1),
+    ("master, offset 2", 4099, "bfloat16", True, True, 2),
+    ("float32 router, offset 3", 513, "float32", False, False, 3),
+    ("float32 master", 2001, "float32", True, True, 0))
+ADAMW_TIMED = 2
+
+
+def _adamw_leaf(torch, dev, gen, n, dtype, master, off):
+    """One leaf of ``n`` seeded weights with its float32 gradient, ``m``,
+    ``v`` and master (None unless ``master``), each a view ``off``
+    elements into a buffer of its own, as a leaf at flat offset ``off``
+    sees them."""
+    from repro_torch.models.params import FlatParams
+    w = torch.randn(n, generator=gen, device=dev).to(getattr(torch, dtype))
+    p = FlatParams([("leaf", [w])])
+    g, m, v = (torch.empty(n + off, device=dev)[off:] for _ in range(3))
+    g.normal_(0, 1e-2, generator=gen)
+    m.normal_(0, 1e-3, generator=gen)
+    v.uniform_(0, 1e-5, generator=gen)
+    mst = p.read(out=torch.empty(n + off, device=dev)[off:]) if master \
+        else None
+    return p, g, m, v, mst
+
+
+def adamw_phase(torch, kadamw, ref, dev):
+    """The fused AdamW kernel (``csrc/adamw.cu``) against the plain passes
+    (``ref.adamw_update``), bitwise, on the card: ``m``, ``v``, the master
+    and the stored weights after one update of each of ``ADAMW_CASES``
+    from a seeded state (the clip's scale 0.5, step 3's constants). Then,
+    at the first ``ADAMW_TIMED`` cases, the kernel's time (events and
+    CUPTI, L2 flushed), the plain passes' and the bytes bound. Returns the
+    record (without the train paths' launches)."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    h = kadamw.Hyper(lr=1e-4, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1,
+                     bc1=1 - 0.9 ** 3, bc2=1 - 0.95 ** 3)
+    scale = torch.tensor(0.5, device=dev)
+    one = torch.tensor(1.0, device=dev)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    kadamw.reset_launches()
+    checked, timed = 0, {}
+    for i, (label, n, dtype, master, decay, off) in enumerate(ADAMW_CASES):
+        p, g, m, v, mst = _adamw_leaf(torch, dev, gen, n, dtype, master,
+                                      off)
+        q = type(p)([("leaf", [p.tensors[0].clone()])])
+        m2, v2 = m.clone(), v.clone()
+        mst2 = None if mst is None else mst.clone()
+        ref.adamw_update(q, g.clone(), m2, v2, mst2, scale, h, [decay])
+        kadamw.adamw_update(p, g, m, v, mst, scale, h, [decay])
+        torch.cuda.synchronize()
+        for what, a, b in (("m", m, m2), ("v", v, v2), ("master", mst, mst2),
+                           ("weights", p.tensors[0], q.tensors[0])):
+            if a is not None and not same_bits(torch, a, b):
+                raise AssertionError(f"adamw_update {label}: {what} differs "
+                                     f"from the plain passes")
+        checked += 1
+        del q, m2, v2, mst2
+        if i < ADAMW_TIMED:
+            cost = kadamw.update_cost(p, master, [decay])
+            bound, bound_by = bound_ms(cost.nbytes, cost.ops)
+            timed[label] = {
+                "elements": n, "dtype": dtype, "bytes": cost.nbytes,
+                "ops": cost.ops,
+                "ms": time_ms(torch, lambda: kadamw.adamw_update(
+                    p, g, m, v, None, one, h, [decay]), flush),
+                "kernel_cupti_ms": cupti_ms(
+                    torch, lambda: kadamw.adamw_update(
+                        p, g, m, v, None, one, h, [decay]), flush,
+                    "adamw_update_kernel"),
+                # ~16 launches a 2**24-element piece: events around the
+                # call, the host's dispatch gaps included
+                "plain_ms": time_ms(torch, lambda: ref.adamw_update(
+                    p, g, m, v, None, one, h, [decay]), flush, spin=False),
+                "bound_ms": bound, "bound_by": bound_by}
+            t = timed[label]
+            t["bound_share"] = (bound / t["kernel_cupti_ms"]
+                                if isinstance(t["kernel_cupti_ms"], float)
+                                else "not measured")
+        del p, g, m, v, mst
+        torch.cuda.empty_cache()
+    head = timed[ADAMW_CASES[0][0]]
+    return {
+        "name": "adamw_update", "route": "cuda",
+        "cuda_kernel": "adamw_update_kernel<W, MASTER, DECAY>",
+        "source": "src/repro_torch/kernels/csrc/adamw.cu",
+        "replaces": "none: the reference's AdamW is plain jnp "
+                    "(src/repro/optim/adamw.py); the port's plain passes "
+                    "ref.adamw_update",
+        "max_abs_err": 0.0, "tolerance": "bitwise",
+        "cases_checked": checked,
+        "launches_in_phase": kadamw.launches["adamw_update"],
+        **{k: head[k] for k in ("ms", "kernel_cupti_ms", "plain_ms",
+                                "bound_ms", "bound_by", "bytes")},
+        "event_floor_ms": event_floor_ms(torch, dev, flush),
+        "library_ms": None, "shape": [ADAMW_CASES[0][1]],
+        "timed": timed}
 
 
 # ---------------------------------------------------------------------------
@@ -6490,6 +6604,7 @@ def main(argv=None) -> int:
     try:
         from repro_torch.configs import first_layers, get_config
         from repro_torch.kernels import _build, ref
+        from repro_torch.kernels import adamw as kadamw
         from repro_torch.kernels import attention as kattn
         from repro_torch.kernels import codec as kcodec
         from repro_torch.kernels import mamba as kmamba
@@ -6543,9 +6658,14 @@ def main(argv=None) -> int:
           f"{kernels['shift_blocks']['cases_checked']} and "
           f"{kernels['pack_blocks']['cases_checked']} cases "
           f"({time.perf_counter() - t0:.3f} s so far)")
+    adamw_rec = adamw_phase(torch, kadamw, ref, dev)
+    print(f"kernel phase: adamw_update bitwise equal to the plain passes in "
+          f"{adamw_rec['cases_checked']} cases "
+          f"({time.perf_counter() - t0:.3f} s so far)")
     for name in ("flash_decode", "rwkv6_wkv", "rwkv6_wkv_chunked",
                  "mamba_scan", "shift_blocks", "pack_blocks"):
         print("kernel " + json.dumps(kernels[name]))
+    print("kernel " + json.dumps(adamw_rec))
     summary = slice_phase(torch, dev, smollm, kcodec, kstaging)
     for run in summary["syncs"]:
         per_launch = run["profile"].get("per_launch_ms", {})
@@ -6671,7 +6791,9 @@ def main(argv=None) -> int:
 
     gc.collect()
     torch.cuda.empty_cache()
+    kadamw.reset_launches()
     train, on_train, on_tree = train_phase(torch, dev, smollm, kmods)
+    adamw_paths = {"train": kadamw.launches["adamw_update"]}
     print(json.dumps({"train": train}))
     print(f"train phase done ({time.perf_counter() - t0:.3f} s in all)")
     for name in ("flash_decode", "mamba_scan", "rwkv6_wkv",
@@ -6732,13 +6854,23 @@ def main(argv=None) -> int:
 
     gc.collect()
     torch.cuda.empty_cache()
+    kadamw.reset_launches()
     sharded = sharded_train_phase(torch, dev, kmods)
+    adamw_paths["sharded_train"] = kadamw.launches["adamw_update"]
     print(f"sharded-training phase done ({time.perf_counter() - t0:.3f} s "
           f"in all)")
 
     gc.collect()
     torch.cuda.empty_cache()
+    kadamw.reset_launches()
     roof = roofline_phase(torch, dev, kmods)
+    adamw_paths["roofline"] = kadamw.launches["adamw_update"]
+    for path, n in adamw_paths.items():
+        if not n:
+            raise AssertionError(f"adamw_update: no launch on the {path} "
+                                 f"path")
+    adamw_rec["launches"] = sum(adamw_paths.values())
+    adamw_rec["launches_by_path"] = adamw_paths
     print(f"roofline phase done ({time.perf_counter() - t0:.3f} s in all)")
     for path, want in (("roofline_train", None),
                        ("roofline_flash_decode", "flash_decode"),
@@ -6759,7 +6891,8 @@ def main(argv=None) -> int:
     print(_smi("name,power.limit"))
     print(json.dumps({"kernels": kernel_lines(kernels, on_train, on_tree,
                                               sharded, {**roof,
-                                                        **on_groups})}))
+                                                        **on_groups})
+                      + [adamw_rec]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

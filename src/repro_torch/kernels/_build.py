@@ -74,6 +74,11 @@ SIGNATURES = {
                                        _I64, _I64, _P]),
         "staging_error_string": (ctypes.c_char_p, [_INT]),
     },
+    "adamw": {
+        "adamw_update": (_INT, [_P, _P, _P, _P, _P, _INT, _INT, _I64, _P]
+                         + [ctypes.c_float] * 9 + [_P]),
+        "adamw_error_string": (ctypes.c_char_p, [_INT]),
+    },
     # no kernel: the "shm" transport's device slots (distributed/transport.py)
     "ipc": {
         "ipc_alloc": (_INT, [_INT, _I64, ctypes.POINTER(_P),

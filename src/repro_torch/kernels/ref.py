@@ -5,12 +5,14 @@ with ordinary tensor ops: the codec kernels (``codec_{int8,int4,fp8}.cu``)
 bitwise, the staging row moves :func:`shift_blocks` and :func:`pack_blocks`
 (``staging.cu``) bitwise in every dtype, :func:`flash_decode`
 (``flash_decode.cu``), :func:`rwkv6_wkv` (``rwkv6_wkv.cu``) and
-:func:`mamba_scan` (``mamba_scan.cu``) up to the order of their fp32 sums.
-The wrappers in ``kernels/codec.py``, ``kernels/staging.py``,
-``kernels/attention.py``, ``kernels/rwkv.py`` and ``kernels/mamba.py`` use
+:func:`mamba_scan` (``mamba_scan.cu``) up to the order of their fp32 sums,
+:func:`adamw_update` (``adamw.cu``) bitwise. The wrappers in
+``kernels/codec.py``, ``kernels/staging.py``, ``kernels/attention.py``,
+``kernels/rwkv.py``, ``kernels/mamba.py`` and ``kernels/adamw.py`` use
 these only for tensors on the CPU; the tests hold them against the
-reference's Pallas kernels (interpret mode), and ``chip_smoke.py`` holds
-each kernel against them on the card. :func:`flash_decode_split`,
+reference's Pallas kernels (interpret mode) or its AdamW, and
+``chip_smoke.py`` and the ``cuda`` tests hold each kernel against them on
+the card. :func:`flash_decode_split`,
 :func:`rwkv6_wkv_chunked`, :func:`rwkv6_wkv_tick_lanes` and
 :func:`mamba_scan_lanes` write out the algorithms of the split-S
 flash-decode kernel, of the chunked WKV6 prefill kernel, of the WKV6 tick
@@ -543,3 +545,38 @@ def pack_blocks(src, idx):
     if not bool(keep.all()):
         rows[~keep] = 0
     return rows.view(src.dtype).reshape(out_shape)
+
+
+#: elements of one piece of :func:`adamw_update`'s passes
+ADAMW_CHUNK = 1 << 24
+
+
+def adamw_update(params, grads: torch.Tensor, m: torch.Tensor,
+                 v: torch.Tensor, master, scale: torch.Tensor, h,
+                 decay) -> None:
+    """One AdamW step in place (``adamw.cu``): ``grads`` scaled in place by
+    the clip's 0-d ``scale``, then ``m``, ``v``, ``master`` (or None) and
+    the weights of ``params`` (a ``FlatParams``) updated leaf by leaf in
+    pieces of at most :data:`ADAMW_CHUNK` elements, so the float32
+    temporaries are a piece's, not the buffer's; ``h`` holds the step's
+    ``lr``, ``b1``, ``b2``, ``eps``, ``weight_decay`` and the bias
+    corrections ``bc1``, ``bc2``; ``decay`` says per leaf of
+    ``params.spans`` whether it decays. Every element goes through the same
+    operations in the same order whatever the pieces, so the bits do not
+    depend on them."""
+    grads = grads.float().mul_(scale)
+    b1, b2 = h.b1, h.b2
+    for (_, s, e, _), dec in zip(params.spans, decay):
+        for a in range(s, e, ADAMW_CHUNK):
+            b = min(e, a + ADAMW_CHUNK)
+            g = grads[a:b]
+            m_, v_ = m[a:b], v[a:b]
+            m_.mul_(b1).add_(g * (1 - b1))
+            v_.mul_(b2).add_(torch.square(g).mul_(1 - b2))
+            base = master[a:b] if master is not None else \
+                params.read_range(a, b)
+            u = (m_ / h.bc1).div_(torch.sqrt(v_ / h.bc2).add_(h.eps))
+            if dec:
+                u.add_(base * h.weight_decay)
+            # the master in place, or a fresh float32 copy of the piece
+            params.assign_range(a, b, base.sub_(u.mul_(h.lr)))

@@ -4,22 +4,32 @@
 The reference maps its update over parameter trees; here every tensor of
 the update is one flat float32 buffer in the reference's flatten order
 (``models.params.FlatParams``): the gradient, AdamW's ``m`` and ``v`` and,
-with ``master_fp32``, the float32 master weights. The update is then a few
-elementwise passes over those buffers, run leaf by leaf in pieces of at
-most :data:`CHUNK` elements, so its float32 temporaries are a piece's and
-not the buffer's (at qwen3-moe's width a buffer is 14.8 GB); the weights
-(bf16, some leaves float32) are written back from the new float32 values,
-each cast to its own dtype. Every element goes through the same
-operations in the same order whatever the pieces, so the bits do not
-depend on them.
+with ``master_fp32``, the float32 master weights. :func:`update` takes the
+global norm leaf by leaf, then hands the clip's scale (a 0-d tensor on the
+buffers' device) and the step's constants to ``kernels.adamw``, which
+takes one of two routes by the buffers' device:
 
-Rounding: the passes are the reference's expressions in its order, in
-float32; the reference's XLA contracts some ``a*b + c`` into fused
-multiply-adds and sums the global norm in another order, so the results
-agree within a few float32 ulps, not bitwise (``tests/test_torch_train.py``
-states the tolerance). :func:`state_logical` gives the launcher the
-state's logical axes, keyed as the weights' (``FlatParams.tree`` views the
-flat ``m`` and ``v`` leaf by leaf in those shapes).
+  * on the card, the fused kernel (``kernels/csrc/adamw.cu``), one launch
+    per weight tensor: it reads the gradient, ``m``, ``v`` and the weight
+    (or the master) once, clips in registers, and writes ``m``, ``v``, the
+    master and the weight (bf16, some leaves float32, each cast to its own
+    dtype) once; no float32 temporary and no host read;
+  * on the CPU, the plain passes (``kernels/ref.py`` ``adamw_update``): the
+    gradient scaled in place, then a few elementwise passes leaf by leaf in
+    pieces of at most ``ADAMW_CHUNK`` elements, so the float32 temporaries
+    are a piece's and not the buffer's.
+
+The two give the same bits on the card: the kernel runs the passes'
+float32 operations in their order, each rounded as its PyTorch op rounds.
+
+Rounding against the reference: the operations are the reference's
+expressions in its order, in float32; the reference's XLA contracts some
+``a*b + c`` into fused multiply-adds and sums the global norm in another
+order, so the results agree within a few float32 ulps, not bitwise
+(``tests/test_torch_train.py`` states the tolerance). :func:`state_logical`
+gives the launcher the state's logical axes, keyed as the weights'
+(``FlatParams.tree`` views the flat ``m`` and ``v`` leaf by leaf in those
+shapes).
 """
 from __future__ import annotations
 
@@ -31,6 +41,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import telemetry as _tm
+from repro_torch.kernels import adamw as _kernel
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,9 +60,6 @@ class AdamWConfig:
 
 
 _f32 = np.float32
-
-#: elements of one piece of the update's elementwise passes
-CHUNK = 1 << 24
 
 
 def schedule_lr(cfg: AdamWConfig, step: int) -> float:
@@ -98,12 +106,17 @@ def global_norm(flat: torch.Tensor, spans) -> torch.Tensor:
     return torch.sqrt(total)
 
 
+def clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:
+    """The clip's factor ``min(1, max_norm / (norm + 1e-9))``, a 0-d
+    tensor on ``norm``'s device."""
+    return torch.clamp(max_norm / (norm + _f32(1e-9)), max=1.0)
+
+
 def clip_by_global_norm(flat: torch.Tensor, max_norm: float, spans):
-    """``(flat * min(1, max_norm / (norm + 1e-9)), norm)``; a float32
-    ``flat`` is scaled in place."""
+    """``(flat * clip_scale(norm, max_norm), norm)``; a float32 ``flat`` is
+    scaled in place."""
     norm = global_norm(flat, spans)
-    scale = torch.clamp(max_norm / (norm + _f32(1e-9)), max=1.0)
-    return flat.float().mul_(scale), norm
+    return flat.float().mul_(clip_scale(norm, max_norm)), norm
 
 
 _NO_DECAY_SUBSTR = ("ln", "norm", "bias", "scale", "mu", "A_log", "D_skip",
@@ -121,38 +134,31 @@ def decays(path: str) -> bool:
 def update(params, grads: torch.Tensor, state: Dict, cfg: AdamWConfig
            ) -> Dict[str, torch.Tensor]:
     """One AdamW step on ``params`` (a ``FlatParams``) from the float32
-    ``(n,)`` gradient ``grads`` (clipped in place). ``state`` (from
-    :func:`init`) and the weights are updated in place. Returns the
-    metrics ``{"grad_norm", "lr"}``. Runs in a ``train/optimizer``
-    profiler range (``core.telemetry``)."""
+    ``(n,)`` gradient ``grads``, clipped by its global norm. ``state``
+    (from :func:`init`) and the weights are updated in place; ``grads`` is
+    consumed: on the card it is only read, on the CPU it is scaled in
+    place, and no caller reads it after. Returns the metrics
+    ``{"grad_norm", "lr"}``. Runs in a ``train/optimizer`` profiler range
+    (``core.telemetry``)."""
     with _tm.span("train/optimizer", cat="train"):
         return _update(params, grads, state, cfg)
 
 
 def _update(params, grads: torch.Tensor, state: Dict, cfg: AdamWConfig
             ) -> Dict[str, torch.Tensor]:
-    grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip, params.spans)
+    gnorm = global_norm(grads, params.spans)
     step = int(state["step"]) + 1
     lr = schedule_lr(cfg, step)
-    b1, b2 = cfg.b1, cfg.b2
-    bc1 = float(_f32(1.0) - _f32(b1) ** _f32(step))
-    bc2 = float(_f32(1.0) - _f32(b2) ** _f32(step))
-    m, v, master = state["m"], state["v"], state.get("master")
-    for path, s, e, _ in params.spans:
-        decay = cfg.weight_decay and decays(path)
-        for a in range(s, e, CHUNK):
-            b = min(e, a + CHUNK)
-            g = grads[a:b]
-            m_, v_ = m[a:b], v[a:b]
-            m_.mul_(b1).add_(g * (1 - b1))
-            v_.mul_(b2).add_(torch.square(g).mul_(1 - b2))
-            base = master[a:b] if master is not None else \
-                params.read_range(a, b)
-            u = (m_ / bc1).div_(torch.sqrt(v_ / bc2).add_(cfg.eps))
-            if decay:
-                u.add_(base * cfg.weight_decay)
-            # the master in place, or a fresh float32 copy of the piece
-            params.assign_range(a, b, base.sub_(u.mul_(lr)))
+    h = _kernel.Hyper(
+        lr=lr, b1=cfg.b1, b2=cfg.b2, eps=cfg.eps,
+        weight_decay=cfg.weight_decay,
+        bc1=float(_f32(1.0) - _f32(cfg.b1) ** _f32(step)),
+        bc2=float(_f32(1.0) - _f32(cfg.b2) ** _f32(step)))
+    decay = [bool(cfg.weight_decay and decays(path))
+             for path, _, _, _ in params.spans]
+    _kernel.adamw_update(params, grads, state["m"], state["v"],
+                         state.get("master"), clip_scale(gnorm, cfg.grad_clip),
+                         h, decay)
     state["step"] = step
     return {"grad_norm": gnorm,
             "lr": torch.tensor(lr, dtype=torch.float32)}
